@@ -35,10 +35,13 @@ setup(
     version="0.2.0",
     description=("TPU-native deep-learning framework with MXNet's "
                  "capabilities (JAX/XLA/Pallas compute, C++ runtime)"),
-    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*"]),
+    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*",
+                                    "mxnet_tpu_torch", "mxnet_tpu_torch.*"]),
     package_data={"mxnet_tpu": ["lib/libmxtpu.so",
                                 "lib/libmxtpu_image.so",
-                                "lib/libmxtpu_pjrt.so"]},
+                                "lib/libmxtpu_pjrt.so"],
+                  # CUDA sources, built with nvcc at first use
+                  "mxnet_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     extras_require={"checkpoint": ["orbax-checkpoint"]},

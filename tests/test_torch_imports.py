@@ -1,0 +1,106 @@
+"""The port stands alone: it never imports JAX or the JAX package, and
+its entry points run on the card unless the caller asks for the CPU."""
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.models import LlamaForCausalLM, llama_tiny
+from mxnet_tpu_torch.ops import flash_attention as tfa
+from mxnet_tpu_torch.serving import Server
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+mxnet_tpu(?!\w)|"
+    r"from\s+mxnet_tpu(?!\w))", re.M)
+
+_CHILD = r"""
+import sys
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.models import LlamaForCausalLM, llama_tiny
+from mxnet_tpu_torch.serving import Server
+lm = LlamaForCausalLM(llama_tiny(vocab_size=61), ctx=mx.cpu())
+srv = Server(lm, buckets=[(2, 8)], max_new_tokens=3, ctx=mx.cpu())
+outs = srv.generate([np.arange(5, dtype="f4"), np.arange(3, dtype="f4")])
+assert [len(o) for o in outs] == [8, 6], outs
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "mxnet_tpu" or m.startswith("mxnet_tpu."))
+print("FOREIGN", bad)
+"""
+
+
+def _sources():
+    pkg = os.path.join(REPO, "mxnet_tpu_torch")
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(pkg):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_serving_in_a_fresh_process_loads_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "FOREIGN []" in r.stdout, r.stdout
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    offenders = []
+    for path in _sources():
+        with open(path) as f:
+            for m in FORBIDDEN.finditer(f.read()):
+                offenders.append(f"{os.path.relpath(path, REPO)}: "
+                                 f"{m.group(0).strip()}")
+    assert len(_sources()) > 10
+    assert offenders == []
+
+
+@pytest.mark.parametrize("entry", ["LlamaForCausalLM", "Server",
+                                   "context"])
+def test_entry_points_default_to_the_card(entry):
+    """Without a card and without ctx=mx.cpu(), entry points raise
+    instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default context is "
+                    "valid here")
+    with pytest.raises(MXNetError, match="CUDA"):
+        if entry == "LlamaForCausalLM":
+            LlamaForCausalLM(llama_tiny(vocab_size=61))
+        elif entry == "Server":
+            lm = LlamaForCausalLM(llama_tiny(vocab_size=61), ctx=mx.cpu())
+            Server(lm, buckets=[(1, 8)], max_new_tokens=2)
+        else:
+            mx.current_context().device
+
+
+def test_cpu_scope_sets_the_default_context():
+    with mx.cpu():
+        lm = LlamaForCausalLM(llama_tiny(vocab_size=61))
+        assert lm.device == torch.device("cpu")
+        srv = Server(lm, buckets=[(1, 8)], max_new_tokens=2)
+    assert srv.ctx == mx.cpu()
+
+
+def test_cpu_flash_attention_launches_no_kernel():
+    tfa.flash_fwd_launches = 0
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(1, 128, 2, 64).astype("f4"))
+               for _ in range(3))
+    out = mx.ops.dot_product_attention(q, k, v, causal=True)
+    assert out.shape == (1, 128, 2, 64)
+    assert tfa.flash_fwd_launches == 0
+
+
+def test_model_must_come_from_get_llama():
+    lm = LlamaForCausalLM(llama_tiny(vocab_size=61), ctx=mx.cpu())
+    with pytest.raises(MXNetError, match="meta"):
+        LlamaForCausalLM(lm.model, ctx=mx.cpu())
