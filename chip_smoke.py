@@ -9,9 +9,10 @@ Phases, each printing JSON lines:
 2. build:   nvcc builds every kernel under mxnet_tpu_torch/csrc/.
 3. kernels: each kernel against its plain PyTorch version on the card,
             with its time, the plain version's, the library call's
-            (F.scaled_dot_product_attention, a yardstick the package never
-            calls) and its bound (the larger of bytes over 3.35 TB/s and
-            operations over the type's peak).
+            (F.scaled_dot_product_attention, forward or backward: a
+            yardstick the package never calls) and its bound (the larger
+            of bytes over 3.35 TB/s and operations over the type's peak):
+            the flash forward (K1) and backward (K2 dQ, K3 dK/dV).
 4. parity:  llama_tiny in float32 served through Server on the card (the
             flash kernel) gives the same greedy tokens as on the CPU (the
             plain version), and the kernel ran once per layer per
@@ -19,6 +20,16 @@ Phases, each printing JSON lines:
 5. serve:   the Llama-3-8B geometry (bf16 weights drawn on the card from a
             seeded generator) served through Server: 8 prompts of 20-500
             tokens in buckets (4, 128) and (4, 512), 32 new tokens each.
+6. train_parity: bert_small (2 layers, vocab 200, f32, dropout 0) takes 3
+            Adam steps on the card and on the CPU from the same weights:
+            the losses agree to 1e-4 relative, and on the card every
+            layer ran K1 and K2/K3 once per step.
+7. train:   BERT-base pretraining as bench.py's bench_bert_pretrain runs
+            it (batch 64, seq 128, 20 masked positions, Adam lr 1e-4,
+            bf16 AMP, dropout 0.1; weights drawn on the card) through
+            DataParallelTrainer.step: 3 warm-up steps, then the
+            two-window slope timing, samples/s, MFU against the H100's
+            dense bf16 peak, peak memory and a profiled step.
 
 Then one line of per-kernel numbers ({"kernels": [...]}), the card's name
 and power limit as nvidia-smi gives them, and as the last line
@@ -29,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -39,6 +51,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 without TF32
+ALL_PHASES = "device,build,kernels,parity,serve,train_parity,train"
 
 
 def emit(obj):
@@ -81,6 +94,23 @@ def cuda_time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+COUNTERS = ("flash_fwd_launches", "flash_bwd_launches",
+            "flash_bwd_dq_launches", "flash_bwd_dkv_launches")
+
+
+def reset_counts():
+    """Set every kernel launch count to 0."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    for name in COUNTERS:
+        setattr(fa, name, 0)
+
+
+def read_counts():
+    """{counter: launches since the last reset_counts()}."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    return {name: getattr(fa, name) for name in COUNTERS}
+
+
 # -- phase 3: kernels ---------------------------------------------------------
 
 FLASH_CASES = [
@@ -114,33 +144,98 @@ FLASH_CASES = [
          causal=False, h=12, kv=12, d=64),
     dict(name="d256_s256_f32", s_q=256, s_k=256, dtype="float32",
          causal=True, h=8, kv=2, d=256),
+    # BERT-base training's forward: b64 s128, H=KV=12, D=64, with the LSE
+    dict(name="bert_b64_s128_lse_bf16", b=64, s_q=128, s_k=128,
+         dtype="bfloat16", causal=False, h=12, kv=12, d=64, want_lse=True),
 ]
-HEADLINE_CASE = "prefill_s512_bf16"
+HEADLINE_CASE = "bert_b64_s128_lse_bf16"
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
+# the backward (K2 dQ, K3 dK/dV) against flash_bwd_plain, with a random
+# dO; tolerance TOL[dtype] * max(1, max|ref|) on each gradient, and
+# gradients the mask forces to zero must be exactly 0
+BWD_CASES = [
+    # BERT-base training: b64 s128, H=KV=12, D=64, no mask
+    dict(name="bert_b64_s128_bf16", b=64, s_q=128, s_k=128, h=12, kv=12,
+         d=64, dtype="bfloat16", causal=False),
+    dict(name="bert_b64_s128_f32", b=64, s_q=128, s_k=128, h=12, kv=12,
+         d=64, dtype="float32", causal=False),
+    # Llama prefill (GQA H=32 over KV=8: K3 sums each group of 4)
+    dict(name="llama_s512_bf16", s_q=512, s_k=512, dtype="bfloat16",
+         causal=True),
+    dict(name="llama_s512_f32", s_q=512, s_k=512, dtype="float32",
+         causal=True),
+    dict(name="window_s1024_w256_bf16", s_q=1024, s_k=1024,
+         dtype="bfloat16", causal=True, window=256),
+    dict(name="window_s1024_w256_f32", s_q=1024, s_k=1024,
+         dtype="float32", causal=True, window=256),
+    dict(name="key_padding_s512_bf16", s_q=512, s_k=512, dtype="bfloat16",
+         causal=False, b=2, kmask_lens=(300, 512)),
+    dict(name="key_padding_s512_f32", s_q=512, s_k=512, dtype="float32",
+         causal=False, b=2, kmask_lens=(300, 512)),
+    dict(name="key_padding_empty_row_s512_f32", s_q=512, s_k=512,
+         dtype="float32", causal=False, b=2, kmask_lens=(0, 512)),
+    dict(name="cross_causal_128x256_f32", s_q=128, s_k=256,
+         dtype="float32", causal=True),
+    dict(name="short_keys_256x128_f32", s_q=256, s_k=128, dtype="float32",
+         causal=True),
+    dict(name="d256_s256_f32", s_q=256, s_k=256, dtype="float32",
+         causal=True, h=8, kv=2, d=256),
+]
+BWD_HEADLINE_CASE = "bert_b64_s128_bf16"
 
-def _flash_case(case, dev):
+
+def _case_inputs(case, dev, n_q=1):
+    """q, k, v (and ``n_q - 1`` more q-shaped tensors) drawn at std 1
+    from a seeded generator, the key mask, and the (B, S_q, S_k) mask of
+    visible pairs."""
     import torch
-    import torch.nn.functional as F
-    from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.ops.attention import _causal_band
 
     b, h = case.get("b", 1), case.get("h", 32)
     kv, d = case.get("kv", 8), case.get("d", 128)
     s_q, s_k = case["s_q"], case["s_k"]
     dt = getattr(torch, case["dtype"])
-    window, causal = case.get("window"), case["causal"]
-    want_lse = case.get("want_lse", False)
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
     q = torch.randn(b, s_q, h, d, generator=g, device=dev).to(dt)
     k = torch.randn(b, s_k, kv, d, generator=g, device=dev).to(dt)
     v = torch.randn(b, s_k, kv, d, generator=g, device=dev).to(dt)
+    extra = [torch.randn(b, s_q, h, d, generator=g, device=dev).to(dt)
+             for _ in range(n_q - 1)]
     kmask = None
     if "kmask_lens" in case:
         pos = torch.arange(s_k, device=dev)[None, :]
         lens = torch.tensor(case["kmask_lens"], device=dev)[:, None]
         kmask = (pos < lens).float()
+    window = case.get("window")
+    keep = torch.ones(s_q, s_k, dtype=torch.bool, device=dev)
+    if case["causal"]:
+        keep = _causal_band(s_q, s_k, window if window and window < s_k
+                            else None, dev)
+    keep = keep[None].expand(b, s_q, s_k)
+    if kmask is not None:
+        keep = keep & (kmask > 0)[:, None, :]
+    return (q, k, v, *extra), kmask, keep
+
+
+def _bound(flops, nbytes, dtype):
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _flash_case(case, dev):
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v), kmask, keep = _case_inputs(case, dev)
+    b, s_q, h, d = q.shape
+    s_k, kv = k.shape[1], k.shape[2]
+    dt = q.dtype
+    window, causal = case.get("window"), case["causal"]
+    want_lse = case.get("want_lse", False)
     scale = 1.0 / d ** 0.5
 
     out, lse = fa.flash_fwd(q, k, v, scale, causal=causal, kmask=kmask,
@@ -167,13 +262,6 @@ def _flash_case(case, dev):
         want_lse=want_lse), reps=5, warmup=1)
 
     # the work this run's masks need, and the bound it sets
-    keep = torch.ones(s_q, s_k, dtype=torch.bool, device=dev)
-    if causal:
-        keep = _causal_band(s_q, s_k, window if window and window < s_k
-                            else None, dev)
-    keep = keep[None].expand(b, s_q, s_k)
-    if kmask is not None:
-        keep = keep & (kmask > 0)[:, None, :]
     pairs = int(keep.sum().item())
     flops = 4.0 * h * d * pairs
     elem = 2 if dt == torch.bfloat16 else 4
@@ -182,18 +270,11 @@ def _flash_case(case, dev):
         nbytes += 4 * b * s_k
     if want_lse:
         nbytes += 4 * b * h * s_q
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[case["dtype"]] * 1e3
-    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops \
-        else (t_ops, "operations")
+    bound_ms, bound_by = _bound(flops, nbytes, case["dtype"])
 
     # the library yardstick: (B, H, S, D) layout, GQA, same mask
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib_kw = {}
-    if causal and s_q == s_k and window is None and kmask is None:
-        lib_kw["is_causal"] = True
-    elif causal or kmask is not None:
-        lib_kw["attn_mask"] = keep[:, None]
+    lib_kw = _library_mask(case, keep, kmask)
     library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, enable_gqa=True, scale=scale, **lib_kw), reps=20)
     row = {"phase": "kernels", "kernel": "flash_fwd", "case": case["name"],
@@ -210,12 +291,122 @@ def _flash_case(case, dev):
     return row
 
 
+def _library_mask(case, keep, kmask):
+    """F.scaled_dot_product_attention's mask arguments for a case."""
+    if case["causal"] and case["s_q"] == case["s_k"] \
+            and case.get("window") is None and kmask is None:
+        return {"is_causal": True}
+    if case["causal"] or kmask is not None:
+        return {"attn_mask": keep[:, None]}
+    return {}
+
+
+def _flash_bwd_case(case, dev):
+    """K2 and K3 against flash_bwd_plain on the kernel forward's output
+    and LSE, with a random dO."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v, g), kmask, keep = _case_inputs(case, dev, n_q=2)
+    b, s_q, h, d = q.shape
+    s_k, kv = k.shape[1], k.shape[2]
+    window, causal = case.get("window"), case["causal"]
+    scale = 1.0 / d ** 0.5
+    kw = dict(causal=causal, kmask=kmask, window=window)
+    out, lse = fa.flash_fwd(q, k, v, scale, want_lse=True, **kw)
+    got = fa.flash_bwd(q, k, v, out, lse, g, scale, **kw)
+    torch.cuda.synchronize()
+    ref = fa.flash_bwd_plain(q, k, v, out, lse, g, scale, **kw)
+    tol = TOL[case["dtype"]]
+    errs, limits = {}, {}
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        check(torch.isfinite(a.float()).all().item(),
+              f"{case['name']}: non-finite {name}")
+        errs[name] = (a.float() - r.float()).abs().max().item()
+        limits[name] = tol * max(1.0, r.float().abs().max().item())
+        check(errs[name] <= limits[name],
+              f"{case['name']}: {name} max abs error {errs[name]} > "
+              f"{limits[name]}")
+    # exact zeros: a query that sees no key, a key that no query sees
+    blind_q = ~keep.any(dim=2)                            # (B, S_q)
+    blind_k = ~keep.any(dim=1)                            # (B, S_k)
+    zeros = int(blind_q.sum().item()) * h * d \
+        + 2 * int(blind_k.sum().item()) * kv * d
+    check(bool((got[0][blind_q] == 0).all().item())
+          and bool((got[1][blind_k] == 0).all().item())
+          and bool((got[2][blind_k] == 0).all().item()),
+          f"{case['name']}: a gradient the mask forces to zero is not 0")
+
+    km = kmask.contiguous() if kmask is not None else None
+    _, delta = fa._bwd_dq(q, k, v, out, g, lse, km, scale, causal, window)
+    reps = 10
+    kernel_ms = cuda_time_ms(
+        lambda: fa.flash_bwd(q, k, v, out, lse, g, scale, **kw), reps=reps)
+    dq_ms = cuda_time_ms(lambda: fa._bwd_dq(
+        q, k, v, out, g, lse, km, scale, causal, window), reps=reps)
+    dkv_ms = cuda_time_ms(lambda: fa._bwd_dkv(
+        q, k, v, out, g, lse, delta, km, scale, causal, window), reps=reps)
+    plain_ms = cuda_time_ms(
+        lambda: fa.flash_bwd_plain(q, k, v, out, lse, g, scale, **kw),
+        reps=3, warmup=1)
+
+    # the library yardstick: the backward of F.scaled_dot_product_attention
+    # on the same inputs, as (forward + backward) - forward
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+    lib_kw = dict(enable_gqa=True, scale=scale,
+                  **_library_mask(case, keep, kmask))
+    lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, **lib_kw), reps=reps)
+    lib_all = cuda_time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qt, kt, vt, **lib_kw),
+        (qt, kt, vt), gt), reps=reps)
+
+    # the work this run's masks need: 5 products of 2*D per visible
+    # (query, key) pair and query head (dQ: S, dP, dS K; dK/dV: S, dP,
+    # P^T dO, dS^T Q); bytes: q, k, v, o, dO, LSE read, dq, dk, dv written
+    pairs = int(keep.sum().item()) * h
+    elem = q.element_size()
+    q_bytes = elem * b * s_q * h * d
+    kv_bytes = elem * b * s_k * kv * d
+    lse_bytes = 4 * b * h * s_q
+    mask_bytes = 4 * b * s_k if kmask is not None else 0
+    total = (_bound(10.0 * d * pairs,
+                    4 * q_bytes + 4 * kv_bytes + lse_bytes + mask_bytes,
+                    case["dtype"]))
+    # K2 also reads O and writes Delta (rowsum(dO o O), 2*D a query row)
+    dq_bound = _bound(6.0 * d * pairs + 2.0 * d * b * s_q * h,
+                      4 * q_bytes + 2 * kv_bytes + 2 * lse_bytes
+                      + mask_bytes, case["dtype"])
+    dkv_bound = _bound(8.0 * d * pairs, 2 * q_bytes + 4 * kv_bytes
+                       + 2 * lse_bytes + mask_bytes, case["dtype"])
+    row = {"phase": "kernels", "kernel": "flash_bwd", "case": case["name"],
+           "b": b, "h": h, "kv": kv, "d": d, "s_q": s_q, "s_k": s_k,
+           "dtype": case["dtype"], "causal": causal, "window": window,
+           "key_padding": kmask is not None, "max_abs_err": errs,
+           "limit": limits, "forced_zeros": zeros,
+           "kernel_ms": kernel_ms, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+           "plain_ms": plain_ms,
+           "library_ms": lib_all - lib_fwd, "library_fwd_ms": lib_fwd,
+           "bound_ms": total[0], "bound_by": total[1],
+           "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
+           "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
+           "flops": 10.0 * d * pairs,
+           "tflops_per_s": 10.0 * d * pairs / (kernel_ms * 1e-3) / 1e12}
+    emit(row)
+    return row
+
+
 def phase_kernels(dev):
     import torch
     rows = [_flash_case(c, dev) for c in FLASH_CASES]
+    bwd_rows = [_flash_bwd_case(c, dev) for c in BWD_CASES]
     torch.cuda.synchronize()
-    emit({"phase": "kernels", "kernels": ["flash_fwd"]})
-    return rows
+    emit({"phase": "kernels",
+          "kernels": ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]})
+    return rows, bwd_rows
 
 
 # -- phase 4: parity -----------------------------------------------------------
@@ -224,7 +415,6 @@ def phase_parity(mx, dev):
     import numpy as np
     import torch
     from mxnet_tpu_torch.models import LlamaForCausalLM, llama_tiny
-    from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.serving import Server
 
     vocab = 256
@@ -237,12 +427,12 @@ def phase_parity(mx, dev):
                for n in (30, 77, 128, 100)]
     cpu_out = Server(cpu_lm, buckets=[(2, 128)], max_new_tokens=8,
                      ctx=mx.cpu()).generate(prompts)
-    fa.flash_fwd_launches = 0
+    reset_counts()
     srv = Server(gpu_lm, buckets=[(2, 128)], max_new_tokens=8,
                  ctx=mx.gpu(0))
     gpu_out = srv.generate(prompts)
     torch.cuda.synchronize()
-    launches = fa.flash_fwd_launches
+    launches = read_counts()["flash_fwd_launches"]
     admissions = srv.stats()["buckets"]["2x128"]["prefills"]
     layers = len(gpu_lm.model.layers)
     same = all(np.array_equal(a, b) for a, b in zip(cpu_out, gpu_out))
@@ -261,7 +451,6 @@ def phase_serve(mx, dev):
     import numpy as np
     import torch
     from mxnet_tpu_torch.models import LlamaForCausalLM, llama3_8b
-    from mxnet_tpu_torch.ops import flash_attention as fa
     from mxnet_tpu_torch.serving import Server
 
     t0 = time.perf_counter()
@@ -301,13 +490,13 @@ def phase_serve(mx, dev):
     prompts = [rng.randint(0, vocab, n).astype("f4") for n in lens]
 
     torch.cuda.reset_peak_memory_stats(dev)
-    fa.flash_fwd_launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     reqs = [srv.submit(p) for p in prompts]
     srv.run()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = fa.flash_fwd_launches
+    launches = read_counts()["flash_fwd_launches"]
     after = srv.stats()["buckets"]
 
     delta = {k: {f: after[k][f] - before[k][f] for f in after[k]}
@@ -365,10 +554,195 @@ def phase_serve(mx, dev):
     return launches
 
 
+# -- phases 6 and 7: training -------------------------------------------------
+
+def _full_len_pretrain(mod):
+    """bench.py's ``_FullLenPretrain``: BERTForPretrain with
+    ``valid_length=None`` (full-length rows, no padding mask)."""
+    from mxnet_tpu_torch.gluon import Block
+
+    class FullLenPretrain(Block):
+        def __init__(self, mod):
+            super().__init__()
+            self.mod = mod
+
+        def forward(self, tokens, types, positions):
+            return self.mod(tokens, types, None, positions)
+    return FullLenPretrain(mod)
+
+
+def _pretrain_loss(m):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    sce = SoftmaxCrossEntropyLoss()
+
+    def loss_fn(outs, label):
+        mlm_labels = label[:, :m].reshape((-1,))
+        nsp_labels = label[:, m]
+        mlm_scores, nsp_scores = outs
+        mlm = sce(mlm_scores, mlm_labels).mean()
+        return mlm + sce(nsp_scores, nsp_labels).mean()
+    return loss_fn
+
+
+def _pretrain_batch(vocab, b, seq_len, m, dev):
+    """bench.py's batch: tokens, types, masked positions and labels from
+    np.random.RandomState(0), as float32 on ``dev``."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(0)
+    tokens = torch.as_tensor(
+        rng.randint(0, vocab, (b, seq_len)).astype("f"), device=dev)
+    types = torch.as_tensor(
+        rng.randint(0, 2, (b, seq_len)).astype("f"), device=dev)
+    positions = torch.as_tensor(
+        rng.randint(0, seq_len, (b, m)).astype("f"), device=dev)
+    label = torch.as_tensor(np.concatenate(
+        [rng.randint(0, vocab, (b, m)), rng.randint(0, 2, (b, 1))],
+        axis=1).astype("f"), device=dev)
+    return (tokens, types, positions), label
+
+
+def phase_train_parity(mx, dev):
+    """bert_small, 2 layers, f32, dropout 0: 3 Adam steps on the card and
+    on the CPU from the same weights."""
+    import torch
+    from mxnet_tpu_torch import models, parallel
+
+    vocab, b, seq_len, m, steps, layers = 200, 2, 128, 4, 3, 2
+    losses = []
+    weights = None
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        inner = models.BERTForPretrain(models.bert_small(
+            vocab_size=vocab, max_length=128, dropout=0.0,
+            num_layers=layers))
+        model = _full_len_pretrain(inner).initialize(
+            mx.init.Xavier(), ctx=ctx, seed=5)
+        if weights is None:
+            weights = {k: t.clone() for k, t in model.state_dict().items()}
+        else:
+            model.load_state_dict(weights)
+        dpt = parallel.DataParallelTrainer(
+            model, _pretrain_loss(m), "adam", {"learning_rate": 1e-3},
+            mesh=parallel.make_mesh({"dp": 1}, devices=[ctx]),
+            fuse_step=True)
+        data, label = _pretrain_batch(vocab, b, seq_len, m, ctx.device)
+        reset_counts()
+        losses.append([dpt.step(data, label).item() for _ in range(steps)])
+        launches = read_counts()
+    cpu_losses, card_losses = losses
+    rel = max(abs(g - c) / abs(c) for g, c in zip(card_losses, cpu_losses))
+    emit({"phase": "train_parity", "model": "bert_small", "layers": layers,
+          "dtype": "float32", "steps": steps, "cpu_losses": cpu_losses,
+          "gpu_losses": card_losses, "max_rel_diff": rel, **launches})
+    check(rel <= 1e-4, f"train_parity: losses differ by {rel} relative")
+    check(all(n == steps * layers for n in launches.values()),
+          f"train_parity: launches {launches}, want {steps * layers} each")
+    check(card_losses[-1] < card_losses[0],
+          "train_parity: the loss did not fall")
+
+
+# bench.py's bert_base configuration (bench_bert_pretrain's arguments)
+BERT_BASE = dict(model="bert_base", vocab=30522, batch_size=64,
+                 seq_len=128, num_masked=20, hidden=768, layers=12,
+                 steps=20, warmup=3, max_length=512)
+
+
+def phase_train(mx, dev, ctx, cfg=BERT_BASE):
+    """bench.py's bench_bert_pretrain at ``cfg`` on ``ctx``."""
+    import torch
+    from mxnet_tpu_torch import models, parallel
+    from mxnet_tpu_torch.contrib import amp
+
+    vocab, batch_size = cfg["vocab"], cfg["batch_size"]
+    seq_len, num_masked = cfg["seq_len"], cfg["num_masked"]
+    hidden, layers = cfg["hidden"], cfg["layers"]
+    steps, warmup = cfg["steps"], cfg["warmup"]
+    mx.random.seed(0)
+    amp.init(target_dtype="bfloat16")
+    try:
+        make_bert = getattr(models, cfg["model"])
+        inner = models.BERTForPretrain(make_bert(
+            vocab_size=vocab, max_length=cfg["max_length"], dropout=0.1))
+        model = _full_len_pretrain(inner)
+        t0 = time.perf_counter()
+        model.initialize(mx.init.Xavier(), ctx=ctx)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        b, m = batch_size, num_masked
+        mesh = parallel.make_mesh({"dp": 1}, devices=[ctx.device])
+        dpt = parallel.DataParallelTrainer(model, _pretrain_loss(m), "adam",
+                                           {"learning_rate": 1e-4},
+                                           mesh=mesh, fuse_step=True)
+        data, label = _pretrain_batch(vocab, b, seq_len, m, ctx.device)
+        first = None
+        for _ in range(warmup):
+            loss = dpt.step(data, label)
+            first = loss.item() if first is None else first
+        torch.cuda.synchronize()
+
+        def timed_window(n):
+            t0 = time.perf_counter()
+            last = None
+            for _ in range(n):
+                last = dpt.step(data, label)
+            val = last.item()
+            check(math.isfinite(val), f"train: loss {val} is not finite")
+            return time.perf_counter() - t0, val
+
+        n1 = max(min(steps // 3, steps - 1), 1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t_small, _ = timed_window(n1)
+        dt, last = timed_window(steps)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        slope = (dt - t_small) / (steps - n1)
+        naive = dt / steps
+        slope_used = "slope"
+        if slope <= 0 or slope < 0.2 * naive:
+            slope, slope_used = naive, "naive"
+        breakdown = profile_call(lambda: dpt.step(data, label))
+    finally:
+        amp._deinit()
+
+    sps = batch_size / slope
+    embed = {id(inner.bert.word_embed.weight),
+             id(inner.bert.token_type_embed.weight),
+             id(inner.bert.position_embed)}
+    n_params = sum(p.numel() for p in model.parameters()
+                   if id(p) not in embed)
+    flops_v1 = (6 * n_params * seq_len
+                + 12 * layers * hidden * seq_len * seq_len)
+    flops_v2 = flops_v1 + 6 * num_masked * hidden * vocab
+    n_steps = n1 + steps
+    emit({"phase": "train", "model": cfg["model"],
+          "dtype": "bfloat16 AMP",
+          "batch_size": batch_size, "seq_len": seq_len,
+          "num_masked": num_masked, "vocab": vocab, "layers": layers,
+          "params": sum(p.numel() for p in model.parameters()),
+          "non_embedding_params": n_params, "weights_init_s": init_s,
+          "warmup": warmup, "windows": [n1, steps],
+          "window_s": [t_small, dt], "step_ms": slope * 1e3,
+          "naive_step_ms": naive * 1e3, "timing": slope_used,
+          "samples_per_s": sps,
+          "mfu_v1": sps * flops_v1 / PEAK_FLOPS["bfloat16"],
+          "mfu_v2": sps * flops_v2 / PEAK_FLOPS["bfloat16"],
+          "first_loss": first, "last_loss": last, **launches,
+          "steps_counted": n_steps,
+          "peak_mem_bytes": peak, "card": nvidia_smi()})
+    emit(dict({"phase": "train_breakdown", "call": "step_b64_s128"},
+              **breakdown))
+    check(last < first, f"train: last loss {last} not below the first "
+          f"{first}")
+    check(all(n == layers * n_steps for n in launches.values()),
+          f"train: launches {launches}, want {layers} x {n_steps} each")
+    return launches
+
+
 def profile_call(fn, reps=3):
     """Host wall time of ``fn`` (ending in a synchronize; median of
     ``reps``), and the device time of one profiled call split into the
-    flash kernel, matrix products and the rest."""
+    flash kernels (forward, backward), matrix products and the rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -383,7 +757,7 @@ def profile_call(fn, reps=3):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    flash = gemm = other = 0.0
+    fwd = bwd = gemm = other = 0.0
     n_kernels = 0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -392,24 +766,27 @@ def profile_call(fn, reps=3):
         n_kernels += ev.count
         name = ev.key.lower()
         if "flash_fwd" in name:
-            flash += us
+            fwd += us
+        elif "flash_bwd" in name:
+            bwd += us
         elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet",
                                      "xmma", "matmul")):
             gemm += us
         else:
             other += us
-    device_ms = (flash + gemm + other) / 1e3
+    device_ms = (fwd + bwd + gemm + other) / 1e3
     wall_ms = statistics.median(walls)
     return {"wall_ms": wall_ms,
             "device_ms": device_ms if n_kernels else "not measured",
-            "flash_ms": flash / 1e3, "gemm_ms": gemm / 1e3,
+            "flash_ms": (fwd + bwd) / 1e3, "flash_fwd_ms": fwd / 1e3,
+            "flash_bwd_ms": bwd / 1e3, "gemm_ms": gemm / 1e3,
             "other_ms": other / 1e3, "kernels": n_kernels,
             "device_busy_share": device_ms / wall_ms if n_kernels else None}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,build,kernels,parity,serve",
+    ap.add_argument("--phases", default=ALL_PHASES,
                     help="comma-separated subset of phases to run")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -450,21 +827,55 @@ def main():
               "seconds": time.perf_counter() - t0, "per_source_s": took,
               "ptxas": ptxas})
 
-    rows = phase_kernels(dev) if "kernels" in phases else []
+    rows, bwd_rows = phase_kernels(dev) if "kernels" in phases \
+        else ([], [])
     if "parity" in phases:
         phase_parity(mx, dev)
-    launches = phase_serve(mx, dev) if "serve" in phases else None
+    serve_launches = phase_serve(mx, dev) if "serve" in phases else None
+    if "train_parity" in phases:
+        phase_train_parity(mx, dev)
+    train = phase_train(mx, dev, mx.gpu(0)) if "train" in phases \
+        else {}
 
     head = next((r for r in rows if r["case"] == HEADLINE_CASE), None)
-    if head is not None:
-        emit({"kernels": [{
-            "name": "flash_fwd", "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
-            "replaces": "mxnet_tpu/ops/flash_attention.py:76",
-            "launches": launches, "max_abs_err": head["max_abs_err"],
-            "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"]}]})
+    bwd = next((r for r in bwd_rows if r["case"] == BWD_HEADLINE_CASE),
+               None)
+    if head is not None and bwd is not None:
+        src = "mxnet_tpu_torch/csrc/"
+        whole = ("dq, dk and dv together: flash_bwd_plain, and the backward "
+                 "of F.scaled_dot_product_attention")
+        emit({"kernels": [
+            {"name": "flash_fwd", "route": "cuda",
+             "source": src + "flash_fwd.cu",
+             "replaces": "mxnet_tpu/ops/flash_attention.py:76",
+             "case": head["case"],
+             "launches": train.get("flash_fwd_launches"),
+             "serve_launches": serve_launches,
+             "max_abs_err": head["max_abs_err"], "ms": head["kernel_ms"],
+             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+             "bound_by": head["bound_by"],
+             "library_ms": head["library_ms"]},
+            {"name": "flash_bwd_dq", "route": "cuda",
+             "source": src + "flash_bwd.cu",
+             "replaces": "mxnet_tpu/ops/flash_attention.py:303",
+             "case": bwd["case"],
+             "launches": train.get("flash_bwd_dq_launches"),
+             "max_abs_err": bwd["max_abs_err"]["dq"], "ms": bwd["dq_ms"],
+             "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dq_bound_ms"],
+             "bound_by": bwd["dq_bound_by"],
+             "library_ms": bwd["library_ms"], "plain_and_library": whole},
+            {"name": "flash_bwd_dkv", "route": "cuda",
+             "source": src + "flash_bwd.cu",
+             "replaces": "mxnet_tpu/ops/flash_attention.py:386",
+             "case": bwd["case"],
+             "launches": train.get("flash_bwd_dkv_launches"),
+             "max_abs_err": max(bwd["max_abs_err"]["dk"],
+                                bwd["max_abs_err"]["dv"]),
+             "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_ms"],
+             "bound_ms": bwd["dkv_bound_ms"],
+             "bound_by": bwd["dkv_bound_by"],
+             "library_ms": bwd["library_ms"], "plain_and_library": whole},
+        ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

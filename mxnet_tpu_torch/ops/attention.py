@@ -4,7 +4,8 @@ to the flash kernel, and rotary position embedding.
 ``dot_product_attention`` sends every call the flash kernel can take
 (:func:`_flash_viable`) to :func:`~.flash_attention.flash_attention`,
 and every other call (the one-token decode step, a query-dependent
-mask, unaligned lengths) to :func:`sdpa_plain`.
+mask, unaligned lengths) to :func:`sdpa_plain`.  Both routes are
+differentiable, the flash route through the backward kernels.
 """
 from __future__ import annotations
 
@@ -97,8 +98,12 @@ def dot_product_attention(query, key, value, mask=None, scale=None,
     (batch, 1|heads, seq_q, seq_k) mask, or a (batch, seq_k) key-padding
     mask.  Causal masking is end-aligned.  ``window`` applies a
     sliding-window band to the causal mask (needs ``causal=True``).
+    Under ``contrib.amp`` float32 inputs run in the AMP type.
     Returns (batch, seq_q, heads, head_dim)."""
-    from .flash_attention import _FlashFwd, _as_key_padding, _window_arg
+    from ..contrib import amp
+    from .flash_attention import _as_key_padding, _flash_apply, _window_arg
+    query, key, value = amp.cast_inputs("dot_product_attention", query,
+                                        key, value)
     # validated once, for both routes: the plain path must not run a
     # band the kernel would reject
     window = _window_arg(window, causal, key.shape[1],
@@ -109,8 +114,7 @@ def dot_product_attention(query, key, value, mask=None, scale=None,
                             s_k=key.shape[1], s_q=query.shape[1])
     if (mask is None or kmask is not None) \
             and _flash_viable(query, key, value):
-        return _FlashFwd.apply(query, key, value, kmask, float(s),
-                               bool(causal), window)
+        return _flash_apply(query, key, value, kmask, s, causal, window)
     if kmask is not None and mask.dim() == 2:
         mask = mask.reshape(mask.shape[0], 1, 1, mask.shape[1])
     return sdpa_plain(query, key, value, mask, s, causal, window=window)

@@ -1,12 +1,19 @@
-"""Flash-attention forward: a hand-written Hopper kernel
-(``csrc/flash_fwd.cu``) and its plain PyTorch version.
+"""Flash attention: hand-written Hopper kernels for the forward
+(``csrc/flash_fwd.cu``) and the backward (``csrc/flash_bwd.cu``), and
+their plain PyTorch versions.
 
-The kernel streams K/V tiles through shared memory with an online
-softmax and never writes the (S_q, S_k) score matrix to device memory.
-:func:`flash_fwd` launches it for CUDA tensors and runs
-:func:`flash_attention_plain` for CPU tensors; a CUDA tensor it cannot
-take raises, it never falls back.  ``flash_fwd_launches`` counts kernel
-launches, so a run can show that its attention went through the kernel.
+The forward streams K/V tiles through shared memory with an online
+softmax and never writes the (S_q, S_k) score matrix to device memory;
+it saves the per-row log-sum-exp when a gradient is needed.  The
+backward recomputes the scores from it: one kernel for Delta and dQ,
+one for dK and dV.  :func:`flash_fwd` and :func:`flash_bwd` launch the
+kernels for CUDA tensors and run :func:`flash_attention_plain` and
+:func:`flash_bwd_plain` for CPU tensors; a CUDA tensor the kernels
+cannot take raises, they never fall back.  ``flash_fwd_launches`` and
+``flash_bwd_launches`` count kernel launches (one dQ and dK/dV pair per
+backward launch), and ``flash_bwd_dq_launches`` and
+``flash_bwd_dkv_launches`` each backward kernel's own, so a run can show
+that its attention went through the kernels.
 
 Layout is (B, S, H, D) in and out.  Grouped-query attention is native:
 K/V may carry fewer heads than Q, and query head h reads KV head
@@ -21,15 +28,23 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_fwd"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_fwd",
+           "flash_bwd", "flash_bwd_plain"]
 
 #: kernel launches since the count was last set to 0 (plain-path calls
 #: do not count)
 flash_fwd_launches = 0
+#: backward launches, each one dQ and one dK/dV kernel, since the count
+#: was last set to 0 (plain-path calls do not count)
+flash_bwd_launches = 0
+#: launches of K2 (dQ) and of K3 (dK, dV) alone, by their wrappers
+flash_bwd_dq_launches = 0
+flash_bwd_dkv_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
 _kernel_fn = None
+_bwd_kernel_fns = None
 
 
 def _kernel():
@@ -52,6 +67,28 @@ def _kernel():
     return _kernel_fn
 
 
+def _bwd_kernels():
+    """(dQ function, dK/dV function, block_q, block_k); builds the
+    library at first use."""
+    global _bwd_kernel_fns
+    if _bwd_kernel_fns is None:
+        from .._kernels import load
+        lib = load("flash_bwd")
+        tail = ([ctypes.c_int] * 7 + [ctypes.c_longlong] * 15
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p])
+        dq, dkv = lib.mxtpu_flash_bwd_dq, lib.mxtpu_flash_bwd_dkv
+        dq.restype = dkv.restype = ctypes.c_int
+        dq.argtypes = [ctypes.c_void_p] * 9 + tail
+        dkv.argtypes = [ctypes.c_void_p] * 10 + tail
+        for tile in (lib.mxtpu_flash_bwd_block_q,
+                     lib.mxtpu_flash_bwd_block_k):
+            tile.restype, tile.argtypes = ctypes.c_int, []
+        _bwd_kernel_fns = (dq, dkv, lib.mxtpu_flash_bwd_block_q(),
+                           lib.mxtpu_flash_bwd_block_k())
+    return _bwd_kernel_fns
+
+
 def flash_attention_plain(q, k, v, scale, causal=False, kmask=None,
                           window=None, want_lse=False):
     """The kernel's arithmetic in plain PyTorch, as one key tile:
@@ -64,13 +101,9 @@ def flash_attention_plain(q, k, v, scale, causal=False, kmask=None,
     g = h // kv
     qf = q.float().reshape(b, s_q, kv, g, d)
     s = torch.einsum("bqcgd,bkcd->bcgqk", qf, k.float()) * float(scale)
-    if causal:
-        from .attention import _causal_band
-        keep = _causal_band(s_q, s_k, window, q.device)
+    keep = _keep(b, s_q, s_k, causal, kmask, window, q.device)
+    if keep is not None:
         s = s.masked_fill(~keep, _NEG)
-    if kmask is not None:
-        km = (kmask.to(q.device) > 0).reshape(b, 1, 1, 1, s_k)
-        s = s.masked_fill(~km, _NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -83,35 +116,89 @@ def flash_attention_plain(q, k, v, scale, causal=False, kmask=None,
     return out, lse
 
 
-def _check(q, k, v, kmask):
+def _keep(b, s_q, s_k, causal, kmask, window, device):
+    """The (B, 1, 1, S_q, S_k) mask of visible pairs (causal band,
+    window, key padding), or None when every pair is visible."""
+    keep = None
+    if causal:
+        from .attention import _causal_band
+        keep = _causal_band(s_q, s_k, window, device)
+    if kmask is not None:
+        km = (kmask.to(device) > 0).reshape(b, 1, 1, 1, s_k)
+        keep = km if keep is None else keep & km
+    return keep
+
+
+def _delta(g, out):
+    """Delta = rowsum(dO * O) in float32, as (B*H, S_q).  The JAX package
+    computes it outside its kernels; on the card K2 computes it for its
+    own query rows and hands it to K3."""
+    b, s_q, h, _ = g.shape
+    return torch.einsum("bqhd,bqhd->bhq", g.float(),
+                        out.float()).reshape(b * h, s_q)
+
+
+def flash_bwd_plain(q, k, v, out, lse, g, scale, causal=False, kmask=None,
+                    window=None):
+    """The backward kernels' arithmetic in plain PyTorch, as one tile:
+    ``P = exp(scale*QK^T - lse)`` with masked entries exactly 0,
+    ``dS = P * (dO V^T - Delta)``, and P and dS rounded to the input type
+    before ``P^T dO``, ``dS K`` and ``dS^T Q`` (f32 accumulation).  K/V
+    gradients are summed over each group of query heads.  Returns
+    ``(dq, dk, dv)`` in the input type."""
+    b, s_q, h, d = q.shape
+    s_k, kv = k.shape[1], k.shape[2]
+    grp = h // kv
+    scale = float(scale)
+    qf = q.float().reshape(b, s_q, kv, grp, d)
+    gf = g.float().reshape(b, s_q, kv, grp, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqcgd,bkcd->bcgqk", qf, kf) * scale
+    p = torch.exp(s - lse.reshape(b, kv, grp, s_q, 1))
+    keep = _keep(b, s_q, s_k, causal, kmask, window, q.device)
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
+    dp = torch.einsum("bqcgd,bkcd->bcgqk", gf, vf)
+    ds = p * (dp - _delta(g, out).reshape(b, kv, grp, s_q, 1))
+
+    def op(t):                 # an operand, rounded to the input type
+        return t.to(q.dtype).float()
+
+    dq = torch.einsum("bcgqk,bkcd->bqcgd", op(ds), kf) * scale
+    dk = torch.einsum("bcgqk,bqcgd->bkcd", op(ds), qf) * scale
+    dv = torch.einsum("bcgqk,bqcgd->bkcd", op(p), gf)
+    return (dq.reshape(b, s_q, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check(q, k, v, kmask, who="flash_fwd"):
     dev = q.device
     for name, t in (("k", k), ("v", v)):
         if t.device != dev:
-            raise MXNetError(f"flash_fwd: {name} on {t.device}, q on "
-                             f"{dev}")
+            raise MXNetError(f"{who}: {name} on {t.device}, q on {dev}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise MXNetError(
-            "flash_fwd: q, k, v must share one dtype of float32 or "
+            f"{who}: q, k, v must share one dtype of float32 or "
             f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise MXNetError(
-            f"flash_fwd: want q (B,S_q,H,D), k = v (B,S_k,KV,D); got "
+            f"{who}: want q (B,S_q,H,D), k = v (B,S_k,KV,D); got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, s_q, h, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
         raise MXNetError(
-            f"flash_fwd: q {tuple(q.shape)} and k {tuple(k.shape)} "
+            f"{who}: q {tuple(q.shape)} and k {tuple(k.shape)} "
             "disagree on batch or head dim, or H % KV != 0")
     if d % 8 or not 8 <= d <= 256:
-        raise MXNetError(f"flash_fwd: head dim {d} must be a multiple "
+        raise MXNetError(f"{who}: head dim {d} must be a multiple "
                          "of 8 in [8, 256]")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
-            raise MXNetError(f"flash_fwd: {name}'s last dim must be "
+            raise MXNetError(f"{who}: {name}'s last dim must be "
                              "contiguous")
     if kmask is not None and tuple(kmask.shape) != (b, k.shape[1]):
-        raise MXNetError(f"flash_fwd: kmask {tuple(kmask.shape)} must be "
+        raise MXNetError(f"{who}: kmask {tuple(kmask.shape)} must be "
                          f"(B, S_k) = {(b, k.shape[1])}")
 
 
@@ -159,19 +246,152 @@ def flash_fwd(q, k, v, scale, causal=False, kmask=None, window=None,
     return out, lse
 
 
+def _bwd_args(q, k, v, out, g, scale, causal, window):
+    """The shape, stride and mask arguments both backward kernels take,
+    after the dtype code."""
+    b, s_q, h, d = q.shape
+    return (b, h, k.shape[2], s_q, k.shape[1], d,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            out.stride(0), out.stride(1), out.stride(2),
+            g.stride(0), g.stride(1), g.stride(2),
+            float(scale), int(bool(causal)), int(window or 0))
+
+
+def _launched(rc, who, q):
+    if rc != 0:
+        raise MXNetError(f"{who} kernel launch failed: cudaError_t {rc} "
+                         f"(q {tuple(q.shape)}, {q.dtype})")
+
+
+def _bwd_dq(q, k, v, out, g, lse, km, scale, causal, window):
+    """Launch K2 alone: returns dQ (B, S_q, H, D) and the Delta
+    (B*H, S_q) f32 it computed on the way, which K3 reads."""
+    global flash_bwd_dq_launches
+    fn = _bwd_kernels()[0]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                km.data_ptr() if km is not None else None, dq.data_ptr(),
+                _DTYPE_CODES[q.dtype],
+                *_bwd_args(q, k, v, out, g, scale, causal, window), stream)
+    _launched(rc, "flash_bwd (dQ)", q)
+    flash_bwd_dq_launches += 1
+    return dq, delta
+
+
+def _bwd_dkv(q, k, v, out, g, lse, delta, km, scale, causal, window):
+    """Launch K3 alone: dK, dV (B, S_k, KV, D), summed over each group
+    of query heads.  ``delta`` is the one K2 wrote."""
+    global flash_bwd_dkv_launches
+    fn = _bwd_kernels()[1]
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                km.data_ptr() if km is not None else None, dk.data_ptr(),
+                dv.data_ptr(), _DTYPE_CODES[q.dtype],
+                *_bwd_args(q, k, v, out, g, scale, causal, window), stream)
+    _launched(rc, "flash_bwd (dK, dV)", q)
+    flash_bwd_dkv_launches += 1
+    return dk, dv
+
+
+def _bwd_inputs(q, k, v, out, lse, g, kmask):
+    """Check the backward's inputs; returns dO and O with a contiguous
+    last dimension (copied only when it is not) and the (B, S_k) f32
+    key mask, as the kernels read them."""
+    _check(q, k, v, kmask, who="flash_bwd")
+    b, s_q, h, _ = q.shape
+    for name, t in (("out", out), ("grad", g)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype \
+                or t.device != q.device:
+            raise MXNetError(
+                f"flash_bwd: {name} {tuple(t.shape)} {t.dtype} on "
+                f"{t.device} must match q {tuple(q.shape)} {q.dtype} on "
+                f"{q.device}")
+    if tuple(lse.shape) != (b * h, s_q) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise MXNetError(
+            f"flash_bwd: lse {tuple(lse.shape)} {lse.dtype} must be a "
+            f"contiguous (B*H, S_q) = {(b * h, s_q)} float32 tensor on "
+            f"{q.device}")
+    if g.stride(3) != 1:
+        g = g.contiguous()
+    if out.stride(3) != 1:
+        out = out.contiguous()
+    km = None
+    if kmask is not None:
+        km = kmask.to(device=q.device, dtype=torch.float32).contiguous()
+    return out, g, km
+
+
+def flash_bwd(q, k, v, out, lse, g, scale, causal=False, kmask=None,
+              window=None):
+    """One flash backward: K2 (Delta and dQ), then K3 (dK, dV) for CUDA
+    tensors, the plain version for CPU tensors.  ``out`` and ``lse`` are
+    the forward's output and (B*H, S_q) log-sum-exp, ``g`` the gradient
+    of ``out``.  Returns ``(dq, dk, dv)`` in the input type."""
+    global flash_bwd_launches
+    out, g, km = _bwd_inputs(q, k, v, out, lse, g, kmask)
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse, g, scale, causal=causal,
+                               kmask=km, window=window)
+    if q.device.type != "cuda":
+        raise MXNetError(f"flash_bwd: no kernel for device {q.device}")
+    _, _, block_q, block_k = _bwd_kernels()
+    s_q, s_k = q.shape[1], k.shape[1]
+    if s_q % block_q or s_k % block_k:
+        raise MXNetError(
+            f"flash_bwd: S_q={s_q} must be a multiple of {block_q} and "
+            f"S_k={s_k} of {block_k}")
+    dq, delta = _bwd_dq(q, k, v, out, g, lse, km, scale, causal, window)
+    dk, dv = _bwd_dkv(q, k, v, out, g, lse, delta, km, scale, causal,
+                      window)
+    flash_bwd_launches += 1
+    return dq, dk, dv
+
+
 class _FlashFwd(torch.autograd.Function):
-    """Forward-only for now: the backward kernels are still to port."""
+    """K1 forward; K2 and K3 backward.  ``want_lse`` (a gradient will be
+    taken) makes the forward write the log-sum-exp the backward needs;
+    the no-grad serving path skips it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kmask, scale, causal, window):
-        out, _ = flash_fwd(q, k, v, scale, causal=causal, kmask=kmask,
-                           window=window)
+    def forward(ctx, q, k, v, kmask, scale, causal, window, want_lse):
+        out, lse = flash_fwd(q, k, v, scale, causal=causal, kmask=kmask,
+                             window=window, want_lse=want_lse)
+        if want_lse:
+            ctx.save_for_backward(q, k, v, out, lse, kmask)
+            ctx.attrs = (scale, causal, window)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        raise MXNetError(
-            "flash backward (K2/K3) is not ported yet; see ROADMAP")
+        if not hasattr(ctx, "attrs"):
+            raise MXNetError("flash attention backward without a saved "
+                             "LSE: the forward ran with no input that "
+                             "requires grad")
+        q, k, v, out, lse, kmask = ctx.saved_tensors
+        scale, causal, window = ctx.attrs
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, grad, scale,
+                               causal=causal, kmask=kmask, window=window)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _flash_apply(q, k, v, kmask, scale, causal, window):
+    """``_FlashFwd`` with the LSE written only when a gradient is
+    needed: grad mode on and an input that requires grad."""
+    want_lse = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    return _FlashFwd.apply(q, k, v, kmask, float(scale), bool(causal),
+                           window, want_lse)
 
 
 def _window_arg(window, causal, s_k, who):
@@ -241,5 +461,4 @@ def flash_attention(q, k, v, mask=None, scale=None, causal=False,
         if kmask is None:
             from .attention import sdpa_plain
             return sdpa_plain(q, k, v, mask, scale, causal, window=window)
-    return _FlashFwd.apply(q, k, v, kmask, float(scale), bool(causal),
-                           window)
+    return _flash_apply(q, k, v, kmask, scale, causal, window)

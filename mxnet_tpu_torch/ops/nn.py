@@ -1,13 +1,19 @@
-"""Activation, normalisation and indexing operators the Llama path
-uses, in plain PyTorch.  Dense layers are ``nn.Linear`` (``F.linear``,
-weight (out, in) as in the JAX package's FullyConnected)."""
+"""The plain operators of the Llama and BERT paths, in PyTorch.
+
+Dense layers run :func:`fully_connected` (``F.linear``, weight (out, in)
+as in the JAX package's FullyConnected).  ``fully_connected`` and
+:func:`dot` honour ``contrib.amp``.  Dropout draws its keep-mask from the
+device's ``mx.random`` generator (or one the caller passes)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..contrib import amp
+
 __all__ = ["silu", "rms_norm", "dot", "take", "embedding",
-           "cache_update"]
+           "cache_update", "fully_connected", "activation", "gelu",
+           "layer_norm", "dropout", "log_softmax", "pick"]
 
 
 def silu(data):
@@ -23,6 +29,7 @@ def rms_norm(data, gamma, eps=1e-6):
 
 def dot(a, b, transpose_a=False, transpose_b=False):
     """Contract the last axis of a with the first axis of b."""
+    a, b = amp.cast_inputs("dot", a, b)
     if transpose_a:
         a = a.t()
     if transpose_b:
@@ -63,3 +70,68 @@ def cache_update(cache, new, offset=0):
     start = min(max(int(offset), 0), c - s)
     cache[:, start:start + s] = new
     return cache
+
+
+def fully_connected(data, weight, bias=None, flatten=True):
+    """``data @ weight.T + bias``, weight (num_hidden, in_units);
+    ``flatten`` folds every axis after the first into one."""
+    data, weight, bias = amp.cast_inputs("FullyConnected", data, weight,
+                                         bias)
+    if flatten and data.dim() > 2:
+        data = data.reshape(data.shape[0], -1)
+    return F.linear(data, weight, bias)
+
+
+_ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
+                "tanh": torch.tanh, "softrelu": F.softplus}
+
+
+def activation(data, act_type="relu"):
+    """``Activation(act_type=...)``: relu, sigmoid, tanh or softrelu."""
+    if act_type not in _ACTIVATIONS:
+        raise ValueError(f"unknown act_type {act_type!r}; options "
+                         f"{sorted(_ACTIVATIONS)}")
+    return _ACTIVATIONS[act_type](data)
+
+
+def gelu(data):
+    """Exact (erf) GELU: ``LeakyReLU(act_type="gelu")``."""
+    return F.gelu(data)
+
+
+def layer_norm(data, gamma, beta, eps=1e-5):
+    """Normalise over the last axis, then ``* gamma + beta``.  Data of
+    another type than gamma (bf16 under AMP) is normalised in its own
+    type and promoted by the f32 gamma, as in the reference."""
+    shape = data.shape[-1:]
+    if data.dtype == gamma.dtype:
+        return F.layer_norm(data, shape, gamma, beta, eps)
+    return F.layer_norm(data, shape, eps=eps) * gamma + beta
+
+
+def dropout(data, p=0.5, training=False, generator=None):
+    """Zero each element with probability ``p`` and scale the kept ones
+    by ``1 / (1 - p)``; the identity when not training.  The keep-mask
+    comes from ``generator``, by default the device's ``mx.random``
+    stream."""
+    if not training or p <= 0.0:
+        return data
+    if generator is None:
+        from .. import random as _random
+        generator = _random.generator(data.device)
+    keep = torch.rand(data.shape, generator=generator,
+                      device=data.device) < 1.0 - p
+    return torch.where(keep, data / (1.0 - p), 0.0)
+
+
+def log_softmax(data, axis=-1):
+    return F.log_softmax(data, dim=axis)
+
+
+def pick(data, index, axis=-1, keepdims=False):
+    """``data`` at ``index`` along ``axis``, the index clipped into
+    range (labels are float32 class ids)."""
+    axis = axis % data.dim()
+    idx = index.to(data.device).long().clamp(0, data.shape[axis] - 1)
+    out = torch.gather(data, axis, idx.unsqueeze(axis))
+    return out if keepdims else out.squeeze(axis)

@@ -11,6 +11,7 @@ import torch
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch import models, parallel
 from mxnet_tpu_torch.models import LlamaForCausalLM, llama_tiny
 from mxnet_tpu_torch.ops import flash_attention as tfa
 from mxnet_tpu_torch.serving import Server
@@ -36,6 +37,33 @@ bad = sorted(m for m in sys.modules
 print("FOREIGN", bad)
 """
 
+_CHILD_TRAIN = r"""
+import sys
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import models, parallel
+from mxnet_tpu_torch.contrib import amp
+from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+net = models.BERTForPretrain(models.bert_small(
+    vocab_size=50, max_length=128, num_layers=1))
+net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+sce = SoftmaxCrossEntropyLoss()
+amp.init("bfloat16")
+dpt = parallel.DataParallelTrainer(
+    net, lambda o, y: sce(o[0], y[:, :2].reshape(-1)).mean()
+    + sce(o[1], y[:, 2]).mean(), "adam", {"learning_rate": 1e-4},
+    mesh=parallel.make_mesh({"dp": 1}, devices=[mx.cpu()]), fuse_step=True)
+rng = np.random.RandomState(0)
+tok = rng.randint(0, 50, (2, 128)).astype("f4")
+loss = dpt.step((tok, 0 * tok, None, tok[:, :2]), tok[:, :3])
+amp._deinit()
+assert np.isfinite(loss.item()), loss
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "mxnet_tpu" or m.startswith("mxnet_tpu."))
+print("FOREIGN", bad)
+"""
+
 
 def _sources():
     pkg = os.path.join(REPO, "mxnet_tpu_torch")
@@ -45,12 +73,22 @@ def _sources():
     return sorted(out)
 
 
-def test_serving_in_a_fresh_process_loads_no_jax():
+def _run_child(code):
     env = dict(os.environ, PYTHONPATH=REPO)
-    r = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "FOREIGN []" in r.stdout, r.stdout
+
+
+def test_serving_in_a_fresh_process_loads_no_jax():
+    _run_child(_CHILD)
+
+
+def test_training_in_a_fresh_process_loads_no_jax():
+    """A bf16-AMP BERT training step imports neither JAX nor the JAX
+    package."""
+    _run_child(_CHILD_TRAIN)
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -65,7 +103,8 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["LlamaForCausalLM", "Server",
-                                   "context"])
+                                   "context", "BERT.initialize",
+                                   "make_mesh"])
 def test_entry_points_default_to_the_card(entry):
     """Without a card and without ctx=mx.cpu(), entry points raise
     instead of running on the CPU."""
@@ -78,6 +117,11 @@ def test_entry_points_default_to_the_card(entry):
         elif entry == "Server":
             lm = LlamaForCausalLM(llama_tiny(vocab_size=61), ctx=mx.cpu())
             Server(lm, buckets=[(1, 8)], max_new_tokens=2)
+        elif entry == "BERT.initialize":
+            models.BERTForPretrain(models.bert_small()).initialize(
+                mx.init.Xavier())
+        elif entry == "make_mesh":
+            parallel.make_mesh({"dp": 1})
         else:
             mx.current_context().device
 
@@ -91,13 +135,15 @@ def test_cpu_scope_sets_the_default_context():
 
 
 def test_cpu_flash_attention_launches_no_kernel():
-    tfa.flash_fwd_launches = 0
+    tfa.flash_fwd_launches = tfa.flash_bwd_launches = 0
     rng = np.random.RandomState(0)
     q, k, v = (torch.from_numpy(rng.randn(1, 128, 2, 64).astype("f4"))
                for _ in range(3))
+    q.requires_grad_(True)
     out = mx.ops.dot_product_attention(q, k, v, causal=True)
+    out.sum().backward()
     assert out.shape == (1, 128, 2, 64)
-    assert tfa.flash_fwd_launches == 0
+    assert tfa.flash_fwd_launches == tfa.flash_bwd_launches == 0
 
 
 def test_model_must_come_from_get_llama():
