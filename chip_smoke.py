@@ -30,6 +30,22 @@ Phases, each printing JSON lines:
             DataParallelTrainer.step: 3 warm-up steps, then the
             two-window slope timing, samples/s, MFU against the H100's
             dense bf16 peak, peak memory and a profiled step.
+8. imperative_parity: bench.py's bench_mlp_train MLP (784-1024-1024-10,
+            batch 512, f32) takes 3 steps of record -> backward ->
+            gluon.Trainer("sgd", lr 0.05).step(512) on the card and on the
+            CPU from the same weights: losses agree to 1e-4 relative, and
+            so do all the weights (relative L2 difference).
+9. imperative: the same MLP on the card through mx.nd arrays,
+            hybridize(), autograd.record(), backward() and Trainer.step:
+            warm-up, the two-window slope timing, samples/s, a profiled
+            step (device busy share, kernels a step), peak memory; the
+            loss falls.
+10. rtc:    mx.rtc.CudaModule (K4) compiles the user kernels (the five of
+            tests/test_rtc.py, in CUDA) with NVRTC for sm_90a; each against
+            its plain version; axpy timed at 2^26 f32 against torch.add and
+            its bound; the host time of a launch; and one SGD update of the
+            MLP's parameters through axpy on p.data() and p.grad(), equal
+            to sgd_update's.
 
 Then one line of per-kernel numbers ({"kernels": [...]}), the card's name
 and power limit as nvidia-smi gives them, and as the last line
@@ -47,11 +63,14 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 without TF32
-ALL_PHASES = "device,build,kernels,parity,serve,train_parity,train"
+ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,train,"
+              "imperative_parity,imperative,rtc")
 
 
 def emit(obj):
@@ -99,10 +118,13 @@ COUNTERS = ("flash_fwd_launches", "flash_bwd_launches",
 
 
 def reset_counts():
-    """Set every kernel launch count to 0."""
+    """Set every kernel launch count to 0 (the flash kernels' and the
+    user kernels' of mx.rtc)."""
+    from mxnet_tpu_torch import rtc
     from mxnet_tpu_torch.ops import flash_attention as fa
     for name in COUNTERS:
         setattr(fa, name, 0)
+    rtc.rtc_launches = 0
 
 
 def read_counts():
@@ -407,6 +429,385 @@ def phase_kernels(dev):
     emit({"phase": "kernels",
           "kernels": ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]})
     return rows, bwd_rows
+
+
+# -- phase 10: rtc (K4) --------------------------------------------------------
+
+# User kernels: the five of tests/test_rtc.py, written in CUDA for
+# mx.rtc.CudaModule (NVRTC).  They are user code, not the package's.
+RTC_SOURCE = r"""
+extern "C" __global__ void axpy(const float *x, float *y, float alpha,
+                                int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = alpha * x[i] + y[i];
+}
+
+// one block per row: row r is scaled by r + 1
+extern "C" __global__ void scale_rows(const float *x, float *out, int cols) {
+    int r = blockIdx.x;
+    for (int j = threadIdx.x; j < cols; j += blockDim.x)
+        out[r * cols + j] = x[r * cols + j] * (float)(r + 1);
+}
+
+// two outputs: x + 1 and x * x
+extern "C" __global__ void stats(const float *x, float *s, float *q, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) {
+        float v = x[i];
+        s[i] = v + 1.0f;
+        q[i] = v * v;
+    }
+}
+
+// block b covers rows [b * rows_per_block, (b + 1) * rows_per_block) and
+// scales them by b + 1: the block mapping decides the result
+extern "C" __global__ void ident(const float *x, float *out,
+                                 int rows_per_block, int cols) {
+    int b = blockIdx.x;
+    int base = b * rows_per_block * cols;
+    for (int k = threadIdx.x; k < rows_per_block * cols; k += blockDim.x)
+        out[base + k] = x[base + k] * (float)(b + 1);
+}
+
+// a template: reached through exports= and its lowered name
+template <typename T>
+__global__ void fill(const float *x, T *out, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) out[i] = (T)x[i] + (T)1;
+}
+"""
+RTC_EXPORTS = ("fill<float>", "fill<int>")
+RTC_SIGNATURES = {
+    "axpy": "const float *x, float *y, float alpha, int n",
+    "scale_rows": "const float *x, float *out, int cols",
+    "stats": "const float *x, float *s, float *q, int n",
+    "ident": "const float *x, float *out, int rows_per_block, int cols",
+    "fill<float>": "const float *x, float *out, int n",
+    "fill<int>": "const float *x, int *out, int n",
+}
+
+
+def axpy_plain(x, y, alpha):
+    return alpha * x + y
+
+
+def scale_rows_plain(x):
+    import torch
+    rows = torch.arange(1, x.shape[0] + 1, dtype=x.dtype, device=x.device)
+    return x * rows[:, None]
+
+
+def stats_plain(x):
+    return x + 1.0, x * x
+
+
+def ident_plain(x, rows_per_block):
+    import torch
+    b = torch.arange(x.shape[0], device=x.device) // rows_per_block + 1
+    return x * b.to(x.dtype)[:, None]
+
+
+def fill_plain(x, dtype):
+    return x.to(dtype) + 1
+
+
+def _grid(n, block=256):
+    return ((n + block - 1) // block, 1, 1), (block, 1, 1)
+
+
+def rtc_kernel_cases(mx, ctx, mod, rows=512, cols=1024):
+    """Every user kernel of ``mod`` against its plain version on ``ctx``
+    (a card): the kernels, and {case: (max_abs_err, limit)}.  f32
+    arithmetic to 1e-6, copies and integers exactly."""
+    import torch
+    from mxnet_tpu_torch import nd
+    k = {name: mod.get_kernel(name, sig)
+         for name, sig in RTC_SIGNATURES.items()}
+    rng = np.random.RandomState(0)
+    x = nd.array(rng.randn(rows, cols).astype("f4"), ctx=ctx)
+    y = nd.array(rng.randn(rows, cols).astype("f4"), ctx=ctx)
+    n = rows * cols
+    res = {}
+
+    def err(a, b):
+        return (a._t.double() - b.double()).abs().max().item()
+
+    y0 = y._t.clone()
+    k["axpy"].launch([x, y, 2.0, n], ctx, *_grid(n))
+    res["axpy"] = (err(y, axpy_plain(x._t, y0, 2.0)), 1e-6)
+    out = nd.zeros((rows, cols), ctx=ctx)
+    k["scale_rows"].launch([x, out, cols], ctx, (rows, 1, 1), (256, 1, 1))
+    res["scale_rows"] = (err(out, scale_rows_plain(x._t)), 0.0)
+    s, q = nd.zeros((rows, cols), ctx=ctx), nd.zeros((rows, cols), ctx=ctx)
+    k["stats"].launch([x, s, q, n], ctx, *_grid(n))
+    ps, pq = stats_plain(x._t)
+    res["stats"] = (max(err(s, ps), err(q, pq)), 0.0)
+    for rpb in (1, 2):
+        out = nd.zeros((rows, cols), ctx=ctx)
+        k["ident"].launch([x, out, rpb, cols], ctx, (rows // rpb, 1, 1),
+                          (256, 1, 1))
+        res[f"ident_rows_per_block_{rpb}"] = (err(out, ident_plain(x._t,
+                                                                   rpb)), 0.0)
+    for name, dt in (("fill<float>", torch.float32),
+                     ("fill<int>", torch.int32)):
+        out = nd.zeros((rows, cols), ctx=ctx, dtype=dt)
+        k[name].launch([x, out, n], ctx, *_grid(n))
+        res[name] = (err(out, fill_plain(x._t, dt)), 0.0)
+    torch.cuda.synchronize()
+    return k, res
+
+
+def phase_rtc(mx, dev):
+    """K4: NVRTC builds the user kernels; each against its plain version;
+    axpy timed at 2^26 f32; one SGD update of the MLP through axpy."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon, nd, rtc
+
+    ctx = mx.gpu(0)
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(RTC_SOURCE, exports=RTC_EXPORTS)
+    compile_s = time.perf_counter() - t0
+    k, cases = rtc_kernel_cases(mx, ctx, mod)
+    for name, (err, limit) in cases.items():
+        check(err <= limit, f"rtc: {name} max abs error {err} > {limit}")
+    # compiled once per module, looked up once per (card, name)
+    looked_up = len(mod._functions)
+    again = mod.get_kernel("axpy", RTC_SIGNATURES["axpy"])
+    check(len(mod._functions) == looked_up and again._lowered == "axpy",
+          "rtc: a second get_kernel looked the kernel up again")
+    try:
+        mod.get_kernel("no_such_kernel", "float *x")
+        fail("rtc: an unknown kernel did not raise")
+    except mx.MXNetError:
+        pass
+
+    # axpy at 2^26 f32: 12 bytes an element (x, y read; y written)
+    n = 1 << 26
+    alpha = 0.5
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    x = nd.NDArray(torch.randn(n, generator=g, device=dev), ctx=ctx)
+    y = nd.NDArray(torch.randn(n, generator=g, device=dev), ctx=ctx)
+    y0 = y._t.clone()
+    grid, block = _grid(n)
+    k["axpy"].launch([x, y, alpha, n], ctx, grid, block)
+    big_err = (y._t - axpy_plain(x._t, y0, alpha)).abs().max().item()
+    check(big_err <= 1e-6, f"rtc: axpy at 2^26 max abs error {big_err}")
+    reps = 20
+    ms = cuda_time_ms(lambda: k["axpy"].launch([x, y, alpha, n], ctx, grid,
+                                               block), reps=reps)
+    plain_ms = cuda_time_ms(lambda: axpy_plain(x._t, y._t, alpha),
+                            reps=reps)
+    library_ms = cuda_time_ms(lambda: torch.add(y._t, x._t, alpha=alpha),
+                              reps=reps)
+    nbytes = 12 * n
+    bound_ms, bound_by = _bound(2.0 * n, nbytes, "float32")
+
+    # host time of a launch that hits every cache (a small array)
+    small = nd.zeros((1024,), ctx=ctx)
+    launch = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launch):
+        k["axpy"].launch([small, small, 1.0, 1024], ctx, (4, 1, 1),
+                         (256, 1, 1))
+    host_us = (time.perf_counter() - t0) / launch * 1e6
+    torch.cuda.synchronize()
+
+    # the main path: one SGD update of the imperative MLP's parameters
+    # through axpy on p.data() and p.grad(), against sgd_update from the
+    # same start
+    mx.random.seed(0)
+    net = build_mlp(mx, ctx)
+    xnp, ynp = mlp_batch(MLP["batch_size"], MLP["widths"][0])
+    xb, yb = nd.array(xnp, ctx=ctx), nd.array(ynp, ctx=ctx)
+    with autograd.record():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(xb), yb)
+    loss.backward()
+    params = list(net.collect_params().values())
+    lr, rescale = MLP["lr"], 1.0 / MLP["batch_size"]
+    want = []
+    for p in params:
+        w = p.data().copy()
+        nd.sgd_update(w, p.grad(), lr=lr, wd=0.0, rescale_grad=rescale,
+                      out=w)
+        want.append(w)
+    torch.cuda.synchronize()
+    reset_counts()
+    for p in params:
+        w = p.data()
+        k["axpy"].launch([p.grad(), w, -lr * rescale, w.size], ctx,
+                         *_grid(w.size))
+    torch.cuda.synchronize()
+    launches = rtc.rtc_launches
+    sgd_err = max((p.data()._t - w._t).abs().max().item()
+                  for p, w in zip(params, want))
+    equal = all(torch.equal(p.data()._t, w._t) for p, w in zip(params, want))
+    row = {"phase": "rtc", "nvrtc": list(rtc.nvrtc_version()),
+           "arch": rtc.ARCH, "compile_s": compile_s,
+           "cubin_bytes": mod.cubin_bytes, "kernels": sorted(k),
+           "cases": {c: {"max_abs_err": e, "limit": l}
+                     for c, (e, l) in cases.items()},
+           "axpy_n": n, "axpy_max_abs_err": big_err, "axpy_ms": ms,
+           "axpy_plain_ms": plain_ms, "axpy_library_ms": library_ms,
+           "axpy_bound_ms": bound_ms, "axpy_bound_by": bound_by,
+           "axpy_bytes": nbytes,
+           "axpy_gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+           "host_us_per_launch": host_us, "sgd_params": len(params),
+           "sgd_launches": launches, "sgd_max_abs_diff": sgd_err,
+           "sgd_equal": equal, "card": nvidia_smi()}
+    emit(row)
+    check(launches == len(params),
+          f"rtc: {launches} axpy launches for {len(params)} parameters")
+    check(equal, f"rtc: the axpy SGD update differs from sgd_update's by "
+          f"{sgd_err}")
+    return row
+
+
+# -- phases 8 and 9: the imperative path ---------------------------------------
+
+# bench.py's bench_mlp_train: 784-1024-1024-10 ReLU MLP, batch 512, SGD at
+# lr 0.05, Xavier weights
+MLP = dict(widths=(784, 1024, 1024, 10), batch_size=512, lr=0.05,
+           steps=30, warmup=5)
+
+
+def build_mlp(mx, ctx, widths=MLP["widths"], seed=None):
+    """bench_mlp_train's net on ``ctx``, hybridized (it runs eagerly)."""
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(widths[1], activation="relu", in_units=widths[0]),
+                nn.Dense(widths[2], activation="relu", in_units=widths[1]),
+                nn.Dense(widths[3], in_units=widths[2]))
+    net.initialize(mx.init.Xavier(), ctx=ctx, seed=seed)
+    net.hybridize()
+    return net
+
+
+def mlp_batch(batch_size, in_units, classes=10):
+    """The bench's batch: uniform inputs, random class labels (float32)."""
+    rng = np.random.RandomState(0)
+    return (rng.rand(batch_size, in_units).astype("f4"),
+            rng.randint(0, classes, batch_size).astype("f4"))
+
+
+def mlp_step_fn(mx, net, ctx, xnp, ynp, lr=MLP["lr"]):
+    """One training step: record -> backward -> Trainer("sgd").step;
+    returns the per-sample loss NDArray (not synchronised)."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": lr}, kvstore=None)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = nd.array(xnp, ctx=ctx), nd.array(ynp, ctx=ctx)
+    batch_size = xnp.shape[0]
+
+    def step():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(batch_size)
+        return loss
+    return step
+
+
+def phase_imperative_parity(mx, dev, steps=3):
+    """3 SGD steps on the card and on the CPU from the same weights.
+
+    The weights are held by their relative L2 difference over all
+    parameters.  An elementwise bound per tensor does not hold between
+    two summation orders here: the bench's batch has ReLU
+    pre-activations within 1.2e-7 of zero, so the card flips a few ReLU
+    masks that the CPU does not, and each flip moves one sample's whole
+    contribution to a gradient row (up to 2 % of a small bias after 3
+    steps).  Both numbers are emitted."""
+    b = MLP["batch_size"]
+    xnp, ynp = mlp_batch(b, MLP["widths"][0])
+    cpu_net = build_mlp(mx, mx.cpu(), seed=5)
+    card_net = build_mlp(mx, mx.gpu(0), seed=5)
+    for src, dst in zip(cpu_net.collect_params().values(),
+                        card_net.collect_params().values()):
+        dst.set_data(src.data())
+    losses, weights = [], []
+    for net, ctx in ((cpu_net, mx.cpu()), (card_net, mx.gpu(0))):
+        step = mlp_step_fn(mx, net, ctx, xnp, ynp)
+        losses.append([step().mean().asscalar() for _ in range(steps)])
+        weights.append([p.data().asnumpy().astype("f8")
+                        for p in net.collect_params().values()])
+    cpu_losses, card_losses = losses
+    rel = max(abs(g - c) / abs(c) for g, c in zip(card_losses, cpu_losses))
+    cpu_w, card_w = weights
+    diff = math.sqrt(sum(float(np.square(g - c).sum())
+                         for g, c in zip(card_w, cpu_w)))
+    norm = math.sqrt(sum(float(np.square(c).sum()) for c in cpu_w))
+    per_tensor = {name: {"max_abs_diff": float(np.abs(g - c).max()),
+                         "max_abs": float(np.abs(c).max())}
+                  for name, g, c in zip(cpu_net.collect_params().keys(),
+                                        card_w, cpu_w)}
+    emit({"phase": "imperative_parity", "model": "mlp_784_1024_1024_10",
+          "batch_size": b, "dtype": "float32", "steps": steps,
+          "cpu_losses": cpu_losses, "gpu_losses": card_losses,
+          "max_rel_diff": rel, "weights_rel_l2_diff": diff / norm,
+          "per_tensor": per_tensor})
+    check(rel <= 1e-4, f"imperative_parity: losses differ by {rel}")
+    check(diff / norm <= 1e-4,
+          f"imperative_parity: weights differ by {diff / norm} (L2)")
+    check(card_losses[-1] < card_losses[0],
+          "imperative_parity: the loss did not fall")
+
+
+def phase_imperative(mx, dev, cfg=MLP):
+    """bench_mlp_train's loop on the card: warm-up, then the two-window
+    slope timing and a profiled step."""
+    import torch
+    from mxnet_tpu_torch import nd
+    b, steps, warmup = cfg["batch_size"], cfg["steps"], cfg["warmup"]
+    mx.random.seed(0)
+    net = build_mlp(mx, mx.gpu(0))
+    n_params = sum(p.data().size for p in net.collect_params().values())
+    xnp, ynp = mlp_batch(b, cfg["widths"][0])
+    step = mlp_step_fn(mx, net, mx.gpu(0), xnp, ynp, lr=cfg["lr"])
+    first = step().mean().asscalar()
+    for _ in range(warmup - 1):
+        step()
+    nd.waitall()
+
+    def timed_window(n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            last = step()
+        val = last.mean().asscalar()
+        check(math.isfinite(val), f"imperative: loss {val} is not finite")
+        return time.perf_counter() - t0, val
+
+    n1 = steps // 3
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t_small, _ = timed_window(n1)
+    dt, last = timed_window(steps)
+    peak = torch.cuda.max_memory_allocated(dev)
+    slope = (dt - t_small) / (steps - n1)
+    naive = dt / steps
+    slope_used = "slope"
+    if slope <= 0 or slope < 0.2 * naive:
+        slope, slope_used = naive, "naive"
+    breakdown = profile_call(step)
+    flops = 6.0 * n_params * b
+    emit({"phase": "imperative", "model": "mlp_784_1024_1024_10",
+          "dtype": "float32", "batch_size": b, "params": n_params,
+          "warmup": warmup, "windows": [n1, steps],
+          "window_s": [t_small, dt], "step_ms": slope * 1e3,
+          "naive_step_ms": naive * 1e3, "timing": slope_used,
+          "samples_per_s": b / slope, "flops_per_step": flops,
+          "bound_ms": flops / PEAK_FLOPS["float32"] * 1e3,
+          "kernels_per_step": breakdown["kernels"],
+          "device_busy_share": breakdown["device_busy_share"],
+          "first_loss": first, "last_loss": last, "peak_mem_bytes": peak,
+          "card": nvidia_smi()})
+    emit(dict({"phase": "imperative_breakdown", "call": "step_b512"},
+              **breakdown))
+    check(last < first, f"imperative: last loss {last} not below the "
+          f"first {first}")
 
 
 # -- phase 4: parity -----------------------------------------------------------
@@ -836,15 +1237,21 @@ def main():
         phase_train_parity(mx, dev)
     train = phase_train(mx, dev, mx.gpu(0)) if "train" in phases \
         else {}
+    if "imperative_parity" in phases:
+        phase_imperative_parity(mx, dev)
+    if "imperative" in phases:
+        phase_imperative(mx, dev)
+    rtc = phase_rtc(mx, dev) if "rtc" in phases else None
 
     head = next((r for r in rows if r["case"] == HEADLINE_CASE), None)
     bwd = next((r for r in bwd_rows if r["case"] == BWD_HEADLINE_CASE),
                None)
+    kernels = []
     if head is not None and bwd is not None:
         src = "mxnet_tpu_torch/csrc/"
         whole = ("dq, dk and dv together: flash_bwd_plain, and the backward "
                  "of F.scaled_dot_product_attention")
-        emit({"kernels": [
+        kernels += [
             {"name": "flash_fwd", "route": "cuda",
              "source": src + "flash_fwd.cu",
              "replaces": "mxnet_tpu/ops/flash_attention.py:76",
@@ -875,7 +1282,22 @@ def main():
              "bound_ms": bwd["dkv_bound_ms"],
              "bound_by": bwd["dkv_bound_by"],
              "library_ms": bwd["library_ms"], "plain_and_library": whole},
-        ]})
+        ]
+    if rtc is not None:
+        kernels.append(
+            {"name": "rtc_axpy", "route": "nvrtc",
+             "source": "mxnet_tpu_torch/rtc.py",
+             "user_kernel_source": "chip_smoke.py RTC_SOURCE",
+             "replaces": "mxnet_tpu/rtc.py:109",
+             "case": "axpy_2^26_f32", "launches": rtc["sgd_launches"],
+             "max_abs_err": rtc["axpy_max_abs_err"], "ms": rtc["axpy_ms"],
+             "plain_ms": rtc["axpy_plain_ms"],
+             "bound_ms": rtc["axpy_bound_ms"],
+             "bound_by": rtc["axpy_bound_by"],
+             "library_ms": rtc["axpy_library_ms"],
+             "library_call": "torch.add(y, x, alpha=a)"})
+    if kernels:
+        emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,10 @@
-"""Gluon: ``Block`` with ``initialize``, basic layers, the transformer
-blocks (``gluon.contrib.nn``) and losses."""
+"""Gluon: ``Block``/``HybridBlock`` with names and ``collect_params``,
+``Parameter``/``ParameterDict``, basic layers and containers, the
+transformer blocks (``gluon.contrib.nn``), losses and ``Trainer``."""
 from . import contrib, loss, nn
-from .block import Block
+from .block import Block, HybridBlock
+from .parameter import Parameter, ParameterDict
+from .trainer import Trainer
 
-__all__ = ["Block", "contrib", "loss", "nn"]
+__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Trainer",
+           "contrib", "loss", "nn"]

@@ -1,4 +1,6 @@
-"""Basic layers."""
-from .basic_layers import Dense, Dropout, Embedding, LayerNorm
+"""Basic layers and the sequential containers."""
+from .basic_layers import (Dense, Dropout, Embedding, HybridSequential,
+                           LayerNorm, Sequential)
 
-__all__ = ["Dense", "Dropout", "Embedding", "LayerNorm"]
+__all__ = ["Dense", "Dropout", "Embedding", "HybridSequential",
+           "LayerNorm", "Sequential"]

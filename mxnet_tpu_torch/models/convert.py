@@ -19,7 +19,7 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["load_jax_params", "jax_name_to_torch", "load_jax_bert_params",
-           "jax_bert_name_to_torch"]
+           "jax_bert_name_to_torch", "load_jax_gluon_params"]
 
 _PREFIX = re.compile(r"^(?:llamamodel|llamaforcausallm)\d+_")
 _RULES = [
@@ -120,6 +120,39 @@ def load_jax_bert_params(model, params: Dict[str, np.ndarray]):
     pretrain = isinstance(model, BERTForPretrain)
     return _copy_by_name(
         model, params, lambda n: jax_bert_name_to_torch(n, pretrain))
+
+
+def load_jax_gluon_params(block, params: Dict[str, np.ndarray],
+                          jax_prefix: str):
+    """Copy a JAX gluon block's parameters into the port's ``block`` (a
+    gluon ``Block``, initialized) by name.  ``params`` is
+    ``{name: array}`` from the JAX block's ``collect_params()``, whose
+    names start with ``jax_prefix`` (the JAX block's ``prefix``); each is
+    matched to the port's ``collect_params()`` name that has
+    ``block.prefix`` in its place.  Raises ``MXNetError`` on a missing,
+    extra, unknown or wrong-shape name."""
+    own = block.collect_params()
+    seen = set()
+    for name, value in params.items():
+        if not name.startswith(jax_prefix):
+            raise MXNetError(f"{name!r} does not start with the prefix "
+                             f"{jax_prefix!r}")
+        tname = block.prefix + name[len(jax_prefix):]
+        if tname not in own:
+            raise MXNetError(f"{name!r} maps to {tname!r}, which this "
+                             "block does not have")
+        arr = np.asarray(value)
+        if tuple(arr.shape) != own[tname].shape:
+            raise MXNetError(f"{name!r}: shape {tuple(arr.shape)} does not "
+                             f"match {tname!r} {own[tname].shape}")
+        seen.add(tname)
+    missing = sorted(set(own.keys()) - seen)
+    if missing:
+        raise MXNetError(f"parameters missing from the dict: {missing}")
+    for name, value in params.items():
+        own[block.prefix + name[len(jax_prefix):]].set_data(
+            np.ascontiguousarray(value))
+    return block
 
 
 @torch.no_grad()

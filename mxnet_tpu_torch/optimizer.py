@@ -1,4 +1,14 @@
-"""Adam, as the JAX package's ``optimizer.Adam`` with the fused
+"""Optimizers: the reference's ``Optimizer`` registry with ``SGD`` and the
+``Updater`` that ``gluon.Trainer`` drives (as the JAX package's
+``optimizer/optimizer.py``), and Adam for ``DataParallelTrainer``.
+
+``SGD`` runs the ``sgd_update`` / ``sgd_mom_update`` ops on NDArrays with
+``out=`` (in place), ``lr``, ``wd`` and ``rescale_grad`` as scalars, with
+``clip_gradient`` and each gluon Parameter's ``lr_mult``/``wd_mult``
+(``param_dict``).  Not ported: the other optimizers, multi-precision,
+learning-rate schedules.
+
+Adam is the JAX package's ``optimizer.Adam`` with the fused
 ``adam_update`` rule of its data-parallel trainer.
 
 The bias correction goes on the learning rate,
@@ -16,12 +26,131 @@ multi-tensor operators, in place.
 from __future__ import annotations
 
 import math
+from typing import Dict
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["Adam", "create"]
+__all__ = ["Optimizer", "SGD", "Adam", "Updater", "create", "register",
+           "get_updater"]
+
+
+class Optimizer:
+    """Base optimizer (parity: ``mx.optimizer.Optimizer``)."""
+
+    opt_registry: Dict[str, type] = {}
+
+    @staticmethod
+    def register(klass):
+        Optimizer.opt_registry[klass.__name__.lower()] = klass
+        return klass
+
+    @staticmethod
+    def create_optimizer(name, **kwargs):
+        key = str(name).lower()
+        if key not in Optimizer.opt_registry:
+            raise MXNetError(f"optimizer {name!r} is not ported; options "
+                             f"{sorted(Optimizer.opt_registry)}")
+        return Optimizer.opt_registry[key](**kwargs)
+
+    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
+                 learning_rate=None, param_dict=None):
+        self.rescale_grad = rescale_grad
+        self.lr = learning_rate if learning_rate is not None else 0.01
+        self.wd = wd
+        self.clip_gradient = clip_gradient
+        self.num_update = 0
+        self._index_update_count = {}
+        self.param_dict = param_dict if param_dict else {}
+
+    @property
+    def learning_rate(self):
+        return self.lr
+
+    def set_learning_rate(self, lr):
+        self.lr = lr
+
+    def _update_count(self, index):
+        count = self._index_update_count.get(index, 0) + 1
+        self._index_update_count[index] = count
+        self.num_update = max(count, self.num_update)
+
+    def _get_lr(self, index):
+        p = self.param_dict.get(index)
+        return self.learning_rate * (p.lr_mult if p is not None else 1.0)
+
+    def _get_wd(self, index):
+        p = self.param_dict.get(index)
+        return self.wd * (p.wd_mult if p is not None else 1.0)
+
+    def _clip(self):
+        return -1.0 if self.clip_gradient is None else float(
+            self.clip_gradient)
+
+    def create_state(self, index, weight):
+        return None
+
+    def update(self, index, weight, grad, state):
+        raise NotImplementedError
+
+
+register = Optimizer.register
+
+
+@register
+class SGD(Optimizer):
+    """SGD with momentum (parity: the reference's SGD):
+    ``w -= lr * (clip(rescale_grad * g) + wd * w)``, or with momentum
+    ``m = momentum * m - lr * (...)``, ``w += m``."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        from .ndarray.ndarray import zeros
+        return zeros(weight.shape, ctx=weight.context,
+                     dtype=weight.dtype.name)
+
+    def update(self, index, weight, grad, state):
+        from . import ndarray as nd
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        if state is not None:
+            nd.sgd_mom_update(weight, grad, state, lr=lr, wd=wd,
+                              momentum=self.momentum,
+                              rescale_grad=self.rescale_grad,
+                              clip_gradient=self._clip(),
+                              out=[weight, state])
+        else:
+            nd.sgd_update(weight, grad, lr=lr, wd=wd,
+                          rescale_grad=self.rescale_grad,
+                          clip_gradient=self._clip(), out=weight)
+
+
+class Updater:
+    """Applies an optimizer's update per parameter index, holding the
+    states (parity: ``mx.optimizer.Updater``)."""
+
+    def __init__(self, optimizer: Optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+
+    def __call__(self, index, grad, weight):
+        indices = index if isinstance(index, (list, tuple)) else [index]
+        grads = grad if isinstance(grad, (list, tuple)) else [grad]
+        weights = weight if isinstance(weight, (list, tuple)) else [weight]
+        for i, g, w in zip(indices, grads, weights):
+            if i not in self.states:
+                self.states[i] = self.optimizer.create_state(i, w)
+            self.optimizer.update(i, w, g, self.states[i])
+
+
+def get_updater(optimizer: Optimizer) -> Updater:
+    return Updater(optimizer)
 
 
 class Adam:
@@ -71,13 +200,10 @@ class Adam:
         torch._foreach_sub_(weights, step)
 
 
-_REGISTRY = {"adam": Adam}
+Optimizer.opt_registry["adam"] = Adam
 
 
 def create(name, **kwargs):
-    """An optimizer by name (``"adam"``)."""
-    key = str(name).lower()
-    if key not in _REGISTRY:
-        raise MXNetError(f"optimizer {name!r} is not ported; options "
-                         f"{sorted(_REGISTRY)}")
-    return _REGISTRY[key](**kwargs)
+    """An optimizer by name: ``"sgd"`` (an ``Optimizer``, for
+    ``gluon.Trainer``) or ``"adam"`` (for ``DataParallelTrainer``)."""
+    return Optimizer.create_optimizer(name, **kwargs)

@@ -45,6 +45,9 @@ class DataParallelTrainer:
         self.block = block
         self.loss_fn = loss_fn
         self.optimizer = opt.create(optimizer, **(optimizer_params or {}))
+        if not isinstance(self.optimizer, opt.Adam):
+            raise MXNetError(f"optimizer {optimizer!r} is not ported for "
+                             "DataParallelTrainer, which has 'adam'")
         self._params = [p for p in block.parameters() if p.requires_grad]
         if not self._params:
             raise MXNetError("the block has no trainable parameters")

@@ -65,6 +65,37 @@ print("FOREIGN", bad)
 """
 
 
+_CHILD_IMPERATIVE = r"""
+import sys
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import autograd, gluon, nd, rtc, test_utils
+net = gluon.nn.HybridSequential()
+with net.name_scope():
+    net.add(gluon.nn.Dense(8, activation="relu", in_units=4),
+            gluon.nn.Dense(3, in_units=8))
+net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+net.hybridize()
+trainer = gluon.Trainer(net.collect_params(), "sgd",
+                        {"learning_rate": 0.1, "momentum": 0.9})
+loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+x = nd.random.uniform(shape=(16, 4), ctx=mx.cpu())
+y = nd.array(np.arange(16) % 3, ctx=mx.cpu())
+losses = []
+for _ in range(5):
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(16)
+    losses.append(loss.mean().asscalar())
+assert losses[-1] < losses[0], losses
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "mxnet_tpu" or m.startswith("mxnet_tpu."))
+print("FOREIGN", bad)
+"""
+
+
 def _sources():
     pkg = os.path.join(REPO, "mxnet_tpu_torch")
     out = [os.path.join(REPO, "chip_smoke.py")]
@@ -91,6 +122,12 @@ def test_training_in_a_fresh_process_loads_no_jax():
     _run_child(_CHILD_TRAIN)
 
 
+def test_imperative_path_in_a_fresh_process_loads_no_jax():
+    """mx.nd, autograd, gluon.Trainer and mx.rtc import neither JAX nor
+    the JAX package."""
+    _run_child(_CHILD_IMPERATIVE)
+
+
 def test_no_source_imports_jax_or_the_jax_package():
     offenders = []
     for path in _sources():
@@ -104,7 +141,9 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 @pytest.mark.parametrize("entry", ["LlamaForCausalLM", "Server",
                                    "context", "BERT.initialize",
-                                   "make_mesh"])
+                                   "make_mesh", "nd.array", "nd.zeros",
+                                   "nd.random.normal", "gluon.initialize",
+                                   "rtc.launch"])
 def test_entry_points_default_to_the_card(entry):
     """Without a card and without ctx=mx.cpu(), entry points raise
     instead of running on the CPU."""
@@ -122,6 +161,18 @@ def test_entry_points_default_to_the_card(entry):
                 mx.init.Xavier())
         elif entry == "make_mesh":
             parallel.make_mesh({"dp": 1})
+        elif entry == "nd.array":
+            mx.nd.array([1.0, 2.0])
+        elif entry == "nd.zeros":
+            mx.nd.zeros((2, 2))
+        elif entry == "nd.random.normal":
+            mx.nd.random.normal(shape=(2,))
+        elif entry == "gluon.initialize":
+            mx.gluon.nn.Dense(2, in_units=3).initialize()
+        elif entry == "rtc.launch":
+            k = mx.rtc.CudaKernel(None, "k", "k", "float *y")
+            k.launch([mx.nd.zeros((2,), ctx=mx.cpu())], mx.gpu(0),
+                     (1, 1, 1), (2, 1, 1))
         else:
             mx.current_context().device
 
