@@ -6,13 +6,26 @@
 Phases, each printing JSON lines:
 
 1. device:  the card's name, power limit and compute capability (9.0).
-2. build:   nvcc builds every kernel under mxnet_tpu_torch/csrc/.
+2. build:   nvcc builds every kernel under mxnet_tpu_torch/csrc/ (one
+            nvcc a source, in parallel): ptxas' registers and spills for
+            each kernel (no spill allowed in a tensor-core kernel at
+            D <= 128), the HMMA (tensor-core) instructions in each
+            kernel's SASS (cuobjdump), and the tile sizes the libraries
+            export against the wrappers' constants.
 3. kernels: each kernel against its plain PyTorch version on the card,
-            with its time, the plain version's, the library call's
-            (F.scaled_dot_product_attention, forward or backward: a
-            yardstick the package never calls) and its bound (the larger
-            of bytes over 3.35 TB/s and operations over the type's peak):
-            the flash forward (K1) and backward (K2 dQ, K3 dK/dV).
+            with its device time, the plain version's, the library
+            call's (F.scaled_dot_product_attention, forward or backward:
+            a yardstick the package never calls) and its bound (the
+            larger of bytes over 3.35 TB/s and operations over the
+            type's peak): the flash forward (K1) and backward (K2 dQ, K3
+            dK/dV), bf16 on the tensor cores and f32 on the CUDA cores.
+            Device times are the kernels' own time on the card, summed
+            by torch.profiler over a window of back-to-back calls
+            (device_ms); ``launch_ms`` is the older host-paced reading
+            (CUDA events around the calls), kept for the host's cost of
+            a wrapper call. The library's backward computes dQ, dK and
+            dV in one kernel, so K2 + K3 are compared with the whole of
+            it; each one's share of it is only an estimate.
 4. parity:  llama_tiny in float32 served through Server on the card (the
             flash kernel) gives the same greedy tokens as on the CPU (the
             plain version), and the kernel ran once per layer per
@@ -42,8 +55,8 @@ Phases, each printing JSON lines:
             loss falls.
 10. rtc:    mx.rtc.CudaModule (K4) compiles the user kernels (the five of
             tests/test_rtc.py, in CUDA) with NVRTC for sm_90a; each against
-            its plain version; axpy timed at 2^26 f32 against torch.add and
-            its bound; the host time of a launch; and one SGD update of the
+            its plain version; axpy timed (device time) at 2^26 f32
+            against torch.add and its bound; the host time of a launch; and one SGD update of the
             MLP's parameters through axpy on p.data() and p.grad(), equal
             to sgd_update's.
 
@@ -58,6 +71,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -100,6 +114,9 @@ def nvidia_smi():
 
 
 def cuda_time_ms(fn, reps, warmup=2):
+    """Host-paced time of one call: CUDA events around ``reps``
+    back-to-back calls.  Where a call's host work (Python, checks,
+    allocation, launch) outlasts its kernels, this reads the host."""
     import torch
     for _ in range(warmup):
         fn()
@@ -113,8 +130,51 @@ def cuda_time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps, warmup=2, by_kernel=False, tries=3):
+    """Device time of one call: from one torch.profiler window of
+    ``reps`` back-to-back calls, each CUDA kernel's (and copy's) mean
+    self device time times its launches a call, summed.  The host's pace
+    does not enter it.  Every call runs the same kernels, so each must
+    be recorded a nonzero multiple of ``reps`` times; the profiler
+    drops an event now and then (one NVRTC launch in 20), so a count
+    within 10 % of such a multiple passes, and a window that lost more
+    is taken again, up to ``tries`` windows.  With ``by_kernel`` also
+    returns {kernel: ms a call}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, counts = {}, {}
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA \
+                    and ev.self_device_time_total > 0:
+                us[ev.key] = us.get(ev.key, 0.0) + ev.self_device_time_total
+                counts[ev.key] = counts.get(ev.key, 0) + ev.count
+        per_call = {k: round(n / reps) for k, n in counts.items()}
+        if counts and all(per_call[k] >= 1
+                          and abs(n - per_call[k] * reps) <= 0.1 * reps
+                          for k, n in counts.items()):
+            per = {k: us[k] / counts[k] * per_call[k] / 1e3 for k in us}
+            total = sum(per.values())
+            return (total, per) if by_kernel else total
+    fail(f"device_ms: {tries} profiler windows of {reps} calls each "
+         f"recorded kernels a number of times far from a multiple of the "
+         f"calls: {counts}")
+
+
 COUNTERS = ("flash_fwd_launches", "flash_bwd_launches",
-            "flash_bwd_dq_launches", "flash_bwd_dkv_launches")
+            "flash_bwd_dq_launches", "flash_bwd_dkv_launches",
+            "flash_fwd_tc_launches", "flash_bwd_dkv_tc_launches")
+# the counters of the CUDA-core f32 route: every launch counts there,
+# and a bf16 launch also counts in its *_tc_launches
+F32_ROUTE = COUNTERS[:4]
 
 
 def reset_counts():
@@ -161,16 +221,33 @@ FLASH_CASES = [
          dtype="float32", causal=True),
     dict(name="lse_s512_f32", s_q=512, s_k=512, dtype="float32",
          causal=True, want_lse=True),
-    # the other head-dim instantiations (BERT's 64, and the 256 limit)
+    dict(name="lse_s512_causal_bf16", s_q=512, s_k=512, dtype="bfloat16",
+         causal=True, want_lse=True),
+    # a causal offset below 0 (S_k < S_q): no tile skip, and the first
+    # 128 rows see no key, so they come out as the uniform average of V
+    dict(name="short_keys_256x128_bf16", s_q=256, s_k=128,
+         dtype="bfloat16", causal=True),
+    # a band edge in the middle of a 64-key tile
+    dict(name="window_s512_w100_bf16", s_q=512, s_k=512, dtype="bfloat16",
+         causal=True, window=100),
+    # the other head-dim instantiations (BERT's 64, and the 256 limit),
+    # and a head dim the tensor cores take zero-padded to 80
     dict(name="d64_s256_bf16", s_q=256, s_k=256, dtype="bfloat16",
          causal=False, h=12, kv=12, d=64),
+    dict(name="d72_s256_bf16", s_q=256, s_k=256, dtype="bfloat16",
+         causal=True, h=8, kv=2, d=72),
+    dict(name="d256_s256_bf16", s_q=256, s_k=256, dtype="bfloat16",
+         causal=True, h=8, kv=2, d=256),
     dict(name="d256_s256_f32", s_q=256, s_k=256, dtype="float32",
          causal=True, h=8, kv=2, d=256),
     # BERT-base training's forward: b64 s128, H=KV=12, D=64, with the LSE
     dict(name="bert_b64_s128_lse_bf16", b=64, s_q=128, s_k=128,
          dtype="bfloat16", causal=False, h=12, kv=12, d=64, want_lse=True),
+    dict(name="bert_b64_s128_lse_f32", b=64, s_q=128, s_k=128,
+         dtype="float32", causal=False, h=12, kv=12, d=64, want_lse=True),
 ]
 HEADLINE_CASE = "bert_b64_s128_lse_bf16"
+SERVE_CASE = "prefill_s512_bf16"
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 # the backward (K2 dQ, K3 dK/dV) against flash_bwd_plain, with a random
@@ -195,12 +272,26 @@ BWD_CASES = [
          causal=False, b=2, kmask_lens=(300, 512)),
     dict(name="key_padding_s512_f32", s_q=512, s_k=512, dtype="float32",
          causal=False, b=2, kmask_lens=(300, 512)),
+    dict(name="key_padding_empty_row_s512_bf16", s_q=512, s_k=512,
+         dtype="bfloat16", causal=False, b=2, kmask_lens=(0, 512)),
     dict(name="key_padding_empty_row_s512_f32", s_q=512, s_k=512,
          dtype="float32", causal=False, b=2, kmask_lens=(0, 512)),
+    dict(name="cross_causal_128x256_bf16", s_q=128, s_k=256,
+         dtype="bfloat16", causal=True),
     dict(name="cross_causal_128x256_f32", s_q=128, s_k=256,
          dtype="float32", causal=True),
+    dict(name="short_keys_256x128_bf16", s_q=256, s_k=128,
+         dtype="bfloat16", causal=True),
     dict(name="short_keys_256x128_f32", s_q=256, s_k=128, dtype="float32",
          causal=True),
+    # keys 0-319 lie below every query's window: whole key tiles that
+    # visit no query tile, whose dK and dV must be exactly 0
+    dict(name="cross_window_128x512_w64_bf16", s_q=128, s_k=512,
+         dtype="bfloat16", causal=True, window=64),
+    dict(name="d72_s256_bf16", s_q=256, s_k=256, dtype="bfloat16",
+         causal=True, h=8, kv=2, d=72),
+    dict(name="d256_s256_bf16", s_q=256, s_k=256, dtype="bfloat16",
+         causal=True, h=8, kv=2, d=256),
     dict(name="d256_s256_f32", s_q=256, s_k=256, dtype="float32",
          causal=True, h=8, kv=2, d=256),
 ]
@@ -276,10 +367,12 @@ def _flash_case(case, dev):
         check(lse_err <= tol, f"{case['name']}: lse error {lse_err} > {tol}")
     check(err <= tol, f"{case['name']}: max abs error {err} > {tol}")
 
-    kernel_ms = cuda_time_ms(lambda: fa.flash_fwd(
-        q, k, v, scale, causal=causal, kmask=kmask, window=window,
-        want_lse=want_lse), reps=20)
-    plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
+    def kernel():
+        return fa.flash_fwd(q, k, v, scale, causal=causal, kmask=kmask,
+                            window=window, want_lse=want_lse)
+    kernel_ms = device_ms(kernel, reps=20)
+    launch_ms = cuda_time_ms(kernel, reps=20)
+    plain_ms = device_ms(lambda: fa.flash_attention_plain(
         q, k, v, scale, causal=causal, kmask=kmask, window=window,
         want_lse=want_lse), reps=5, warmup=1)
 
@@ -297,20 +390,28 @@ def _flash_case(case, dev):
     # the library yardstick: (B, H, S, D) layout, GQA, same mask
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib_kw = _library_mask(case, keep, kmask)
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, enable_gqa=True, scale=scale, **lib_kw), reps=20)
     row = {"phase": "kernels", "kernel": "flash_fwd", "case": case["name"],
-           "b": b, "h": h, "kv": kv, "d": d, "s_q": s_q, "s_k": s_k,
+           "cores": _cores(dt), "b": b, "h": h, "kv": kv, "d": d,
+           "s_q": s_q, "s_k": s_k,
            "dtype": case["dtype"], "causal": causal, "window": window,
            "key_padding": kmask is not None, "max_abs_err": err,
            "mean_abs_ref": ref.float().abs().mean().item(),
            "lse_max_abs_err": lse_err, "tol": tol, "kernel_ms": kernel_ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+           "launch_ms": launch_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "kernel_over_library": kernel_ms / library_ms,
+           "bound_over_kernel": bound_ms / kernel_ms, "flops": flops,
            "bytes": nbytes,
            "tflops_per_s": flops / (kernel_ms * 1e-3) / 1e12}
     emit(row)
     return row
+
+
+def _cores(dtype):
+    import torch
+    return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
 
 
 def _library_mask(case, keep, kmask):
@@ -363,13 +464,21 @@ def _flash_bwd_case(case, dev):
     km = kmask.contiguous() if kmask is not None else None
     _, delta = fa._bwd_dq(q, k, v, out, g, lse, km, scale, causal, window)
     reps = 10
-    kernel_ms = cuda_time_ms(
-        lambda: fa.flash_bwd(q, k, v, out, lse, g, scale, **kw), reps=reps)
-    dq_ms = cuda_time_ms(lambda: fa._bwd_dq(
-        q, k, v, out, g, lse, km, scale, causal, window), reps=reps)
-    dkv_ms = cuda_time_ms(lambda: fa._bwd_dkv(
-        q, k, v, out, g, lse, delta, km, scale, causal, window), reps=reps)
-    plain_ms = cuda_time_ms(
+
+    def whole():
+        return fa.flash_bwd(q, k, v, out, lse, g, scale, **kw)
+
+    def dq_only():
+        return fa._bwd_dq(q, k, v, out, g, lse, km, scale, causal, window)
+
+    def dkv_only():
+        return fa._bwd_dkv(q, k, v, out, g, lse, delta, km, scale, causal,
+                           window)
+    kernel_ms, dq_ms, dkv_ms = (device_ms(f, reps=reps)
+                                for f in (whole, dq_only, dkv_only))
+    launch_ms, dq_launch_ms, dkv_launch_ms = (
+        cuda_time_ms(f, reps=reps) for f in (whole, dq_only, dkv_only))
+    plain_ms = device_ms(
         lambda: fa.flash_bwd_plain(q, k, v, out, lse, g, scale, **kw),
         reps=3, warmup=1)
 
@@ -380,11 +489,12 @@ def _flash_bwd_case(case, dev):
     gt = g.transpose(1, 2).contiguous()
     lib_kw = dict(enable_gqa=True, scale=scale,
                   **_library_mask(case, keep, kmask))
-    lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+    lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, **lib_kw), reps=reps)
-    lib_all = cuda_time_ms(lambda: torch.autograd.grad(
+    lib_all, lib_kernels = device_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qt, kt, vt, **lib_kw),
-        (qt, kt, vt), gt), reps=reps)
+        (qt, kt, vt), gt), reps=reps, by_kernel=True)
+    lib_bwd = lib_all - lib_fwd
 
     # the work this run's masks need: 5 products of 2*D per visible
     # (query, key) pair and query head (dQ: S, dP, dS K; dK/dV: S, dP,
@@ -404,17 +514,34 @@ def _flash_bwd_case(case, dev):
                       + mask_bytes, case["dtype"])
     dkv_bound = _bound(8.0 * d * pairs, 2 * q_bytes + 4 * kv_bytes
                        + 2 * lse_bytes + mask_bytes, case["dtype"])
+    # the library computes dQ, dK and dV in one kernel, so no run reads
+    # either kernel's share of it: an estimate, in proportion to the
+    # operations each does, is reported beside the measured whole
+    dq_ops = 6.0 * d * pairs + 2.0 * d * b * s_q * h
+    dq_share = lib_bwd * dq_ops / (dq_ops + 8.0 * d * pairs)
+    dkv_share = lib_bwd - dq_share
     row = {"phase": "kernels", "kernel": "flash_bwd", "case": case["name"],
+           "dq_cores": "cuda_cores", "dkv_cores": _cores(q.dtype),
            "b": b, "h": h, "kv": kv, "d": d, "s_q": s_q, "s_k": s_k,
            "dtype": case["dtype"], "causal": causal, "window": window,
            "key_padding": kmask is not None, "max_abs_err": errs,
            "limit": limits, "forced_zeros": zeros,
            "kernel_ms": kernel_ms, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
-           "plain_ms": plain_ms,
-           "library_ms": lib_all - lib_fwd, "library_fwd_ms": lib_fwd,
+           "launch_ms": launch_ms, "dq_launch_ms": dq_launch_ms,
+           "dkv_launch_ms": dkv_launch_ms, "plain_ms": plain_ms,
+           "library_ms": lib_bwd, "library_fwd_ms": lib_fwd,
+           "library_fwd_bwd_ms": lib_all, "library_kernels": lib_kernels,
+           "library_dq_share_est_ms": dq_share,
+           "library_dkv_share_est_ms": dkv_share,
            "bound_ms": total[0], "bound_by": total[1],
            "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
            "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
+           "kernel_over_library": kernel_ms / lib_bwd,
+           "dq_over_library_share_est": dq_ms / dq_share,
+           "dkv_over_library_share_est": dkv_ms / dkv_share,
+           "bound_over_kernel": total[0] / kernel_ms,
+           "dq_bound_over_kernel": dq_bound[0] / dq_ms,
+           "dkv_bound_over_kernel": dkv_bound[0] / dkv_ms,
            "flops": 10.0 * d * pairs,
            "tflops_per_s": 10.0 * d * pairs / (kernel_ms * 1e-3) / 1e12}
     emit(row)
@@ -594,12 +721,14 @@ def phase_rtc(mx, dev):
     big_err = (y._t - axpy_plain(x._t, y0, alpha)).abs().max().item()
     check(big_err <= 1e-6, f"rtc: axpy at 2^26 max abs error {big_err}")
     reps = 20
-    ms = cuda_time_ms(lambda: k["axpy"].launch([x, y, alpha, n], ctx, grid,
-                                               block), reps=reps)
-    plain_ms = cuda_time_ms(lambda: axpy_plain(x._t, y._t, alpha),
-                            reps=reps)
-    library_ms = cuda_time_ms(lambda: torch.add(y._t, x._t, alpha=alpha),
-                              reps=reps)
+
+    def axpy():
+        k["axpy"].launch([x, y, alpha, n], ctx, grid, block)
+    ms = device_ms(axpy, reps=reps)
+    launch_ms = cuda_time_ms(axpy, reps=reps)
+    plain_ms = device_ms(lambda: axpy_plain(x._t, y._t, alpha), reps=reps)
+    library_ms = device_ms(lambda: torch.add(y._t, x._t, alpha=alpha),
+                           reps=reps)
     nbytes = 12 * n
     bound_ms, bound_by = _bound(2.0 * n, nbytes, "float32")
 
@@ -649,7 +778,7 @@ def phase_rtc(mx, dev):
            "cases": {c: {"max_abs_err": e, "limit": l}
                      for c, (e, l) in cases.items()},
            "axpy_n": n, "axpy_max_abs_err": big_err, "axpy_ms": ms,
-           "axpy_plain_ms": plain_ms, "axpy_library_ms": library_ms,
+           "axpy_launch_ms": launch_ms, "axpy_plain_ms": plain_ms, "axpy_library_ms": library_ms,
            "axpy_bound_ms": bound_ms, "axpy_bound_by": bound_by,
            "axpy_bytes": nbytes,
            "axpy_gb_per_s": nbytes / (ms * 1e-3) / 1e9,
@@ -833,17 +962,21 @@ def phase_parity(mx, dev):
                  ctx=mx.gpu(0))
     gpu_out = srv.generate(prompts)
     torch.cuda.synchronize()
-    launches = read_counts()["flash_fwd_launches"]
+    counts = read_counts()
+    launches = counts["flash_fwd_launches"]
     admissions = srv.stats()["buckets"]["2x128"]["prefills"]
     layers = len(gpu_lm.model.layers)
     same = all(np.array_equal(a, b) for a, b in zip(cpu_out, gpu_out))
     emit({"phase": "parity", "model": "llama_tiny", "dtype": "float32",
           "requests": len(prompts), "admissions": admissions,
-          "flash_fwd_launches": launches, "layers": layers,
-          "tokens_equal": same})
+          "flash_fwd_launches": launches,
+          "flash_fwd_tc_launches": counts["flash_fwd_tc_launches"],
+          "layers": layers, "tokens_equal": same})
     check(same, "parity: greedy tokens on the card differ from the CPU's")
     check(launches == admissions * layers,
           f"parity: {launches} flash launches, want {admissions} x {layers}")
+    check(counts["flash_fwd_tc_launches"] == 0,
+          "parity: an f32 forward took the tensor-core route")
 
 
 # -- phase 5: serve ------------------------------------------------------------
@@ -897,7 +1030,9 @@ def phase_serve(mx, dev):
     srv.run()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = read_counts()["flash_fwd_launches"]
+    counts = read_counts()
+    launches = counts["flash_fwd_launches"]
+    tc_launches = counts["flash_fwd_tc_launches"]
     after = srv.stats()["buckets"]
 
     delta = {k: {f: after[k][f] - before[k][f] for f in after[k]}
@@ -915,7 +1050,8 @@ def phase_serve(mx, dev):
           "weights_init_s": init_s, "buckets": ["4x128", "4x512"],
           "prompt_lens": lens, "new_tokens": new_tokens,
           "requests": len(reqs), "admissions": admissions,
-          "flash_fwd_launches": launches, "layers": layers,
+          "flash_fwd_launches": launches,
+          "flash_fwd_tc_launches": tc_launches, "layers": layers,
           "ttft_p50_s": statistics.median(ttft), "ttft_max_s": max(ttft),
           "prefill_s": prefill_s, "decode_s": decode_s,
           "tokens": tokens, "decode_tokens": decode_tokens, "wall_s": wall_s,
@@ -934,6 +1070,9 @@ def phase_serve(mx, dev):
     check(admissions == len(reqs), f"serve: {admissions} admissions")
     check(launches == admissions * layers,
           f"serve: {launches} flash launches, want {admissions} x {layers}")
+    check(tc_launches == launches,
+          f"serve: {tc_launches} of {launches} bf16 flash launches took "
+          "the tensor-core route")
 
     # where the time goes: one prefill per bucket and one 4-slot decode
     # step, outside the counted run
@@ -1036,8 +1175,12 @@ def phase_train_parity(mx, dev):
           "dtype": "float32", "steps": steps, "cpu_losses": cpu_losses,
           "gpu_losses": card_losses, "max_rel_diff": rel, **launches})
     check(rel <= 1e-4, f"train_parity: losses differ by {rel} relative")
-    check(all(n == steps * layers for n in launches.values()),
+    check(all(launches[n] == steps * layers for n in F32_ROUTE),
           f"train_parity: launches {launches}, want {steps * layers} each")
+    check(launches["flash_fwd_tc_launches"] == 0
+          and launches["flash_bwd_dkv_tc_launches"] == 0,
+          f"train_parity: f32 launches took the tensor-core route: "
+          f"{launches}")
     check(card_losses[-1] < card_losses[0],
           "train_parity: the loss did not fall")
 
@@ -1135,6 +1278,8 @@ def phase_train(mx, dev, ctx, cfg=BERT_BASE):
               **breakdown))
     check(last < first, f"train: last loss {last} not below the first "
           f"{first}")
+    # bf16 AMP: every K1 and K3 launch on the tensor cores, so every
+    # counter (the *_tc_launches too) is layers x steps
     check(all(n == layers * n_steps for n in launches.values()),
           f"train: launches {launches}, want {layers} x {n_steps} each")
     return launches
@@ -1185,6 +1330,183 @@ def profile_call(fn, reps=3):
             "device_busy_share": device_ms / wall_ms if n_kernels else None}
 
 
+# -- phase 2: build -------------------------------------------------------------
+
+def _kernel_name(mangled):
+    """``flash_fwd_tc_kernel<64,64>`` from a mangled kernel name."""
+    m = re.search(r"\d(flash_[a-z0-9_]*?_kernel)I((?:Li\d+E|f|13__nv_bfloat16)+)E",
+                  mangled)
+    if m is None:
+        return mangled
+    args = [a or ("float" if f else "bf16") for a, f, _ in re.findall(
+        r"Li(\d+)E|(f)|(13__nv_bfloat16)", m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def _ptxas_report(log):
+    """{kernel: {registers, spill_stores, spill_loads}} from nvcc's
+    -Xptxas=-v output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(_kernel_name(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def _hmma_counts(sass):
+    """{kernel: HMMA (tensor-core) instructions} from cuobjdump -sass."""
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = _kernel_name(m.group(1))
+            out[cur] = 0
+        elif cur is not None and "HMMA" in line:
+            out[cur] += 1
+    return out
+
+
+def phase_build():
+    """Build every source (one nvcc each, in parallel); per kernel
+    ptxas' registers and spills and the HMMA instructions of its SASS.
+    Every tensor-core kernel must contain HMMA, and none may spill at a
+    head dim <= 128.  The tile sizes the libraries export must equal
+    the wrappers' constants."""
+    from mxnet_tpu_torch import _kernels
+    from mxnet_tpu_torch._kernels.build import _lib_path, _nvcc
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    took = _kernels.build()
+    seconds = time.perf_counter() - t0
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    per_source = {}
+    for n in _kernels.sources():
+        kern = _ptxas_report(_kernels.build_log(n))
+        sass = subprocess.run([cuobjdump, "-sass", _lib_path(n)],
+                              capture_output=True, text=True, timeout=300)
+        check(sass.returncode == 0, f"build: cuobjdump {n}: {sass.stderr}")
+        for k, count in _hmma_counts(sass.stdout).items():
+            kern.setdefault(k, {})["hmma"] = count
+        per_source[n] = {"hmma": sum(v.get("hmma", 0) for v in kern.values()),
+                         "kernels": kern}
+    fwd, bwd = fa._kernel(), fa._bwd_kernels()
+    tiles = {"flash_fwd": [fwd.mxtpu_flash_fwd_block_q(),
+                           fwd.mxtpu_flash_fwd_block_k()],
+             "flash_bwd": [bwd.mxtpu_flash_bwd_block_q(),
+                           bwd.mxtpu_flash_bwd_block_k()]}
+    emit({"phase": "build", "sources": _kernels.sources(),
+          "seconds": seconds, "per_source_s": took, "tiles": tiles,
+          "per_source": per_source})
+    for n, s in per_source.items():
+        for k, v in s["kernels"].items():
+            if "_tc_kernel" not in k:
+                continue
+            check(v.get("hmma", 0) > 0, f"build: {k} has no HMMA instruction")
+            if int(re.search(r"<(\d+)", k).group(1)) <= 128:
+                check(v.get("spill_stores") == 0 and v.get("spill_loads") == 0,
+                      f"build: {k} spills: {v}")
+    check(tiles == {"flash_fwd": [fa.FWD_BLOCK_Q, fa.FWD_BLOCK_K],
+                    "flash_bwd": [fa.BWD_BLOCK_Q, fa.BWD_BLOCK_K]},
+          f"build: the libraries' tiles {tiles} differ from the wrappers'")
+
+
+# -- the kernels line ------------------------------------------------------------
+
+DESIGN = {
+    "tensor_cores": "bf16: mma.sync m16n8k16 on the tensor cores (f32 "
+                    "accumulate), 4 warps of 16 rows, tiles by 16-byte "
+                    "cp.async, double-buffered, ldmatrix fragments",
+    "cuda_cores": "f32 FMAs on the CUDA cores, 256 threads, tiles staged "
+                  "in shared memory as f32",
+}
+
+
+def _ratios(ms, library_ms, bound_ms):
+    return {"kernel_over_library": ms / library_ms,
+            "bound_over_kernel": bound_ms / ms}
+
+
+def kernel_entries(rows, bwd_rows, train, serve_launches):
+    """The flash kernels' entries of the {"kernels": [...]} line: each
+    at BERT's training shape in bf16 (the main path's route), with its
+    f32 route's numbers at the same shape, and K1 also at the serving
+    prefill."""
+    fwd = {r["case"]: r for r in rows}
+    bwd = {r["case"]: r for r in bwd_rows}
+    head, serve = fwd.get(HEADLINE_CASE), fwd.get(SERVE_CASE)
+    b16, b32 = bwd.get(BWD_HEADLINE_CASE), bwd.get("bert_b64_s128_f32")
+    f32 = fwd.get("bert_b64_s128_lse_f32")
+    if None in (head, serve, b16, b32, f32):
+        return []
+    src = "mxnet_tpu_torch/csrc/"
+
+    def fwd_nums(r):
+        return dict({"case": r["case"], "cores": r["cores"],
+                     "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                     "launch_ms": r["launch_ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]},
+                    **_ratios(r["kernel_ms"], r["library_ms"], r["bound_ms"]))
+
+    def bwd_nums(r, part):
+        err = (r["max_abs_err"]["dq"] if part == "dq" else
+               max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"]))
+        ms, est = r[f"{part}_ms"], r[f"library_{part}_share_est_ms"]
+        return {"case": r["case"], "cores": r[f"{part}_cores"],
+                "max_abs_err": err, "ms": ms,
+                "launch_ms": r[f"{part}_launch_ms"],
+                "plain_ms": r["plain_ms"],
+                "bound_ms": r[f"{part}_bound_ms"],
+                "bound_by": r[f"{part}_bound_by"],
+                "library_ms": r["library_ms"],
+                "library_share_est_ms": est,
+                "k2_plus_k3_ms": r["kernel_ms"],
+                "kernel_over_library": r["kernel_ms"] / r["library_ms"],
+                "over_library_share_est": ms / est,
+                "bound_over_kernel": r[f"{part}_bound_ms"] / ms}
+    whole = ("plain_ms is flash_bwd_plain and library_ms the backward of "
+             "F.scaled_dot_product_attention, each computing dq, dk and "
+             "dv together; kernel_over_library is K2 + K3 (k2_plus_k3_ms) "
+             "over it. library_share_est_ms is an estimate, not a "
+             "reading: the library's backward split between K2 and K3 in "
+             "proportion to their operations")
+    return [
+        dict({"name": "flash_fwd", "route": "cuda",
+              "design": DESIGN["tensor_cores"],
+              "source": src + "flash_fwd.cu",
+              "replaces": "mxnet_tpu/ops/flash_attention.py:76",
+              "launches": train.get("flash_fwd_launches"),
+              "tc_launches": train.get("flash_fwd_tc_launches"),
+              "serve_launches": serve_launches, "serve": fwd_nums(serve),
+              "f32": dict(fwd_nums(f32), design=DESIGN["cuda_cores"])},
+             **fwd_nums(head)),
+        dict({"name": "flash_bwd_dq", "route": "cuda",
+              "design": "both types: " + DESIGN["cuda_cores"],
+              "source": src + "flash_bwd.cu",
+              "replaces": "mxnet_tpu/ops/flash_attention.py:303",
+              "launches": train.get("flash_bwd_dq_launches"),
+              "f32": bwd_nums(b32, "dq"), "plain_and_library": whole},
+             **bwd_nums(b16, "dq")),
+        dict({"name": "flash_bwd_dkv", "route": "cuda",
+              "design": DESIGN["tensor_cores"],
+              "source": src + "flash_bwd.cu",
+              "replaces": "mxnet_tpu/ops/flash_attention.py:386",
+              "launches": train.get("flash_bwd_dkv_launches"),
+              "tc_launches": train.get("flash_bwd_dkv_tc_launches"),
+              "f32": dict(bwd_nums(b32, "dkv"), design=DESIGN["cuda_cores"]),
+              "plain_and_library": whole}, **bwd_nums(b16, "dkv")),
+    ]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -1203,7 +1525,6 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
     sys.path.insert(0, HERE)
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch import _kernels
 
     # float32 matmuls in full float32, as the kernel's contract
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1219,14 +1540,7 @@ def main():
     check(cap == (9, 0), f"compute capability {cap}, want (9, 0) (Hopper)")
 
     if "build" in phases:
-        t0 = time.perf_counter()
-        took = _kernels.build()
-        ptxas = {n: [ln.strip() for ln in _kernels.build_log(n).splitlines()
-                     if "registers" in ln or "spill" in ln]
-                 for n in _kernels.sources()}
-        emit({"phase": "build", "sources": _kernels.sources(),
-              "seconds": time.perf_counter() - t0, "per_source_s": took,
-              "ptxas": ptxas})
+        phase_build()
 
     rows, bwd_rows = phase_kernels(dev) if "kernels" in phases \
         else ([], [])
@@ -1243,49 +1557,11 @@ def main():
         phase_imperative(mx, dev)
     rtc = phase_rtc(mx, dev) if "rtc" in phases else None
 
-    head = next((r for r in rows if r["case"] == HEADLINE_CASE), None)
-    bwd = next((r for r in bwd_rows if r["case"] == BWD_HEADLINE_CASE),
-               None)
-    kernels = []
-    if head is not None and bwd is not None:
-        src = "mxnet_tpu_torch/csrc/"
-        whole = ("dq, dk and dv together: flash_bwd_plain, and the backward "
-                 "of F.scaled_dot_product_attention")
-        kernels += [
-            {"name": "flash_fwd", "route": "cuda",
-             "source": src + "flash_fwd.cu",
-             "replaces": "mxnet_tpu/ops/flash_attention.py:76",
-             "case": head["case"],
-             "launches": train.get("flash_fwd_launches"),
-             "serve_launches": serve_launches,
-             "max_abs_err": head["max_abs_err"], "ms": head["kernel_ms"],
-             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-             "bound_by": head["bound_by"],
-             "library_ms": head["library_ms"]},
-            {"name": "flash_bwd_dq", "route": "cuda",
-             "source": src + "flash_bwd.cu",
-             "replaces": "mxnet_tpu/ops/flash_attention.py:303",
-             "case": bwd["case"],
-             "launches": train.get("flash_bwd_dq_launches"),
-             "max_abs_err": bwd["max_abs_err"]["dq"], "ms": bwd["dq_ms"],
-             "plain_ms": bwd["plain_ms"], "bound_ms": bwd["dq_bound_ms"],
-             "bound_by": bwd["dq_bound_by"],
-             "library_ms": bwd["library_ms"], "plain_and_library": whole},
-            {"name": "flash_bwd_dkv", "route": "cuda",
-             "source": src + "flash_bwd.cu",
-             "replaces": "mxnet_tpu/ops/flash_attention.py:386",
-             "case": bwd["case"],
-             "launches": train.get("flash_bwd_dkv_launches"),
-             "max_abs_err": max(bwd["max_abs_err"]["dk"],
-                                bwd["max_abs_err"]["dv"]),
-             "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_ms"],
-             "bound_ms": bwd["dkv_bound_ms"],
-             "bound_by": bwd["dkv_bound_by"],
-             "library_ms": bwd["library_ms"], "plain_and_library": whole},
-        ]
+    kernels = kernel_entries(rows, bwd_rows, train, serve_launches)
     if rtc is not None:
         kernels.append(
-            {"name": "rtc_axpy", "route": "nvrtc",
+            {"name": "rtc_axpy", "route": "cuda",
+             "design": "user CUDA compiled by NVRTC for sm_90a (CUBIN)",
              "source": "mxnet_tpu_torch/rtc.py",
              "user_kernel_source": "chip_smoke.py RTC_SOURCE",
              "replaces": "mxnet_tpu/rtc.py:109",
@@ -1295,6 +1571,9 @@ def main():
              "bound_ms": rtc["axpy_bound_ms"],
              "bound_by": rtc["axpy_bound_by"],
              "library_ms": rtc["axpy_library_ms"],
+             "launch_ms": rtc["axpy_launch_ms"],
+             "kernel_over_library": rtc["axpy_ms"] / rtc["axpy_library_ms"],
+             "bound_over_kernel": rtc["axpy_bound_ms"] / rtc["axpy_ms"],
              "library_call": "torch.add(y, x, alpha=a)"})
     if kernels:
         emit({"kernels": kernels})

@@ -1,7 +1,7 @@
 """Build the package's CUDA sources at first use and load them.
 
 Every ``csrc/<name>.cu`` becomes ``_build/lib<name>_<hash>.so``: one
-nvcc run per source, for ``sm_90a`` (Hopper).
+nvcc run per source, all started together, for ``sm_90a`` (Hopper).
 The hash covers the source and the flags, so an edited source is
 rebuilt and a stale library is never loaded.  A file lock serialises
 concurrent builds (test workers, several processes on one card).
@@ -76,22 +76,26 @@ def build(names: Optional[List[str]] = None) -> Dict[str, float]:
         if not todo:
             return {}
         nvcc = _nvcc()
-        took = {}
-        for n in todo:
+        started = {}
+        for n in todo:              # one nvcc a source, all at once
             out = _lib_path(n)
-            t0 = time.perf_counter()
-            p = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", out + ".tmp",
-                 os.path.join(CSRC_DIR, n + ".cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            with open(out + ".log", "w") as log:
+                started[n] = (time.perf_counter(), subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", out + ".tmp",
+                     os.path.join(CSRC_DIR, n + ".cu")],
+                    stdout=log, stderr=subprocess.STDOUT))
+        took, failed = {}, []
+        for n, (t0, proc) in started.items():
+            rc = proc.wait()
             took[n] = time.perf_counter() - t0
-            with open(out + ".log", "w") as f:
-                f.write(p.stdout)
-            if p.returncode != 0:
-                raise MXNetError(f"CUDA kernel build failed: nvcc {n}.cu "
-                                 f"(exit {p.returncode})\n"
-                                 + p.stdout[-6000:])
-            os.replace(out + ".tmp", out)
+            if rc != 0:
+                failed.append((n, rc))
+            else:
+                os.replace(_lib_path(n) + ".tmp", _lib_path(n))
+        if failed:
+            raise MXNetError("CUDA kernel build failed: " + "; ".join(
+                f"nvcc {n}.cu (exit {rc})\n" + build_log(n)[-6000:]
+                for n, rc in failed))
         return took
 
 

@@ -13,7 +13,7 @@
 // from the dO tile it holds anyway, writes it out, and K3, launched after
 // K2 on the same stream, reads it: no separate pass over dO and O.
 //
-// Semantics carried over from the TPU kernels:
+// Semantics carried over from the TPU kernels, by every route below:
 //   * end-aligned causal masking (query i sees keys <= i + S_k - S_q), the
 //     sliding-window band (i+off-W, i+off], the key-padding mask (B, S_k)
 //     kept where > 0;
@@ -38,31 +38,53 @@
 // Bound on the H100 SXM (989 TFLOP/s bf16 dense, 67 TFLOP/s f32 without
 // tensor cores, 3.35 TB/s): five products of 2*S_q*S_k*D operations per
 // (batch, head), scaled by the visible fraction of the mask, against the
-// bytes of Q, K, V, O, dO and LSE read and dQ, dK, dV written. At BERT's
-// training shape (B=64, S=128, H=12, D=64, bf16) that is 8.1 GFLOP
-// against 101 MB: 8.1 us of tensor-core time against 30 us of memory
-// time, so the bound is the bytes. This design runs on the CUDA cores and is
-// compute-bound far above that.
+// bytes of Q, K, V, O, dO and LSE read and dQ, dK, dV written. K3 alone
+// does four of them (S^T, dP^T, P^T dO, dS^T Q) and moves Q, K, V, dO,
+// LSE and Delta in and dK, dV out. At BERT's training shape (B=64, S=128,
+// H=12, D=64, bf16) that is 6.4 GFLOP, 6.5 us of tensor-core time,
+// against 76 MB, 23 us: the bound is the bytes.
 //
-// This first design is simple and right, not fast:
-//   * K2: one block of 256 threads per (64-query tile, head, batch row):
-//     Delta for its rows (one warp reduction a row), then a loop over the
-//     32-key tiles of KV head h / (H / KV); the dQ accumulator stays in
-//     registers (4 rows x D/16 columns a thread);
-//   * K3: one block of 256 threads per (32-key tile, KV head, batch row),
-//     looping over every query head of the group and every 32-query tile;
-//     dK and dV stay in registers (2 rows x D/16 columns each a thread),
-//     so even D=256 holds 64 accumulators a thread;
+// K3 in bf16 runs on the tensor cores (flash_bwd_dkv_tc_kernel), in the
+// style of FlashAttention-2: one block of 4 warps per (64-key tile, KV
+// head, batch row), each warp owning 16 key rows; a loop over the query
+// heads of the group and the visible 64-query tiles, whose Q, dO, LSE and
+// Delta come into shared memory by 16-byte cp.async, double-buffered (the
+// next tile's copy in flight while the current one is computed). S^T =
+// K Q^T and dP^T = V dO^T run as mma.sync m16n8k16 (bf16 in, f32
+// accumulate), 32 queries a pass; K and V are A fragments held in
+// registers at D <= 64 and read from shared memory by ldmatrix above it,
+// where the dK and dV accumulators (two 16 x D f32 tiles a warp) leave no
+// room. P^T and dS^T are formed on the accumulator fragments and packed
+// straight into bf16 A fragments for dV += P^T dO and dK += dS^T Q, whose
+// B operands come from the row-major Q and dO tiles through
+// ldmatrix.trans. Head dims that are not a multiple of 16 are zero-padded
+// in shared memory; the padding columns are never written out. What this
+// removes, against the CUDA-core design: the f32 staging of bf16 tiles,
+// one scalar shared-memory load per FMA, and the round trip of P^T and
+// dS^T through shared memory.
+//
+// The other kernels keep the first, CUDA-core design (f32 FMAs):
+//   * K2, both types: one block of 256 threads per (64-query tile, head,
+//     batch row): Delta for its rows (one warp reduction a row), then a
+//     loop over the 32-key tiles of KV head h / (H / KV); the dQ
+//     accumulator stays in registers (4 rows x D/16 columns a thread);
+//   * K3 in f32: one block of 256 threads per (32-key tile, KV head,
+//     batch row), looping over every query head of the group and every
+//     32-query tile; dK and dV stay in registers. The tensor cores take f32
+//     only as TF32, which the kernel contract forbids, so f32 stays on the
+//     CUDA cores;
 //   * every tile is staged in shared memory as f32 with rows padded by one
-//     word (column reads free of bank conflicts); all four products run on
-//     the CUDA cores in f32 FMAs.
-// Not done yet: tensor cores (mma.sync / wgmma), TMA or cp.async loads
-// overlapped with compute, and one fused pass for dQ, dK and dV.
+//     word (column reads free of bank conflicts).
+// Not done yet: K2 on the tensor cores (next), then wgmma with TMA loads
+// and warp specialisation for whichever kernel stays below half its
+// bound, and one fused pass for dQ, dK and dV.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -292,8 +314,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
 }
 
 // K3: dK and dV for one (key tile, KV head, batch row), summed over the
-// query heads of the group.
-template <typename T, int DMAX>
+// query heads of the group. The f32 route: f32 FMAs on the CUDA cores.
+template <int DMAX>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.D;
@@ -302,8 +324,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
   float* Vs = Ks + BKV * DP;        // BKV x DP
   float* Qs = Vs + BKV * DP;        // BQ3 x DP
   float* Gs = Qs + BQ3 * DP;        // BQ3 x DP (dO)
-  float* Ps = Gs + BQ3 * DP;        // BKV x PS3 (P^T, rounded)
-  float* Ds = Ps + BKV * PS3;       // BKV x PS3 (dS^T, rounded)
+  float* Ps = Gs + BQ3 * DP;        // BKV x PS3 (P^T)
+  float* Ds = Ps + BKV * PS3;       // BKV x PS3 (dS^T)
   float* lse_s = Ds + BKV * PS3;    // BQ3
   float* del_s = lse_s + BQ3;       // BQ3
 
@@ -314,10 +336,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
   const int group = p.H / p.KV;
   const int off = p.Sk - p.Sq;
 
-  const T* kg = static_cast<const T*>(p.k) + b * p.ksb + kvh * p.ksh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.vsb + kvh * p.vsh;
-  load_tile<T>(Ks, kg, p.kss, k0, BKV, D, DP);
-  load_tile<T>(Vs, vg, p.vss, k0, BKV, D, DP);
+  const float* kg = static_cast<const float*>(p.k) + b * p.ksb + kvh * p.ksh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.vsb + kvh * p.vsh;
+  load_tile<float>(Ks, kg, p.kss, k0, BKV, D, DP);
+  load_tile<float>(Vs, vg, p.vss, k0, BKV, D, DP);
 
   // thread owns dK/dV rows ty + 16*i and head-dim columns tx + 16*j
   constexpr int KR = BKV / 16;
@@ -331,15 +353,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
   const int nqb = p.Sq / BQ3;
   for (int hh = 0; hh < group; ++hh) {
     const int h = kvh * group + hh;
-    const T* qg = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh;
-    const T* gg = static_cast<const T*>(p.g) + b * p.gsb + h * p.gsh;
+    const float* qg = static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh;
+    const float* gg = static_cast<const float*>(p.g) + b * p.gsb + h * p.gsh;
     const long long row0 = ((long long)b * p.H + h) * p.Sq;
     for (int qb = 0; qb < nqb; ++qb) {
       const int q0 = qb * BQ3;
       if (!tile_visible(p, q0, BQ3, k0, BKV, off)) continue;
       __syncthreads();  // K/V loaded; the previous tile's readers are done
-      load_tile<T>(Qs, qg, p.qss, q0, BQ3, D, DP);
-      load_tile<T>(Gs, gg, p.gss, q0, BQ3, D, DP);
+      load_tile<float>(Qs, qg, p.qss, q0, BQ3, D, DP);
+      load_tile<float>(Gs, gg, p.gss, q0, BQ3, D, DP);
       if (tid < BQ3) {
         lse_s[tid] = p.lse[row0 + q0 + tid];
         del_s[tid] = p.delta[row0 + q0 + tid];
@@ -380,8 +402,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
             pr = expf(s[i][j] * p.scale - lse_s[c]);
             ds = pr * (dp[i][j] - del_s[c]);
           }
-          Ps[r * PS3 + c] = round_op<T>(pr);
-          Ds[r * PS3 + c] = round_op<T>(ds);
+          Ps[r * PS3 + c] = pr;
+          Ds[r * PS3 + c] = ds;
         }
       }
       __syncthreads();
@@ -412,8 +434,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
   }
 
   const long long base = ((long long)b * p.Sk * p.KV + kvh) * D;
-  T* dkg = static_cast<T*>(p.dk) + base;
-  T* dvg = static_cast<T*>(p.dv) + base;
+  float* dkg = static_cast<float*>(p.dk) + base;
+  float* dvg = static_cast<float*>(p.dv) + base;
 #pragma unroll
   for (int i = 0; i < KR; ++i) {
     const long long r = (long long)(k0 + ty + 16 * i) * p.KV * D;
@@ -421,11 +443,242 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
       if (d < D) {
-        dkg[r + d] = from_f32<T>(dk[i][j] * p.scale);
-        dvg[r + d] = from_f32<T>(dv[i][j]);
+        dkg[r + d] = dk[i][j] * p.scale;
+        dvg[r + d] = dv[i][j];
       }
     }
   }
+}
+
+// ---- K3 in bf16 on the tensor cores ------------------------------------------
+
+constexpr int TC_NT = 128;   // threads per block: 4 warps
+constexpr int TC_BKV = 64;   // keys per block: 16 per warp
+constexpr int TC_BQ = 64;    // queries per double-buffered tile
+constexpr int TC_QC = 32;    // queries per pass over a tile (bounds S^T, dP^T registers)
+constexpr float LOG2E = 1.4426950408889634f;
+
+using flash_tc::bf16;
+
+__host__ __device__ constexpr size_t dkv_tc_smem_bytes(int D) {
+  return (size_t)(2 * TC_BKV + 4 * TC_BQ) * flash_tc::row_ld(D) * sizeof(bf16) +
+         4 * TC_BQ * sizeof(float);
+}
+
+// K3 for bf16: dK and dV for one (64-key tile, KV head, batch row), summed
+// over the query heads of the group. K and V stay in registers as A
+// fragments for DMAX <= 64, and are read from shared memory per product
+// above that (at D = 128 the dK and dV accumulators take 128 registers).
+template <int DMAX>
+__global__ void __launch_bounds__(TC_NT) flash_bwd_dkv_tc_kernel(Params p) {
+  using namespace flash_tc;
+  constexpr bool KV_REGS = DMAX <= 64;
+  constexpr int NKD = DMAX / 16;   // 16-deep chunks of the head dim
+  constexpr int NND = DMAX / 8;    // 8-wide column tiles of dK, dV
+  constexpr int NNQ = TC_QC / 8;   // 8-wide query tiles of S^T, dP^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = p.D, DP = dpad(D), LD = row_ld(D);
+  const int nkd = DP / 16;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // TC_BKV x LD
+  bf16* Vs = Ks + TC_BKV * LD;                   // TC_BKV x LD
+  bf16* Qs = Vs + TC_BKV * LD;                   // 2 x TC_BQ x LD
+  bf16* Gs = Qs + 2 * TC_BQ * LD;                // 2 x TC_BQ x LD (dO)
+  float* lse_s = reinterpret_cast<float*>(Gs + 2 * TC_BQ * LD);  // 2 x TC_BQ
+  float* del_s = lse_s + 2 * TC_BQ;                              // 2 x TC_BQ
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * TC_BKV;  // causal: key tile 0 sees the most queries, and goes first
+  const int group = p.H / p.KV;
+  const int off = p.Sk - p.Sq;
+  const int key0 = k0 + 16 * warp + g;  // this lane's keys: key0, key0 + 8
+
+  // the query tiles that share a visible pair with this key tile (any
+  // causal offset: a skipped tile's P is exactly 0)
+  const int nqb = p.Sq / TC_BQ;
+  int qb_lo = 0, qb_hi = nqb;
+  if (p.causal) {
+    qb_lo = nqb;
+    qb_hi = 0;
+    for (int qb = 0; qb < nqb; ++qb) {
+      if (tile_visible(p, qb * TC_BQ, TC_BQ, k0, TC_BKV, off)) {
+        qb_lo = min(qb_lo, qb);
+        qb_hi = qb + 1;
+      }
+    }
+  }
+  const int nvis = max(qb_hi - qb_lo, 0);
+  const int items = group * nvis;  // (query head, query tile) pairs
+
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.ksb + kvh * p.ksh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vsb + kvh * p.vsh;
+  const TileSplit split = tile_split<TC_NT>(D);
+  // item t's Q, dO, LSE and Delta into buffer buf
+  auto stage = [&](int t, int buf) {
+    const int h = kvh * group + t / nvis;
+    const int q0 = (qb_lo + t % nvis) * TC_BQ;
+    const bf16* qg = static_cast<const bf16*>(p.q) + b * p.qsb + h * p.qsh + q0 * p.qss;
+    const bf16* gg = static_cast<const bf16*>(p.g) + b * p.gsb + h * p.gsh + q0 * p.gss;
+    load_rows(Qs + buf * TC_BQ * LD, qg, p.qss, TC_BQ, LD, split);
+    load_rows(Gs + buf * TC_BQ * LD, gg, p.gss, TC_BQ, LD, split);
+    const long long row = ((long long)b * p.H + h) * p.Sq + q0;
+    if (tid < TC_BQ / 4)
+      cp_async16(lse_s + buf * TC_BQ + 4 * tid, p.lse + row + 4 * tid);
+    else if (tid < TC_BQ / 2)
+      cp_async16(del_s + buf * TC_BQ + 4 * (tid - TC_BQ / 4), p.delta + row + 4 * (tid - TC_BQ / 4));
+  };
+
+  zero_pad<TC_NT>(Ks, 2 * TC_BKV + 4 * TC_BQ, D, LD);
+  load_rows(Ks, kg + (long long)k0 * p.kss, p.kss, TC_BKV, LD, split);
+  load_rows(Vs, vg + (long long)k0 * p.vss, p.vss, TC_BKV, LD, split);
+  if (items > 0) stage(0, 0);
+  cp_async_commit();
+
+  float dk[NND][4], dv[NND][4];
+#pragma unroll
+  for (int j = 0; j < NND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  uint32_t kf[KV_REGS ? NKD : 1][4], vf[KV_REGS ? NKD : 1][4];
+  const bf16* kw = Ks + (16 * warp + a_row(lane)) * LD + a_col(lane);
+  const bf16* vw = Vs + (16 * warp + a_row(lane)) * LD + a_col(lane);
+
+  for (int t = 0; t < items; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < items) {
+      stage(t + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (KV_REGS && t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < NKD; ++kk) {
+        if (kk < nkd) {
+          ldsm_x4(kf[KV_REGS ? kk : 0], kw + kk * 16);
+          ldsm_x4(vf[KV_REGS ? kk : 0], vw + kk * 16);
+        }
+      }
+    }
+    const int q0 = (qb_lo + t % nvis) * TC_BQ;
+    const bf16* Qb = Qs + buf * TC_BQ * LD;
+    const bf16* Gb = Gs + buf * TC_BQ * LD;
+    const float* lb = lse_s + buf * TC_BQ;
+    const float* db = del_s + buf * TC_BQ;
+
+#pragma unroll 1
+    for (int qc0 = 0; qc0 < TC_BQ; qc0 += TC_QC) {
+      if (!tile_visible(p, q0 + qc0, TC_QC, k0, TC_BKV, off)) continue;
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x TC_QC queries
+      float st[NNQ][4], dpt[NNQ][4];
+#pragma unroll
+      for (int j = 0; j < NNQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NKD; ++kk) {
+        if (kk < nkd) {
+          uint32_t ak[4], av[4];
+          if (KV_REGS) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              ak[i] = kf[KV_REGS ? kk : 0][i];
+              av[i] = vf[KV_REGS ? kk : 0][i];
+            }
+          } else {
+            ldsm_x4(ak, kw + kk * 16);
+            ldsm_x4(av, vw + kk * 16);
+          }
+#pragma unroll
+          for (int np = 0; np < NNQ / 2; ++np) {
+            const int r = (qc0 + np * 16 + bn_row(lane)) * LD + kk * 16 + bn_col(lane);
+            uint32_t bq[4], bg[4];
+            ldsm_x4(bq, Qb + r);
+            mma(st[2 * np], ak, bq[0], bq[1]);
+            mma(st[2 * np + 1], ak, bq[2], bq[3]);
+            ldsm_x4(bg, Gb + r);
+            mma(dpt[2 * np], av, bg[0], bg[1]);
+            mma(dpt[2 * np + 1], av, bg[2], bg[3]);
+          }
+        }
+      }
+
+      // P^T = exp(scale S^T - LSE), exactly 0 where masked; dS^T = P^T o (dP^T - Delta)
+      bool full = p.kmask == nullptr;
+      if (p.causal) {
+        full = full && k0 + TC_BKV - 1 <= q0 + qc0 + off;
+        if (p.window > 0) full = full && k0 > q0 + qc0 + TC_QC - 1 + off - p.window;
+      }
+#pragma unroll
+      for (int j = 0; j < NNQ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = qc0 + j * 8 + 2 * t4 + (e & 1);
+          float pt = 0.f, ds = 0.f;
+          if (full || keep(p, b, q0 + qi, key0 + (e >> 1) * 8, off)) {
+            pt = exp2f((st[j][e] * p.scale - lb[qi]) * LOG2E);
+            ds = pt * (dpt[j][e] - db[qi]);
+          }
+          st[j][e] = pt;
+          dpt[j][e] = ds;
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16 as A
+      // fragments, dO and Q through ldmatrix.trans
+#pragma unroll
+      for (int qc = 0; qc < TC_QC / 16; ++qc) {
+        uint32_t ap[4], ads[4];
+        c_to_a(ap, st[2 * qc], st[2 * qc + 1]);
+        c_to_a(ads, dpt[2 * qc], dpt[2 * qc + 1]);
+#pragma unroll
+        for (int dp = 0; dp < NND / 2; ++dp) {
+          if (dp < nkd) {
+            const int r = (qc0 + qc * 16 + a_row(lane)) * LD + dp * 16 + a_col(lane);
+            uint32_t bg[4], bq[4];
+            ldsm_x4_t(bg, Gb + r);
+            mma(dv[2 * dp], ap, bg[0], bg[1]);
+            mma(dv[2 * dp + 1], ap, bg[2], bg[3]);
+            ldsm_x4_t(bq, Qb + r);
+            mma(dk[2 * dp], ads, bq[0], bq[1]);
+            mma(dk[2 * dp + 1], ads, bq[2], bq[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+
+  // a key tile below every query's window visits no tile: its K and V
+  // copies must land before Ks and Vs are reused
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: dK * scale and dV, staged in this warp's rows of Ks and Vs,
+  // written 16 bytes a store
+  bf16* dks = Ks + 16 * warp * LD;
+  bf16* dvs = Vs + 16 * warp * LD;
+#pragma unroll
+  for (int j = 0; j < NND; ++j) {
+    if (j * 8 < D) {
+      const int c = j * 8 + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(dks + g * LD + c) =
+          __floats2bfloat162_rn(dk[j][0] * p.scale, dk[j][1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dks + (g + 8) * LD + c) =
+          __floats2bfloat162_rn(dk[j][2] * p.scale, dk[j][3] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvs + g * LD + c) =
+          __floats2bfloat162_rn(dv[j][0], dv[j][1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvs + (g + 8) * LD + c) =
+          __floats2bfloat162_rn(dv[j][2], dv[j][3]);
+    }
+  }
+  __syncwarp();
+  const long long base = (((long long)b * p.Sk + k0 + 16 * warp) * p.KV + kvh) * D;
+  store_rows16(static_cast<bf16*>(p.dk) + base, (long long)p.KV * D, dks, D, LD, lane);
+  store_rows16(static_cast<bf16*>(p.dv) + base, (long long)p.KV * D, dvs, D, LD, lane);
 }
 
 template <typename T, int DMAX>
@@ -439,38 +692,73 @@ cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int DMAX>
+template <int DMAX>
 cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   const size_t smem = dkv_smem_floats(p.D) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, DMAX>,
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DMAX>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid(p.Sk / BKV, p.KV, p.B);
-  flash_bwd_dkv_kernel<T, DMAX><<<grid, NT, smem, stream>>>(p);
+  flash_bwd_dkv_kernel<DMAX><<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t launch_dkv_tc(const Params& p, cudaStream_t stream) {
+  const size_t smem = dkv_tc_smem_bytes(p.D);
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<DMAX>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(p.KV, p.B, p.Sk / TC_BKV);
+  flash_bwd_dkv_tc_kernel<DMAX><<<grid, TC_NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const Params& p, bool dq, cudaStream_t s) {
-  if (p.D <= 64) return dq ? launch_dq<T, 64>(p, s) : launch_dkv<T, 64>(p, s);
-  if (p.D <= 128) return dq ? launch_dq<T, 128>(p, s) : launch_dkv<T, 128>(p, s);
-  return dq ? launch_dq<T, 256>(p, s) : launch_dkv<T, 256>(p, s);
+cudaError_t dispatch_dq(const Params& p, cudaStream_t s) {
+  if (p.D <= 64) return launch_dq<T, 64>(p, s);
+  if (p.D <= 128) return launch_dq<T, 128>(p, s);
+  return launch_dq<T, 256>(p, s);
+}
+
+cudaError_t dispatch_dkv_f32(const Params& p, cudaStream_t s) {
+  if (p.D <= 64) return launch_dkv<64>(p, s);
+  if (p.D <= 128) return launch_dkv<128>(p, s);
+  return launch_dkv<256>(p, s);
+}
+
+cudaError_t dispatch_dkv_tc(const Params& p, cudaStream_t s) {
+  if (p.D <= 64) return launch_dkv_tc<64>(p, s);
+  if (p.D <= 128) return launch_dkv_tc<128>(p, s);
+  return launch_dkv_tc<256>(p, s);
+}
+
+bool aligned16(const void* ptr, long long s0, long long s1, long long s2) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && s0 % 8 == 0 && s1 % 8 == 0 &&
+         s2 % 8 == 0;
 }
 
 int run(const Params& p, int dtype, bool dq, void* stream) {
   if (p.D < 8 || p.D > 256 || p.D % 8 || p.KV < 1 || p.H % p.KV || p.Sq % BQ ||
-      p.Sq % BQ3 || p.Sk % BK || p.Sk % BKV || p.B < 1 || p.Sq < 1 || p.Sk < 1 ||
-      (dtype != 0 && dtype != 1))
+      p.Sq % BQ3 || p.Sq % TC_BQ || p.Sk % BK || p.Sk % BKV || p.Sk % TC_BKV || p.B < 1 ||
+      p.Sq < 1 || p.Sk < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = dtype == 0 ? dispatch<float>(p, dq, s) : dispatch<__nv_bfloat16>(p, dq, s);
-  return (int)e;
+  if (dq) return (int)(dtype == 0 ? dispatch_dq<float>(p, s) : dispatch_dq<__nv_bfloat16>(p, s));
+  if (dtype == 0) return (int)dispatch_dkv_f32(p, s);
+  // the bf16 K3 reads q, k, v, dO, LSE and Delta 16 bytes at a time
+  if (!aligned16(p.q, p.qsb, p.qss, p.qsh) || !aligned16(p.k, p.ksb, p.kss, p.ksh) ||
+      !aligned16(p.v, p.vsb, p.vss, p.vsh) || !aligned16(p.g, p.gsb, p.gss, p.gsh) ||
+      !aligned16(p.lse, 0, 0, 0) || !aligned16(p.delta, 0, 0, 0))
+    return (int)cudaErrorMisalignedAddress;
+  return (int)dispatch_dkv_tc(p, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for q, k, v,
-// O and dO in that order. mxtpu_flash_bwd_dq writes Delta (B*H, S_q) f32
+// dtype: 0 = float32, 1 = bfloat16 (K3 on the tensor cores: q, k, v, dO,
+// LSE and Delta 16-byte aligned, strides multiples of 8). Strides are in
+// elements, for q, k, v, O and dO in that order. mxtpu_flash_bwd_dq writes Delta (B*H, S_q) f32
 // beside dQ; mxtpu_flash_bwd_dkv reads it (launch it after the dQ kernel
 // on the same stream; O is not read). Each returns a cudaError_t: 0 when
 // the launch was accepted.
@@ -504,7 +792,11 @@ extern "C" int mxtpu_flash_bwd_dkv(const void* q, const void* k, const void* v, 
   return run(p, dtype, false, stream);
 }
 
+// 1 when the dK/dV pass (K3) runs on the tensor cores for this dtype, 0
+// when on the CUDA cores. The dQ pass (K2) runs on the CUDA cores for both.
+extern "C" int mxtpu_flash_bwd_dkv_tc(int dtype) { return dtype == 1; }
+
 // The tile sizes, for the wrapper's shape checks: S_q must be a multiple
-// of the query tile and S_k of the key tile.
-extern "C" int mxtpu_flash_bwd_block_q() { return BQ; }
-extern "C" int mxtpu_flash_bwd_block_k() { return BK; }
+// of block_q and S_k of block_k, the largest tiles of any of the kernels.
+extern "C" int mxtpu_flash_bwd_block_q() { return TC_BQ; }
+extern "C" int mxtpu_flash_bwd_block_k() { return TC_BKV; }

@@ -9,11 +9,18 @@ backward recomputes the scores from it: one kernel for Delta and dQ,
 one for dK and dV.  :func:`flash_fwd` and :func:`flash_bwd` launch the
 kernels for CUDA tensors and run :func:`flash_attention_plain` and
 :func:`flash_bwd_plain` for CPU tensors; a CUDA tensor the kernels
-cannot take raises, they never fall back.  ``flash_fwd_launches`` and
-``flash_bwd_launches`` count kernel launches (one dQ and dK/dV pair per
-backward launch), and ``flash_bwd_dq_launches`` and
-``flash_bwd_dkv_launches`` each backward kernel's own, so a run can show
-that its attention went through the kernels.
+cannot take raises, they never fall back.
+
+The library picks each kernel's route by dtype: bf16 runs the forward
+and the dK/dV pass on the tensor cores (mma.sync), f32 on the CUDA
+cores in f32 FMAs (the tensor cores would take f32 only as TF32, which
+the kernel contract forbids); the dQ pass runs on the CUDA cores for
+both.  ``flash_fwd_launches`` and ``flash_bwd_launches`` count kernel
+launches (one dQ and dK/dV pair per backward launch),
+``flash_bwd_dq_launches`` and ``flash_bwd_dkv_launches`` each backward
+kernel's own, and ``flash_fwd_tc_launches`` and
+``flash_bwd_dkv_tc_launches`` those that took the tensor-core route, so
+a run can show which kernels its attention went through.
 
 Layout is (B, S, H, D) in and out.  Grouped-query attention is native:
 K/V may carry fewer heads than Q, and query head h reads KV head
@@ -40,53 +47,90 @@ flash_bwd_launches = 0
 #: launches of K2 (dQ) and of K3 (dK, dV) alone, by their wrappers
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+#: the forward's and K3's launches that took the tensor-core route
+flash_fwd_tc_launches = 0
+flash_bwd_dkv_tc_launches = 0
+
+#: S_q and S_k must be multiples of these for the kernels: the largest
+#: tiles of either route (the libraries export the same numbers)
+FWD_BLOCK_Q = FWD_BLOCK_K = 64
+BWD_BLOCK_Q = BWD_BLOCK_K = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
-_kernel_fn = None
-_bwd_kernel_fns = None
+_fwd_lib = None
+_bwd_lib = None
+
+
+def _int_fns(lib, *names):
+    for name in names:
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] if name.endswith("_tc") else []
+
+
+def _bind_fwd(lib):
+    """Declare the C signatures of the forward's library."""
+    fn = lib.mxtpu_flash_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 9
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    _int_fns(lib, "mxtpu_flash_fwd_block_q", "mxtpu_flash_fwd_block_k",
+             "mxtpu_flash_fwd_tc")
+    return lib
+
+
+def _bind_bwd(lib):
+    """Declare the C signatures of the backward's library."""
+    tail = ([ctypes.c_int] * 7 + [ctypes.c_longlong] * 15
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    dq, dkv = lib.mxtpu_flash_bwd_dq, lib.mxtpu_flash_bwd_dkv
+    dq.restype = dkv.restype = ctypes.c_int
+    dq.argtypes = [ctypes.c_void_p] * 9 + tail
+    dkv.argtypes = [ctypes.c_void_p] * 10 + tail
+    _int_fns(lib, "mxtpu_flash_bwd_block_q", "mxtpu_flash_bwd_block_k",
+             "mxtpu_flash_bwd_dkv_tc")
+    return lib
 
 
 def _kernel():
-    """(C function, block_q, block_k); builds the library at first use."""
-    global _kernel_fn
-    if _kernel_fn is None:
+    """The forward's library (``mxtpu_flash_fwd`` and its tile and
+    route queries), built at first use."""
+    global _fwd_lib
+    if _fwd_lib is None:
         from .._kernels import load
-        lib = load("flash_fwd")
-        fn = lib.mxtpu_flash_fwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_longlong] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-        for tile in (lib.mxtpu_flash_fwd_block_q,
-                     lib.mxtpu_flash_fwd_block_k):
-            tile.restype, tile.argtypes = ctypes.c_int, []
-        _kernel_fn = (fn, lib.mxtpu_flash_fwd_block_q(),
-                      lib.mxtpu_flash_fwd_block_k())
-    return _kernel_fn
+        _fwd_lib = _bind_fwd(load("flash_fwd"))
+    return _fwd_lib
 
 
 def _bwd_kernels():
-    """(dQ function, dK/dV function, block_q, block_k); builds the
-    library at first use."""
-    global _bwd_kernel_fns
-    if _bwd_kernel_fns is None:
+    """The backward's library (``mxtpu_flash_bwd_dq``,
+    ``mxtpu_flash_bwd_dkv`` and their tile and route queries), built at
+    first use."""
+    global _bwd_lib
+    if _bwd_lib is None:
         from .._kernels import load
-        lib = load("flash_bwd")
-        tail = ([ctypes.c_int] * 7 + [ctypes.c_longlong] * 15
-                + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p])
-        dq, dkv = lib.mxtpu_flash_bwd_dq, lib.mxtpu_flash_bwd_dkv
-        dq.restype = dkv.restype = ctypes.c_int
-        dq.argtypes = [ctypes.c_void_p] * 9 + tail
-        dkv.argtypes = [ctypes.c_void_p] * 10 + tail
-        for tile in (lib.mxtpu_flash_bwd_block_q,
-                     lib.mxtpu_flash_bwd_block_k):
-            tile.restype, tile.argtypes = ctypes.c_int, []
-        _bwd_kernel_fns = (dq, dkv, lib.mxtpu_flash_bwd_block_q(),
-                           lib.mxtpu_flash_bwd_block_k())
-    return _bwd_kernel_fns
+        _bwd_lib = _bind_bwd(load("flash_bwd"))
+    return _bwd_lib
+
+
+def _check_tiles(s_q, s_k, block_q, block_k, who):
+    if s_q % block_q or s_k % block_k:
+        raise MXNetError(
+            f"{who}: S_q={s_q} must be a multiple of {block_q} and "
+            f"S_k={s_k} of {block_k}")
+
+
+def _aligned(t, dims=3):
+    """``t`` as the tensor-core kernels read it, 16 bytes at a time: a
+    16-byte aligned pointer and its first ``dims`` strides multiples of
+    8 elements.  A tensor that is not is copied to a fresh contiguous
+    one; the kernels never read around it."""
+    if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:dims]):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
 
 
 def flash_attention_plain(q, k, v, scale, causal=False, kmask=None,
@@ -206,8 +250,10 @@ def flash_fwd(q, k, v, scale, causal=False, kmask=None, window=None,
               want_lse=False):
     """One flash forward: the kernel for CUDA tensors, the plain version
     for CPU tensors.  Returns ``(out (B,S_q,H,D), lse (B*H,S_q) f32 or
-    None)``.  ``window`` is None or a positive int (needs ``causal``)."""
-    global flash_fwd_launches
+    None)``.  ``window`` is None or a positive int (needs ``causal``).
+    On the card S_q and S_k must be multiples of ``FWD_BLOCK_Q`` and
+    ``FWD_BLOCK_K`` (64) for either dtype."""
+    global flash_fwd_launches, flash_fwd_tc_launches
     _check(q, k, v, kmask)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, causal=causal,
@@ -215,13 +261,13 @@ def flash_fwd(q, k, v, scale, causal=False, kmask=None, window=None,
                                      want_lse=want_lse)
     if q.device.type != "cuda":
         raise MXNetError(f"flash_fwd: no kernel for device {q.device}")
-    fn, block_q, block_k = _kernel()
+    _check_tiles(q.shape[1], k.shape[1], FWD_BLOCK_Q, FWD_BLOCK_K,
+                 "flash_fwd")
+    lib = _kernel()
+    tc = bool(lib.mxtpu_flash_fwd_tc(_DTYPE_CODES[q.dtype]))
+    if tc:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     b, s_q, h, d = q.shape
-    s_k, kv = k.shape[1], k.shape[2]
-    if s_q % block_q or s_k % block_k:
-        raise MXNetError(
-            f"flash_fwd: S_q={s_q} must be a multiple of {block_q} and "
-            f"S_k={s_k} of {block_k}")
     out = torch.empty((b, s_q, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b * h, s_q), dtype=torch.float32,
                        device=q.device) if want_lse else None)
@@ -230,20 +276,28 @@ def flash_fwd(q, k, v, scale, causal=False, kmask=None, window=None,
         km = kmask.to(device=q.device, dtype=torch.float32).contiguous()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if lse is not None else None,
-                km.data_ptr() if km is not None else None,
-                _DTYPE_CODES[q.dtype], b, h, kv, s_q, s_k, d,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                float(scale), int(bool(causal)), int(window or 0), stream)
+        rc = lib.mxtpu_flash_fwd(
+            *_fwd_args(q, k, v, out, lse, km, scale, causal, window), stream)
     if rc != 0:
         raise MXNetError(f"flash_fwd kernel launch failed: cudaError_t "
                          f"{rc} (q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"{q.dtype})")
     flash_fwd_launches += 1
+    flash_fwd_tc_launches += tc
     return out, lse
+
+
+def _fwd_args(q, k, v, out, lse, km, scale, causal, window):
+    """``mxtpu_flash_fwd``'s arguments but the stream."""
+    b, s_q, h, d = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            km.data_ptr() if km is not None else None,
+            _DTYPE_CODES[q.dtype], b, h, k.shape[2], s_q, k.shape[1], d,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            float(scale), int(bool(causal)), int(window or 0))
 
 
 def _bwd_args(q, k, v, out, g, scale, causal, window):
@@ -269,7 +323,7 @@ def _bwd_dq(q, k, v, out, g, lse, km, scale, causal, window):
     """Launch K2 alone: returns dQ (B, S_q, H, D) and the Delta
     (B*H, S_q) f32 it computed on the way, which K3 reads."""
     global flash_bwd_dq_launches
-    fn = _bwd_kernels()[0]
+    fn = _bwd_kernels().mxtpu_flash_bwd_dq
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -287,19 +341,25 @@ def _bwd_dq(q, k, v, out, g, lse, km, scale, causal, window):
 def _bwd_dkv(q, k, v, out, g, lse, delta, km, scale, causal, window):
     """Launch K3 alone: dK, dV (B, S_k, KV, D), summed over each group
     of query heads.  ``delta`` is the one K2 wrote."""
-    global flash_bwd_dkv_launches
-    fn = _bwd_kernels()[1]
+    global flash_bwd_dkv_launches, flash_bwd_dkv_tc_launches
+    lib = _bwd_kernels()
+    tc = bool(lib.mxtpu_flash_bwd_dkv_tc(_DTYPE_CODES[q.dtype]))
+    if tc:
+        q, k, v, g = (_aligned(t) for t in (q, k, v, g))
+        lse, delta = _aligned(lse, 0), _aligned(delta, 0)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                km.data_ptr() if km is not None else None, dk.data_ptr(),
-                dv.data_ptr(), _DTYPE_CODES[q.dtype],
-                *_bwd_args(q, k, v, out, g, scale, causal, window), stream)
+        rc = lib.mxtpu_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            km.data_ptr() if km is not None else None, dk.data_ptr(),
+            dv.data_ptr(), _DTYPE_CODES[q.dtype],
+            *_bwd_args(q, k, v, out, g, scale, causal, window), stream)
     _launched(rc, "flash_bwd (dK, dV)", q)
     flash_bwd_dkv_launches += 1
+    flash_bwd_dkv_tc_launches += tc
     return dk, dv
 
 
@@ -337,7 +397,9 @@ def flash_bwd(q, k, v, out, lse, g, scale, causal=False, kmask=None,
     """One flash backward: K2 (Delta and dQ), then K3 (dK, dV) for CUDA
     tensors, the plain version for CPU tensors.  ``out`` and ``lse`` are
     the forward's output and (B*H, S_q) log-sum-exp, ``g`` the gradient
-    of ``out``.  Returns ``(dq, dk, dv)`` in the input type."""
+    of ``out``.  Returns ``(dq, dk, dv)`` in the input type.  On the card
+    S_q and S_k must be multiples of ``BWD_BLOCK_Q`` and ``BWD_BLOCK_K``
+    (64) for either dtype."""
     global flash_bwd_launches
     out, g, km = _bwd_inputs(q, k, v, out, lse, g, kmask)
     if q.device.type == "cpu":
@@ -345,12 +407,8 @@ def flash_bwd(q, k, v, out, lse, g, scale, causal=False, kmask=None,
                                kmask=km, window=window)
     if q.device.type != "cuda":
         raise MXNetError(f"flash_bwd: no kernel for device {q.device}")
-    _, _, block_q, block_k = _bwd_kernels()
-    s_q, s_k = q.shape[1], k.shape[1]
-    if s_q % block_q or s_k % block_k:
-        raise MXNetError(
-            f"flash_bwd: S_q={s_q} must be a multiple of {block_q} and "
-            f"S_k={s_k} of {block_k}")
+    _check_tiles(q.shape[1], k.shape[1], BWD_BLOCK_Q, BWD_BLOCK_K,
+                 "flash_bwd")
     dq, delta = _bwd_dq(q, k, v, out, g, lse, km, scale, causal, window)
     dk, dv = _bwd_dkv(q, k, v, out, g, lse, delta, km, scale, causal,
                       window)

@@ -46,6 +46,9 @@ FLASH_CASES = [
     pytest.param(dict(d=64, causal=True), id="d64-causal"),
     pytest.param(dict(d=128), id="d128"),
     pytest.param(dict(d=128, causal=True), id="d128-causal"),
+    # a head dim the tensor cores take zero-padded to 80
+    pytest.param(dict(d=72), id="d72"),
+    pytest.param(dict(d=72, causal=True), id="d72-causal"),
     pytest.param(dict(s_q=256, s_k=256), id="multi-k-block"),
     pytest.param(dict(s_q=128, s_k=256), id="cross"),
     pytest.param(dict(s_q=128, s_k=256, causal=True), id="cross-causal"),
@@ -90,6 +93,25 @@ def test_flash_bf16_matches_jax_kernel(interpret):
     got = tfa.flash_attention(
         torch.from_numpy(q).bfloat16(), torch.from_numpy(k).bfloat16(),
         torch.from_numpy(v).bfloat16(), causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_TOL,
+                               atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(dict(s=256, d=64, window=100), id="window100"),
+    pytest.param(dict(s=256, d=72), id="d72-causal"),
+])
+def test_flash_bf16_cases_match_jax_kernel(interpret, case):
+    """bf16 through the branches the tensor-core kernel adds: a band
+    edge in the middle of a key tile, and head-dim padding."""
+    q, k, v = _qkv(1, case["s"], case["s"], 2, case["d"], seed=13)
+    bf = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    want = np.asarray(fa_mod.flash_attention(
+        *bf, causal=True, window=case.get("window")).astype(jnp.float32))
+    got = tfa.flash_attention(
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v)), causal=True,
+        window=case.get("window"))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_TOL,
                                atol=BF16_TOL)
@@ -232,3 +254,44 @@ def test_backward_not_ported_raises():
         assert t.grad.shape == t.shape and t.grad.dtype == t.dtype
         assert torch.isfinite(t.grad).all()
     assert k.grad is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_viable_shapes_pass_the_tile_checks(dtype):
+    """Every shape ``_flash_viable`` sends to the kernels (lengths
+    128-1024, head dims 8-256) passes both wrappers' tile checks, the
+    largest tiles of either route."""
+    checked = 0
+    for s_q in range(128, 1025, 128):
+        for s_k in range(128, 1025, 128):
+            for d in range(8, 257, 8):
+                q = torch.empty(1, s_q, 4, d, dtype=dtype, device="meta")
+                k = torch.empty(1, s_k, 2, d, dtype=dtype, device="meta")
+                if not tattn._flash_viable(q, k, k):
+                    continue
+                tfa._check_tiles(s_q, s_k, tfa.FWD_BLOCK_Q, tfa.FWD_BLOCK_K,
+                                 "flash_fwd")
+                tfa._check_tiles(s_q, s_k, tfa.BWD_BLOCK_Q, tfa.BWD_BLOCK_K,
+                                 "flash_bwd")
+                checked += 1
+    assert checked == 8 * 8 * 32
+    with pytest.raises(MXNetError, match="multiple of"):
+        tfa._check_tiles(128, 96, tfa.FWD_BLOCK_Q, tfa.FWD_BLOCK_K,
+                         "flash_fwd")
+
+
+def test_cpu_calls_leave_the_route_counters_at_zero():
+    """CPU tensors run the plain versions: neither the tensor-core nor
+    the CUDA-core route counts a launch."""
+    for name in ("flash_fwd_launches", "flash_fwd_tc_launches",
+                 "flash_bwd_launches", "flash_bwd_dkv_launches",
+                 "flash_bwd_dkv_tc_launches"):
+        setattr(tfa, name, 0)
+    q, k, v = (torch.from_numpy(x).bfloat16().requires_grad_(True)
+               for x in _qkv(1, 128, 128, 2, 16))
+    tfa.flash_attention(q, k, v, causal=True).float().sum().backward()
+    assert q.grad is not None
+    assert (tfa.flash_fwd_launches, tfa.flash_fwd_tc_launches,
+            tfa.flash_bwd_launches, tfa.flash_bwd_dkv_launches,
+            tfa.flash_bwd_dkv_tc_launches) == (0, 0, 0, 0, 0)

@@ -84,6 +84,8 @@ CASES = [
     pytest.param(dict(d=64, causal=True), id="d64-causal"),
     pytest.param(dict(d=128), id="d128"),
     pytest.param(dict(d=128, causal=True), id="d128-causal"),
+    # a head dim the tensor cores take zero-padded to 80
+    pytest.param(dict(d=72, causal=True), id="d72-causal"),
     pytest.param(dict(s_q=256, s_k=256, causal=True), id="multi-k-block"),
     pytest.param(dict(s_q=128, s_k=256, causal=True), id="cross-causal"),
     pytest.param(dict(s_q=256, s_k=128, causal=True, zeros=True),
@@ -137,6 +139,24 @@ def test_flash_backward_bf16_matches_jax_kernels(interpret, causal):
     q, k, v, ct = _inputs(1, 128, 256, 2, 64, seed=31)
     want = _jax_grads(q, k, v, ct, causal=causal, dtype=jnp.bfloat16)
     got = _torch_grads(q, k, v, ct, causal=causal, dtype=torch.bfloat16)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, w, rtol=BF16_TOL, atol=BF16_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(dict(s=256, d=64, window=100), id="window100"),
+    pytest.param(dict(s=128, d=72), id="d72-causal"),
+])
+def test_flash_backward_bf16_cases_match_jax_kernels(interpret, case):
+    """bf16 gradients through the branches the tensor-core dK/dV kernel
+    adds: a band edge in the middle of a tile, and head-dim padding."""
+    s, d = case["s"], case["d"]
+    q, k, v, ct = _inputs(1, s, s, 2, d, seed=37)
+    want = _jax_grads(q, k, v, ct, causal=True, window=case.get("window"),
+                      dtype=jnp.bfloat16)
+    got = _torch_grads(q, k, v, ct, causal=True, window=case.get("window"),
+                       dtype=torch.bfloat16)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a, w, rtol=BF16_TOL, atol=BF16_TOL,
                                    err_msg=name)
