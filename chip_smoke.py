@@ -171,7 +171,8 @@ def device_ms(fn, reps, warmup=2, by_kernel=False, tries=3):
 
 COUNTERS = ("flash_fwd_launches", "flash_bwd_launches",
             "flash_bwd_dq_launches", "flash_bwd_dkv_launches",
-            "flash_fwd_tc_launches", "flash_bwd_dkv_tc_launches")
+            "flash_fwd_tc_launches", "flash_bwd_dq_tc_launches",
+            "flash_bwd_dkv_tc_launches")
 # the counters of the CUDA-core f32 route: every launch counts there,
 # and a bf16 launch also counts in its *_tc_launches
 F32_ROUTE = COUNTERS[:4]
@@ -288,6 +289,9 @@ BWD_CASES = [
     # visit no query tile, whose dK and dV must be exactly 0
     dict(name="cross_window_128x512_w64_bf16", s_q=128, s_k=512,
          dtype="bfloat16", causal=True, window=64),
+    # a band edge in the middle of a 64-key tile
+    dict(name="window_s512_w100_bf16", s_q=512, s_k=512, dtype="bfloat16",
+         causal=True, window=100),
     dict(name="d72_s256_bf16", s_q=256, s_k=256, dtype="bfloat16",
          causal=True, h=8, kv=2, d=72),
     dict(name="d256_s256_bf16", s_q=256, s_k=256, dtype="bfloat16",
@@ -521,7 +525,7 @@ def _flash_bwd_case(case, dev):
     dq_share = lib_bwd * dq_ops / (dq_ops + 8.0 * d * pairs)
     dkv_share = lib_bwd - dq_share
     row = {"phase": "kernels", "kernel": "flash_bwd", "case": case["name"],
-           "dq_cores": "cuda_cores", "dkv_cores": _cores(q.dtype),
+           "dq_cores": _cores(q.dtype), "dkv_cores": _cores(q.dtype),
            "b": b, "h": h, "kv": kv, "d": d, "s_q": s_q, "s_k": s_k,
            "dtype": case["dtype"], "causal": causal, "window": window,
            "key_padding": kmask is not None, "max_abs_err": errs,
@@ -1177,8 +1181,8 @@ def phase_train_parity(mx, dev):
     check(rel <= 1e-4, f"train_parity: losses differ by {rel} relative")
     check(all(launches[n] == steps * layers for n in F32_ROUTE),
           f"train_parity: launches {launches}, want {steps * layers} each")
-    check(launches["flash_fwd_tc_launches"] == 0
-          and launches["flash_bwd_dkv_tc_launches"] == 0,
+    check(all(launches[n] == 0 for n in COUNTERS
+              if n.endswith("_tc_launches")),
           f"train_parity: f32 launches took the tensor-core route: "
           f"{launches}")
     check(card_losses[-1] < card_losses[0],
@@ -1278,7 +1282,7 @@ def phase_train(mx, dev, ctx, cfg=BERT_BASE):
               **breakdown))
     check(last < first, f"train: last loss {last} not below the first "
           f"{first}")
-    # bf16 AMP: every K1 and K3 launch on the tensor cores, so every
+    # bf16 AMP: every K1, K2 and K3 launch on the tensor cores, so every
     # counter (the *_tc_launches too) is layers x steps
     check(all(n == layers * n_steps for n in launches.values()),
           f"train: launches {launches}, want {layers} x {n_steps} each")
@@ -1490,12 +1494,13 @@ def kernel_entries(rows, bwd_rows, train, serve_launches):
               "f32": dict(fwd_nums(f32), design=DESIGN["cuda_cores"])},
              **fwd_nums(head)),
         dict({"name": "flash_bwd_dq", "route": "cuda",
-              "design": "both types: " + DESIGN["cuda_cores"],
+              "design": DESIGN["tensor_cores"],
               "source": src + "flash_bwd.cu",
               "replaces": "mxnet_tpu/ops/flash_attention.py:303",
               "launches": train.get("flash_bwd_dq_launches"),
-              "f32": bwd_nums(b32, "dq"), "plain_and_library": whole},
-             **bwd_nums(b16, "dq")),
+              "tc_launches": train.get("flash_bwd_dq_tc_launches"),
+              "f32": dict(bwd_nums(b32, "dq"), design=DESIGN["cuda_cores"]),
+              "plain_and_library": whole}, **bwd_nums(b16, "dq")),
         dict({"name": "flash_bwd_dkv", "route": "cuda",
               "design": DESIGN["tensor_cores"],
               "source": src + "flash_bwd.cu",

@@ -44,40 +44,57 @@
 // H=12, D=64, bf16) that is 6.4 GFLOP, 6.5 us of tensor-core time,
 // against 76 MB, 23 us: the bound is the bytes.
 //
-// K3 in bf16 runs on the tensor cores (flash_bwd_dkv_tc_kernel), in the
-// style of FlashAttention-2: one block of 4 warps per (64-key tile, KV
-// head, batch row), each warp owning 16 key rows; a loop over the query
-// heads of the group and the visible 64-query tiles, whose Q, dO, LSE and
-// Delta come into shared memory by 16-byte cp.async, double-buffered (the
-// next tile's copy in flight while the current one is computed). S^T =
-// K Q^T and dP^T = V dO^T run as mma.sync m16n8k16 (bf16 in, f32
-// accumulate), 32 queries a pass; K and V are A fragments held in
-// registers at D <= 64 and read from shared memory by ldmatrix above it,
-// where the dK and dV accumulators (two 16 x D f32 tiles a warp) leave no
-// room. P^T and dS^T are formed on the accumulator fragments and packed
-// straight into bf16 A fragments for dV += P^T dO and dK += dS^T Q, whose
-// B operands come from the row-major Q and dO tiles through
-// ldmatrix.trans. Head dims that are not a multiple of 16 are zero-padded
-// in shared memory; the padding columns are never written out. What this
-// removes, against the CUDA-core design: the f32 staging of bf16 tiles,
-// one scalar shared-memory load per FMA, and the round trip of P^T and
-// dS^T through shared memory.
+// bf16: both kernels run on the tensor cores, in the style of
+// FlashAttention-2, with mma.sync m16n8k16 (bf16 in, f32 accumulate), tiles
+// in shared memory as bf16 by 16-byte cp.async, and operand fragments by
+// ldmatrix (csrc/flash_tc.cuh):
+//   * K2 (flash_bwd_dq_tc_kernel): one block of 4 warps per (64-query tile,
+//     head, batch row), each warp owning 16 query rows. The Q and dO tiles
+//     are loaded once; Delta = rowsum(dO o O) is formed from the dO tile
+//     and O read 16 bytes at a time, the four lanes of a row splitting it.
+//     Q and dO are A fragments held in registers at D <= 64 and read from
+//     shared memory by ldmatrix above it. The visible 64-key tiles of KV
+//     head h / (H / KV) are double-buffered (the next tile's copy in flight
+//     while the current one is computed); S = Q K^T and dP = dO V^T run 64
+//     keys a pass (32 where that would spill), with K and V as B operands
+//     of the row-major tiles; P and dS are formed on the accumulator
+//     fragments and dS is packed straight into bf16 A fragments for
+//     dQ += dS K, whose B operand is K through ldmatrix.trans. The 16 x D
+//     f32 dQ accumulator of a warp is scaled, rounded and staged in the
+//     warp's own shared rows, then written 16 bytes a store. K2 does three
+//     products (S, dP, dS K); at BERT's training shape it moves Q, O, dO,
+//     K, V and LSE in and dQ and Delta out, 76 MB, 23 us, against 4.8
+//     GFLOP, 4.9 us of tensor-core time: the bound is the bytes.
+//   * K3 (flash_bwd_dkv_tc_kernel): one block of 4 warps per (64-key tile,
+//     KV head, batch row), each warp owning 16 key rows; a loop over the
+//     query heads of the group and the visible 64-query tiles, whose Q, dO,
+//     LSE and Delta are double-buffered. S^T = K Q^T and dP^T = V dO^T run
+//     32 queries a pass; K and V are A fragments held in registers at
+//     D <= 64 and read from shared memory above it, where the dK and dV
+//     accumulators (two 16 x D f32 tiles a warp) leave no room. P^T and
+//     dS^T go straight into bf16 A fragments for dV += P^T dO and
+//     dK += dS^T Q, whose B operands come from the Q and dO tiles through
+//     ldmatrix.trans.
+// Head dims that are not a multiple of 16 are zero-padded in shared memory;
+// the padding columns are never written out. What this removes, against
+// the CUDA-core design: f32 FMAs for bf16 inputs, the f32 staging of bf16
+// tiles by one element a thread, one scalar shared-memory load per FMA, the
+// round trip of P and dS through shared memory, and the synchronous K/V
+// loads with a barrier on each side.
 //
-// The other kernels keep the first, CUDA-core design (f32 FMAs):
-//   * K2, both types: one block of 256 threads per (64-query tile, head,
-//     batch row): Delta for its rows (one warp reduction a row), then a
-//     loop over the 32-key tiles of KV head h / (H / KV); the dQ
-//     accumulator stays in registers (4 rows x D/16 columns a thread);
-//   * K3 in f32: one block of 256 threads per (32-key tile, KV head,
-//     batch row), looping over every query head of the group and every
-//     32-query tile; dK and dV stay in registers. The tensor cores take f32
-//     only as TF32, which the kernel contract forbids, so f32 stays on the
-//     CUDA cores;
+// f32 keeps the first, CUDA-core design (f32 FMAs): the tensor cores take
+// f32 only as TF32, which the kernel contract forbids.
+//   * K2: one block of 256 threads per (64-query tile, head, batch row):
+//     Delta for its rows (one warp reduction a row), then a loop over the
+//     32-key tiles of KV head h / (H / KV); the dQ accumulator stays in
+//     registers (4 rows x D/16 columns a thread);
+//   * K3: one block of 256 threads per (32-key tile, KV head, batch row),
+//     looping over every query head of the group and every 32-query tile;
+//     dK and dV stay in registers;
 //   * every tile is staged in shared memory as f32 with rows padded by one
 //     word (column reads free of bank conflicts).
-// Not done yet: K2 on the tensor cores (next), then wgmma with TMA loads
-// and warp specialisation for whichever kernel stays below half its
-// bound, and one fused pass for dQ, dK and dV.
+// Not done yet: wgmma with TMA loads and warp specialisation for whichever
+// kernel stays below half its bound, and one fused pass for dQ, dK and dV.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,31 +133,6 @@ struct Params {
   int window;  // 0: no window
 };
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// An operand of a product enters it in the input type: rounded to bf16 for
-// bf16 inputs, unchanged for f32.
-template <typename T>
-__device__ __forceinline__ float round_op(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
-
 // The element mask: causal band, window and key padding.
 __device__ __forceinline__ bool keep(const Params& p, int b, int qp, int kp, int off) {
   bool ok = true;
@@ -162,12 +154,11 @@ __device__ __forceinline__ bool tile_visible(const Params& p, int q0, int nq, in
   return vis;
 }
 
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long row_stride,
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long row_stride,
                                           int row0, int rows, int D, int DP) {
   for (int i = threadIdx.x; i < rows * D; i += NT) {
     const int r = i / D, d = i - r * D;
-    dst[r * DP + d] = to_f32<T>(src[(long long)(row0 + r) * row_stride + d]);
+    dst[r * DP + d] = src[(long long)(row0 + r) * row_stride + d];
   }
 }
 
@@ -180,8 +171,9 @@ __host__ __device__ constexpr size_t dkv_smem_floats(int D) {
          2 * BQ3;
 }
 
-// K2: Delta and dQ for one (query tile, head, batch row).
-template <typename T, int DMAX>
+// K2: Delta and dQ for one (query tile, head, batch row). The f32 route:
+// f32 FMAs on the CUDA cores.
+template <int DMAX>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.D;
@@ -190,7 +182,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
   float* Gs = Qs + BQ * DP;        // BQ x DP (dO)
   float* Ks = Gs + BQ * DP;        // BK x DP
   float* Vs = Ks + BK * DP;        // BK x DP
-  float* Ss = Vs + BK * DP;        // BQ x PS (dS, rounded)
+  float* Ss = Vs + BK * DP;        // BQ x PS (dS)
   float* lse_s = Ss + BQ * PS;     // BQ
   float* del_s = lse_s + BQ;       // BQ
 
@@ -203,14 +195,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
   const int off = p.Sk - p.Sq;
   const long long row0 = ((long long)b * p.H + h) * p.Sq + q0;
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh;
-  const T* og = static_cast<const T*>(p.o) + b * p.osb + h * p.osh;
-  const T* gg = static_cast<const T*>(p.g) + b * p.gsb + h * p.gsh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.ksb + kvh * p.ksh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.vsb + kvh * p.vsh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh;
+  const float* og = static_cast<const float*>(p.o) + b * p.osb + h * p.osh;
+  const float* gg = static_cast<const float*>(p.g) + b * p.gsb + h * p.gsh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.ksb + kvh * p.ksh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.vsb + kvh * p.vsh;
 
-  load_tile<T>(Qs, qg, p.qss, q0, BQ, D, DP);
-  load_tile<T>(Gs, gg, p.gss, q0, BQ, D, DP);
+  load_tile(Qs, qg, p.qss, q0, BQ, D, DP);
+  load_tile(Gs, gg, p.gss, q0, BQ, D, DP);
   if (tid < BQ) lse_s[tid] = p.lse[row0 + tid];
   __syncthreads();
 
@@ -219,7 +211,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
     const int r = warp * (BQ / 8) + rr;
     float sum = 0.f;
     for (int d = lane; d < D; d += 32)
-      sum = fmaf(Gs[r * DP + d], to_f32<T>(og[(long long)(q0 + r) * p.oss + d]), sum);
+      sum = fmaf(Gs[r * DP + d], og[(long long)(q0 + r) * p.oss + d], sum);
 #pragma unroll
     for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
     if (lane == 0) {
@@ -241,8 +233,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
     const int k0 = kb * BK;
     if (!tile_visible(p, q0, BQ, k0, BK, off)) continue;
     __syncthreads();  // Delta is in; the previous tile's readers are done
-    load_tile<T>(Ks, kg, p.kss, k0, BK, D, DP);
-    load_tile<T>(Vs, vg, p.vss, k0, BK, D, DP);
+    load_tile(Ks, kg, p.kss, k0, BK, D, DP);
+    load_tile(Vs, vg, p.vss, k0, BK, D, DP);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T: rows ty + 16*i, keys tx + 16*j
@@ -279,7 +271,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
           const float pr = expf(s[i][j] * p.scale - lse_s[r]);
           ds = pr * (dp[i][j] - del_s[r]);
         }
-        Ss[r * PS + c] = round_op<T>(ds);
+        Ss[r * PS + c] = ds;
       }
     }
     __syncthreads();
@@ -301,14 +293,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
     }
   }
 
-  T* dqg = static_cast<T*>(p.dq) + ((long long)b * p.Sq * p.H + h) * D;
+  float* dqg = static_cast<float*>(p.dq) + ((long long)b * p.Sq * p.H + h) * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) dqg[(long long)(q0 + r) * p.H * D + d] = from_f32<T>(acc[i][j] * p.scale);
+      if (d < D) dqg[(long long)(q0 + r) * p.H * D + d] = acc[i][j] * p.scale;
     }
   }
 }
@@ -338,8 +330,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
 
   const float* kg = static_cast<const float*>(p.k) + b * p.ksb + kvh * p.ksh;
   const float* vg = static_cast<const float*>(p.v) + b * p.vsb + kvh * p.vsh;
-  load_tile<float>(Ks, kg, p.kss, k0, BKV, D, DP);
-  load_tile<float>(Vs, vg, p.vss, k0, BKV, D, DP);
+  load_tile(Ks, kg, p.kss, k0, BKV, D, DP);
+  load_tile(Vs, vg, p.vss, k0, BKV, D, DP);
 
   // thread owns dK/dV rows ty + 16*i and head-dim columns tx + 16*j
   constexpr int KR = BKV / 16;
@@ -360,8 +352,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
       const int q0 = qb * BQ3;
       if (!tile_visible(p, q0, BQ3, k0, BKV, off)) continue;
       __syncthreads();  // K/V loaded; the previous tile's readers are done
-      load_tile<float>(Qs, qg, p.qss, q0, BQ3, D, DP);
-      load_tile<float>(Gs, gg, p.gss, q0, BQ3, D, DP);
+      load_tile(Qs, qg, p.qss, q0, BQ3, D, DP);
+      load_tile(Gs, gg, p.gss, q0, BQ3, D, DP);
       if (tid < BQ3) {
         lse_s[tid] = p.lse[row0 + q0 + tid];
         del_s[tid] = p.delta[row0 + q0 + tid];
@@ -450,15 +442,245 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
-// ---- K3 in bf16 on the tensor cores ------------------------------------------
+// ---- K2 and K3 in bf16 on the tensor cores -----------------------------------
 
 constexpr int TC_NT = 128;   // threads per block: 4 warps
-constexpr int TC_BKV = 64;   // keys per block: 16 per warp
-constexpr int TC_BQ = 64;    // queries per double-buffered tile
-constexpr int TC_QC = 32;    // queries per pass over a tile (bounds S^T, dP^T registers)
+constexpr int TC_BKV = 64;   // keys per block (K3, 16 per warp) and per tile (K2)
+constexpr int TC_BQ = 64;    // queries per block (K2, 16 per warp) and per tile (K3)
+constexpr int TC_QC = 32;    // K3: queries per pass over a tile (bounds S^T, dP^T registers)
 constexpr float LOG2E = 1.4426950408889634f;
 
 using flash_tc::bf16;
+
+__host__ __device__ constexpr size_t dq_tc_smem_bytes(int D) {
+  return (size_t)(2 * TC_BQ + 4 * TC_BKV) * flash_tc::row_ld(D) * sizeof(bf16);
+}
+
+// K2 for bf16: Delta and dQ for one (64-query tile, head, batch row), over
+// the visible 64-key tiles of KV head h / (H / KV). Q and dO stay in
+// registers as A fragments for DMAX <= 64, and are read from shared memory
+// per product above that (the dQ accumulator takes DMAX / 2 registers).
+template <int DMAX>
+__global__ void __launch_bounds__(TC_NT) flash_bwd_dq_tc_kernel(Params p) {
+  using namespace flash_tc;
+  constexpr bool QG_REGS = DMAX <= 64;
+  constexpr int NKD = DMAX / 16;                // 16-deep chunks of the head dim
+  constexpr int NND = DMAX / 8;                 // 8-wide column tiles of dQ
+  // keys a pass: 64 where the S and dP fragments (KC / 2 registers each)
+  // fit beside Q, dO and the dQ accumulator without a spill, 32 elsewhere
+  constexpr int KC = (DMAX <= 128 && !QG_REGS) ? 64 : 32;
+  constexpr int NNK = KC / 8;                   // 8-wide key tiles of S, dP
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = p.D, DP = dpad(D), LD = row_ld(D);
+  const int nkd = DP / 16;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // TC_BQ x LD
+  bf16* Gs = Qs + TC_BQ * LD;                    // TC_BQ x LD (dO)
+  bf16* Ks = Gs + TC_BQ * LD;                    // 2 x TC_BKV x LD
+  bf16* Vs = Ks + 2 * TC_BKV * LD;               // 2 x TC_BKV x LD
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * TC_BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (p.H / p.KV);
+  const int off = p.Sk - p.Sq;
+  const int w0 = q0 + 16 * warp;  // this warp's queries: w0 .. w0 + 15
+  const int row0 = w0 + g;        // this lane's: row0, row0 + 8
+
+  // the key tiles that share a visible pair with this query tile (any
+  // causal offset: a skipped tile's P is exactly 0)
+  const int nkb = p.Sk / TC_BKV;
+  int kb_lo = 0, kb_hi = nkb;
+  if (p.causal) {
+    kb_lo = nkb;
+    kb_hi = 0;
+    for (int kb = 0; kb < nkb; ++kb) {
+      if (tile_visible(p, q0, TC_BQ, kb * TC_BKV, TC_BKV, off)) {
+        kb_lo = min(kb_lo, kb);
+        kb_hi = kb + 1;
+      }
+    }
+  }
+  const int nvis = max(kb_hi - kb_lo, 0);
+
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.qsb + h * p.qsh + q0 * p.qss;
+  const bf16* gg = static_cast<const bf16*>(p.g) + b * p.gsb + h * p.gsh + q0 * p.gss;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.ksb + kvh * p.ksh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vsb + kvh * p.vsh;
+  const TileSplit split = tile_split<TC_NT>(D);
+  // visible key tile t's K and V into buffer buf
+  auto stage = [&](int t, int buf) {
+    const long long k0 = (long long)(kb_lo + t) * TC_BKV;
+    load_rows(Ks + buf * TC_BKV * LD, kg + k0 * p.kss, p.kss, TC_BKV, LD, split);
+    load_rows(Vs + buf * TC_BKV * LD, vg + k0 * p.vss, p.vss, TC_BKV, LD, split);
+  };
+
+  zero_pad<TC_NT>(Qs, 2 * TC_BQ + 4 * TC_BKV, D, LD);
+  load_rows(Qs, qg, p.qss, TC_BQ, LD, split);
+  load_rows(Gs, gg, p.gss, TC_BQ, LD, split);
+  cp_async_commit();
+  if (nvis > 0) stage(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and dO are in; the first K, V tile may still be in flight
+  __syncthreads();
+
+  // Delta = rowsum(dO o O) in f32 for rows row0 and row0 + 8, the four
+  // lanes of a row splitting its 16-byte chunks; and this lane's LSE, in
+  // base 2 like the exponent
+  float del[2], lse2[2];
+  {
+    const bf16* og = static_cast<const bf16*>(p.o) + b * p.osb + h * p.osh;
+    const long long lrow = ((long long)b * p.H + h) * p.Sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qr = row0 + 8 * r;
+      const bf16* orow = og + (long long)qr * p.oss;
+      const bf16* grow = Gs + (qr - q0) * LD;
+      float sum = 0.f;
+      for (int c = t4; c < D / 8; c += 4) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
+        const uint4 gv = *reinterpret_cast<const uint4*>(grow + c * 8);
+        const bf16* o8 = reinterpret_cast<const bf16*>(&ov);
+        const bf16* g8 = reinterpret_cast<const bf16*>(&gv);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sum = fmaf(__bfloat162float(g8[i]), __bfloat162float(o8[i]), sum);
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      del[r] = sum;
+      if (t4 == 0) p.delta[lrow + qr] = sum;
+      lse2[r] = p.lse[lrow + qr] * LOG2E;
+    }
+  }
+  const float scale2 = p.scale * LOG2E;
+
+  uint32_t qf[QG_REGS ? NKD : 1][4], gf[QG_REGS ? NKD : 1][4];
+  const bf16* qw = Qs + (16 * warp + a_row(lane)) * LD + a_col(lane);
+  const bf16* gw = Gs + (16 * warp + a_row(lane)) * LD + a_col(lane);
+  if (QG_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < NKD; ++kk) {
+      if (kk < nkd) {
+        ldsm_x4(qf[QG_REGS ? kk : 0], qw + kk * 16);
+        ldsm_x4(gf[QG_REGS ? kk : 0], gw + kk * 16);
+      }
+    }
+  }
+
+  float dq[NND][4];
+#pragma unroll
+  for (int j = 0; j < NND; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int t = 0; t < nvis; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < nvis) {
+      stage(t + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = (kb_lo + t) * TC_BKV;
+    const bf16* Kb = Ks + buf * TC_BKV * LD;
+    const bf16* Vb = Vs + buf * TC_BKV * LD;
+
+#pragma unroll 1
+    for (int kc0 = 0; kc0 < TC_BKV; kc0 += KC) {
+      if (!tile_visible(p, w0, 16, k0 + kc0, KC, off)) continue;  // uniform over the warp
+      // S = Q K^T and dP = dO V^T: this warp's 16 queries x KC keys
+      float s[NNK][4], dpv[NNK][4];
+#pragma unroll
+      for (int j = 0; j < NNK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dpv[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NKD; ++kk) {
+        if (kk < nkd) {
+          uint32_t aq[4], ag[4];
+          if (QG_REGS) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              aq[i] = qf[QG_REGS ? kk : 0][i];
+              ag[i] = gf[QG_REGS ? kk : 0][i];
+            }
+          } else {
+            ldsm_x4(aq, qw + kk * 16);
+            ldsm_x4(ag, gw + kk * 16);
+          }
+#pragma unroll
+          for (int np = 0; np < NNK / 2; ++np) {
+            const int r = (kc0 + np * 16 + bn_row(lane)) * LD + kk * 16 + bn_col(lane);
+            uint32_t bk[4], bv[4];
+            ldsm_x4(bk, Kb + r);
+            mma(s[2 * np], aq, bk[0], bk[1]);
+            mma(s[2 * np + 1], aq, bk[2], bk[3]);
+            ldsm_x4(bv, Vb + r);
+            mma(dpv[2 * np], ag, bv[0], bv[1]);
+            mma(dpv[2 * np + 1], ag, bv[2], bv[3]);
+          }
+        }
+      }
+
+      // P = exp(scale S - LSE), exactly 0 where masked; dS = P o (dP - Delta),
+      // left in s
+      bool full = p.kmask == nullptr;
+      if (p.causal) {
+        full = full && k0 + kc0 + KC - 1 <= w0 + off;
+        if (p.window > 0) full = full && k0 + kc0 > w0 + 15 + off - p.window;
+      }
+#pragma unroll
+      for (int j = 0; j < NNK; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float ds = 0.f;
+          if (full || keep(p, b, row0 + 8 * r, k0 + kc0 + j * 8 + 2 * t4 + (e & 1), off)) {
+            const float pr = exp2f(fmaf(s[j][e], scale2, -lse2[r]));
+            ds = pr * (dpv[j][e] - del[r]);
+          }
+          s[j][e] = ds;
+        }
+      }
+
+      // dQ += dS K: dS rounded to bf16 as A fragments, K through ldmatrix.trans
+#pragma unroll
+      for (int kc = 0; kc < KC / 16; ++kc) {
+        uint32_t ads[4];
+        c_to_a(ads, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+        for (int dp = 0; dp < NND / 2; ++dp) {
+          if (dp < nkd) {
+            uint32_t bk[4];
+            ldsm_x4_t(bk, Kb + (kc0 + kc * 16 + a_row(lane)) * LD + dp * 16 + a_col(lane));
+            mma(dq[2 * dp], ads, bk[0], bk[1]);
+            mma(dq[2 * dp + 1], ads, bk[2], bk[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+  cp_async_wait<0>();  // a query tile that sees no key tile committed an empty group
+
+  // epilogue: dQ * scale, staged in this warp's rows of Qs (only this warp
+  // reads them), written 16 bytes a store
+  bf16* dqs = Qs + 16 * warp * LD;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < NND; ++j) {
+    if (j * 8 < D) {
+      const int c = j * 8 + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(dqs + g * LD + c) =
+          __floats2bfloat162_rn(dq[j][0] * p.scale, dq[j][1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dqs + (g + 8) * LD + c) =
+          __floats2bfloat162_rn(dq[j][2] * p.scale, dq[j][3] * p.scale);
+    }
+  }
+  __syncwarp();
+  const long long base = (((long long)b * p.Sq + w0) * p.H + h) * D;
+  store_rows16(static_cast<bf16*>(p.dq) + base, (long long)p.H * D, dqs, D, LD, lane);
+}
 
 __host__ __device__ constexpr size_t dkv_tc_smem_bytes(int D) {
   return (size_t)(2 * TC_BKV + 4 * TC_BQ) * flash_tc::row_ld(D) * sizeof(bf16) +
@@ -681,14 +903,25 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dkv_tc_kernel(Params p) {
   store_rows16(static_cast<bf16*>(p.dv) + base, (long long)p.KV * D, dvs, D, LD, lane);
 }
 
-template <typename T, int DMAX>
+template <int DMAX>
 cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
   const size_t smem = dq_smem_floats(p.D) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DMAX>,
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<DMAX>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid(p.Sq / BQ, p.H, p.B);
-  flash_bwd_dq_kernel<T, DMAX><<<grid, NT, smem, stream>>>(p);
+  flash_bwd_dq_kernel<DMAX><<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t launch_dq_tc(const Params& p, cudaStream_t stream) {
+  const size_t smem = dq_tc_smem_bytes(p.D);
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<DMAX>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(p.Sq / TC_BQ, p.H, p.B);
+  flash_bwd_dq_tc_kernel<DMAX><<<grid, TC_NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -714,11 +947,16 @@ cudaError_t launch_dkv_tc(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dq(const Params& p, cudaStream_t s) {
-  if (p.D <= 64) return launch_dq<T, 64>(p, s);
-  if (p.D <= 128) return launch_dq<T, 128>(p, s);
-  return launch_dq<T, 256>(p, s);
+cudaError_t dispatch_dq_f32(const Params& p, cudaStream_t s) {
+  if (p.D <= 64) return launch_dq<64>(p, s);
+  if (p.D <= 128) return launch_dq<128>(p, s);
+  return launch_dq<256>(p, s);
+}
+
+cudaError_t dispatch_dq_tc(const Params& p, cudaStream_t s) {
+  if (p.D <= 64) return launch_dq_tc<64>(p, s);
+  if (p.D <= 128) return launch_dq_tc<128>(p, s);
+  return launch_dq_tc<256>(p, s);
 }
 
 cudaError_t dispatch_dkv_f32(const Params& p, cudaStream_t s) {
@@ -744,24 +982,26 @@ int run(const Params& p, int dtype, bool dq, void* stream) {
       p.Sq < 1 || p.Sk < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dq) return (int)(dtype == 0 ? dispatch_dq<float>(p, s) : dispatch_dq<__nv_bfloat16>(p, s));
-  if (dtype == 0) return (int)dispatch_dkv_f32(p, s);
-  // the bf16 K3 reads q, k, v, dO, LSE and Delta 16 bytes at a time
+  if (dtype == 0) return (int)(dq ? dispatch_dq_f32(p, s) : dispatch_dkv_f32(p, s));
+  // the bf16 kernels read q, k, v, dO (and K2 O) 16 bytes at a time, and
+  // K3 LSE and Delta
   if (!aligned16(p.q, p.qsb, p.qss, p.qsh) || !aligned16(p.k, p.ksb, p.kss, p.ksh) ||
       !aligned16(p.v, p.vsb, p.vss, p.vsh) || !aligned16(p.g, p.gsb, p.gss, p.gsh) ||
-      !aligned16(p.lse, 0, 0, 0) || !aligned16(p.delta, 0, 0, 0))
+      !aligned16(p.lse, 0, 0, 0) || !aligned16(p.delta, 0, 0, 0) ||
+      (dq && !aligned16(p.o, p.osb, p.oss, p.osh)))
     return (int)cudaErrorMisalignedAddress;
-  return (int)dispatch_dkv_tc(p, s);
+  return (int)(dq ? dispatch_dq_tc(p, s) : dispatch_dkv_tc(p, s));
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (K3 on the tensor cores: q, k, v, dO,
-// LSE and Delta 16-byte aligned, strides multiples of 8). Strides are in
-// elements, for q, k, v, O and dO in that order. mxtpu_flash_bwd_dq writes Delta (B*H, S_q) f32
-// beside dQ; mxtpu_flash_bwd_dkv reads it (launch it after the dQ kernel
-// on the same stream; O is not read). Each returns a cudaError_t: 0 when
-// the launch was accepted.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores: q, k, v, dO,
+// LSE and Delta, and for the dQ kernel O, 16-byte aligned, strides multiples
+// of 8). Strides are in elements, for q, k, v, O and dO in that order.
+// mxtpu_flash_bwd_dq writes Delta (B*H, S_q) f32 beside dQ;
+// mxtpu_flash_bwd_dkv reads it (launch it after the dQ kernel on the same
+// stream; O is not read). Each returns a cudaError_t: 0 when the launch was
+// accepted.
 extern "C" int mxtpu_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                   const void* g, const float* lse, float* delta,
                                   const float* kmask, void* dq, int dtype, int B, int H, int KV,
@@ -792,8 +1032,9 @@ extern "C" int mxtpu_flash_bwd_dkv(const void* q, const void* k, const void* v, 
   return run(p, dtype, false, stream);
 }
 
-// 1 when the dK/dV pass (K3) runs on the tensor cores for this dtype, 0
-// when on the CUDA cores. The dQ pass (K2) runs on the CUDA cores for both.
+// 1 when the dQ pass (K2) or the dK/dV pass (K3) runs on the tensor cores
+// for this dtype, 0 when on the CUDA cores.
+extern "C" int mxtpu_flash_bwd_dq_tc(int dtype) { return dtype == 1; }
 extern "C" int mxtpu_flash_bwd_dkv_tc(int dtype) { return dtype == 1; }
 
 // The tile sizes, for the wrapper's shape checks: S_q must be a multiple

@@ -11,14 +11,14 @@ kernels for CUDA tensors and run :func:`flash_attention_plain` and
 :func:`flash_bwd_plain` for CPU tensors; a CUDA tensor the kernels
 cannot take raises, they never fall back.
 
-The library picks each kernel's route by dtype: bf16 runs the forward
-and the dK/dV pass on the tensor cores (mma.sync), f32 on the CUDA
-cores in f32 FMAs (the tensor cores would take f32 only as TF32, which
-the kernel contract forbids); the dQ pass runs on the CUDA cores for
-both.  ``flash_fwd_launches`` and ``flash_bwd_launches`` count kernel
-launches (one dQ and dK/dV pair per backward launch),
-``flash_bwd_dq_launches`` and ``flash_bwd_dkv_launches`` each backward
-kernel's own, and ``flash_fwd_tc_launches`` and
+The library picks each kernel's route by dtype: bf16 runs the forward,
+the dQ pass and the dK/dV pass on the tensor cores (mma.sync), f32 on
+the CUDA cores in f32 FMAs (the tensor cores would take f32 only as
+TF32, which the kernel contract forbids).  ``flash_fwd_launches`` and
+``flash_bwd_launches`` count kernel launches (one dQ and dK/dV pair per
+backward launch), ``flash_bwd_dq_launches`` and
+``flash_bwd_dkv_launches`` each backward kernel's own, and
+``flash_fwd_tc_launches``, ``flash_bwd_dq_tc_launches`` and
 ``flash_bwd_dkv_tc_launches`` those that took the tensor-core route, so
 a run can show which kernels its attention went through.
 
@@ -47,8 +47,9 @@ flash_bwd_launches = 0
 #: launches of K2 (dQ) and of K3 (dK, dV) alone, by their wrappers
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
-#: the forward's and K3's launches that took the tensor-core route
+#: the forward's, K2's and K3's launches that took the tensor-core route
 flash_fwd_tc_launches = 0
+flash_bwd_dq_tc_launches = 0
 flash_bwd_dkv_tc_launches = 0
 
 #: S_q and S_k must be multiples of these for the kernels: the largest
@@ -91,7 +92,7 @@ def _bind_bwd(lib):
     dq.argtypes = [ctypes.c_void_p] * 9 + tail
     dkv.argtypes = [ctypes.c_void_p] * 10 + tail
     _int_fns(lib, "mxtpu_flash_bwd_block_q", "mxtpu_flash_bwd_block_k",
-             "mxtpu_flash_bwd_dkv_tc")
+             "mxtpu_flash_bwd_dq_tc", "mxtpu_flash_bwd_dkv_tc")
     return lib
 
 
@@ -322,19 +323,25 @@ def _launched(rc, who, q):
 def _bwd_dq(q, k, v, out, g, lse, km, scale, causal, window):
     """Launch K2 alone: returns dQ (B, S_q, H, D) and the Delta
     (B*H, S_q) f32 it computed on the way, which K3 reads."""
-    global flash_bwd_dq_launches
-    fn = _bwd_kernels().mxtpu_flash_bwd_dq
+    global flash_bwd_dq_launches, flash_bwd_dq_tc_launches
+    lib = _bwd_kernels()
+    tc = bool(lib.mxtpu_flash_bwd_dq_tc(_DTYPE_CODES[q.dtype]))
+    if tc:
+        q, k, v, out, g = (_aligned(t) for t in (q, k, v, out, g))
+        lse = _aligned(lse, 0)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                km.data_ptr() if km is not None else None, dq.data_ptr(),
-                _DTYPE_CODES[q.dtype],
-                *_bwd_args(q, k, v, out, g, scale, causal, window), stream)
+        rc = lib.mxtpu_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            km.data_ptr() if km is not None else None, dq.data_ptr(),
+            _DTYPE_CODES[q.dtype],
+            *_bwd_args(q, k, v, out, g, scale, causal, window), stream)
     _launched(rc, "flash_bwd (dQ)", q)
     flash_bwd_dq_launches += 1
+    flash_bwd_dq_tc_launches += tc
     return dq, delta
 
 

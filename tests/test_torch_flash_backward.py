@@ -226,8 +226,9 @@ def test_backward_wrapper_checks():
 
 
 def test_cpu_backward_launches_no_kernel():
-    tfa.flash_bwd_launches = 0
+    tfa.flash_bwd_launches = tfa.flash_bwd_dq_tc_launches = 0
     q, k, v, g = (torch.from_numpy(x) for x in _inputs(1, 128, 128, 2, 16))
     q.requires_grad_(True)
     tfa.flash_attention(q, k, v, causal=True).backward(g)
     assert q.grad is not None and tfa.flash_bwd_launches == 0
+    assert tfa.flash_bwd_dq_tc_launches == 0

@@ -175,6 +175,13 @@ BWD_CASES = [
     pytest.param(dict(s_q=64, h=1, d=128, causal=True), id="d128-causal"),
     pytest.param(dict(s_q=64, d=256), id="d256"),
     pytest.param(dict(causal=True, dtype=torch.float32), id="f32-causal"),
+    # one query tile of four heads over two KV heads at D = 64: Q and dO
+    # held in registers, Delta per head
+    pytest.param(dict(s_q=64, h=4, kv=2), id="d64-multihead"),
+    # key padding that ends inside the second of two 64-key tiles, and a
+    # row that sees every key
+    pytest.param(dict(b=2, s_q=64, h=1, lens=(70, 128)),
+                 id="key-padding-two-key-tiles"),
 ]
 
 
@@ -205,6 +212,7 @@ def test_flash_bwd_sources_match_plain(libs, case):
                                       None) == 0
     assert libs[1].mxtpu_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
                                        code, *args, None) == 0
+    assert libs[1].mxtpu_flash_bwd_dq_tc(code) == (dtype == torch.bfloat16)
     assert libs[1].mxtpu_flash_bwd_dkv_tc(code) == (dtype == torch.bfloat16)
     ref = tfa.flash_bwd_plain(q, k, v, out, lse, do, scale, causal=causal,
                               kmask=kmask, window=window)
@@ -238,6 +246,15 @@ def test_tensor_core_kernels_refuse_misaligned_inputs(libs):
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), None,
         torch.empty_like(k).data_ptr(), torch.empty_like(v).data_ptr(), 1,
         *args, None) == MISALIGNED
+    # K2 reads O too: a misaligned q or O is refused
+    out_off = flat[1:1 + q.numel()].view(q.shape)
+    for qq, oo in ((q_off, out), (q, out_off)):
+        assert libs[1].mxtpu_flash_bwd_dq(
+            qq.data_ptr(), k.data_ptr(), v.data_ptr(), oo.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), None,
+            torch.empty_like(q).data_ptr(), 1,
+            *tfa._bwd_args(qq, k, v, oo, do, 0.125, False, None),
+            None) == MISALIGNED
 
 
 def test_library_tiles_equal_the_wrappers_constants(libs):
