@@ -34,26 +34,45 @@ Phases, each printing JSON lines:
             seeded generator) served through Server: 8 prompts of 20-500
             tokens in buckets (4, 128) and (4, 512), 32 new tokens each.
 6. train_parity: bert_small (2 layers, vocab 200, f32, dropout 0) takes 3
-            Adam steps on the card and on the CPU from the same weights:
-            the losses agree to 1e-4 relative, and on the card every
-            layer ran K1 and K2/K3 once per step.
-7. train:   BERT-base pretraining as bench.py's bench_bert_pretrain runs
+            Adam steps on the card and on the CPU from the same weights,
+            through bench.py's HybridBlock and DataParallelTrainer(
+            fuse_step=True) fed NDArrays (on the card: a warm-up step,
+            the captured step, a replay): the losses agree to 1e-4
+            relative, and on the card every layer ran K1 and K2/K3 once
+            per step, counted through the replays.
+7. train_capture_parity: the same bert_small, 4 steps: the captured
+            trainer's losses against the eager trainer's on the card
+            (1e-6 relative) and the CPU's (1e-4); step_multi(repeat=4)
+            of a fresh captured trainer against the 4 step() calls, bit
+            for bit; one capture each.
+8. dropout: dropout inside a captured step: two replays draw different
+            masks, each keeping 1 - p of the elements (within 1 %),
+            scaled by 1 / (1 - p).
+9. train:   BERT-base pretraining as bench.py's bench_bert_pretrain runs
             it (batch 64, seq 128, 20 masked positions, Adam lr 1e-4,
             bf16 AMP, dropout 0.1; weights drawn on the card) through
-            DataParallelTrainer.step: 3 warm-up steps, then the
-            two-window slope timing, samples/s, MFU against the H100's
-            dense bf16 peak, peak memory and a profiled step.
-8. imperative_parity: bench.py's bench_mlp_train MLP (784-1024-1024-10,
-            batch 512, f32) takes 3 steps of record -> backward ->
-            gluon.Trainer("sgd", lr 0.05).step(512) on the card and on the
-            CPU from the same weights: losses agree to 1e-4 relative, and
-            so do all the weights (relative L2 difference).
-9. imperative: the same MLP on the card through mx.nd arrays,
-            hybridize(), autograd.record(), backward() and Trainer.step:
-            warm-up, the two-window slope timing, samples/s, a profiled
-            step (device busy share, kernels a step), peak memory; the
-            loss falls.
-10. rtc:    mx.rtc.CudaModule (K4) compiles the user kernels (the five of
+            DataParallelTrainer(fuse_step=True): 3 warm-up steps and a
+            step_multi(repeat=8), then step and step_multi(repeat=8),
+            each timed by the two-window slope, as one graph replay a
+            step (one capture, replays = steps, each launch counter =
+            layers x steps); samples/s, MFU against the H100's dense
+            bf16 peak, peak memory and the graph's pool; then the eager
+            trainer (fuse_step=False) on the same model, timed the same
+            way; a profiled replayed step beside a profiled eager one.
+10. imperative_parity: bench.py's bench_mlp_train MLP (784-1024-1024-10,
+            batch 512, f32) takes 3 steps through
+            gluon.Trainer("sgd", lr 0.05).compile_step on the card and
+            on the CPU from the same weights: losses agree to 1e-4
+            relative, and so do all the weights (relative L2
+            difference); one capture on the card.
+11. imperative: the same MLP on the card through compile_step, as
+            bench.py drives it: warm-up, the two-window slope timing,
+            samples/s, a profiled step (device busy share, kernels a
+            step), peak memory; then the eager record -> backward ->
+            Trainer.step loop on the same net, timed and profiled the
+            same way; the loss falls.  No compiled step may fall back to
+            the eager loop in phases 10-11.
+12. rtc:    mx.rtc.CudaModule (K4) compiles the user kernels (the five of
             tests/test_rtc.py, in CUDA) with NVRTC for sm_90a; each against
             its plain version; axpy timed (device time) at 2^26 f32
             against torch.add and its bound; the host time of a launch; and one SGD update of the
@@ -83,8 +102,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 without TF32
-ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,train,"
-              "imperative_parity,imperative,rtc")
+ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,"
+              "train_capture_parity,dropout,train,imperative_parity,"
+              "imperative,rtc")
 
 
 def emit(obj):
@@ -130,6 +150,28 @@ def cuda_time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def profiled(fn, reps):
+    """torch.profiler's ``key_averages()`` over ``reps`` back-to-back
+    calls of ``fn`` (the schedule's own step annotation left out), taken
+    as the active step of a profiler schedule after one warm-up call in
+    the same session: the launches at the very start of a session are
+    sometimes not recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return [ev for ev in prof.key_averages()
+            if not ev.key.startswith("ProfilerStep")]
+
+
 def device_ms(fn, reps, warmup=2, by_kernel=False, tries=3):
     """Device time of one call: from one torch.profiler window of
     ``reps`` back-to-back calls, each CUDA kernel's (and copy's) mean
@@ -141,18 +183,12 @@ def device_ms(fn, reps, warmup=2, by_kernel=False, tries=3):
     is taken again, up to ``tries`` windows.  With ``by_kernel`` also
     returns {kernel: ms a call}."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
         us, counts = {}, {}
-        for ev in prof.key_averages():
+        for ev in profiled(fn, reps):
             if ev.device_type == torch.autograd.DeviceType.CUDA \
                     and ev.self_device_time_total > 0:
                 us[ev.key] = us.get(ev.key, 0.0) + ev.self_device_time_total
@@ -176,6 +212,16 @@ COUNTERS = ("flash_fwd_launches", "flash_bwd_launches",
 # the counters of the CUDA-core f32 route: every launch counts there,
 # and a bf16 launch also counts in its *_tc_launches
 F32_ROUTE = COUNTERS[:4]
+
+
+def free_earlier_phases():
+    """Collect what earlier phases left in reference cycles (the serve
+    phase's 16 GB of Llama weights among them), so that a phase's peak
+    memory is its own."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def reset_counts():
@@ -825,15 +871,21 @@ def mlp_batch(batch_size, in_units, classes=10):
             rng.randint(0, classes, batch_size).astype("f4"))
 
 
-def mlp_step_fn(mx, net, ctx, xnp, ynp, lr=MLP["lr"]):
-    """One training step: record -> backward -> Trainer("sgd").step;
-    returns the per-sample loss NDArray (not synchronised)."""
+def mlp_step_fn(mx, net, ctx, xnp, ynp, lr=MLP["lr"], compiled=True):
+    """One training step of ``net`` with Trainer("sgd"): through
+    ``trainer.compile_step`` as bench.py runs it (one graph replay a step
+    on the card), or with ``compiled=False`` the eager record -> backward
+    -> Trainer.step loop.  Returns (step, the CompiledStep or None); a
+    step returns the per-sample loss NDArray (not synchronised)."""
     from mxnet_tpu_torch import autograd, gluon, nd
     trainer = gluon.Trainer(net.collect_params(), "sgd",
                             {"learning_rate": lr}, kvstore=None)
     loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
     x, y = nd.array(xnp, ctx=ctx), nd.array(ynp, ctx=ctx)
     batch_size = xnp.shape[0]
+    if compiled:
+        cs = trainer.compile_step(net, loss_fn)
+        return (lambda: cs.step(x, y, batch_size)), cs
 
     def step():
         with autograd.record():
@@ -841,11 +893,20 @@ def mlp_step_fn(mx, net, ctx, xnp, ynp, lr=MLP["lr"]):
         loss.backward()
         trainer.step(batch_size)
         return loss
-    return step
+    return step, None
+
+
+def check_no_fallback(phase):
+    from mxnet_tpu_torch.gluon import compiled_step
+    reports = compiled_step.fallback_reports()
+    check(not reports, f"{phase}: a compiled step fell back to the eager "
+          f"loop: {reports}")
 
 
 def phase_imperative_parity(mx, dev, steps=3):
-    """3 SGD steps on the card and on the CPU from the same weights.
+    """3 SGD steps through compile_step on the card (a warm-up step, the
+    capture and its replay, a replay) and on the CPU from the same
+    weights.
 
     The weights are held by their relative L2 difference over all
     parameters.  An elementwise bound per tensor does not hold between
@@ -863,8 +924,10 @@ def phase_imperative_parity(mx, dev, steps=3):
         dst.set_data(src.data())
     losses, weights = [], []
     for net, ctx in ((cpu_net, mx.cpu()), (card_net, mx.gpu(0))):
-        step = mlp_step_fn(mx, net, ctx, xnp, ynp)
+        step, cs = mlp_step_fn(mx, net, ctx, xnp, ynp)
         losses.append([step().mean().asscalar() for _ in range(steps)])
+        check(cs.last_path == "compiled",
+              f"imperative_parity: the step took the {cs.last_path} path")
         weights.append([p.data().asnumpy().astype("f8")
                         for p in net.collect_params().values()])
     cpu_losses, card_losses = losses
@@ -878,69 +941,90 @@ def phase_imperative_parity(mx, dev, steps=3):
                   for name, g, c in zip(cpu_net.collect_params().keys(),
                                         card_w, cpu_w)}
     emit({"phase": "imperative_parity", "model": "mlp_784_1024_1024_10",
-          "batch_size": b, "dtype": "float32", "steps": steps,
-          "cpu_losses": cpu_losses, "gpu_losses": card_losses,
-          "max_rel_diff": rel, "weights_rel_l2_diff": diff / norm,
-          "per_tensor": per_tensor})
+          "path": "compile_step", "batch_size": b, "dtype": "float32",
+          "steps": steps, "cpu_losses": cpu_losses,
+          "gpu_losses": card_losses, "max_rel_diff": rel,
+          "weights_rel_l2_diff": diff / norm, "per_tensor": per_tensor,
+          "captures": cs.captures, "replays": cs.replays})
     check(rel <= 1e-4, f"imperative_parity: losses differ by {rel}")
     check(diff / norm <= 1e-4,
           f"imperative_parity: weights differ by {diff / norm} (L2)")
     check(card_losses[-1] < card_losses[0],
           "imperative_parity: the loss did not fall")
+    check(cs.captures == 1 and cs.replays == steps - 1,
+          f"imperative_parity: {cs.captures} captures, {cs.replays} "
+          f"replays; want 1 and {steps - 1}")
+    check_no_fallback("imperative_parity")
 
 
 def phase_imperative(mx, dev, cfg=MLP):
-    """bench_mlp_train's loop on the card: warm-up, then the two-window
-    slope timing and a profiled step."""
+    """bench_mlp_train's loop on the card through compile_step: warm-up,
+    the two-window slope timing and a profiled step; then the eager loop
+    on the same net, timed and profiled the same way."""
     import torch
     from mxnet_tpu_torch import nd
     b, steps, warmup = cfg["batch_size"], cfg["steps"], cfg["warmup"]
+    free_earlier_phases()
     mx.random.seed(0)
     net = build_mlp(mx, mx.gpu(0))
     n_params = sum(p.data().size for p in net.collect_params().values())
     xnp, ynp = mlp_batch(b, cfg["widths"][0])
-    step = mlp_step_fn(mx, net, mx.gpu(0), xnp, ynp, lr=cfg["lr"])
+    step, cs = mlp_step_fn(mx, net, mx.gpu(0), xnp, ynp, lr=cfg["lr"])
     first = step().mean().asscalar()
     for _ in range(warmup - 1):
         step()
     nd.waitall()
 
-    def timed_window(n):
-        t0 = time.perf_counter()
-        for _ in range(n):
-            last = step()
-        val = last.mean().asscalar()
-        check(math.isfinite(val), f"imperative: loss {val} is not finite")
-        return time.perf_counter() - t0, val
-
+    def mean_loss(loss):
+        return loss.mean().asscalar()
     n1 = steps // 3
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_counts()
-    t_small, _ = timed_window(n1)
-    dt, last = timed_window(steps)
+    replays0 = cs.replays
+    step_s, naive_s, windows, used, last = timed_windows(
+        step, n1, steps, "imperative", read=mean_loss)
+    replays = cs.replays - replays0
     peak = torch.cuda.max_memory_allocated(dev)
-    slope = (dt - t_small) / (steps - n1)
-    naive = dt / steps
-    slope_used = "slope"
-    if slope <= 0 or slope < 0.2 * naive:
-        slope, slope_used = naive, "naive"
-    breakdown = profile_call(step)
+    eager_step, _ = mlp_step_fn(mx, net, mx.gpu(0), xnp, ynp, lr=cfg["lr"],
+                                compiled=False)
+    for _ in range(warmup):
+        eager_step()
+    nd.waitall()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eager_s, eager_naive_s, eager_windows, eager_used, _ = timed_windows(
+        eager_step, n1, steps, "imperative eager", read=mean_loss)
+    eager_peak = torch.cuda.max_memory_allocated(dev)
+    eager_breakdown = profile_call(eager_step)
+    breakdown = profile_call(step, expect=eager_breakdown["kernels"])
     flops = 6.0 * n_params * b
     emit({"phase": "imperative", "model": "mlp_784_1024_1024_10",
-          "dtype": "float32", "batch_size": b, "params": n_params,
-          "warmup": warmup, "windows": [n1, steps],
-          "window_s": [t_small, dt], "step_ms": slope * 1e3,
-          "naive_step_ms": naive * 1e3, "timing": slope_used,
-          "samples_per_s": b / slope, "flops_per_step": flops,
+          "path": "compile_step", "dtype": "float32", "batch_size": b,
+          "params": n_params, "warmup": warmup, "windows": [n1, steps],
+          "window_s": windows, "step_ms": step_s * 1e3,
+          "naive_step_ms": naive_s * 1e3, "timing": used,
+          "samples_per_s": b / step_s, "flops_per_step": flops,
           "bound_ms": flops / PEAK_FLOPS["float32"] * 1e3,
           "kernels_per_step": breakdown["kernels"],
           "device_busy_share": breakdown["device_busy_share"],
+          "eager_step_ms": eager_s * 1e3,
+          "eager_naive_step_ms": eager_naive_s * 1e3,
+          "eager_window_s": eager_windows, "eager_timing": eager_used,
+          "eager_samples_per_s": b / eager_s,
+          "eager_kernels_per_step": eager_breakdown["kernels"],
+          "eager_device_busy_share": eager_breakdown["device_busy_share"],
+          "captures": cs.captures, "replays_counted": replays,
           "first_loss": first, "last_loss": last, "peak_mem_bytes": peak,
-          "card": nvidia_smi()})
-    emit(dict({"phase": "imperative_breakdown", "call": "step_b512"},
+          "eager_peak_mem_bytes": eager_peak,
+          "graph_pool_bytes": cs.pool_bytes, "card": nvidia_smi()})
+    emit(dict({"phase": "imperative_breakdown", "call": "step_b512_replay"},
               **breakdown))
+    emit(dict({"phase": "imperative_breakdown", "call": "step_b512_eager"},
+              **eager_breakdown))
     check(last < first, f"imperative: last loss {last} not below the "
           f"first {first}")
+    check(cs.captures == 1 and replays == n1 + steps,
+          f"imperative: {cs.captures} captures and {replays} replays in "
+          f"the timed windows; want 1 and {n1 + steps}")
+    check_no_fallback("imperative")
 
 
 # -- phase 4: parity -----------------------------------------------------------
@@ -1101,16 +1185,17 @@ def phase_serve(mx, dev):
 # -- phases 6 and 7: training -------------------------------------------------
 
 def _full_len_pretrain(mod):
-    """bench.py's ``_FullLenPretrain``: BERTForPretrain with
-    ``valid_length=None`` (full-length rows, no padding mask)."""
-    from mxnet_tpu_torch.gluon import Block
+    """bench.py's ``_FullLenPretrain``: a HybridBlock over BERTForPretrain
+    with ``valid_length=None`` (full-length rows, no padding mask)."""
+    from mxnet_tpu_torch.gluon import HybridBlock
 
-    class FullLenPretrain(Block):
-        def __init__(self, mod):
-            super().__init__()
-            self.mod = mod
+    class FullLenPretrain(HybridBlock):
+        def __init__(self, mod, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.mod = mod
 
-        def forward(self, tokens, types, positions):
+        def hybrid_forward(self, F, tokens, types, positions):
             return self.mod(tokens, types, None, positions)
     return FullLenPretrain(mod)
 
@@ -1128,57 +1213,73 @@ def _pretrain_loss(m):
     return loss_fn
 
 
-def _pretrain_batch(vocab, b, seq_len, m, dev):
+def _pretrain_batch(mx, vocab, b, seq_len, m, ctx):
     """bench.py's batch: tokens, types, masked positions and labels from
-    np.random.RandomState(0), as float32 on ``dev``."""
+    np.random.RandomState(0), as float32 NDArrays on ``ctx``."""
     import numpy as np
-    import torch
     rng = np.random.RandomState(0)
-    tokens = torch.as_tensor(
-        rng.randint(0, vocab, (b, seq_len)).astype("f"), device=dev)
-    types = torch.as_tensor(
-        rng.randint(0, 2, (b, seq_len)).astype("f"), device=dev)
-    positions = torch.as_tensor(
-        rng.randint(0, seq_len, (b, m)).astype("f"), device=dev)
-    label = torch.as_tensor(np.concatenate(
+    tokens = mx.nd.array(rng.randint(0, vocab, (b, seq_len)).astype("f"),
+                         ctx=ctx)
+    types = mx.nd.array(rng.randint(0, 2, (b, seq_len)).astype("f"),
+                        ctx=ctx)
+    positions = mx.nd.array(rng.randint(0, seq_len, (b, m)).astype("f"),
+                            ctx=ctx)
+    label = mx.nd.array(np.concatenate(
         [rng.randint(0, vocab, (b, m)), rng.randint(0, 2, (b, 1))],
-        axis=1).astype("f"), device=dev)
+        axis=1).astype("f"), ctx=ctx)
     return (tokens, types, positions), label
+
+
+def _small_pretrainer(mx, ctx, weights=None, fuse_step=True, layers=2,
+                      vocab=200, m=4):
+    """bert_small (``layers`` layers, f32, dropout 0) through the
+    HybridBlock, Adam lr 1e-3 on ``ctx``; ``weights`` (a state_dict) is
+    loaded when given.  Returns (trainer, state_dict)."""
+    from mxnet_tpu_torch import models, parallel
+    inner = models.BERTForPretrain(models.bert_small(
+        vocab_size=vocab, max_length=128, dropout=0.0, num_layers=layers))
+    model = _full_len_pretrain(inner).initialize(mx.init.Xavier(), ctx=ctx,
+                                                 seed=5)
+    if weights is None:
+        weights = {k: t.clone() for k, t in model.state_dict().items()}
+    else:
+        model.load_state_dict(weights)
+    dpt = parallel.DataParallelTrainer(
+        model, _pretrain_loss(m), "adam", {"learning_rate": 1e-3},
+        mesh=parallel.make_mesh({"dp": 1}, devices=[ctx]),
+        fuse_step=fuse_step)
+    return dpt, weights
+
+
+def _scalar(loss):
+    return float(loss.asnumpy())
 
 
 def phase_train_parity(mx, dev):
     """bert_small, 2 layers, f32, dropout 0: 3 Adam steps on the card and
-    on the CPU from the same weights."""
-    import torch
-    from mxnet_tpu_torch import models, parallel
-
+    on the CPU from the same weights (on the card: a warm-up step, the
+    captured step and a replay)."""
     vocab, b, seq_len, m, steps, layers = 200, 2, 128, 4, 3, 2
     losses = []
     weights = None
     for ctx in (mx.cpu(), mx.gpu(0)):
-        inner = models.BERTForPretrain(models.bert_small(
-            vocab_size=vocab, max_length=128, dropout=0.0,
-            num_layers=layers))
-        model = _full_len_pretrain(inner).initialize(
-            mx.init.Xavier(), ctx=ctx, seed=5)
-        if weights is None:
-            weights = {k: t.clone() for k, t in model.state_dict().items()}
-        else:
-            model.load_state_dict(weights)
-        dpt = parallel.DataParallelTrainer(
-            model, _pretrain_loss(m), "adam", {"learning_rate": 1e-3},
-            mesh=parallel.make_mesh({"dp": 1}, devices=[ctx]),
-            fuse_step=True)
-        data, label = _pretrain_batch(vocab, b, seq_len, m, ctx.device)
+        dpt, weights = _small_pretrainer(mx, ctx, weights, layers=layers,
+                                         vocab=vocab, m=m)
+        data, label = _pretrain_batch(mx, vocab, b, seq_len, m, ctx)
         reset_counts()
-        losses.append([dpt.step(data, label).item() for _ in range(steps)])
+        losses.append([_scalar(dpt.step(data, label))
+                       for _ in range(steps)])
         launches = read_counts()
     cpu_losses, card_losses = losses
     rel = max(abs(g - c) / abs(c) for g, c in zip(card_losses, cpu_losses))
     emit({"phase": "train_parity", "model": "bert_small", "layers": layers,
           "dtype": "float32", "steps": steps, "cpu_losses": cpu_losses,
-          "gpu_losses": card_losses, "max_rel_diff": rel, **launches})
+          "gpu_losses": card_losses, "max_rel_diff": rel,
+          "captures": dpt.captures, "replays": dpt.replays, **launches})
     check(rel <= 1e-4, f"train_parity: losses differ by {rel} relative")
+    check(dpt.captures == 1 and dpt.replays == steps - 1,
+          f"train_parity: {dpt.captures} captures and {dpt.replays} "
+          f"replays, want 1 and {steps - 1}")
     check(all(launches[n] == steps * layers for n in F32_ROUTE),
           f"train_parity: launches {launches}, want {steps * layers} each")
     check(all(launches[n] == 0 for n in COUNTERS
@@ -1189,14 +1290,150 @@ def phase_train_parity(mx, dev):
           "train_parity: the loss did not fall")
 
 
+def phase_train_capture_parity(mx, dev):
+    """bert_small, 2 layers, f32, dropout 0, from one set of weights:
+    4 steps of the captured trainer (a warm-up step, the capture and its
+    replay, two replays) against 4 eager steps on the card and against
+    the CPU; step_multi(repeat=4) of a fresh captured trainer against
+    those 4 step() calls, bit for bit."""
+    vocab, b, seq_len, m, steps = 200, 2, 128, 4, 4
+    cpu_dpt, weights = _small_pretrainer(mx, mx.cpu())
+    data, label = _pretrain_batch(mx, vocab, b, seq_len, m, mx.cpu())
+    cpu = [_scalar(cpu_dpt.step(data, label)) for _ in range(steps)]
+    data, label = _pretrain_batch(mx, vocab, b, seq_len, m, mx.gpu(0))
+    captured, _ = _small_pretrainer(mx, mx.gpu(0), weights)
+    cap = [_scalar(captured.step(data, label)) for _ in range(steps)]
+    eager_dpt, _ = _small_pretrainer(mx, mx.gpu(0), weights,
+                                     fuse_step=False)
+    eager = [_scalar(eager_dpt.step(data, label)) for _ in range(steps)]
+    multi_dpt, _ = _small_pretrainer(mx, mx.gpu(0), weights)
+    multi = [float(v) for v in
+             multi_dpt.step_multi(data, label, repeat=steps).asnumpy()]
+    rel_eager = max(abs(c - e) / abs(e) for c, e in zip(cap, eager))
+    rel_cpu = max(abs(c - e) / abs(e) for c, e in zip(cap, cpu))
+    same_weights = all(
+        bool((a == c).all()) for a, c in zip(captured._params,
+                                             multi_dpt._params))
+    emit({"phase": "train_capture_parity", "model": "bert_small",
+          "layers": 2, "dtype": "float32", "steps": steps,
+          "captured_losses": cap, "eager_losses": eager,
+          "cpu_losses": cpu, "step_multi_losses": multi,
+          "max_rel_diff_eager": rel_eager, "bit_equal_eager": cap == eager,
+          "max_rel_diff_cpu": rel_cpu, "step_multi_bit_equal": multi == cap,
+          "step_multi_weights_bit_equal": same_weights,
+          "captures": captured.captures, "replays": captured.replays,
+          "step_multi_captures": multi_dpt.captures,
+          "step_multi_replays": multi_dpt.replays})
+    check(rel_eager <= 1e-6, f"train_capture_parity: captured and eager "
+          f"losses differ by {rel_eager} relative")
+    check(rel_cpu <= 1e-4, f"train_capture_parity: captured and CPU "
+          f"losses differ by {rel_cpu} relative")
+    check(multi == cap and same_weights, "train_capture_parity: "
+          f"step_multi(repeat={steps}) {multi} is not {steps} step() calls "
+          f"{cap} bit for bit")
+    for who, t in (("step", captured), ("step_multi", multi_dpt)):
+        check(t.captures == 1 and t.replays == steps - 1,
+              f"train_capture_parity: {who}: {t.captures} captures, "
+              f"{t.replays} replays; want 1 and {steps - 1}")
+
+
+def phase_dropout(mx, dev, n=1 << 20, p=0.1):
+    """Dropout inside a captured step: a block returns Dropout(p)(x * w)
+    on x = 1 (w = 1, Adam at lr 0 keeps it), and the loss function copies
+    that output into a buffer the graph writes at every replay.  Two
+    replays' masks must differ, each keep rate lie within 1 % of 1 - p,
+    and every kept value be 1 / (1 - p)."""
+    import torch
+    from mxnet_tpu_torch import gluon, parallel
+
+    class Drop(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.w = self.params.get("w", shape=(n,), init="ones")
+                self.drop = gluon.nn.Dropout(p)
+
+        def hybrid_forward(self, F, x, w):
+            return self.drop(x * w)
+
+    seen = torch.zeros(n, device=dev)
+
+    def loss_fn(out, label):
+        seen.copy_(out.tensor.detach())
+        return (out * label).mean()
+
+    mx.random.seed(0)
+    net = Drop().initialize(ctx=mx.gpu(0))
+    dpt = parallel.DataParallelTrainer(
+        net, loss_fn, "adam", {"learning_rate": 0.0},
+        mesh=parallel.make_mesh({"dp": 1}, devices=[mx.gpu(0)]),
+        fuse_step=True)
+    x = mx.nd.ones((n,), ctx=mx.gpu(0))
+    outs = []
+    for _ in range(4):
+        dpt.step(x, x)
+        outs.append(seen.clone())
+    keep = [(o != 0) for o in outs]
+    rates = [k.float().mean().item() for k in keep]
+    scale = 1.0 / (1.0 - p)
+    want = torch.tensor(1.0, device=dev) / (1.0 - p)
+    scale_err = max((o[k] - want).abs().max().item()
+                    for o, k in zip(outs, keep))
+    differ = [(a != c).float().mean().item()
+              for a, c in zip(keep[1:], keep[2:])]
+    emit({"phase": "dropout", "p": p, "n": n,
+          "steps": ["warm-up", "capture + replay", "replay", "replay"],
+          "keep_rates": rates, "kept_value_max_err": scale_err,
+          "kept_scale": scale, "differ_between_replays": differ,
+          "captures": dpt.captures, "replays": dpt.replays})
+    check(dpt.captures == 1 and dpt.replays == 3,
+          f"dropout: {dpt.captures} captures, {dpt.replays} replays")
+    check(all(abs(r - (1.0 - p)) <= 0.01 * (1.0 - p) for r in rates),
+          f"dropout: keep rates {rates}, want {1.0 - p} within 1 %")
+    check(scale_err <= 1e-6, f"dropout: kept values are off 1/(1-p) by "
+          f"{scale_err}")
+    check(all(d > 0.1 for d in differ),
+          f"dropout: replays reused a mask (share of elements that "
+          f"differ: {differ})")
+
+
 # bench.py's bert_base configuration (bench_bert_pretrain's arguments)
 BERT_BASE = dict(model="bert_base", vocab=30522, batch_size=64,
                  seq_len=128, num_masked=20, hidden=768, layers=12,
-                 steps=20, warmup=3, max_length=512)
+                 steps=20, warmup=3, bulk=8, max_length=512)
+
+
+def last_loss(loss):
+    return float(np.asarray(loss.asnumpy()).ravel()[-1])
+
+
+def timed_windows(call, n1, n2, what, read=last_loss):
+    """bench.py's two-window slope: ``n1`` then ``n2`` calls, each window
+    ending in a host read (``read``) of the last call's loss; returns
+    (seconds a call, naive seconds a call, [window s], "slope" or
+    "naive", the last read)."""
+    def window(n):
+        t0 = time.perf_counter()
+        last = None
+        for _ in range(n):
+            last = call()
+        val = read(last)
+        check(math.isfinite(val), f"{what}: loss {val} is not finite")
+        return time.perf_counter() - t0, val
+    t_small, _ = window(n1)
+    dt, last = window(n2)
+    slope, naive = (dt - t_small) / (n2 - n1), dt / n2
+    used = "slope"
+    if slope <= 0 or slope < 0.2 * naive:
+        slope, used = naive, "naive"
+    return slope, naive, [t_small, dt], used, last
 
 
 def phase_train(mx, dev, ctx, cfg=BERT_BASE):
-    """bench.py's bench_bert_pretrain at ``cfg`` on ``ctx``."""
+    """bench.py's bench_bert_pretrain at ``cfg`` on ``ctx``: the captured
+    trainer (fuse_step=True) through step and step_multi(repeat=bulk),
+    each timed by the two-window slope, then the eager trainer
+    (fuse_step=False) on the same model for comparison."""
     import torch
     from mxnet_tpu_torch import models, parallel
     from mxnet_tpu_torch.contrib import amp
@@ -1204,7 +1441,8 @@ def phase_train(mx, dev, ctx, cfg=BERT_BASE):
     vocab, batch_size = cfg["vocab"], cfg["batch_size"]
     seq_len, num_masked = cfg["seq_len"], cfg["num_masked"]
     hidden, layers = cfg["hidden"], cfg["layers"]
-    steps, warmup = cfg["steps"], cfg["warmup"]
+    steps, warmup, bulk = cfg["steps"], cfg["warmup"], cfg["bulk"]
+    free_earlier_phases()
     mx.random.seed(0)
     amp.init(target_dtype="bfloat16")
     try:
@@ -1218,42 +1456,53 @@ def phase_train(mx, dev, ctx, cfg=BERT_BASE):
         init_s = time.perf_counter() - t0
         b, m = batch_size, num_masked
         mesh = parallel.make_mesh({"dp": 1}, devices=[ctx.device])
-        dpt = parallel.DataParallelTrainer(model, _pretrain_loss(m), "adam",
-                                           {"learning_rate": 1e-4},
-                                           mesh=mesh, fuse_step=True)
-        data, label = _pretrain_batch(vocab, b, seq_len, m, ctx.device)
+
+        def trainer(fuse_step):
+            return parallel.DataParallelTrainer(
+                model, _pretrain_loss(m), "adam", {"learning_rate": 1e-4},
+                mesh=mesh, fuse_step=fuse_step)
+        dpt = trainer(True)
+        data, label = _pretrain_batch(mx, vocab, b, seq_len, m, ctx)
         first = None
         for _ in range(warmup):
             loss = dpt.step(data, label)
-            first = loss.item() if first is None else first
-        torch.cuda.synchronize()
-
-        def timed_window(n):
-            t0 = time.perf_counter()
-            last = None
-            for _ in range(n):
-                last = dpt.step(data, label)
-            val = last.item()
-            check(math.isfinite(val), f"train: loss {val} is not finite")
-            return time.perf_counter() - t0, val
+            first = _scalar(loss) if first is None else first
+        loss.wait_to_read()
+        dpt.step_multi(data, label, repeat=bulk).wait_to_read()
 
         n1 = max(min(steps // 3, steps - 1), 1)
         torch.cuda.reset_peak_memory_stats(dev)
+        replays0 = dpt.replays
         reset_counts()
-        t_small, _ = timed_window(n1)
-        dt, last = timed_window(steps)
+        step_s, naive_s, windows, used, last = timed_windows(
+            lambda: dpt.step(data, label), n1, steps, "train")
+        multi_s, multi_naive_s, multi_windows, multi_used, _ = \
+            timed_windows(lambda: dpt.step_multi(data, label, repeat=bulk),
+                          1, 3, "train step_multi")
         launches = read_counts()
+        replays = dpt.replays - replays0
         peak = torch.cuda.max_memory_allocated(dev)
-        slope = (dt - t_small) / (steps - n1)
-        naive = dt / steps
-        slope_used = "slope"
-        if slope <= 0 or slope < 0.2 * naive:
-            slope, slope_used = naive, "naive"
-        breakdown = profile_call(lambda: dpt.step(data, label))
+        n_steps = n1 + steps + 4 * bulk
+        reset_counts()
+        dpt.step(data, label)
+        per_replay = read_counts()
+
+        eager = trainer(False)
+        for _ in range(2):
+            eager.step(data, label)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        eager_s, eager_naive_s, eager_windows, eager_used, _ = \
+            timed_windows(lambda: eager.step(data, label), n1, steps,
+                          "train eager")
+        eager_peak = torch.cuda.max_memory_allocated(dev)
+        eager_breakdown = profile_call(lambda: eager.step(data, label))
+        breakdown = profile_call(lambda: dpt.step(data, label),
+                                 expect=eager_breakdown["kernels"])
+        captures = dpt.captures
     finally:
         amp._deinit()
 
-    sps = batch_size / slope
     embed = {id(inner.bert.word_embed.weight),
              id(inner.bert.token_type_embed.weight),
              id(inner.bert.position_embed)}
@@ -1262,76 +1511,122 @@ def phase_train(mx, dev, ctx, cfg=BERT_BASE):
     flops_v1 = (6 * n_params * seq_len
                 + 12 * layers * hidden * seq_len * seq_len)
     flops_v2 = flops_v1 + 6 * num_masked * hidden * vocab
-    n_steps = n1 + steps
-    emit({"phase": "train", "model": cfg["model"],
-          "dtype": "bfloat16 AMP",
-          "batch_size": batch_size, "seq_len": seq_len,
-          "num_masked": num_masked, "vocab": vocab, "layers": layers,
-          "params": sum(p.numel() for p in model.parameters()),
-          "non_embedding_params": n_params, "weights_init_s": init_s,
-          "warmup": warmup, "windows": [n1, steps],
-          "window_s": [t_small, dt], "step_ms": slope * 1e3,
-          "naive_step_ms": naive * 1e3, "timing": slope_used,
-          "samples_per_s": sps,
-          "mfu_v1": sps * flops_v1 / PEAK_FLOPS["bfloat16"],
-          "mfu_v2": sps * flops_v2 / PEAK_FLOPS["bfloat16"],
-          "first_loss": first, "last_loss": last, **launches,
-          "steps_counted": n_steps,
-          "peak_mem_bytes": peak, "card": nvidia_smi()})
-    emit(dict({"phase": "train_breakdown", "call": "step_b64_s128"},
+
+    def rates(per_step_s):
+        sps = batch_size / per_step_s
+        return {"samples_per_s": sps,
+                "mfu_v1": sps * flops_v1 / PEAK_FLOPS["bfloat16"],
+                "mfu_v2": sps * flops_v2 / PEAK_FLOPS["bfloat16"]}
+    emit(dict({"phase": "train", "model": cfg["model"],
+               "dtype": "bfloat16 AMP", "path": "captured (fuse_step=True)",
+               "batch_size": batch_size, "seq_len": seq_len,
+               "num_masked": num_masked, "vocab": vocab, "layers": layers,
+               "params": sum(p.numel() for p in model.parameters()),
+               "non_embedding_params": n_params, "weights_init_s": init_s,
+               "warmup": warmup, "windows": [n1, steps],
+               "window_s": windows, "step_ms": step_s * 1e3,
+               "naive_step_ms": naive_s * 1e3, "timing": used,
+               "step_multi_repeat": bulk, "step_multi_windows": [1, 3],
+               "step_multi_window_s": multi_windows,
+               "step_multi_ms_per_step": multi_s / bulk * 1e3,
+               "step_multi_naive_ms_per_step": multi_naive_s / bulk * 1e3,
+               "step_multi_timing": multi_used,
+               "step_multi": rates(multi_s / bulk),
+               "eager_step_ms": eager_s * 1e3,
+               "eager_naive_step_ms": eager_naive_s * 1e3,
+               "eager_window_s": eager_windows, "eager_timing": eager_used,
+               "eager": rates(eager_s),
+               "first_loss": first, "last_loss": last, **launches,
+               "steps_counted": n_steps, "captures": captures,
+               "replays_counted": replays,
+               "launches_per_replay": per_replay,
+               "peak_mem_bytes": peak, "eager_peak_mem_bytes": eager_peak,
+               "graph_pool_bytes": dpt.pool_bytes, "card": nvidia_smi()},
+              **rates(step_s)))
+    emit(dict({"phase": "train_breakdown", "call": "step_b64_s128_replay"},
               **breakdown))
+    emit(dict({"phase": "train_breakdown", "call": "step_b64_s128_eager"},
+              **eager_breakdown))
     check(last < first, f"train: last loss {last} not below the first "
           f"{first}")
+    check(captures == 1, f"train: {captures} captures, want 1 (one "
+          "signature, captured after the warm-up and never again)")
+    check(replays == n_steps, f"train: {replays} replays in the timed "
+          f"windows, want {n_steps}, one a step")
     # bf16 AMP: every K1, K2 and K3 launch on the tensor cores, so every
-    # counter (the *_tc_launches too) is layers x steps
+    # counter (the *_tc_launches too) is layers x steps, counted through
+    # the replays
     check(all(n == layers * n_steps for n in launches.values()),
           f"train: launches {launches}, want {layers} x {n_steps} each")
-    return launches
+    check(all(n == layers for n in per_replay.values()),
+          f"train: launches a replay {per_replay}, want {layers} each")
+    return dict(launches, per_replay=per_replay)
 
 
-def profile_call(fn, reps=3):
+def profile_call(fn, reps=3, expect=None, tries=3):
     """Host wall time of ``fn`` (ending in a synchronize; median of
-    ``reps``), and the device time of one profiled call split into the
-    flash kernels (forward, backward), matrix products and the rest."""
+    ``reps``), its time between CUDA events (``event_ms``, median of
+    ``reps``), and the device time of one call from a torch.profiler
+    window of ``reps`` calls, split into the flash kernels (forward,
+    backward), matrix products and the rest.  Every call runs the same
+    kernels, so each must be recorded a multiple of ``reps`` times
+    (within 10 %), and, given ``expect`` (the kernels of a call that runs
+    a subset of this one's: the eager step beside its replay), at least
+    that many a call.  A window that lost events is
+    taken again, up to ``tries`` windows; after that the device numbers
+    read "not measured"."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    walls = []
+    walls, events = [], []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    fwd = bwd = gemm = other = 0.0
-    n_kernels = 0
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = ev.self_device_time_total
-        n_kernels += ev.count
-        name = ev.key.lower()
-        if "flash_fwd" in name:
-            fwd += us
-        elif "flash_bwd" in name:
-            bwd += us
-        elif any(t in name for t in ("gemm", "gemv", "cutlass", "nvjet",
-                                     "xmma", "matmul")):
-            gemm += us
-        else:
-            other += us
-    device_ms = (fwd + bwd + gemm + other) / 1e3
+    for _ in range(reps):
+        events.append(cuda_time_ms(fn, reps=1, warmup=0))
     wall_ms = statistics.median(walls)
-    return {"wall_ms": wall_ms,
-            "device_ms": device_ms if n_kernels else "not measured",
-            "flash_ms": (fwd + bwd) / 1e3, "flash_fwd_ms": fwd / 1e3,
-            "flash_bwd_ms": bwd / 1e3, "gemm_ms": gemm / 1e3,
-            "other_ms": other / 1e3, "kernels": n_kernels,
-            "device_busy_share": device_ms / wall_ms if n_kernels else None}
+    row = {"wall_ms": wall_ms, "event_ms": statistics.median(events)}
+    for attempt in range(1, tries + 1):
+        us, counts = {}, {}
+        for ev in profiled(fn, reps):
+            if ev.device_type == torch.autograd.DeviceType.CUDA \
+                    and ev.self_device_time_total > 0:
+                us[ev.key] = us.get(ev.key, 0.0) + ev.self_device_time_total
+                counts[ev.key] = counts.get(ev.key, 0) + ev.count
+        per_call = {k: round(n / reps) for k, n in counts.items()}
+        lost = {k[:80]: n for k, n in counts.items()
+                if per_call[k] < 1 or abs(n - per_call[k] * reps) > 0.1 * reps}
+        whole = bool(counts) and not lost and (
+            not expect or sum(per_call.values()) >= expect)
+        if whole:
+            break
+    else:
+        return dict(row, device_ms="not measured", kernels=None,
+                    device_busy_share="not measured",
+                    profile_windows=tries, last_window_counts_off=lost,
+                    last_window_kernels=sum(counts.values()) / reps)
+    fwd = bwd = gemm = other = 0.0
+    for key, t in us.items():
+        name = key.lower()
+        if "flash_fwd" in name:
+            fwd += t
+        elif "flash_bwd" in name:
+            bwd += t
+        elif any(g in name for g in ("gemm", "gemv", "cutlass", "nvjet",
+                                     "xmma", "matmul")):
+            gemm += t
+        else:
+            other += t
+    device_ms = (fwd + bwd + gemm + other) / 1e3 / reps
+    return dict(row, device_ms=device_ms,
+                flash_ms=(fwd + bwd) / 1e3 / reps,
+                flash_fwd_ms=fwd / 1e3 / reps, flash_bwd_ms=bwd / 1e3 / reps,
+                gemm_ms=gemm / 1e3 / reps, other_ms=other / 1e3 / reps,
+                kernels=sum(per_call.values()),
+                device_busy_share=device_ms / wall_ms,
+                profile_windows=attempt)
 
 
 # -- phase 2: build -------------------------------------------------------------
@@ -1490,6 +1785,8 @@ def kernel_entries(rows, bwd_rows, train, serve_launches):
               "replaces": "mxnet_tpu/ops/flash_attention.py:76",
               "launches": train.get("flash_fwd_launches"),
               "tc_launches": train.get("flash_fwd_tc_launches"),
+              "launches_per_replay": train.get("per_replay", {}).get(
+                  "flash_fwd_launches"),
               "serve_launches": serve_launches, "serve": fwd_nums(serve),
               "f32": dict(fwd_nums(f32), design=DESIGN["cuda_cores"])},
              **fwd_nums(head)),
@@ -1499,6 +1796,8 @@ def kernel_entries(rows, bwd_rows, train, serve_launches):
               "replaces": "mxnet_tpu/ops/flash_attention.py:303",
               "launches": train.get("flash_bwd_dq_launches"),
               "tc_launches": train.get("flash_bwd_dq_tc_launches"),
+              "launches_per_replay": train.get("per_replay", {}).get(
+                  "flash_bwd_dq_launches"),
               "f32": dict(bwd_nums(b32, "dq"), design=DESIGN["cuda_cores"]),
               "plain_and_library": whole}, **bwd_nums(b16, "dq")),
         dict({"name": "flash_bwd_dkv", "route": "cuda",
@@ -1507,6 +1806,8 @@ def kernel_entries(rows, bwd_rows, train, serve_launches):
               "replaces": "mxnet_tpu/ops/flash_attention.py:386",
               "launches": train.get("flash_bwd_dkv_launches"),
               "tc_launches": train.get("flash_bwd_dkv_tc_launches"),
+              "launches_per_replay": train.get("per_replay", {}).get(
+                  "flash_bwd_dkv_launches"),
               "f32": dict(bwd_nums(b32, "dkv"), design=DESIGN["cuda_cores"]),
               "plain_and_library": whole}, **bwd_nums(b16, "dkv")),
     ]
@@ -1554,6 +1855,10 @@ def main():
     serve_launches = phase_serve(mx, dev) if "serve" in phases else None
     if "train_parity" in phases:
         phase_train_parity(mx, dev)
+    if "train_capture_parity" in phases:
+        phase_train_capture_parity(mx, dev)
+    if "dropout" in phases:
+        phase_dropout(mx, dev)
     train = phase_train(mx, dev, mx.gpu(0)) if "train" in phases \
         else {}
     if "imperative_parity" in phases:

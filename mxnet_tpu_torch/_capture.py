@@ -1,0 +1,180 @@
+"""Captured steps: a training step replayed as one CUDA graph a call.
+
+:class:`StepCapture` runs a step *body* — a function of tensors that
+returns a tuple of tensors (forward, loss, backward and the optimizer
+update of one training step) — as the reference's compiled step runs its
+one XLA program a step:
+
+* **On the CPU** the body runs as it is: there is no graph.
+* **On a CUDA device** the first ``WARMUP`` calls of each *signature*
+  (the inputs' shapes, dtypes and device) run the body eagerly on a side
+  stream, so every lazy allocation (optimizer states, gradient buffers,
+  cuBLAS workspaces, built kernels) happens outside a capture.  The next
+  call copies its inputs into static buffers kept for the signature and
+  captures the body with ``torch.cuda.graph`` into a private memory pool
+  (which holds the step's activations and gradients); the capture runs
+  nothing, so that step is then replayed once.  Every later call copies
+  its inputs into the static buffers and replays the graph: one launch
+  from the host a step.  The outputs are the graph's own buffers, which
+  the next replay overwrites.
+* **Per-step values are not baked in.**  The caller writes them into
+  device tensors before each call (``optimizer.DeviceScalars``); host
+  values that the kernels take as arguments (momentum, betas, the AMP
+  type, ...) form the caller's ``static_key``, and a signature whose key
+  changed is captured again (never replayed with the old values).
+* **Random draws advance.**  The ``mx.random`` generator of the device
+  (dropout's) is registered with the graph
+  (``CUDAGraph.register_generator_state``), so every replay draws new
+  numbers from its stream; reseeding (a new generator) captures again.
+* **Launch counts stay true.**  A kernel wrapper counts its launches in
+  Python, which a replay does not run.  The counts a capture added are
+  taken back and added again at each replay, so every count reads the
+  launches the card ran: the captured ones times the replays.
+* **A failed capture raises** ``MXNetError``; nothing falls back to the
+  eager step quietly.
+
+``captures``, ``replays`` and ``pool_bytes`` (device memory the capture
+reserved, summed over the live graphs) say what happened.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Sequence, Tuple
+
+import torch
+
+from .base import MXNetError
+
+__all__ = ["StepCapture"]
+
+#: eager warm-up calls of a signature before it is captured
+WARMUP = 1
+
+# every kernel launch count a replay must credit: module -> counters
+_COUNTERS = {
+    "flash_attention": ("flash_fwd_launches", "flash_bwd_launches",
+                        "flash_bwd_dq_launches", "flash_bwd_dkv_launches",
+                        "flash_fwd_tc_launches", "flash_bwd_dq_tc_launches",
+                        "flash_bwd_dkv_tc_launches"),
+    "rtc": ("rtc_launches",),
+}
+
+
+def _counter_modules():
+    from . import rtc
+    from .ops import flash_attention
+    return {"flash_attention": flash_attention, "rtc": rtc}
+
+
+def _launch_counts() -> Dict[Tuple[str, str], int]:
+    """{(module, counter): launches} of every kernel wrapper."""
+    mods = _counter_modules()
+    return {(m, n): getattr(mods[m], n) for m, names in _COUNTERS.items()
+            for n in names}
+
+
+def _add_counts(deltas):
+    mods = _counter_modules()
+    for (m, n), d in deltas.items():
+        setattr(mods[m], n, getattr(mods[m], n) + d)
+
+
+class _Graph:
+    """One captured signature."""
+
+    __slots__ = ("graph", "inputs", "outputs", "static_key", "generator",
+                 "credit", "pool_bytes")
+
+
+class StepCapture:
+    """Runs step bodies as CUDA-graph replays (see the module
+    docstring).  ``name`` appears in errors."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.captures = 0
+        self.replays = 0
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._warmed: Dict[tuple, int] = {}
+        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(g.pool_bytes for g in self._graphs.values())
+
+    def run(self, body: Callable, tensors: Sequence[torch.Tensor],
+            static_key=()) -> tuple:
+        """One step: ``body(*tensors)``, eagerly, captured or replayed
+        (see the module docstring)."""
+        dev = tensors[0].device
+        if dev.type != "cuda":
+            return body(*tensors)
+        from . import random as _random
+        gen = _random.generator(dev)
+        sig = tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
+        g = self._graphs.get(sig)
+        if g is not None and (g.static_key != static_key
+                              or g.generator is not gen):
+            g.graph.reset()
+            del self._graphs[sig]
+            g = None
+        if g is None:
+            warmed = self._warmed.get(sig, 0)
+            if warmed < WARMUP:
+                self._warmed[sig] = warmed + 1
+                return self._eager(body, tensors)
+            g = self._graphs[sig] = self._capture(body, tensors, static_key,
+                                                  gen)
+        else:
+            with torch.no_grad():
+                for dst, src in zip(g.inputs, tensors):
+                    dst.copy_(src)
+        _add_counts(g.credit)
+        g.graph.replay()
+        self.replays += 1
+        return g.outputs
+
+    def _stream(self, dev):
+        s = self._streams.get(dev)
+        if s is None:
+            s = self._streams[dev] = torch.cuda.Stream(dev)
+        return s
+
+    def _eager(self, body, tensors):
+        """A warm-up call: the body on the side stream the capture uses."""
+        main = torch.cuda.current_stream(tensors[0].device)
+        side = self._stream(tensors[0].device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = body(*tensors)
+        main.wait_stream(side)
+        return out
+
+    def _capture(self, body, tensors, static_key, gen):
+        dev = tensors[0].device
+        with torch.no_grad():
+            inputs = [t.clone() for t in tensors]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(gen)
+        before = _launch_counts()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        try:
+            with torch.cuda.graph(graph, stream=self._stream(dev)):
+                outputs = body(*inputs)
+        except Exception as e:
+            now = _launch_counts()
+            _add_counts({k: v - now[k] for k, v in before.items()})
+            raise MXNetError(f"{self.name}: the step could not be captured "
+                             f"as a CUDA graph: {e}") from e
+        after = _launch_counts()
+        g = _Graph()
+        g.graph, g.inputs, g.outputs = graph, inputs, tuple(outputs)
+        g.static_key, g.generator = static_key, gen
+        g.credit = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        g.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        # the capture ran no kernel: its counts come back with the replay
+        _add_counts({k: -d for k, d in g.credit.items()})
+        self.captures += 1
+        return g

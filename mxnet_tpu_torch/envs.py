@@ -37,6 +37,9 @@ _reg("MXTPU_SERVING_BUCKETS", str, "32,128",
 _reg("MXTPU_SERVING_MAX_NEW_TOKENS", int, 32,
      "Default per-request generation cap for serving.Server; sizes "
      "the KV-cache pages (cache_len = prompt_len bucket + this).")
+_reg("MXTPU_COMPILED_STEP", int, 1,
+     "0 makes gluon CompiledStep run the eager record -> backward -> "
+     "Trainer.step loop instead of its captured step body.")
 _reg("MXTPU_SERVING_MAX_QUEUE", int, 128,
      "Bound on the serving wait queue; submissions past it raise.")
 

@@ -11,10 +11,16 @@ gluon surface.
   on the context's device and fills it there from a seeded generator, so
   a large model is drawn on the card directly.
 * **Calls.**  Called with ``torch.Tensor``s, a Block is a plain module
-  (the BERT and serving paths).  Called with NDArrays, it runs the same
-  ``forward`` on their tensors and returns NDArrays: it records for
-  autograd only inside ``autograd.record()``, and its training mode (for
-  Dropout) is ``autograd.is_training()``, not ``nn.Module.training``.
+  (the BERT and serving paths): it records as PyTorch's grad mode says,
+  and its training mode (for Dropout) is ``nn.Module.training``.  Called
+  with NDArrays, it runs the same ``forward`` on their tensors and
+  returns NDArrays: it records for autograd only inside
+  ``autograd.record()``, and its training mode is
+  ``autograd.is_training()``.  Either way the outermost call sets the
+  modes for everything it reaches: a block called inside another one's
+  call, with tensors or NDArrays (a ``hybrid_forward`` over the outer
+  call's tensors), inherits the outer call's grad and training mode, and
+  so do the ``mx.nd`` ops it runs.
 * **HybridBlock.**  ``hybridize()`` is accepted and the block runs
   eagerly: the captured-graph CachedOp is not ported (ROADMAP queue 1
   item 4).  A subclass may write ``hybrid_forward(F, x, **params)`` on
@@ -208,24 +214,34 @@ class Block(nn.Module):
         return self.training if override is None else override
 
     def __call__(self, *args, **kwargs):
+        nested = getattr(_mode, "training", None) is not None
         if not any(isinstance(a, NDArray) for a in args):
-            return super().__call__(*args, **kwargs)
+            if nested:
+                return super().__call__(*args, **kwargs)
+            return self._outermost(self.training, torch.is_grad_enabled(),
+                                   args, kwargs)
         ctx = next(a for a in args if isinstance(a, NDArray)).context
         tensors = [_unwrap(a) for a in args]
-        if getattr(_mode, "training", None) is not None:
-            # a block called with NDArrays inside another one's call
+        if nested:
             return _wrap(super().__call__(*tensors, **kwargs), ctx)
         recording = autograd.is_recording()
         if recording:
             autograd._mark_inputs([t for t in tensors
                                    if isinstance(t, torch.Tensor)])
-        _mode.training = autograd.is_training()
+        return _wrap(self._outermost(autograd.is_training(), recording,
+                                     tensors, kwargs), ctx)
+
+    def _outermost(self, training, grad, args, kwargs):
+        """The outermost block call: ``training`` and ``grad`` are the
+        training and grad mode of every block and ``mx.nd`` op it
+        reaches."""
+        _mode.training = training
         try:
-            with torch.set_grad_enabled(recording):
-                out = super().__call__(*tensors, **kwargs)
+            with autograd._Scope(grad, training), \
+                    torch.set_grad_enabled(grad):
+                return super().__call__(*args, **kwargs)
         finally:
             _mode.training = None
-        return _wrap(out, ctx)
 
     def hybridize(self, active=True, **kwargs):
         """Passed down to the children; every block runs eagerly."""
@@ -239,13 +255,17 @@ class HybridBlock(Block):
 
     def forward(self, *args):
         """Runs ``hybrid_forward(mx.nd, *inputs, **params)`` on NDArrays
-        over the input tensors and the parameters."""
+        over the input tensors and the parameters.  An input that takes
+        no gradient goes in as an alias of its storage, so a recording op
+        marks the alias and never the caller's tensor."""
         from .. import ndarray as nd
         t = next((a for a in args if isinstance(a, torch.Tensor)), None)
         ctx = _ctx_of(t.device) if t is not None else None
         params = {attr: self._gluon_param(attr).data()
                   for attr in self._parameters}
-        out = self.hybrid_forward(nd, *_wrap(list(args), ctx), **params)
+        inputs = [a.detach() if isinstance(a, torch.Tensor)
+                  and not a.requires_grad else a for a in args]
+        out = self.hybrid_forward(nd, *_wrap(inputs, ctx), **params)
         return _unwrap(out)
 
     def hybrid_forward(self, F, x, *args, **kwargs):

@@ -6,7 +6,9 @@ the JAX package's ``gluon/trainer.py`` on one context.
 parameter whose ``grad_req`` is not ``"null"`` from its gradient buffer,
 in place.  With one context there is nothing to reduce, so ``kvstore``
 may be None, ``"device"`` or ``"local"``; several contexts and a real
-kvstore are not ported (ROADMAP queue 1 item 8).
+kvstore are not ported (ROADMAP queue 1 item 8).  ``compile_step(net,
+loss_fn)`` makes the whole training step one captured graph
+(``gluon/compiled_step.py``).
 """
 from __future__ import annotations
 
@@ -69,6 +71,14 @@ class Trainer:
 
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
+
+    def compile_step(self, net, loss_fn):
+        """A :class:`~.compiled_step.CompiledStep`: ``loss_fn(net(*data),
+        label)``, its backward and this trainer's update as one captured
+        graph a step on the card (escape hatch ``MXTPU_COMPILED_STEP=0``;
+        see ``gluon/compiled_step.py``)."""
+        from .compiled_step import CompiledStep
+        return CompiledStep(net, loss_fn, self)
 
     def step(self, batch_size, ignore_stale_grad=False):
         """One update, with gradients scaled by ``1 / batch_size``."""

@@ -3,8 +3,10 @@
 
 Each returns the updated tensors; ``invoke`` writes them into ``out=``
 in place.  ``lr``, ``wd`` and ``rescale_grad`` are scalar attrs: Python
-numbers, never copied to the device.  With no clipping and no weight
-decay, ``sgd_update`` is one fused ``w + (-lr * rescale_grad) * g``.
+numbers, or 0-d tensors on the weight's device (the optimizer's device
+scalars, which a captured step reads afresh at each replay).  With
+Python numbers, no clipping and no weight decay, ``sgd_update`` is one
+fused ``w + (-lr * rescale_grad) * g``.
 """
 from __future__ import annotations
 
@@ -35,10 +37,10 @@ def _row_mask(grad):
           scalar_attrs=("lr", "wd", "rescale_grad"))
 def sgd_update(weight, grad, lr, wd, rescale_grad=1.0, *,
                clip_gradient=-1.0, lazy_update=False):
-    plain = (clip_gradient is None or clip_gradient <= 0) and wd == 0 \
-        and not lazy_update
-    if plain and isinstance(lr, numbers.Number) \
-            and isinstance(rescale_grad, numbers.Number):
+    numbers_only = all(isinstance(s, numbers.Number)
+                       for s in (lr, wd, rescale_grad))
+    if numbers_only and (clip_gradient is None or clip_gradient <= 0) \
+            and wd == 0 and not lazy_update:
         return torch.add(weight, grad, alpha=-lr * rescale_grad)
     new_w = weight - lr * _prep_grad(grad, rescale_grad, clip_gradient, wd,
                                      weight)

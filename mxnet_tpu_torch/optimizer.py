@@ -3,10 +3,21 @@
 ``optimizer/optimizer.py``), and Adam for ``DataParallelTrainer``.
 
 ``SGD`` runs the ``sgd_update`` / ``sgd_mom_update`` ops on NDArrays with
-``out=`` (in place), ``lr``, ``wd`` and ``rescale_grad`` as scalars, with
-``clip_gradient`` and each gluon Parameter's ``lr_mult``/``wd_mult``
-(``param_dict``).  Not ported: the other optimizers, multi-precision,
-learning-rate schedules.
+``out=`` (in place), with ``clip_gradient`` and each gluon Parameter's
+``lr_mult``/``wd_mult`` (``param_dict``).  Not ported: the other
+optimizers, multi-precision, learning-rate schedules.
+
+**Per-step scalars live on the device.**  ``lr``, ``wd``,
+``rescale_grad`` and ``-lr * rescale_grad`` (SGD) and the bias-corrected
+learning rate, ``wd`` and ``rescale_grad`` (Adam) change between steps, so an update reads them
+from a float32 tensor on the weights' device (:class:`DeviceScalars`),
+written before the step (one fill a value that changed) and read by the
+update's kernels.  A step captured as a CUDA graph therefore replays
+with each step's values, and the eager step computes the same thing.
+Static attributes (momentum, betas, epsilon, clipping, the multipliers,
+whether there is weight decay at all) are the kernels' own arguments:
+``static_key`` lists them, and a captured step whose key changed is
+captured again.
 
 Adam is the JAX package's ``optimizer.Adam`` with the fused
 ``adam_update`` rule of its data-parallel trainer.
@@ -32,8 +43,48 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "create", "register",
-           "get_updater"]
+__all__ = ["Optimizer", "SGD", "Adam", "Updater", "DeviceScalars",
+           "create", "register", "get_updater"]
+
+
+class DeviceScalars:
+    """Named float32 scalars of an update, one tensor on each device.
+
+    ``write(device, values)`` fills the entries whose value changed since
+    the last write (nothing in a steady state) and returns 0-d views of
+    the tensor, which the update's kernels read.  Values are staged
+    before a captured step: a write inside a CUDA-graph capture would
+    bake one step's value into the graph, so it raises."""
+
+    def __init__(self, names):
+        self.names = tuple(names)
+        self._by_device = {}
+
+    def write(self, device, values):
+        device = torch.device(device)
+        entry = self._by_device.get(device)
+        capturing = device.type == "cuda" and \
+            torch.cuda.is_current_stream_capturing()
+        values = tuple(float(v) for v in values)
+        if entry is not None and entry[1] == values:
+            return entry[2]
+        if capturing:
+            raise MXNetError(
+                f"the per-step scalars {self.names} changed inside a "
+                "captured step: stage them before the capture")
+        if entry is None:
+            t = torch.zeros(len(values), dtype=torch.float32,
+                            device=device)
+            entry = [t, (None,) * len(values),
+                     tuple(t[i] for i in range(len(values)))]
+            self._by_device[device] = entry
+        _, old, views = entry
+        with torch.no_grad():
+            for view, v, o in zip(views, values, old):
+                if v != o:
+                    view.fill_(v)
+        entry[1] = values
+        return views
 
 
 class Optimizer:
@@ -63,6 +114,8 @@ class Optimizer:
         self.num_update = 0
         self._index_update_count = {}
         self.param_dict = param_dict if param_dict else {}
+        self._scalars = DeviceScalars(("lr", "wd", "rescale_grad",
+                                       "neg_lr_rescale"))
 
     @property
     def learning_rate(self):
@@ -76,14 +129,6 @@ class Optimizer:
         self._index_update_count[index] = count
         self.num_update = max(count, self.num_update)
 
-    def _get_lr(self, index):
-        p = self.param_dict.get(index)
-        return self.learning_rate * (p.lr_mult if p is not None else 1.0)
-
-    def _get_wd(self, index):
-        p = self.param_dict.get(index)
-        return self.wd * (p.wd_mult if p is not None else 1.0)
-
     def _clip(self):
         return -1.0 if self.clip_gradient is None else float(
             self.clip_gradient)
@@ -93,6 +138,30 @@ class Optimizer:
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    @property
+    def capturable(self):
+        """Whether ``update`` is graph-safe: its per-step scalars come
+        from :meth:`stage` and nothing of it runs on the host per step
+        but the update count (``_update_count``)."""
+        return False
+
+    def stage(self, device):
+        """Write this step's ``lr``, ``wd``, ``rescale_grad`` and
+        ``-lr * rescale_grad`` into the device scalars of ``device``;
+        returns their 0-d views."""
+        lr, rescale = self.learning_rate, self.rescale_grad
+        return self._scalars.write(device, (lr, self.wd, rescale,
+                                            -lr * rescale))
+
+    def static_key(self, indices):
+        """The attributes baked into the update's kernels, for the
+        parameters ``indices``: a captured step whose key changed is
+        captured again."""
+        mults = tuple((getattr(self.param_dict.get(i), "lr_mult", 1.0),
+                       getattr(self.param_dict.get(i), "wd_mult", 1.0))
+                      for i in indices)
+        return (type(self).__name__, self._clip(), mults)
 
 
 register = Optimizer.register
@@ -115,19 +184,47 @@ class SGD(Optimizer):
         return zeros(weight.shape, ctx=weight.context,
                      dtype=weight.dtype.name)
 
+    @property
+    def capturable(self):
+        return type(self).update is SGD.update
+
+    def static_key(self, indices):
+        return super().static_key(indices) + (self.momentum, self.wd == 0)
+
     def update(self, index, weight, grad, state):
-        from . import ndarray as nd
         self._update_count(index)
-        lr, wd = self._get_lr(index), self._get_wd(index)
+        self.apply(index, weight, grad, state)
+
+    def apply(self, index, weight, grad, state):
+        """The device side of ``update``: lr, wd and rescale_grad come
+        from the device scalars (staged now when they changed), times the
+        parameter's multipliers.  Without momentum, clipping, weight
+        decay or a learning-rate multiplier it is ``sgd_update``'s fused
+        form, ``w += (-lr * rescale_grad) * g``: one kernel, in place."""
+        from . import ndarray as nd
+        from .ndarray.ndarray import NDArray
+        lr, wd, rescale, neg_lr_rescale = self.stage(weight.tensor.device)
+        p = self.param_dict.get(index)
+        lr_mult, wd_mult = (1.0, 1.0) if p is None else (p.lr_mult,
+                                                          p.wd_mult)
+        if state is None and self._clip() <= 0 and self.wd == 0 \
+                and lr_mult == 1.0:
+            with torch.no_grad():
+                weight.tensor.addcmul_(grad.tensor, neg_lr_rescale)
+            return
+        if lr_mult != 1.0:
+            lr = lr * lr_mult
+        if wd_mult != 1.0:
+            wd = wd * wd_mult
+        ctx = weight.context
+        lr, wd, rescale = (NDArray(t, ctx=ctx) for t in (lr, wd, rescale))
         if state is not None:
             nd.sgd_mom_update(weight, grad, state, lr=lr, wd=wd,
-                              momentum=self.momentum,
-                              rescale_grad=self.rescale_grad,
+                              momentum=self.momentum, rescale_grad=rescale,
                               clip_gradient=self._clip(),
                               out=[weight, state])
         else:
-            nd.sgd_update(weight, grad, lr=lr, wd=wd,
-                          rescale_grad=self.rescale_grad,
+            nd.sgd_update(weight, grad, lr=lr, wd=wd, rescale_grad=rescale,
                           clip_gradient=self._clip(), out=weight)
 
 
@@ -164,6 +261,21 @@ class Adam:
         self.wd = wd
         self.rescale_grad = rescale_grad
         self.clip_gradient = clip_gradient
+        self._scalars = DeviceScalars(("lr_t", "wd", "rescale_grad"))
+
+    def stage(self, device, t):
+        """Write step ``t``'s corrected learning rate, ``wd`` and
+        ``rescale_grad`` into the device scalars of ``device``; returns
+        their 0-d views, which :meth:`apply` takes."""
+        return self._scalars.write(device, (self.corrected_lr(t), self.wd,
+                                            self.rescale_grad))
+
+    def static_key(self):
+        """The attributes baked into :meth:`apply`'s kernels."""
+        clip = self.clip_gradient
+        return ("Adam", self.beta1, self.beta2, self.epsilon,
+                clip if clip is not None and clip > 0 else None,
+                bool(self.wd))
 
     def create_state(self, weight):
         """(mean, var), zeros like ``weight``."""
@@ -174,28 +286,37 @@ class Adam:
         return (self.learning_rate * math.sqrt(1.0 - self.beta2 ** t)
                 / (1.0 - self.beta1 ** t))
 
-    @torch.no_grad()
     def update(self, weights, grads, states, t):
         """Step ``t`` (from 1) for parallel lists of weights, gradients
         and (mean, var) states; weights and states change in place."""
         if not weights:
             return
+        self.apply(weights, grads, states,
+                   self.stage(weights[0].device, t))
+
+    @torch.no_grad()
+    def apply(self, weights, grads, states, scalars):
+        """The update with the per-step scalars ``scalars`` (the views
+        :meth:`stage` returned): no host value of the step enters it."""
+        if not weights:
+            return
+        lr_t, wd, rescale = scalars
         means = [s[0] for s in states]
         variances = [s[1] for s in states]
-        g = torch._foreach_mul(grads, self.rescale_grad)
+        g = torch._foreach_mul(grads, rescale)
         clip = self.clip_gradient
         if clip is not None and clip > 0:
             torch._foreach_clamp_min_(g, -clip)
             torch._foreach_clamp_max_(g, clip)
         if self.wd:
-            torch._foreach_add_(g, weights, alpha=self.wd)
+            torch._foreach_add_(g, torch._foreach_mul(weights, wd))
         torch._foreach_mul_(means, self.beta1)
         torch._foreach_add_(means, g, alpha=1.0 - self.beta1)
         torch._foreach_mul_(variances, self.beta2)
         torch._foreach_addcmul_(variances, g, g, value=1.0 - self.beta2)
         denom = torch._foreach_sqrt(variances)
         torch._foreach_add_(denom, self.epsilon)
-        step = torch._foreach_mul(means, self.corrected_lr(t))
+        step = torch._foreach_mul(means, lr_t)
         torch._foreach_div_(step, denom)
         torch._foreach_sub_(weights, step)
 

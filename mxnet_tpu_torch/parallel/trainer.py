@@ -2,23 +2,38 @@
 package's ``parallel/trainer.py``.
 
 ``step(data, label)`` runs the forward, the loss (the mean of
-``loss_fn(block(*data), label)``), the backward and the optimizer update
-over every trainable parameter, and returns the loss.  In the reference
-``fuse_step=True`` compiles the three into one XLA program; here they are
-one eager call either way, so ``fuse_step`` is accepted for the same call
-site and changes nothing.  Gradients are ``torch.autograd.grad`` of the
-loss, never accumulated in ``.grad``.  Not ported: meshes of more than
-one device, ``step_multi``, a captured (CUDA-graph) step, gradient
-compression and sharding plans.
+``loss_fn(block(*data), label)``), the backward (``torch.autograd.grad``
+of the loss, never accumulated in ``.grad``) and the Adam update of every
+trainable parameter, and returns the loss.  Given NDArrays (as
+``bench.py`` feeds it), the block and ``loss_fn`` see NDArrays, recorded
+as inside ``autograd.record()``, and the loss comes back as an NDArray on
+the mesh's context; given tensors or numpy arrays, they see tensors and
+the loss is a 0-d tensor.
+
+``fuse_step=True`` makes the step one CUDA-graph replay on the card
+(``_capture.StepCapture``): the first step of each input signature runs
+eagerly, the next is captured, and every later one replays the graph;
+Adam's per-step scalars (the bias-corrected learning rate, ``wd``,
+``rescale_grad``) go in through device tensors, so a replay computes
+exactly the step an eager call would.  ``step_multi`` runs K such steps
+over (K, B, ...) batches, or over one batch with ``repeat=K``, and
+returns the K losses.  ``fuse_step=False`` runs every step eagerly.  On
+the CPU both run the same step body eagerly.  Not ported: meshes of more
+than one device, the optimizers other than Adam, gradient compression
+and sharding plans.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 
+from .. import autograd
 from .. import optimizer as opt
+from .._capture import StepCapture
 from ..base import MXNetError
+from ..ndarray.ndarray import NDArray, _ctx_of
 from .mesh import make_mesh
 
 __all__ = ["DataParallelTrainer"]
@@ -30,14 +45,13 @@ class DataParallelTrainer:
     Args:
       block: the model, an ``nn.Module`` with its parameters on the
         mesh's device.
-      loss_fn: ``(outputs, label) -> loss`` tensor; the step takes its
-        mean.
+      loss_fn: ``(outputs, label) -> loss``; the step takes its mean.
       optimizer: the optimizer's name, ``"adam"``.
       optimizer_params: its keyword arguments.
       mesh: ``make_mesh({"dp": 1}, devices=[...])``; default: the mesh
         of the block's device.
-      fuse_step: accepted for the reference's call site (see the module
-        docstring).
+      fuse_step: the step as one captured graph (see the module
+        docstring); required by ``step_multi``.
     """
 
     def __init__(self, block, loss_fn: Callable, optimizer: str,
@@ -65,30 +79,130 @@ class DataParallelTrainer:
         self._states = [self.optimizer.create_state(p)
                         for p in self._params]
         self.num_update = 0
+        self._fuse = bool(fuse_step)
+        self._capture = StepCapture("DataParallelTrainer.step")
+        self._scalars = None
+
+    @property
+    def captures(self):
+        """Graphs captured (one a signature, again after a static
+        attribute changed)."""
+        return self._capture.captures
+
+    @property
+    def replays(self):
+        """Steps run as a graph replay."""
+        return self._capture.replays
+
+    @property
+    def pool_bytes(self):
+        """Device memory the live graphs reserved."""
+        return self._capture.pool_bytes
 
     def _put(self, x):
         if x is None:
             return None
+        if isinstance(x, NDArray):
+            x = x.tensor
         return torch.as_tensor(x, device=self.mesh.device)
 
-    def step(self, data, label):
-        """One training step on the batch; returns the loss (a 0-d tensor
-        on the device, not synchronised)."""
+    def _inputs(self, data, label):
         if not isinstance(data, (tuple, list)):
             data = (data,)
-        data = tuple(self._put(x) for x in data)
-        label = self._put(label)
+        nd_in = any(isinstance(x, NDArray) for x in (*data, label))
+        return [self._put(x) for x in data], self._put(label), nd_in
+
+    def _out(self, loss, nd_in):
+        return NDArray(loss, ctx=_ctx_of(loss.device)) if nd_in else loss
+
+    def _body(self, nd_in, given, *tensors):
+        """One step on ``tensors`` (the data inputs that are not None, as
+        ``given`` marks them, then the label): what a graph captures.
+        Adam reads the scalars staged in ``_run``."""
+        it = iter(tensors)
+        data = [next(it) if g else None for g in given]
+        label = next(it)
+        if nd_in:
+            ctx = _ctx_of(label.device)
+            with autograd.record():
+                loss = self.loss_fn(
+                    self.block(*[None if t is None else
+                                 NDArray(t.detach(), ctx=ctx)
+                                 for t in data]),
+                    NDArray(label.detach(), ctx=ctx))
+        else:
+            with torch.enable_grad():
+                loss = self.loss_fn(self.block(*data), label)
+        with torch.enable_grad():
+            loss = (loss.tensor if isinstance(loss, NDArray)
+                    else loss).mean()
+            grads = torch.autograd.grad(loss, self._params,
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        self.optimizer.apply(self._params, grads, self._states,
+                             self._scalars)
+        return (loss.detach(),)
+
+    def _run(self, data, label, nd_in):
+        """Stage step ``num_update + 1``'s scalars and run the step
+        (captured or replayed with ``fuse_step``); returns the loss."""
+        from ..contrib import amp
+        t = self.num_update + 1
+        self._scalars = self.optimizer.stage(self.mesh.device, t)
+        given = tuple(x is not None for x in data)
+        tensors = [x for x in data if x is not None] + [label]
+        body = functools.partial(self._body, nd_in, given)
         was_training = self.block.training
         self.block.train()
         try:
-            with torch.enable_grad():
-                loss = self.loss_fn(self.block(*data), label).mean()
-                grads = torch.autograd.grad(loss, self._params,
-                                            allow_unused=True,
-                                            materialize_grads=True)
+            if self._fuse:
+                (loss,) = self._capture.run(
+                    body, tensors, (nd_in, given,
+                                    self.optimizer.static_key(),
+                                    amp.target_dtype()))
+            else:
+                (loss,) = body(*tensors)
         finally:
             self.block.train(was_training)
-        self.num_update += 1
-        self.optimizer.update(self._params, grads, self._states,
-                              self.num_update)
-        return loss.detach()
+        self.num_update = t
+        return loss
+
+    def step(self, data, label):
+        """One training step on the batch; returns the loss (0-d, on the
+        device, not synchronised): an NDArray when NDArrays came in."""
+        data, label, nd_in = self._inputs(data, label)
+        loss = self._run(data, label, nd_in)
+        # a replay's output is the graph's buffer, which the next
+        # replay overwrites
+        return self._out(loss.clone() if self._fuse else loss, nd_in)
+
+    def step_multi(self, data, label, repeat=None):
+        """K steps: over (K, B, ...) ``data`` and (K, B, ...) ``label``,
+        or over one batch ``repeat=K`` times.  Returns the (K,) losses;
+        the result is that of K ``step()`` calls.  Requires
+        ``fuse_step=True``."""
+        if not self._fuse:
+            raise MXNetError("step_multi requires fuse_step=True")
+        data, label, nd_in = self._inputs(data, label)
+        if repeat is not None:
+            k = int(repeat)
+            if k <= 0:
+                raise MXNetError(f"step_multi: repeat must be positive, "
+                                 f"got {repeat}")
+            batches = [(data, label)] * k
+        else:
+            k = label.shape[0]
+            if any(x is not None and x.shape[0] != k for x in data):
+                raise MXNetError(
+                    f"step_multi: the leading dims of data "
+                    f"{[None if x is None else tuple(x.shape) for x in data]}"
+                    f" and label {tuple(label.shape)} must all be K")
+            batches = [([None if x is None else x[i] for x in data],
+                        label[i]) for i in range(k)]
+        losses = None
+        for i, (d, l) in enumerate(batches):
+            loss = self._run(d, l, nd_in)
+            if losses is None:
+                losses = loss.new_empty((k,) + tuple(loss.shape))
+            losses[i].copy_(loss)
+        return self._out(losses, nd_in)

@@ -121,6 +121,43 @@ def test_block_calls_with_ndarrays_and_tensors():
                       nd.NDArray)
 
 
+def test_hybrid_block_called_with_tensors_passes_its_modes_on():
+    """A HybridBlock called with tensors wraps them in NDArrays for its
+    hybrid_forward: the blocks and mx.nd ops there inherit the call's grad
+    mode and training mode (they used to take autograd's, off, so the
+    output had no grad_fn and dropout never ran), and the caller's tensor
+    is not marked as requiring a gradient."""
+    class Wrap(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.dense = gluon.nn.Dense(3, in_units=4)
+                self.drop = gluon.nn.Dropout(0.5)
+
+        def hybrid_forward(self, F, x):
+            return self.drop(F.Activation(self.dense(x), act_type="tanh")
+                             + 1.0)
+
+    net = Wrap().initialize(ctx=CPU, seed=0)
+    x = torch.from_numpy(np.random.RandomState(0).randn(64, 4).astype("f4"))
+    bare = gluon.nn.Dense(3, in_units=4).initialize(ctx=CPU, seed=0)
+    with torch.enable_grad():
+        y = net(x)
+        assert bare(x).requires_grad
+    assert y.requires_grad and not x.requires_grad
+    y.sum().backward()
+    assert net.dense.weight.grad is not None
+    assert float(net.dense.weight.grad.abs().sum()) > 0
+    mx.random.seed(0)
+    big = torch.ones(4096, 4)
+    kept = (net(big) != 0).float().mean().item()
+    assert abs(kept - 0.5) < 0.05                  # dropout ran
+    net.eval()
+    assert bool((net(big) != 0).all())             # and not in eval()
+    with torch.no_grad():
+        assert not net(x).requires_grad
+
+
 def test_hybrid_forward_block_matches_the_jax_package():
     """A user HybridBlock with its own parameter and hybrid_forward(F,
     ...), copied over by name."""

@@ -120,6 +120,56 @@ def test_three_step_trajectory_matches_jax(flash_kernels):
     assert tfa.flash_bwd_dq_tc_launches == 0
 
 
+class _Hybrid(mx.gluon.HybridBlock):
+    """bench.py's _FullLenPretrain in the port: a HybridBlock whose
+    hybrid_forward calls BERTForPretrain with NDArrays."""
+
+    def __init__(self, mod, **kw):
+        super().__init__(**kw)
+        with self.name_scope():
+            self.mod = mod
+
+    def hybrid_forward(self, F, t, ty, p):
+        return self.mod(t, ty, None, p)
+
+
+def test_step_takes_and_returns_ndarrays():
+    """As bench.py drives it: a HybridBlock model (its blocks inherit the
+    step's grad and training mode), NDArray data and label, and the loss
+    back as an NDArray on the mesh's context (wait_to_read, asnumpy),
+    equal to the loss of the same steps fed numpy arrays (then a
+    tensor)."""
+    data, label = _batch()
+    cfg = dict(CFG, vocab_size=V, num_layers=1)
+    losses = {}
+    for kind in ("ndarray", "numpy"):
+        inner = models.BERTForPretrain(models.bert_small(**cfg))
+        model = _Hybrid(inner).initialize(mx.init.Xavier(), ctx=mx.cpu(),
+                                          seed=3)
+        dpt = parallel.DataParallelTrainer(
+            model, _loss_fn(SoftmaxCrossEntropyLoss()), "adam",
+            {"learning_rate": 1e-3},
+            mesh=parallel.make_mesh({"dp": 1}, devices=[mx.cpu()]),
+            fuse_step=True)
+        if kind == "ndarray":
+            d = tuple(mx.nd.array(x, ctx=mx.cpu()) for x in data)
+            lab = mx.nd.array(label, ctx=mx.cpu())
+        else:
+            d, lab = data, label
+        out = [dpt.step(d, lab) for _ in range(2)]
+        if kind == "ndarray":
+            assert all(isinstance(o, mx.nd.NDArray) for o in out)
+            assert out[0].context == mx.cpu()
+            out[1].wait_to_read()
+            losses[kind] = [float(o.asnumpy()) for o in out]
+        else:
+            assert all(isinstance(o, torch.Tensor) for o in out)
+            losses[kind] = [o.item() for o in out]
+    np.testing.assert_allclose(losses["ndarray"], losses["numpy"],
+                               rtol=1e-6)
+    assert losses["ndarray"][1] < losses["ndarray"][0]
+
+
 def test_step_restores_the_training_mode():
     model = models.bert_small(vocab_size=50, max_length=128, num_layers=1,
                               dropout=0.1).initialize(ctx=mx.cpu(), seed=1)
