@@ -26,13 +26,26 @@ Phases, each printing JSON lines:
             a wrapper call. The library's backward computes dQ, dK and
             dV in one kernel, so K2 + K3 are compared with the whole of
             it; each one's share of it is only an estimate.
-4. parity:  llama_tiny in float32 served through Server on the card (the
-            flash kernel) gives the same greedy tokens as on the CPU (the
-            plain version), and the kernel ran once per layer per
-            admission.
+4. parity:  llama_tiny in float32 on the card against the CPU: Server's
+            greedy tokens with decode_steps 1 and 4 (every dispatch a
+            graph replay after its variant's first graph, the flash
+            kernel once per layer per admission, counted through the
+            replays), generate_fused's greedy tokens (an eager call, the
+            captured call, a replay) against the CPU's generate, and
+            generate_beam's sequences (exactly) and scores (1e-4).
 5. serve:   the Llama-3-8B geometry (bf16 weights drawn on the card from a
             seeded generator) served through Server: 8 prompts of 20-500
-            tokens in buckets (4, 128) and (4, 512), 32 new tokens each.
+            tokens in buckets (4, 128) and (4, 512), 32 new tokens each,
+            in three windows after a warm-up: decode_steps=1 twice and
+            decode_steps=8 (the last two must capture nothing: every
+            dispatch a steady replay); TTFT, tokens per wall second,
+            decode ms a step, captures, replays, graph pools, peak
+            memory; profiled
+            eager and replayed calls (prefill S=512, 4-slot decode);
+            two sampled runs after one mx.random.seed, equal; then
+            generate_fused at B=4, S=512, 32 new tokens (timed replays,
+            K1 once per layer a call) and sampled (temperature 0.8,
+            top_k 50): one seed gives equal tokens at every replay.
 6. train_parity: bert_small (2 layers, vocab 200, f32, dropout 0) takes 3
             Adam steps on the card and on the CPU from the same weights,
             through bench.py's HybridBlock and DataParallelTrainer(
@@ -105,6 +118,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 without TF32
 ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,"
               "train_capture_parity,dropout,train,imperative_parity,"
               "imperative,rtc")
+SERVING_PHASES = {"device", "build", "parity", "serve"}
 
 
 def emit(obj):
@@ -172,7 +186,7 @@ def profiled(fn, reps):
             if not ev.key.startswith("ProfilerStep")]
 
 
-def device_ms(fn, reps, warmup=2, by_kernel=False, tries=3):
+def device_ms(fn, reps, warmup=2, by_kernel=False, tries=5):
     """Device time of one call: from one torch.profiler window of
     ``reps`` back-to-back calls, each CUDA kernel's (and copy's) mean
     self device time times its launches a call, summed.  The host's pace
@@ -1030,6 +1044,10 @@ def phase_imperative(mx, dev, cfg=MLP):
 # -- phase 4: parity -----------------------------------------------------------
 
 def phase_parity(mx, dev):
+    """llama_tiny f32 on the card against the CPU: the Server's greedy
+    tokens with one-step and 4-step decode (graph replays after each
+    variant's first graph), ``generate_fused`` greedy against the CPU's
+    ``generate``, and ``generate_beam``'s sequences and scores."""
     import numpy as np
     import torch
     from mxnet_tpu_torch.models import LlamaForCausalLM, llama_tiny
@@ -1040,36 +1058,166 @@ def phase_parity(mx, dev):
     cpu_lm.initialize(std=0.3, seed=7)
     gpu_lm = LlamaForCausalLM(llama_tiny(vocab_size=vocab), ctx=mx.gpu(0))
     gpu_lm.load_state_dict(cpu_lm.state_dict())
+    layers = len(gpu_lm.model.layers)
     rng = np.random.RandomState(3)
     prompts = [rng.randint(0, vocab, n).astype("f4")
                for n in (30, 77, 128, 100)]
-    cpu_out = Server(cpu_lm, buckets=[(2, 128)], max_new_tokens=8,
-                     ctx=mx.cpu()).generate(prompts)
+    srv_kw = dict(buckets=[(2, 128)], max_new_tokens=8)
+    cpu_out = Server(cpu_lm, ctx=mx.cpu(), **srv_kw).generate(prompts)
+    for k in (1, 4):
+        reset_counts()
+        srv = Server(gpu_lm, ctx=mx.gpu(0), **srv_kw)
+        gpu_out = srv.generate(prompts, decode_steps=k)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        launches = counts["flash_fwd_launches"]
+        st = srv.stats()
+        b = st["buckets"]["2x128"]
+        same = all(np.array_equal(x, y) for x, y in zip(cpu_out, gpu_out))
+        emit({"phase": "parity", "model": "llama_tiny", "dtype": "float32",
+              "decode_steps": k, "requests": len(prompts),
+              "admissions": b["prefills"],
+              "decode_dispatches": b["decode_dispatches"],
+              "captures": st["captures"], "replays": st["replays"],
+              "steady_dispatches": b["steady_dispatches"],
+              "steady_misses": b["steady_misses"],
+              "graph_pool_bytes": st["graph_pool_bytes"],
+              "flash_fwd_launches": launches,
+              "flash_fwd_tc_launches": counts["flash_fwd_tc_launches"],
+              "layers": layers, "tokens_equal": same})
+        check(same, f"parity: decode_steps={k}: greedy tokens on the card "
+              "differ from the CPU's")
+        check(launches == b["prefills"] * layers,
+              f"parity: {launches} flash launches, want {b['prefills']} x "
+              f"{layers}")
+        check(counts["flash_fwd_tc_launches"] == 0,
+              "parity: an f32 forward took the tensor-core route")
+        # every variant: an eager first dispatch, then one capture
+        check(st["captures"] == len(srv._variants) and st["replays"] > 0
+              and b["steady_misses"] == 0,
+              f"parity: decode_steps={k}: {st['captures']} captures of "
+              f"{len(srv._variants)} variants, {st['replays']} replays, "
+              f"{b['steady_misses']} steady misses")
+
+    tok = rng.randint(0, vocab, (2, 128)).astype("f4")
+    want = cpu_lm.generate(tok, max_new_tokens=8).numpy()
+    fused = []
+    for call in range(3):       # eager, captured and replayed, replayed
+        reset_counts()
+        fused.append(gpu_lm.generate_fused(tok, max_new_tokens=8)
+                     .cpu().numpy())
+        launches = read_counts()["flash_fwd_launches"]
+    (cap,) = gpu_lm._fused.values()
+    same = [bool(np.array_equal(f, want)) for f in fused]
+    emit({"phase": "parity_generate_fused", "model": "llama_tiny",
+          "dtype": "float32", "batch": 2, "prompt_len": 128,
+          "new_tokens": 8, "tokens_equal_by_call": same,
+          "captures": cap.captures, "replays": cap.replays,
+          "graph_pool_bytes": cap.pool_bytes,
+          "flash_fwd_launches_last_call": launches})
+    check(all(same), f"parity: generate_fused on the card differs from the "
+          f"CPU's generate (calls: {same})")
+    check(cap.captures == 1 and cap.replays == 2,
+          f"parity: generate_fused {cap.captures} captures, {cap.replays} "
+          "replays; want 1 and 2")
+    check(launches == layers, f"parity: generate_fused replay ran {launches} "
+          f"flash launches, want {layers}")
+
+    beam_kw = dict(max_new_tokens=6, beam_size=3, alpha=0.8)
+    cseq, csc = cpu_lm.generate_beam(tok, **beam_kw)
     reset_counts()
-    srv = Server(gpu_lm, buckets=[(2, 128)], max_new_tokens=8,
-                 ctx=mx.gpu(0))
-    gpu_out = srv.generate(prompts)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    launches = counts["flash_fwd_launches"]
-    admissions = srv.stats()["buckets"]["2x128"]["prefills"]
-    layers = len(gpu_lm.model.layers)
-    same = all(np.array_equal(a, b) for a, b in zip(cpu_out, gpu_out))
-    emit({"phase": "parity", "model": "llama_tiny", "dtype": "float32",
-          "requests": len(prompts), "admissions": admissions,
-          "flash_fwd_launches": launches,
-          "flash_fwd_tc_launches": counts["flash_fwd_tc_launches"],
-          "layers": layers, "tokens_equal": same})
-    check(same, "parity: greedy tokens on the card differ from the CPU's")
-    check(launches == admissions * layers,
-          f"parity: {launches} flash launches, want {admissions} x {layers}")
-    check(counts["flash_fwd_tc_launches"] == 0,
-          "parity: an f32 forward took the tensor-core route")
+    gseq, gsc = gpu_lm.generate_beam(tok, **beam_kw)
+    launches = read_counts()["flash_fwd_launches"]
+    seq_same = bool(torch.equal(gseq.cpu(), cseq))
+    score_err = float((gsc.cpu() - csc).abs().max())
+    emit({"phase": "parity_generate_beam", "model": "llama_tiny",
+          "dtype": "float32", "batch": 2, "prompt_len": 128, "beam": 3,
+          "new_tokens": 6, "sequences_equal": seq_same,
+          "score_max_abs_err": score_err, "flash_fwd_launches": launches})
+    check(seq_same, "parity: generate_beam sequences on the card differ "
+          "from the CPU's")
+    check(score_err <= 1e-4, f"parity: generate_beam scores differ by "
+          f"{score_err} (> 1e-4)")
+    check(launches == layers, f"parity: generate_beam ran {launches} flash "
+          f"launches, want {layers} (one prefill)")
 
 
 # -- phase 5: serve ------------------------------------------------------------
 
+SERVE_NEW_TOKENS = 32
+SERVE_LENS = [20, 64, 100, 128, 200, 333, 450, 500]
+
+
+def serve_window(srv, prompts, decode_steps, window, layers, vocab, dev):
+    """Submit every prompt at once and run the server to drain with
+    ``decode_steps``; one line of readings, with the counts it moved."""
+    import torch
+    before = srv.stats()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs = [srv.submit(p) for p in prompts]
+    srv.run(decode_steps=decode_steps)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    after = srv.stats()
+    delta = {k: {f: after["buckets"][k][f] - before["buckets"][k][f]
+                 for f in after["buckets"][k]} for k in after["buckets"]}
+
+    def total(f):
+        return sum(d[f] for d in delta.values())
+    ttft = [r.first_token_t - r.submit_t for r in reqs]
+    row = {"phase": "serve", "window": window, "decode_steps": decode_steps,
+           "requests": len(reqs), "admissions": total("prefills"),
+           "tokens": total("tokens"), "wall_s": wall_s,
+           "tokens_per_wall_s": total("tokens") / wall_s,
+           "ttft_p50_s": statistics.median(ttft), "ttft_max_s": max(ttft),
+           "prefill_s": total("prefill_s"), "decode_s": total("decode_s"),
+           "decode_steps_run": total("decode_steps"),
+           "decode_dispatches": total("decode_dispatches"),
+           "decode_ms_per_step": 1e3 * total("decode_s")
+           / total("decode_steps"),
+           "decode_ms_per_dispatch": 1e3 * total("decode_s")
+           / total("decode_dispatches"),
+           "captures": after["captures"] - before["captures"],
+           "replays": after["replays"] - before["replays"],
+           "steady_dispatches": total("steady_dispatches"),
+           "steady_misses": total("steady_misses"),
+           "graph_pool_bytes": after["graph_pool_bytes"],
+           "graph_pool_bytes_by_variant": {
+               suffix: cap.pool_bytes
+               for suffix, (cap, _) in srv._variants.items()},
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+           "flash_fwd_launches": counts["flash_fwd_launches"],
+           "flash_fwd_tc_launches": counts["flash_fwd_tc_launches"],
+           "layers": layers, "per_bucket": delta}
+    emit(row)
+    for r in reqs:
+        gen = np.asarray(r.generated)
+        check(r.state == "done" and len(gen) == SERVE_NEW_TOKENS,
+              f"serve: request {r.id} ended {r.state} with {len(gen)} "
+              "tokens")
+        check(((gen >= 0) & (gen < vocab)).all(),
+              f"serve: request {r.id} has tokens out of range")
+    check(row["admissions"] == len(reqs),
+          f"serve: {row['admissions']} admissions")
+    launches = row["flash_fwd_launches"]
+    check(launches == row["admissions"] * layers,
+          f"serve: {launches} flash launches, want {row['admissions']} x "
+          f"{layers}")
+    check(row["flash_fwd_tc_launches"] == launches,
+          f"serve: {row['flash_fwd_tc_launches']} of {launches} bf16 flash "
+          "launches took the tensor-core route")
+    return row, [list(r.generated) for r in reqs]
+
+
 def phase_serve(mx, dev):
+    """The Llama-3-8B geometry in bf16 through Server, every dispatch a
+    graph replay after its variant's first graph: two windows with
+    one-step decode (the second must capture nothing), one with 8-step
+    decode; where the time goes, eager and replayed; generate_fused at
+    B=4, S=512; seeded sampling."""
     import numpy as np
     import torch
     from mxnet_tpu_torch.models import LlamaForCausalLM, llama3_8b
@@ -1081,11 +1229,18 @@ def phase_serve(mx, dev):
                           ctx=mx.gpu(0), dtype="bfloat16")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in lm.parameters())
-    weight_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
     vocab = lm.model.vocab_size
+    layers = len(lm.model.layers)
+    emit({"phase": "serve_model", "model": "llama3_8b", "dtype": "bfloat16",
+          "params": sum(p.numel() for p in lm.parameters()),
+          "weight_bytes": sum(p.numel() * p.element_size()
+                              for p in lm.parameters()),
+          "weights_init_s": init_s, "buckets": ["4x128", "4x512"],
+          "prompt_lens": SERVE_LENS, "new_tokens": SERVE_NEW_TOKENS,
+          "card": nvidia_smi()})
 
-    # every logits tensor the server reads is checked on the device
+    # every logits tensor the server and generate_fused read is checked
+    # on the device, inside the graphs too (the adds are captured)
     nonfinite = torch.zeros((), dtype=torch.long, device=dev)
 
     def checked(fn):
@@ -1098,75 +1253,43 @@ def phase_serve(mx, dev):
     lm.prefill = checked(plain_prefill)
     lm.decode_step = checked(plain_decode)
 
-    new_tokens = 32
     srv = Server(lm, buckets=[(4, 128), (4, 512)],
-                 max_new_tokens=new_tokens, ctx=mx.gpu(0),
+                 max_new_tokens=SERVE_NEW_TOKENS, ctx=mx.gpu(0),
                  cache_dtype="bfloat16")
     rng = np.random.RandomState(11)
-    # warm-up: one short request (cuBLAS handles, first-call overheads)
-    srv.generate([rng.randint(0, vocab, 20).astype("f4")],
-                 max_new_tokens=2)
+    # warm-up: a short request in each bucket, with one-step then 8-step
+    # decode (cuBLAS handles, first-call overheads; every variant's
+    # eager first dispatch, and the captures of all but the one-step
+    # decode, which the first window captures)
+    warm = [rng.randint(0, vocab, n).astype("f4") for n in (20, 200)]
+    srv.generate(warm, max_new_tokens=2)
+    srv.generate(warm, max_new_tokens=17, decode_steps=8)
     torch.cuda.synchronize()
-    before = srv.stats()["buckets"]
-    lens = [20, 64, 100, 128, 200, 333, 450, 500]
-    prompts = [rng.randint(0, vocab, n).astype("f4") for n in lens]
+    prompts = [rng.randint(0, vocab, n).astype("f4") for n in SERVE_LENS]
+    windows = []
+    for window, k in enumerate((1, 1, 8)):
+        windows.append(serve_window(srv, prompts, k, window, layers, vocab,
+                                    dev)[0])
+    # the second one-step window and the 8-step window capture nothing:
+    # every dispatch is a steady replay
+    for steady in windows[1:]:
+        dispatches = steady["admissions"] + steady["decode_dispatches"]
+        check(steady["captures"] == 0 and steady["steady_misses"] == 0,
+              f"serve: window {steady['window']} captured "
+              f"{steady['captures']} graphs ({steady['steady_misses']} "
+              "steady misses)")
+        check(steady["replays"] == dispatches
+              and steady["steady_dispatches"] == dispatches,
+              f"serve: window {steady['window']} replayed "
+              f"{steady['replays']} of {dispatches} dispatches "
+              f"({steady['steady_dispatches']} steady)")
+    steady = windows[1]
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    reset_counts()
-    t0 = time.perf_counter()
-    reqs = [srv.submit(p) for p in prompts]
-    srv.run()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    counts = read_counts()
-    launches = counts["flash_fwd_launches"]
-    tc_launches = counts["flash_fwd_tc_launches"]
-    after = srv.stats()["buckets"]
-
-    delta = {k: {f: after[k][f] - before[k][f] for f in after[k]}
-             for k in after}
-    admissions = sum(d["prefills"] for d in delta.values())
-    tokens = sum(d["tokens"] for d in delta.values())
-    decode_tokens = tokens - admissions
-    decode_s = sum(d["decode_s"] for d in delta.values())
-    prefill_s = sum(d["prefill_s"] for d in delta.values())
-    ttft = [r.first_token_t - r.submit_t for r in reqs]
-    layers = len(lm.model.layers)
-    bad = int(nonfinite.item())
-    emit({"phase": "serve", "model": "llama3_8b", "dtype": "bfloat16",
-          "params": n_params, "weight_bytes": weight_bytes,
-          "weights_init_s": init_s, "buckets": ["4x128", "4x512"],
-          "prompt_lens": lens, "new_tokens": new_tokens,
-          "requests": len(reqs), "admissions": admissions,
-          "flash_fwd_launches": launches,
-          "flash_fwd_tc_launches": tc_launches, "layers": layers,
-          "ttft_p50_s": statistics.median(ttft), "ttft_max_s": max(ttft),
-          "prefill_s": prefill_s, "decode_s": decode_s,
-          "tokens": tokens, "decode_tokens": decode_tokens, "wall_s": wall_s,
-          "tokens_per_wall_s": tokens / wall_s,
-          "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-          "nonfinite_logits": bad, "per_bucket": delta,
-          "card": nvidia_smi()})
-    for r in reqs:
-        gen = np.asarray(r.generated)
-        check(r.state == "done" and len(gen) == new_tokens,
-              f"serve: request {r.id} ended {r.state} with {len(gen)} "
-              "tokens")
-        check(((gen >= 0) & (gen < vocab)).all(),
-              f"serve: request {r.id} has tokens out of range")
-    check(bad == 0, f"serve: {bad} non-finite logits")
-    check(admissions == len(reqs), f"serve: {admissions} admissions")
-    check(launches == admissions * layers,
-          f"serve: {launches} flash launches, want {admissions} x {layers}")
-    check(tc_launches == launches,
-          f"serve: {tc_launches} of {launches} bf16 flash launches took "
-          "the tensor-core route")
-
-    # where the time goes: one prefill per bucket and one 4-slot decode
-    # step, outside the counted run
+    # where the time goes: eager calls, then the server's replays of
+    # the 512 bucket's decode (4 slots, cache 544) and prefill
     lm.prefill, lm.decode_step = plain_prefill, plain_decode
     for s in (128, 512):
-        caches = lm.init_cache(1, s + new_tokens, dtype="bfloat16")
+        caches = lm.init_cache(1, s + SERVE_NEW_TOKENS, dtype="bfloat16")
         tok = torch.as_tensor(rng.randint(0, vocab, (1, s)).astype("f4"),
                               device=dev)
         last = torch.tensor([s - 1.0], device=dev)
@@ -1174,12 +1297,110 @@ def phase_serve(mx, dev):
                   **profile_call(lambda: lm.prefill(
                       tok, [(k[:, :s], v[:, :s]) for k, v in caches],
                       last_pos=last))))
-    caches = lm.init_cache(4, 512 + new_tokens, dtype="bfloat16")
+    caches = lm.init_cache(4, 512 + SERVE_NEW_TOKENS, dtype="bfloat16")
     tok = torch.zeros((4, 1), device=dev)
     off = torch.tensor([20.0, 100.0, 300.0, 500.0], device=dev)
     emit(dict({"phase": "serve_breakdown", "call": "decode_4slots_c544"},
               **profile_call(lambda: lm.decode_step(tok, caches, off))))
-    return launches
+    b512 = srv.sched.buckets[1]
+    ones, zeros = torch.ones(4, device=dev), torch.zeros(4, device=dev)
+    emit(dict({"phase": "serve_breakdown",
+               "call": "decode_4slots_c544_replay"},
+              **profile_call(lambda: srv._dispatch(
+                  b512, "decode", 1, [tok, off, ones, zeros]))))
+    prompt = torch.as_tensor(rng.randint(0, vocab, (1, 512)).astype("f4"),
+                             device=dev)
+    pre_in = [prompt, torch.tensor([511.0], device=dev),
+              torch.zeros(1, dtype=torch.long, device=dev),
+              torch.zeros(1, device=dev)]
+    emit(dict({"phase": "serve_breakdown", "call": "prefill_s512_replay"},
+              **profile_call(lambda: srv._dispatch(
+                  b512, "prefill", 1, pre_in))))
+    lm.prefill = checked(plain_prefill)
+    lm.decode_step = checked(plain_decode)
+
+    # seeded sampling: the same seed gives the same tokens (every
+    # variant captures again on the reseeded generator)
+    sampled = []
+    for _ in range(2):
+        mx.random.seed(5)
+        reqs = [srv.submit(p, max_new_tokens=8, temperature=0.8)
+                for p in prompts]
+        srv.run()
+        sampled.append([list(r.generated) for r in reqs])
+    emit({"phase": "serve_sampled", "temperature": 0.8, "new_tokens": 8,
+          "tokens_equal": sampled[0] == sampled[1],
+          "captures": srv.stats()["captures"]})
+    check(sampled[0] == sampled[1], "serve: two sampled runs after "
+          "mx.random.seed(5) drew different tokens")
+
+    fused = phase_generate_fused(lm, rng, vocab, layers, dev)
+    bad = int(nonfinite.item())
+    emit({"phase": "serve_checks", "nonfinite_logits": bad})
+    check(bad == 0, f"serve: {bad} non-finite logits")
+    return {"launches": steady["flash_fwd_launches"],
+            "generate_fused_launches": fused}
+
+
+def phase_generate_fused(lm, rng, vocab, layers, dev):
+    """generate_fused at B=4, S=512, 32 new tokens: greedy (an eager
+    call, the captured call, then timed replays), and sampled
+    (temperature 0.8, top_k 50): a seed gives equal tokens at every
+    replay, another seed other tokens."""
+    import torch
+    b, s, n = 4, 512, SERVE_NEW_TOKENS
+    tok = torch.as_tensor(rng.randint(0, vocab, (b, s)).astype("f4"),
+                          device=dev)
+
+    def call(**kw):
+        return lm.generate_fused(tok, n, cache_dtype="bfloat16", **kw)
+
+    def timed(**kw):
+        t0 = time.perf_counter()
+        out = call(**kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    eager, eager_s = timed()
+    replayed, capture_s = timed()          # captured, then replayed once
+    walls, launches = [], []
+    for _ in range(3):
+        reset_counts()
+        out, wall = timed()
+        walls.append(wall)
+        launches.append(read_counts()["flash_fwd_launches"])
+    wall = statistics.median(walls)
+    key = (b, s, n, False, 0, False, "bfloat16", str(tok.dtype))
+    cap = lm._fused[key]
+    gen = out[:, s:]
+    sample = dict(temperature=0.8, top_k=50)
+    call(seed=1, **sample)                     # eager warm-up
+    s1, s1b, s2 = (call(seed=1, **sample), call(seed=1, **sample),
+                   call(seed=2, **sample))
+    row = {"phase": "generate_fused", "model": "llama3_8b",
+           "dtype": "bfloat16", "batch": b, "prompt_len": s,
+           "new_tokens": n, "eager_call_s": eager_s,
+           "capture_call_s": capture_s, "wall_s": walls,
+           "tokens_per_wall_s": b * n / wall,
+           "flash_fwd_launches_per_call": launches,
+           "captures": cap.captures, "replays": cap.replays,
+           "graph_pool_bytes": cap.pool_bytes,
+           "replays_equal": bool(torch.equal(out, replayed)),
+           "eager_equals_replay": bool(torch.equal(out, eager)),
+           "sampled_same_seed_equal": bool(torch.equal(s1, s1b)),
+           "sampled_other_seed_differs": not torch.equal(s1, s2),
+           "card": nvidia_smi()}
+    emit(row)
+    check(torch.equal(out[:, :s], tok), "generate_fused: the prompt changed")
+    check(bool(((gen >= 0) & (gen < vocab)).all()),
+          "generate_fused: tokens out of range")
+    check(row["replays_equal"], "generate_fused: two greedy replays differ")
+    check(all(x == layers for x in launches),
+          f"generate_fused: flash launches a call {launches}, want {layers}")
+    check(cap.captures == 1, f"generate_fused: {cap.captures} captures")
+    check(row["sampled_same_seed_equal"] and row["sampled_other_seed_differs"],
+          "generate_fused: seed 1 twice gave different tokens, or seed 2 "
+          "the same as seed 1")
+    return launches[-1]
 
 
 # -- phases 6 and 7: training -------------------------------------------------
@@ -1674,21 +1895,22 @@ def _hmma_counts(sass):
     return out
 
 
-def phase_build():
-    """Build every source (one nvcc each, in parallel); per kernel
-    ptxas' registers and spills and the HMMA instructions of its SASS.
-    Every tensor-core kernel must contain HMMA, and none may spill at a
-    head dim <= 128.  The tile sizes the libraries export must equal
-    the wrappers' constants."""
+def phase_build(names=None):
+    """Build the named sources (default: every one; one nvcc each, in
+    parallel); per kernel ptxas' registers and spills and the HMMA
+    instructions of its SASS.  Every tensor-core kernel must contain
+    HMMA, and none may spill at a head dim <= 128.  The tile sizes the
+    libraries export must equal the wrappers' constants."""
     from mxnet_tpu_torch import _kernels
     from mxnet_tpu_torch._kernels.build import _lib_path, _nvcc
     from mxnet_tpu_torch.ops import flash_attention as fa
+    names = _kernels.sources() if names is None else names
     t0 = time.perf_counter()
-    took = _kernels.build()
+    took = _kernels.build(names)
     seconds = time.perf_counter() - t0
     cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     per_source = {}
-    for n in _kernels.sources():
+    for n in names:
         kern = _ptxas_report(_kernels.build_log(n))
         sass = subprocess.run([cuobjdump, "-sass", _lib_path(n)],
                               capture_output=True, text=True, timeout=300)
@@ -1697,12 +1919,18 @@ def phase_build():
             kern.setdefault(k, {})["hmma"] = count
         per_source[n] = {"hmma": sum(v.get("hmma", 0) for v in kern.values()),
                          "kernels": kern}
-    fwd, bwd = fa._kernel(), fa._bwd_kernels()
-    tiles = {"flash_fwd": [fwd.mxtpu_flash_fwd_block_q(),
-                           fwd.mxtpu_flash_fwd_block_k()],
-             "flash_bwd": [bwd.mxtpu_flash_bwd_block_q(),
-                           bwd.mxtpu_flash_bwd_block_k()]}
-    emit({"phase": "build", "sources": _kernels.sources(),
+    tiles, want = {}, {}
+    if "flash_fwd" in names:
+        fwd = fa._kernel()
+        tiles["flash_fwd"] = [fwd.mxtpu_flash_fwd_block_q(),
+                              fwd.mxtpu_flash_fwd_block_k()]
+        want["flash_fwd"] = [fa.FWD_BLOCK_Q, fa.FWD_BLOCK_K]
+    if "flash_bwd" in names:
+        bwd = fa._bwd_kernels()
+        tiles["flash_bwd"] = [bwd.mxtpu_flash_bwd_block_q(),
+                              bwd.mxtpu_flash_bwd_block_k()]
+        want["flash_bwd"] = [fa.BWD_BLOCK_Q, fa.BWD_BLOCK_K]
+    emit({"phase": "build", "sources": names,
           "seconds": seconds, "per_source_s": took, "tiles": tiles,
           "per_source": per_source})
     for n, s in per_source.items():
@@ -1713,9 +1941,9 @@ def phase_build():
             if int(re.search(r"<(\d+)", k).group(1)) <= 128:
                 check(v.get("spill_stores") == 0 and v.get("spill_loads") == 0,
                       f"build: {k} spills: {v}")
-    check(tiles == {"flash_fwd": [fa.FWD_BLOCK_Q, fa.FWD_BLOCK_K],
-                    "flash_bwd": [fa.BWD_BLOCK_Q, fa.BWD_BLOCK_K]},
-          f"build: the libraries' tiles {tiles} differ from the wrappers'")
+    check(tiles == want,
+          f"build: the libraries' tiles {tiles} differ from the wrappers' "
+          f"{want}")
 
 
 # -- the kernels line ------------------------------------------------------------
@@ -1734,17 +1962,17 @@ def _ratios(ms, library_ms, bound_ms):
             "bound_over_kernel": bound_ms / ms}
 
 
-def kernel_entries(rows, bwd_rows, train, serve_launches):
+def kernel_entries(rows, bwd_rows, train, serve):
     """The flash kernels' entries of the {"kernels": [...]} line: each
     at BERT's training shape in bf16 (the main path's route), with its
     f32 route's numbers at the same shape, and K1 also at the serving
     prefill."""
     fwd = {r["case"]: r for r in rows}
     bwd = {r["case"]: r for r in bwd_rows}
-    head, serve = fwd.get(HEADLINE_CASE), fwd.get(SERVE_CASE)
+    head, serve_row = fwd.get(HEADLINE_CASE), fwd.get(SERVE_CASE)
     b16, b32 = bwd.get(BWD_HEADLINE_CASE), bwd.get("bert_b64_s128_f32")
     f32 = fwd.get("bert_b64_s128_lse_f32")
-    if None in (head, serve, b16, b32, f32):
+    if None in (head, serve_row, b16, b32, f32):
         return []
     src = "mxnet_tpu_torch/csrc/"
 
@@ -1787,7 +2015,10 @@ def kernel_entries(rows, bwd_rows, train, serve_launches):
               "tc_launches": train.get("flash_fwd_tc_launches"),
               "launches_per_replay": train.get("per_replay", {}).get(
                   "flash_fwd_launches"),
-              "serve_launches": serve_launches, "serve": fwd_nums(serve),
+              "serve_launches": serve.get("launches"),
+              "generate_fused_launches": serve.get(
+                  "generate_fused_launches"),
+              "serve": fwd_nums(serve_row),
               "f32": dict(fwd_nums(f32), design=DESIGN["cuda_cores"])},
              **fwd_nums(head)),
         dict({"name": "flash_bwd_dq", "route": "cuda",
@@ -1846,13 +2077,14 @@ def main():
     check(cap == (9, 0), f"compute capability {cap}, want (9, 0) (Hopper)")
 
     if "build" in phases:
-        phase_build()
+        # serving alone runs only the forward kernel: build only K1
+        phase_build(["flash_fwd"] if phases <= SERVING_PHASES else None)
 
     rows, bwd_rows = phase_kernels(dev) if "kernels" in phases \
         else ([], [])
     if "parity" in phases:
         phase_parity(mx, dev)
-    serve_launches = phase_serve(mx, dev) if "serve" in phases else None
+    serve = phase_serve(mx, dev) if "serve" in phases else {}
     if "train_parity" in phases:
         phase_train_parity(mx, dev)
     if "train_capture_parity" in phases:
@@ -1867,7 +2099,7 @@ def main():
         phase_imperative(mx, dev)
     rtc = phase_rtc(mx, dev) if "rtc" in phases else None
 
-    kernels = kernel_entries(rows, bwd_rows, train, serve_launches)
+    kernels = kernel_entries(rows, bwd_rows, train, serve)
     if rtc is not None:
         kernels.append(
             {"name": "rtc_axpy", "route": "cuda",

@@ -1,9 +1,11 @@
-"""Captured steps: a training step replayed as one CUDA graph a call.
+"""Captured steps: a training step or an inference dispatch replayed
+as one CUDA graph a call.
 
 :class:`StepCapture` runs a step *body* — a function of tensors that
 returns a tuple of tensors (forward, loss, backward and the optimizer
-update of one training step) — as the reference's compiled step runs its
-one XLA program a step:
+update of one training step; a serving prefill or decode that writes its
+KV pages in place; a whole generation) — as the reference's compiled
+programs run one XLA program a call:
 
 * **On the CPU** the body runs as it is: there is no graph.
 * **On a CUDA device** the first ``WARMUP`` calls of each *signature*
@@ -23,21 +25,31 @@ one XLA program a step:
   type, ...) form the caller's ``static_key``, and a signature whose key
   changed is captured again (never replayed with the old values).
 * **Random draws advance.**  The ``mx.random`` generator of the device
-  (dropout's) is registered with the graph
+  (dropout's, the serving sampler's), or the generator the caller
+  passes, is registered with the graph
   (``CUDAGraph.register_generator_state``), so every replay draws new
-  numbers from its stream; reseeding (a new generator) captures again.
+  numbers from its stream, and a ``manual_seed`` on it before a replay
+  gives that seed's numbers again.  Reseeding ``mx.random`` (a new
+  generator) captures again.
+* **One capture a variant.**  A signature keeps one graph; a body that
+  comes in several variants of equal input shapes (a bucket's prefill,
+  its one-step and its K-step decode) needs one ``StepCapture`` each,
+  or every alternation captures again.
 * **Launch counts stay true.**  A kernel wrapper counts its launches in
   Python, which a replay does not run.  The counts a capture added are
   taken back and added again at each replay, so every count reads the
   launches the card ran: the captured ones times the replays.
 * **A failed capture raises** ``MXNetError``; nothing falls back to the
-  eager step quietly.
+  eager step quietly.  The garbage collector is off during a capture:
+  a dead owner's graph collected then would be destroyed inside the
+  capture, which CUDA refuses.
 
 ``captures``, ``replays`` and ``pool_bytes`` (device memory the capture
 reserved, summed over the live graphs) say what happened.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
@@ -102,14 +114,17 @@ class StepCapture:
         return sum(g.pool_bytes for g in self._graphs.values())
 
     def run(self, body: Callable, tensors: Sequence[torch.Tensor],
-            static_key=()) -> tuple:
+            static_key=(), generator: torch.Generator = None) -> tuple:
         """One step: ``body(*tensors)``, eagerly, captured or replayed
-        (see the module docstring)."""
+        (see the module docstring).  ``generator`` is the stream the
+        body draws from (default: the device's ``mx.random`` one)."""
         dev = tensors[0].device
         if dev.type != "cuda":
             return body(*tensors)
-        from . import random as _random
-        gen = _random.generator(dev)
+        gen = generator
+        if gen is None:
+            from . import random as _random
+            gen = _random.generator(dev)
         sig = tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
         g = self._graphs.get(sig)
         if g is not None and (g.static_key != static_key
@@ -159,6 +174,11 @@ class StepCapture:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
+        # no garbage collection while capturing: collecting a dead
+        # owner's graph destroys it, which is illegal during a capture
+        # and invalidates this one
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=self._stream(dev)):
                 outputs = body(*inputs)
@@ -167,6 +187,9 @@ class StepCapture:
             _add_counts({k: v - now[k] for k, v in before.items()})
             raise MXNetError(f"{self.name}: the step could not be captured "
                              f"as a CUDA graph: {e}") from e
+        finally:
+            if gc_on:
+                gc.enable()
         after = _launch_counts()
         g = _Graph()
         g.graph, g.inputs, g.outputs = graph, inputs, tuple(outputs)

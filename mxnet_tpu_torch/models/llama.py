@@ -10,20 +10,28 @@
   the full Llama-3-8B geometry is made on the card directly.
 * KV caches are (B, C, KV, D) tensors updated IN PLACE by ``prefill``
   and ``decode_step``.
+* ``generate`` samples on the host, one decode step a token;
+  ``generate_fused`` runs the whole generation as one CUDA-graph replay
+  a call; ``generate_beam`` is beam search over the same cache
+  (``nmt.BeamSearchSampler``), eagerly.
 
 Tokens are float32 ids, as in the JAX package; they are cast to long
 at the embedding and gather.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
 
+from .._capture import StepCapture
 from ..base import MXNetError, torch_dtype
 from ..context import current_context
 from ..ops.attention import dot_product_attention, rope
 from ..ops.nn import cache_update, dot, embedding, rms_norm, silu, take
+from ..ops.random_ops import pick_tokens
 
 __all__ = ["LlamaModel", "LlamaForCausalLM", "RMSNormBlock",
            "get_llama", "llama_tiny", "llama3_8b"]
@@ -208,6 +216,10 @@ class LlamaForCausalLM(nn.Module):
         super().__init__()
         self._tied = tie_embeddings
         self.model = model
+        # generate_fused: one StepCapture a signature, one generator a
+        # device (reseeded each call)
+        self._fused = {}
+        self._fused_gens = {}
         if not tie_embeddings:
             self.lm_head = _linear(model._units, model.vocab_size)
         self.to(dtype=torch_dtype(dtype))
@@ -307,9 +319,8 @@ class LlamaForCausalLM(nn.Module):
             # newest position p = j (mod C); one permutation for all
             # layers
             start = s - c
-            perm = torch.as_tensor(
-                (start + (np.arange(c) - start) % c).astype("f4"),
-                device=dev)
+            j = torch.arange(c, dtype=torch.float32, device=dev)
+            perm = start + torch.remainder(j - start, c)
         for layer, (ck, cv) in zip(self.model.layers, caches):
             x = layer.prefill(x, ck, cv, perm=perm)
         h = self.model.final_norm(x)
@@ -417,6 +428,111 @@ class LlamaForCausalLM(nn.Module):
                     s + step_i)
         return torch.as_tensor(np.concatenate(out_tokens, axis=1),
                                device=dev)
+
+    @torch.no_grad()
+    def generate_beam(self, tokens, max_new_tokens, beam_size=4,
+                      eos_id=None, alpha=1.0):
+        """Beam search over the KV-cache decoder, eagerly: one decode
+        step a beam step, the beams' bookkeeping on the host
+        (:class:`~.nmt.BeamSearchSampler`).  The prompt is prefilled
+        once per batch row and the caches repeated per beam (row-major,
+        the sampler's ``i * beam + j`` layout).  ``eos_id=None`` runs
+        every beam the full ``max_new_tokens``.  Returns ``(sequences
+        (B, beam, S + <=N), scores (B, beam))`` on the model's device,
+        best first, the sequences starting with the prompt."""
+        from .nmt import BeamSearchSampler, BeamSearchScorer
+        tokens = self._tokens(tokens)
+        dev = tokens.device
+        b, s = tokens.shape
+        k = int(beam_size)
+        caches_b = self.init_cache(b, s + max_new_tokens)
+        self.prefill(tokens, caches_b)
+        caches = [(ck.repeat_interleave(k, dim=0),
+                   cv.repeat_interleave(k, dim=0)) for ck, cv in caches_b]
+        last = tokens[:, -1:].repeat_interleave(k, dim=0)
+
+        def decoder(tok, step_idx, states):
+            # step 0 writes position s-1 again with the same K/V and
+            # gives the prefill's logits: no special first step
+            lg = self.decode_step(tok, states, s - 1 + step_idx)
+            return torch.log_softmax(lg.float(), dim=-1), states
+
+        sampler = BeamSearchSampler(
+            beam_size=k, eos_id=-1 if eos_id is None else int(eos_id),
+            scorer=BeamSearchScorer(alpha=alpha),
+            max_length=max_new_tokens + 1)
+        samples, scores, _ = sampler(decoder, last, caches, b)
+        # the samples start with the (repeated) last prompt token
+        samp = samples.cpu().numpy().astype(np.int64)[:, :, 1:]
+        prompt = tokens.cpu().numpy().astype(np.int64)
+        out = np.concatenate([np.repeat(prompt[:, None], k, axis=1), samp],
+                             axis=2)
+        return torch.as_tensor(out.astype("f4"), device=dev), scores
+
+    @torch.no_grad()
+    def generate_fused(self, tokens, max_new_tokens, temperature=0.0,
+                       top_k=0, seed=0, rolling=False,
+                       cache_dtype="float32"):
+        """The whole generation as one CUDA-graph replay a call.
+
+        Same contract as :meth:`generate`: the prefill (the flash kernel
+        once a layer for an aligned prompt) and ``max_new_tokens - 1``
+        decode steps at the static positions ``s + i``, every token
+        picked on the device (``ops.random_ops.pick_tokens``: argmax, or
+        Gumbel-max over the temperature-scaled, top-k truncated logits,
+        drawn from this model's generator reseeded with ``seed`` at each
+        call, so a seed gives the same tokens at every call; other draws
+        than :meth:`generate`'s host stream).  One graph a signature
+        ``(b, s, max_new_tokens, sampling, top_k when sampling, rolling,
+        cache_dtype, dtype)``; the temperature is an input of the graph.
+        On the CPU the same body runs eagerly.  Returns a new (B, S +
+        max_new_tokens) float32 tensor."""
+        tokens = self._tokens(tokens)
+        if max_new_tokens <= 0:
+            return tokens.clone()
+        dev = tokens.device
+        b, s = tokens.shape
+        n = int(max_new_tokens)
+        sample = bool(temperature and temperature > 0)
+        # top_k shapes the graph only when sampling
+        kk = min(int(top_k), self.model.vocab_size) \
+            if (top_k and sample) else 0
+        # both raise on a bad argument before anything is captured
+        self._check_cache_dtype(cache_dtype)
+        self._rolling_cache_len(s + n, rolling)
+        key = (b, s, n, sample, kk, bool(rolling), str(cache_dtype),
+               str(tokens.dtype))
+        cap = self._fused.get(key)
+        if cap is None:
+            cap = self._fused[key] = StepCapture(f"generate_fused{key}")
+        gen = self._fused_gens.get(dev)
+        if gen is None:
+            gen = self._fused_gens[dev] = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        temp = torch.full((1,), float(temperature or 1.0),
+                          dtype=torch.float32, device=dev)
+        (out,) = cap.run(functools.partial(self._fused_body, key, gen),
+                         [tokens, temp], generator=gen)
+        return out.clone()          # the graph's buffer: the next call's
+
+    def _fused_body(self, key, gen, tokens, temp):
+        b, s, n, sample, kk, rolling, cache_dtype, _ = key
+        caches = self.init_cache(b, s + n, rolling=rolling,
+                                 dtype=cache_dtype)
+
+        def pick(logits):
+            if sample:
+                nxt = pick_tokens(logits, temp, kk, gen)
+            else:
+                nxt = torch.argmax(logits, dim=-1)
+            return nxt.to(tokens.dtype).reshape(b, 1)
+
+        tok = pick(self.prefill(tokens, caches))
+        out = [tokens, tok]
+        for i in range(n - 1):
+            tok = pick(self.decode_step(tok, caches, s + i))
+            out.append(tok)
+        return (torch.cat(out, dim=1),)
 
 
 _LLAMA_SPECS = {

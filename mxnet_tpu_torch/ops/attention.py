@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 __all__ = ["dot_product_attention", "sdpa_plain", "rope"]
@@ -28,6 +29,23 @@ def _causal_band(s_q, s_k, window, device=None):
     return cm
 
 
+def _round_scale(scale, dtype):
+    """``scale`` rounded to ``dtype`` as ``torch.tensor(scale,
+    dtype=dtype).item()`` rounds it (through float32, to nearest even),
+    but on the host alone: a torch op here would be a host sync inside a
+    captured body."""
+    if dtype == torch.float64:
+        return float(scale)
+    f = np.float32(scale)
+    if dtype == torch.bfloat16:
+        bits = int(f.view(np.uint32))
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        return float(np.uint32(bits).view(np.float32))
+    if dtype == torch.float16:
+        return float(np.float16(f))
+    return float(f)
+
+
 def sdpa_plain(q, k, v, mask, scale, causal, window=None):
     """Plain attention over the (B, S, H, D) layout.
 
@@ -40,7 +58,7 @@ def sdpa_plain(q, k, v, mask, scale, causal, window=None):
     qc, kc = q.to(ct), k.to(ct)
     # the scale rounded to the compute type, as a host number: a device
     # scalar built from a Python float would cost a blocking copy
-    scale = torch.tensor(scale, dtype=ct).item()
+    scale = _round_scale(scale, ct)
     neg = _NEG
     b, s_q, h, d = q.shape
     s_k, kv = k.shape[1], k.shape[2]

@@ -96,3 +96,25 @@ def _shuffle(data, *, generator=None):
     perm = torch.randperm(data.shape[0], generator=generator,
                           device=data.device)
     return data[perm]
+
+
+def pick_tokens(logits, temps, top_k=0, generator=None):
+    """Next token of each row of ``logits`` (N, vocab), as float32 ids:
+    the argmax where ``temps`` (N,) or (1,) is 0, elsewhere a draw from
+    the softmax of ``logits / temp`` truncated to the ``top_k`` largest
+    (0: the whole vocabulary), as the JAX package's serving sampler.
+
+    The draw is Gumbel-max, ``argmax(lg - log(-log u))`` with ``u``
+    uniform from ``generator``: an exact categorical draw made of
+    ordinary kernels, with no host sync and nothing data-dependent in
+    its shapes, so a CUDA graph can hold it.  Every call draws ``u`` for
+    every row, greedy or not."""
+    lg = logits.float()
+    greedy = torch.argmax(lg, dim=-1)
+    lg = lg / temps.reshape(-1, 1).clamp_min(1e-6)
+    if top_k:
+        kth = torch.topk(lg, int(top_k), dim=-1).values[:, -1:]
+        lg = lg.masked_fill(lg < kth, float("-inf"))
+    u = torch.rand(lg.shape, generator=generator, device=lg.device)
+    sampled = torch.argmax(lg - torch.log(-torch.log(u)), dim=-1)
+    return torch.where(temps > 0, sampled, greedy).float()

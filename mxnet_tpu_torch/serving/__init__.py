@@ -5,7 +5,8 @@ in-place KV-cache pages.
 * :mod:`~.scheduler`: admission and eviction over fixed
   ``(slots, prompt_len)`` buckets;
 * :mod:`~.server`: ``Server``, one prefill per admission and one
-  lockstep decode step per bucket per round.
+  lockstep decode of ``decode_steps`` tokens per bucket per round, each
+  one CUDA-graph replay on the card.
 """
 from .kvcache import KVCachePool
 from .scheduler import Bucket, BucketScheduler, Request

@@ -2,11 +2,12 @@
 
 A bucket's caches are one (K, V) tensor pair per transformer layer,
 shaped ``(slots, cache_len, kv_heads, head_dim)``: slot ``j`` is
-request ``j``'s page.  Admission prefills straight into slot ``j``'s
-page through views (:meth:`KVCachePool.pages`); decode writes each
-slot's new K/V in place; eviction only clears the slot's active bit on
-the host.  Nothing is reallocated while the server runs, so a decode
-step never doubles cache memory.
+request ``j``'s page.  Admission copies a prefilled page into slot
+``j`` (``index_copy_`` with the slot as a device tensor, so one captured
+graph serves every slot); decode writes each slot's new K/V in place;
+eviction only clears the slot's active bit on the host.  Nothing is
+reallocated while the server runs, so a decode step never doubles
+cache memory.
 """
 from __future__ import annotations
 
@@ -56,20 +57,6 @@ class KVCachePool:
     def flat(self) -> list:
         """``[k0, v0, k1, v1, ...]``."""
         return [t for pair in self._pairs for t in pair]
-
-    def pages(self, slot: int, length: int):
-        """Per-layer ``(k, v)`` views of positions ``[0, length)`` of
-        ``slot``, shaped (1, length, KV, D).  They alias the pool: a
-        prefill that writes its caches through them fills the slot's
-        page in place (``pool[slot, :length] = page``)."""
-        if not 0 <= slot < self.slots:
-            raise MXNetError(f"pages: slot {slot} out of range "
-                             f"[0, {self.slots})")
-        if not 0 < length <= self.cache_len:
-            raise MXNetError(f"pages: length {length} outside "
-                             f"(0, {self.cache_len}]")
-        return [(k[slot:slot + 1, :length], v[slot:slot + 1, :length])
-                for k, v in self._pairs]
 
     @torch.no_grad()
     def reset(self):

@@ -119,6 +119,89 @@ def test_generate_tokens_equal(pair, temperature):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("n", [0, 1, 6])
+def test_generate_fused_greedy_equals_jax_and_generate(pair, n):
+    """The whole generation in one body: greedy tokens equal the JAX
+    ``generate_fused`` and the port's ``generate``; 0 new tokens gives
+    a copy of the prompt, 1 runs the prefill only."""
+    name, jlm, lm = pair
+    rolling = name == "mistral_tiny"
+    tok = _tokens(2, 128, seed=5)
+    want = jlm.generate_fused(nd.array(tok), max_new_tokens=n,
+                              rolling=rolling).asnumpy()
+    prompt = torch.from_numpy(tok)
+    got = lm.generate_fused(prompt, max_new_tokens=n, rolling=rolling)
+    assert got.shape == (2, 128 + n) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), lm.generate(prompt, max_new_tokens=n,
+                                 rolling=rolling).numpy())
+    got[:, 0] = -1.0                    # a new tensor, not the prompt
+    assert (prompt[:, 0] >= 0).all()
+
+
+def test_generate_fused_signatures(pair):
+    """One capture a signature: a repeated call reuses it, the
+    temperature and seed do not enter it, and a new ``max_new_tokens``
+    (or sampling, or top_k while sampling) gets a new one."""
+    _, _, lm = pair
+    lm._fused.clear()
+    tok = torch.from_numpy(_tokens(1, 16, seed=6))
+    lm.generate_fused(tok, max_new_tokens=3)
+    lm.generate_fused(tok, max_new_tokens=3, top_k=7)   # greedy: ignored
+    assert len(lm._fused) == 1
+    lm.generate_fused(tok, max_new_tokens=4)
+    assert len(lm._fused) == 2
+    lm.generate_fused(tok, max_new_tokens=3, temperature=0.7, seed=1)
+    lm.generate_fused(tok, max_new_tokens=3, temperature=1.3, seed=2)
+    assert len(lm._fused) == 3
+    lm.generate_fused(tok, max_new_tokens=3, temperature=0.7, top_k=5)
+    assert len(lm._fused) == 4
+    lm.generate_fused(tok, max_new_tokens=0)
+    assert len(lm._fused) == 4
+
+
+def test_generate_fused_sampled_seeded(pair):
+    """A seed gives the same tokens at every call, another seed other
+    tokens; tokens stay in range and the prompt is kept."""
+    name, _, lm = pair
+    rolling = name == "mistral_tiny"
+    tok = torch.from_numpy(_tokens(2, 128, seed=7))
+    kw = dict(max_new_tokens=8, temperature=1.5, top_k=20,
+              rolling=rolling)
+    a = lm.generate_fused(tok, seed=11, **kw)
+    b = lm.generate_fused(tok, seed=11, **kw)
+    c = lm.generate_fused(tok, seed=12, **kw)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c)
+    assert torch.equal(a[:, :128], tok)
+    gen = a[:, 128:]
+    assert ((gen >= 0) & (gen < V)).all()
+    assert torch.equal(gen, gen.round())
+
+
+@pytest.mark.parametrize("eos", ["none", "mid"])
+def test_generate_beam_equals_jax(pair, eos):
+    """Beam search: the JAX ``generate_beam``'s sequences exactly and
+    its scores to 1e-5 (f32), without an eos and with one that ends
+    beams early."""
+    _, jlm, lm = pair
+    tok = _tokens(2, 16, seed=8)
+    eos_id = None
+    if eos == "mid":
+        greedy = lm.generate(torch.from_numpy(tok), max_new_tokens=6)
+        eos_id = int(greedy[0, 19])
+    kw = dict(max_new_tokens=6, beam_size=3, eos_id=eos_id, alpha=0.8)
+    jseq, jsc = jlm.generate_beam(nd.array(tok), **kw)
+    seq, sc = lm.generate_beam(torch.from_numpy(tok), **kw)
+    assert seq.shape == jseq.shape and sc.shape == (2, 3)
+    np.testing.assert_array_equal(seq.numpy(), jseq.asnumpy())
+    np.testing.assert_allclose(sc.numpy(), jsc.asnumpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert (np.diff(sc.numpy(), axis=1) <= 0).all()   # best first
+    np.testing.assert_array_equal(seq.numpy()[:, 0, :16], tok)
+
+
 def _jax_params(name="llama_tiny", tie=True):
     jmx.random.seed(0)
     jlm = JaxLM(jax_get_llama(name, vocab_size=V), tie_embeddings=tie)

@@ -2,7 +2,8 @@
 
 The scheduler tests mirror the JAX package's; the Server is held to
 the JAX ``Server`` and to the port's own ``generate`` with the same
-weights (copied by ``load_jax_params``): greedy tokens equal exactly.
+weights (copied by ``load_jax_params``): greedy tokens equal exactly,
+with one decode step a dispatch and with ``decode_steps=K``.
 """
 import numpy as np
 import pytest
@@ -101,15 +102,7 @@ def test_kvcache_pool_contract(net):
     assert len(flat) == 2 * len(net.model.layers)
     assert flat[0].shape == (2, 8, 2, 16)    # tiny GQA: 2 kv heads, d 16
     assert all(t.dtype == torch.float32 for t in flat)
-    # pages alias the pool: a write through them lands in the slot
-    pages = pool.pages(1, 5)
-    pages[0][0].fill_(3.0)
-    assert (flat[0][1, :5] == 3.0).all()
-    assert (flat[0][1, 5:] == 0.0).all() and (flat[0][0] == 0.0).all()
-    with pytest.raises(MXNetError, match="slot"):
-        pool.pages(2, 5)
-    with pytest.raises(MXNetError, match="length"):
-        pool.pages(0, 9)
+    flat[0].fill_(3.0)
     pool.reset()
     assert all((t == 0).all() for t in pool.flat())
     with pytest.raises(MXNetError, match="floating"):
@@ -117,6 +110,29 @@ def test_kvcache_pool_contract(net):
 
 
 # -- serving correctness -------------------------------------------------------
+
+def test_admission_writes_its_slot_page(net):
+    """An admission copies its prefilled page into positions [0, S) of
+    its own slot: each slot holds what a prefill of its padded prompt
+    writes, and nothing lands past S."""
+    srv = _server(net, buckets=[(2, 8)], max_new_tokens=1)
+    prompts = [_prompt(62, 5), _prompt(63, 8)]
+    reqs = [srv.submit(p) for p in prompts]
+    srv.step()                            # two admissions, both done
+    assert [r.slot for r in reqs] == [None, None]
+    assert all(r.state == "done" for r in reqs)
+    pool = srv._pools[(2, 8)]
+    for slot, p in enumerate(prompts):
+        padded = np.zeros((1, 8), "f4")
+        padded[0, :len(p)] = p
+        want = net.init_cache(1, 8)
+        net.prefill(torch.from_numpy(padded), want,
+                    last_pos=torch.tensor([len(p) - 1.0]))
+        for (k, v), (wk, wv) in zip(pool.pairs(), want):
+            assert torch.equal(k[slot, :8], wk[0])
+            assert torch.equal(v[slot, :8], wv[0])
+            assert (k[slot, 8:] == 0).all() and (v[slot, 8:] == 0).all()
+
 
 def test_greedy_parity_with_jax_server_and_generate(nets):
     """Continuously batched greedy decode reproduces the JAX Server and
@@ -238,5 +254,123 @@ def test_stats_count_prefills_and_decode_steps(net):
     b = st["buckets"]["2x8"]
     assert b["prefills"] == 2
     assert b["decode_steps"] == 2        # both advance in lockstep
+    assert b["decode_dispatches"] == 2
     assert b["tokens"] == 6
     assert st["occupancy"] == 0.0 and st["queue_depth"] == 0
+    # no graph on the CPU: the bodies run eagerly
+    assert (st["captures"], st["replays"], st["graph_pool_bytes"]) == \
+        (0, 0, 0)
+    assert (b["steady_dispatches"], b["steady_misses"]) == (0, 0)
+    srv.generate([_prompt(42, 4)], decode_steps=2)
+    b = srv.stats()["buckets"]["2x8"]
+    assert (b["decode_steps"], b["decode_dispatches"]) == (4, 3)
+
+
+# -- decode_steps=K: K decode steps a dispatch ---------------------------------
+
+@pytest.mark.parametrize("k", [1, 4, 7])
+def test_decode_steps_parity_with_jax_server(nets, k):
+    """``generate(..., decode_steps=K)``: the same greedy tokens as the
+    port's one-step decode and as the JAX Server's K-step programs,
+    across admissions into freed slots (four prompts, two slots)."""
+    jlm, lm = nets
+    prompts = [_prompt(50, 5), _prompt(51, 8), _prompt(52, 3),
+               _prompt(53, 7)]
+    one = _server(lm, buckets=[(2, 8)], max_new_tokens=8).generate(prompts)
+    outs = _server(lm, buckets=[(2, 8)],
+                   max_new_tokens=8).generate(prompts, decode_steps=k)
+    jouts = JaxServer(jlm, buckets=[(2, 8)], max_new_tokens=8).generate(
+        prompts, decode_steps=k)
+    for out, ref, jout in zip(outs, one, jouts):
+        np.testing.assert_array_equal(out, ref)
+        np.testing.assert_array_equal(out, jout)
+
+
+def test_eos_inside_k_finishes_on_time(net):
+    """A request whose eos comes in the middle of a K-step dispatch
+    stops there: the rows after it stay out of its tokens and its slot
+    is free after the dispatch."""
+    p = _prompt(54, 4)
+    gen = _server(net, buckets=[(1, 8)],
+                  max_new_tokens=9).generate([p])[0][len(p):].astype(int)
+    # an eos first met at decode row 2 of the first 4-step dispatch
+    eos = int(gen[3])
+    stop_at = int(np.nonzero(gen == eos)[0][0])
+    assert stop_at >= 1
+    srv = _server(net, buckets=[(1, 8)], max_new_tokens=9, eos_id=eos)
+    req = srv.submit(p)
+    srv.step(decode_steps=4)
+    assert req.state == "done"
+    assert req.generated == [int(t) for t in gen[:stop_at + 1]]
+    assert srv.sched.buckets[0].n_active() == 0
+    assert srv.sched.buckets[0].offsets[0] == 0.0
+
+
+def test_decode_steps_one_dispatch_per_bucket(net, monkeypatch):
+    """``step(decode_steps=K)``: one decode body call per non-empty
+    bucket, each returning (K, slots) tokens; a request advances K
+    tokens a round."""
+    from mxnet_tpu_torch import _capture
+    calls = []
+    run = _capture.StepCapture.run
+
+    def counted(self, body, tensors, static_key=(), generator=None):
+        out = run(self, body, tensors, static_key, generator)
+        calls.append((self.name, tuple(out[0].shape)))
+        return out
+    monkeypatch.setattr(_capture.StepCapture, "run", counted)
+    srv = _server(net, buckets=[(2, 8), (2, 16)], max_new_tokens=13)
+    ra = srv.submit(_prompt(55, 5))
+    rb = srv.submit(_prompt(56, 12))
+    srv.step(decode_steps=4)              # 2 admissions, 2 decodes
+    assert calls == [("Server_b2x8_prefill", (1,)),
+                     ("Server_b2x16_prefill", (1,)),
+                     ("Server_b2x8_decode4", (4, 2)),
+                     ("Server_b2x16_decode4", (4, 2))]
+    assert len(ra.generated) == len(rb.generated) == 5
+    del calls[:]
+    srv.step(decode_steps=4)
+    assert calls == [("Server_b2x8_decode4", (4, 2)),
+                     ("Server_b2x16_decode4", (4, 2))]
+    assert len(ra.generated) == len(rb.generated) == 9
+
+
+def test_steady_state_one_signature_per_variant(net, monkeypatch):
+    """Across admit, evict and finish churn, with one-step and K-step
+    decode alternating, every variant keeps its own StepCapture and
+    hands it one signature (shapes, static key, generator) only: on the
+    card each captures once, and ``steady_misses`` stays 0."""
+    from mxnet_tpu_torch import _capture
+    seen = {}
+    run = _capture.StepCapture.run
+
+    def recorded(self, body, tensors, static_key=(), generator=None):
+        sig = tuple((tuple(t.shape), t.dtype) for t in tensors)
+        seen.setdefault(self.name, set()).add(
+            (sig, static_key, id(generator)))
+        return run(self, body, tensors, static_key, generator)
+    monkeypatch.setattr(_capture.StepCapture, "run", recorded)
+    srv = _server(net, buckets=[(2, 8)], max_new_tokens=8)
+    srv.generate([_prompt(57, 5)])
+    r1 = srv.submit(_prompt(58, 4))
+    r2 = srv.submit(_prompt(59, 7))
+    srv.step(decode_steps=3)
+    srv.evict(r1, reason="churn")
+    srv.submit(_prompt(60, 3))
+    srv.step()
+    srv.step(decode_steps=3)
+    srv.run()
+    assert r2.state == "done"
+    assert set(seen) == {"Server_b2x8_prefill", "Server_b2x8_decode",
+                         "Server_b2x8_decode3"}
+    assert all(len(v) == 1 for v in seen.values()), seen
+    assert set(srv._variants) == {"_b2x8_prefill", "_b2x8_decode",
+                                  "_b2x8_decode3"}
+    assert srv.stats()["buckets"]["2x8"]["steady_misses"] == 0
+
+
+def test_decode_steps_checked(net):
+    srv = _server(net, buckets=[(1, 8)], max_new_tokens=4)
+    srv.submit(_prompt(61, 3))
+    with pytest.raises(MXNetError, match="decode_steps"):
+        srv.step(decode_steps=0)
