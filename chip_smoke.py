@@ -81,7 +81,7 @@ Phases, each printing JSON lines:
 11. imperative: the same MLP on the card through compile_step, as
             bench.py drives it: warm-up, the two-window slope timing,
             samples/s, a profiled step (device busy share, kernels a
-            step), peak memory; then the eager record -> backward ->
+            step), peak memory; then the gluon record -> backward ->
             Trainer.step loop on the same net, timed and profiled the
             same way; the loss falls.  No compiled step may fall back to
             the eager loop in phases 10-11.
@@ -91,6 +91,33 @@ Phases, each printing JSON lines:
             against torch.add and its bound; the host time of a launch; and one SGD update of the
             MLP's parameters through axpy on p.data() and p.grad(), equal
             to sgd_update's.
+13. resnet_parity: resnet18_v1 and resnet18_v2 (thumbnail, 10 classes,
+            batch 4, 32 x 32, float32, cuDNN's TF32 flag left at
+            PyTorch's default) on the card against the CPU from the same
+            weights: predict and training-mode outputs and running
+            statistics; hybridized (a CachedOp: eager warm-up, capture,
+            replays of the forward and of the backward graph) against
+            unhybridized; an earlier replay's output and gradient kept
+            by a later replay; set_data read by the next replay; all
+            within 1e-4 relative.  Then 3 SGD steps through
+            DataParallelTrainer(fuse_step=True) with the net inline (no
+            capture of its own): bit for bit the eager trainer's on the
+            card, and the CPU's losses, weights and running statistics
+            within the larger of 1e-4 and 4x the CPU's own float32-
+            against-float64 distance (batch 4 under BatchNorm is
+            ill-conditioned).
+14. resnet:  benchmark/resnet_bench.py's ResNet-50 v1 (1000 classes,
+            Xavier, hybridized, bf16 AMP, batch 64 of 224 x 224): the
+            inference call, the captured SGD step of
+            DataParallelTrainer(fuse_step=True) (the eager trainer
+            beside it) and the gluon loop (forward and backward one
+            replay each, then Trainer.step's multi-tensor SGD), each by
+            the two-window slope: images/s, MFU against the dense bf16
+            peak from the model's own convolution and Dense FLOPs, peak
+            memory, graph pools, captures and replays, and a profiled
+            call split into convolution, BatchNorm, GEMM and other; the
+            loss falls, the running statistics move and stay finite, and
+            no flash kernel runs.
 
 Then one line of per-kernel numbers ({"kernels": [...]}), the card's name
 and power limit as nvidia-smi gives them, and as the last line
@@ -117,7 +144,7 @@ H100_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 without TF32
 ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,"
               "train_capture_parity,dropout,train,imperative_parity,"
-              "imperative,rtc")
+              "imperative,rtc,resnet_parity,resnet")
 SERVING_PHASES = {"device", "build", "parity", "serve"}
 
 
@@ -866,7 +893,9 @@ MLP = dict(widths=(784, 1024, 1024, 10), batch_size=512, lr=0.05,
 
 
 def build_mlp(mx, ctx, widths=MLP["widths"], seed=None):
-    """bench_mlp_train's net on ``ctx``, hybridized (it runs eagerly)."""
+    """bench_mlp_train's net on ``ctx``, hybridized (a CachedOp: inline
+    inside compile_step, one forward and one backward replay a step in
+    the gluon loop)."""
     from mxnet_tpu_torch.gluon import nn
     net = nn.HybridSequential()
     with net.name_scope():
@@ -888,8 +917,9 @@ def mlp_batch(batch_size, in_units, classes=10):
 def mlp_step_fn(mx, net, ctx, xnp, ynp, lr=MLP["lr"], compiled=True):
     """One training step of ``net`` with Trainer("sgd"): through
     ``trainer.compile_step`` as bench.py runs it (one graph replay a step
-    on the card), or with ``compiled=False`` the eager record -> backward
-    -> Trainer.step loop.  Returns (step, the CompiledStep or None); a
+    on the card), or with ``compiled=False`` the gluon loop: record ->
+    backward -> Trainer.step (the hybridized net's forward and backward
+    one replay each, then the multi-tensor SGD).  Returns (step, the CompiledStep or None); a
     step returns the per-sample loss NDArray (not synchronised)."""
     from mxnet_tpu_torch import autograd, gluon, nd
     trainer = gluon.Trainer(net.collect_params(), "sgd",
@@ -1008,7 +1038,7 @@ def phase_imperative(mx, dev, cfg=MLP):
         eager_step, n1, steps, "imperative eager", read=mean_loss)
     eager_peak = torch.cuda.max_memory_allocated(dev)
     eager_breakdown = profile_call(eager_step)
-    breakdown = profile_call(step, expect=eager_breakdown["kernels"])
+    breakdown = profile_call(step)
     flops = 6.0 * n_params * b
     emit({"phase": "imperative", "model": "mlp_784_1024_1024_10",
           "path": "compile_step", "dtype": "float32", "batch_size": b,
@@ -1039,6 +1069,455 @@ def phase_imperative(mx, dev, cfg=MLP):
           f"imperative: {cs.captures} captures and {replays} replays in "
           f"the timed windows; want 1 and {n1 + steps}")
     check_no_fallback("imperative")
+
+
+# -- phases 13 and 14: the hybridized ResNet (BASELINE config #2) ---------------
+
+# f32 parity on the card against the CPU: relative to the CPU's values
+# (max abs difference over max abs for outputs and losses, the L2 norm of
+# the difference over the L2 norm for weights and running statistics)
+RESNET_TOL = 1e-4
+# benchmark/resnet_bench.py's configuration: resnet50_v1, 1000 classes,
+# Xavier, bf16 AMP, batch 64 of 224 x 224 synthetic images, SGD lr 0.05
+RESNET50 = dict(model="resnet50_v1", classes=1000, batch_size=64,
+                image_size=224, lr=0.05, steps=20, warmup=3)
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, "f8"), np.asarray(want, "f8")
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _rel_l2(got, want):
+    """L2 norm of the difference over the L2 norm, over lists of
+    arrays."""
+    diff = sum(float(np.square(np.asarray(g, "f8") - np.asarray(w, "f8"))
+                     .sum()) for g, w in zip(got, want))
+    norm = sum(float(np.square(np.asarray(w, "f8")).sum()) for w in want)
+    return math.sqrt(diff / max(norm, 1e-30))
+
+
+def _param_values(net, select=None):
+    return [p.data().asnumpy() for name, p in net.collect_params().items()
+            if select is None or select(name)]
+
+
+def _is_stat(name):
+    return name.endswith("running_mean") or name.endswith("running_var")
+
+
+def _resnet_net(mx, name, ctx, x):
+    """``name`` (thumbnail, 10 classes) on ``ctx``, called once on ``x``
+    in predict mode, which makes the deferred parameters."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = vision.get_model(name, classes=10, thumbnail=True, prefix="net_")
+    net.initialize(mx.init.Xavier(), ctx=ctx, seed=3)
+    net(mx.nd.array(x, ctx=ctx))
+    return net
+
+
+def _sgd_trajectory(net, ctx, x, y, fuse, dtype=None, steps=3):
+    """``steps`` SGD steps (lr 0.1, momentum 0.9, wd 1e-4) of ``net``
+    through DataParallelTrainer: (the trainer, the losses, [(weights,
+    running statistics) after the first step, after the last])."""
+    import torch
+    from mxnet_tpu_torch import gluon, parallel
+    sce = gluon.loss.SoftmaxCrossEntropyLoss()
+    dpt = parallel.DataParallelTrainer(
+        net, lambda out, label: sce(out, label).mean(), "sgd",
+        {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+        fuse_step=fuse)
+    xt = torch.from_numpy(x).to(ctx.device, dtype or torch.float32)
+    yt = torch.from_numpy(y).to(ctx.device)
+    losses, after = [], []
+    for i in range(steps):
+        losses.append(float(dpt.step(xt, yt)))
+        if i in (0, steps - 1):
+            after.append((_param_values(net, lambda n: not _is_stat(n)),
+                          _param_values(net, _is_stat)))
+    return dpt, losses, after
+
+
+def _copy_params(src, dst):
+    for a, b in zip(src.collect_params().values(),
+                    dst.collect_params().values()):
+        b.set_data(a.data())
+
+
+def _grads(mx, net, x, ctx):
+    from mxnet_tpu_torch import autograd
+    with autograd.record():
+        loss = (net(mx.nd.array(x, ctx=ctx)) ** 2).sum()
+    loss.backward()
+    return [p.grad().asnumpy() for p in net.collect_params().values()
+            if p.grad_req != "null"]
+
+
+def phase_resnet_parity(mx, dev):
+    """resnet18_v1 and resnet18_v2 (thumbnail, 10 classes, batch 4, 32 x
+    32, float32) on the card against the CPU from the same weights, with
+    PyTorch's default TF32 flags (cuDNN's on): predict and training-mode
+    outputs and the running statistics after; the hybridized net against
+    itself unhybridized (predict: eager warm-up, capture, replay;
+    recorded: the same, gradients from the backward graph), an earlier
+    output and gradient not overwritten by a later replay, ``set_data``
+    read by the next replay; all within RESNET_TOL.  Then 3 SGD steps
+    (lr 0.1, momentum 0.9, wd 1e-4) through
+    DataParallelTrainer(fuse_step=True) with the hybridized net inline:
+    on the card equal bit for bit to the eager trainer's (cuDNN's
+    deterministic algorithms); against the CPU the losses, weights and
+    running statistics after the first and the third step, each within
+    the larger of RESNET_TOL and 4 times the CPU's own float32-against-
+    float64 distance there.  Batch 4 under BatchNorm makes this
+    trajectory ill-conditioned: on the CPU alone, resnet18_v1's float32
+    and float64 weights part by up to 6e-4 (relative L2) after one step
+    and by ~3e-2 after three."""
+    import torch
+    from mxnet_tpu_torch import autograd, nd
+    flags = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "cuda.matmul.allow_tf32":
+                 torch.backends.cuda.matmul.allow_tf32}
+    check(flags == {"cudnn.allow_tf32": True,
+                    "cuda.matmul.allow_tf32": False},
+          f"resnet_parity: TF32 flags {flags} are not PyTorch's defaults")
+    rng = np.random.RandomState(0)
+    x = rng.rand(4, 3, 32, 32).astype("f4")
+    x2 = rng.rand(4, 3, 32, 32).astype("f4")
+    y = rng.randint(0, 10, 4).astype("f4")
+    cpu, card = mx.cpu(), mx.gpu(0)
+    reset_counts()
+    for name in ("resnet18_v1", "resnet18_v2"):
+        cnet, gnet = (_resnet_net(mx, name, c, x) for c in (cpu, card))
+        _copy_params(cnet, gnet)
+        row = {"phase": "resnet_parity", "model": name, "batch_size": 4,
+               "image_size": 32, "dtype": "float32", "tf32_flags": flags,
+               "tol": RESNET_TOL}
+        # predict mode, then a training-mode forward and its statistics
+        want = cnet(nd.array(x, ctx=cpu)).asnumpy()
+        eager = gnet(nd.array(x, ctx=card)).asnumpy()
+        row["predict"] = _rel(eager, want)
+        with autograd.record():
+            got_t = gnet(nd.array(x, ctx=card)).asnumpy()
+        with autograd.record():
+            want_t = cnet(nd.array(x, ctx=cpu)).asnumpy()
+        row["train_forward"] = _rel(got_t, want_t)
+        row["running_stats_after_train_forward"] = _rel_l2(
+            _param_values(gnet, _is_stat), _param_values(cnet, _is_stat))
+        # hybridized against unhybridized, on the card (the training
+        # forward of the gradients moved the running statistics)
+        grads0 = _grads(mx, gnet, x, card)
+        eager = gnet(nd.array(x, ctx=card)).asnumpy()
+        gnet.hybridize()
+        hyb = [gnet(nd.array(x, ctx=card)).asnumpy() for _ in range(3)]
+        row["hybrid_predict"] = max(_rel(h, eager) for h in hyb)
+        hgrads = [_grads(mx, gnet, x, card) for _ in range(3)]
+        row["hybrid_grads"] = max(_rel_l2(g, grads0) for g in hgrads)
+        op = gnet._cached_op
+        row["cachedop"] = {"entries": len(op), "captures": op.captures,
+                           "replays": op.replays,
+                           "pool_bytes": op.pool_bytes}
+        check(len(op) == 2 and op.captures == 2 and op.replays == 4,
+              f"resnet_parity {name}: CachedOp {row['cachedop']}, want 2 "
+              "entries (predict, recorded), one capture and two replays "
+              "each")
+        # an earlier replay's output and gradient survive a later replay
+        y1 = gnet(nd.array(x, ctx=card))
+        first = y1.asnumpy()
+        gnet(nd.array(x2, ctx=card)).wait_to_read()
+        row["output_kept"] = bool(np.array_equal(y1.asnumpy(), first))
+        xa = nd.array(x, ctx=card)
+        xa.attach_grad()
+        with autograd.record():
+            head = gnet(xa).sum()
+        (gx,) = autograd.grad(head, [xa])
+        gx_first = gx.asnumpy()
+        xb = nd.array(x2, ctx=card)
+        xb.attach_grad()
+        with autograd.record():
+            head = gnet(xb).sum()
+        autograd.grad(head, [xb])[0].wait_to_read()
+        row["grad_kept"] = bool(np.array_equal(gx.asnumpy(), gx_first))
+        check(row["output_kept"] and row["grad_kept"],
+              f"resnet_parity {name}: a later replay overwrote an earlier "
+              f"output ({row['output_kept']}) or gradient "
+              f"({row['grad_kept']})")
+        # set_data after a replay is read by the next replay
+        _copy_params(cnet, gnet)
+        w = [p for p in cnet.collect_params().values()
+             if p.name.endswith("weight")][1]
+        w.set_data(w.data().asnumpy() * 0.5)
+        gnet.collect_params()[w.name].set_data(w.data().asnumpy())
+        row["set_data_seen"] = _rel(gnet(nd.array(x, ctx=card)).asnumpy(),
+                                    cnet(nd.array(x, ctx=cpu)).asnumpy())
+        # 3 SGD steps through the fused trainer, the net inline, all from
+        # the CPU net's state: on the card captured and eager (cuDNN's
+        # deterministic algorithms: they must agree bit for bit), on the
+        # CPU in float32 and float64
+        captures0 = op.captures
+        enet = _resnet_net(mx, name, card, x)
+        dnet = _resnet_net(mx, name, cpu, x)
+        for twin in (enet, dnet):
+            _copy_params(cnet, twin)
+        dnet.to(torch.float64)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            dpt, card_l, card_after = _sgd_trajectory(gnet, card, x, y, True)
+            _, eager_l, eager_after = _sgd_trajectory(enet, card, x, y,
+                                                      False)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        _, cpu_l, cpu_after = _sgd_trajectory(cnet, cpu, x, y, True)
+        _, f64_l, f64_after = _sgd_trajectory(dnet, cpu, x, y, True,
+                                              torch.float64)
+
+        def dist(la, aa, lb, ab, at):
+            """After the first step (at 0) or the last (at 1)."""
+            n = 1 if at == 0 else len(la)
+            return {"losses": _rel(la[:n], lb[:n]),
+                    "weights": _rel_l2(aa[at][0], ab[at][0]),
+                    "running_stats": _rel_l2(aa[at][1], ab[at][1])}
+        got = [dist(card_l, card_after, cpu_l, cpu_after, at)
+               for at in (0, 1)]
+        spread = [dist(cpu_l, cpu_after, f64_l, f64_after, at)
+                  for at in (0, 1)]
+        tols = [{k: max(RESNET_TOL, 4 * v) for k, v in sp.items()}
+                for sp in spread]
+        bitwise = card_l == eager_l and all(
+            np.array_equal(a, b) for i in range(2) for part in range(2)
+            for a, b in zip(card_after[i][part], eager_after[i][part]))
+        row.update({
+            "sgd": {"lr": 0.1, "momentum": 0.9, "wd": 1e-4, "steps": 3},
+            "cpu_losses": cpu_l, "cpu_f64_losses": f64_l,
+            "gpu_losses": card_l, "gpu_eager_losses": eager_l,
+            "captured_equals_eager_bitwise": bitwise,
+            "after_step_1": got[0], "after_step_3": got[1],
+            "cpu_f32_vs_f64_after_step_1": spread[0],
+            "cpu_f32_vs_f64_after_step_3": spread[1],
+            "tol_step_1": tols[0], "tol_step_3": tols[1],
+            "trainer_captures": dpt.captures, "trainer_replays": dpt.replays,
+            "cachedop_captures_in_trainer": op.captures - captures0})
+        emit(row)
+        for key in ("predict", "train_forward",
+                    "running_stats_after_train_forward", "hybrid_predict",
+                    "hybrid_grads", "set_data_seen"):
+            check(row[key] <= RESNET_TOL,
+                  f"resnet_parity {name}: {key} differs by {row[key]}")
+        for step, dists, tol in zip((1, 3), got, tols):
+            for key, val in dists.items():
+                check(val <= tol[key], f"resnet_parity {name}: after SGD "
+                      f"step {step} the {key} differ by {val}, above "
+                      f"{tol[key]}")
+        check(bitwise, f"resnet_parity {name}: the captured steps differ "
+              f"from the eager ones ({card_l} against {eager_l})")
+        check(dpt.captures == 1 and dpt.replays == 2,
+              f"resnet_parity {name}: the trainer captured {dpt.captures} "
+              f"times and replayed {dpt.replays}; want 1 and 2")
+        check(op.captures == captures0,
+              f"resnet_parity {name}: the hybridized net captured inside "
+              "the trainer's step")
+    launches = read_counts()
+    check(not any(launches.values()),
+          f"resnet_parity: the ResNet path launched flash kernels "
+          f"{launches}")
+
+
+def _resnet_flops(net, x):
+    """Forward FLOPs of one call of ``net`` on ``x`` (2 a multiply-add),
+    from the shapes its convolutions and Dense layers see in that
+    call."""
+    from mxnet_tpu_torch.gluon.nn import Dense
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
+    total = [0]
+
+    def conv_hook(mod, inputs, out):
+        w = mod.weight
+        total[0] += 2 * out.numel() * w[0].numel()
+
+    def dense_hook(mod, inputs, out):
+        total[0] += 2 * out.numel() * mod.weight.shape[1]
+    hooks = []
+    for m in net.modules():
+        if isinstance(m, _Conv):
+            hooks.append(m.register_forward_hook(conv_hook))
+        elif isinstance(m, Dense):
+            hooks.append(m.register_forward_hook(dense_hook))
+    try:
+        net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def phase_resnet(mx, dev, cfg=RESNET50):
+    """benchmark/resnet_bench.py's ResNet-50 at full width on the card:
+    get_model, Xavier, hybridize, bf16 AMP, batch 64 of 224 x 224.
+    Inference (predict-mode net(x): one capture, then every timed call
+    a replay), the captured training step (DataParallelTrainer(..., "sgd",
+    fuse_step=True): one capture, no nested one) beside the eager
+    trainer, and the gluon loop (record, net(x), loss, backward,
+    Trainer.step: the forward and the backward one replay each), each
+    timed by the two-window slope and profiled."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon, nd, parallel
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    b, size, steps = cfg["batch_size"], cfg["image_size"], cfg["steps"]
+    warmup = cfg["warmup"]
+    n1 = steps // 4
+    free_earlier_phases()
+    mx.random.seed(0)
+    amp.init(target_dtype="bfloat16")
+    rng = np.random.RandomState(0)
+    x = nd.array(rng.rand(b, 3, size, size).astype("f4"), ctx=mx.gpu(0))
+    y = nd.array(rng.randint(0, cfg["classes"], b).astype("f4"),
+                 ctx=mx.gpu(0))
+    reset_counts()
+    try:
+        net = vision.get_model(cfg["model"], classes=cfg["classes"])
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net.hybridize()
+        # the first call makes the deferred parameters (inline)
+        fwd_flops = _resnet_flops(net, x)
+        params = net.collect_params()
+        n_params = sum(p.data().size for p in params.values()
+                       if p.grad_req != "null")
+        n_stats = sum(p.data().size for n, p in params.items()
+                      if _is_stat(n))
+        stats0 = [p.data().asnumpy() for n, p in params.items()
+                  if _is_stat(n)]
+        parts = {}
+
+        def measure(part, call, read, flops, owner):
+            for _ in range(warmup):
+                out = call()
+            first_read = read(out)
+            torch.cuda.reset_peak_memory_stats(dev)
+            replays0 = owner.replays
+            bwd0 = getattr(owner, "backward_replays", 0)
+            step_s, naive_s, windows, used, last = timed_windows(
+                call, n1, steps, f"resnet {part}", read=read)
+            peak = torch.cuda.max_memory_allocated(dev)
+            row = {"step_ms": step_s * 1e3, "naive_step_ms": naive_s * 1e3,
+                   "timing": used, "windows": [n1, steps],
+                   "window_s": windows, "images_per_s": b / step_s,
+                   "flops_per_step": flops,
+                   "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+                   "peak_mem_bytes": peak, "captures": owner.captures,
+                   "replays_counted": owner.replays - replays0,
+                   "backward_replays_counted":
+                       getattr(owner, "backward_replays", 0) - bwd0,
+                   "first_read": first_read, "last_read": last}
+            parts[part] = row
+            return row
+
+        # inference: predict mode, no recording
+        op = net._cached_op
+        infer = measure("inference", lambda: net(x),
+                        lambda o: float(o.asnumpy().ravel()[0]),
+                        fwd_flops, op)
+        infer["graph_pool_bytes"] = op.pool_bytes
+        infer["breakdown"] = profile_call(lambda: net(x))
+        check(op.captures == 1 and infer["replays_counted"] == n1 + steps,
+              f"resnet inference: {op.captures} captures and "
+              f"{infer['replays_counted']} replays; want 1 and "
+              f"{n1 + steps}")
+
+        # training: the captured fused step, then the eager trainer
+        sce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def trainer(fuse):
+            return parallel.DataParallelTrainer(
+                net, lambda out, label: sce(out, label).mean(), "sgd",
+                {"learning_rate": cfg["lr"]}, fuse_step=fuse)
+        dpt = trainer(True)
+        first = float(dpt.step(x, y).asnumpy())
+        op_captures, op_entries = op.captures, len(op)
+        train = measure("train", lambda: dpt.step(x, y), last_loss,
+                        3 * fwd_flops, dpt)
+        train["first_loss"] = first
+        train["graph_pool_bytes"] = dpt.pool_bytes
+        train["breakdown"] = profile_call(lambda: dpt.step(x, y))
+        check(dpt.captures == 1 and train["replays_counted"] == n1 + steps,
+              f"resnet train: {dpt.captures} captures and "
+              f"{train['replays_counted']} replays; want 1 and "
+              f"{n1 + steps}")
+        check(op.captures == op_captures and len(op) == op_entries,
+              "resnet train: the hybridized net captured inside the "
+              "trainer's step")
+        check(train["last_read"] < first,
+              f"resnet train: last loss {train['last_read']} not below "
+              f"the first {first}")
+        eager = trainer(False)
+        eager_row = measure("train_eager_trainer", lambda: eager.step(x, y),
+                            last_loss, 3 * fwd_flops, op)
+        eager_row["graph_pool_bytes"] = op.pool_bytes
+        eager_row["breakdown"] = profile_call(lambda: eager.step(x, y))
+        check(eager_row["replays_counted"] == n1 + steps ==
+              eager_row["backward_replays_counted"],
+              f"resnet eager trainer: {eager_row['replays_counted']} forward "
+              f"and {eager_row['backward_replays_counted']} backward replays "
+              f"of the hybridized net, want {n1 + steps} each")
+
+        # the gluon loop: record, forward, loss, backward, Trainer.step
+        gtr = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": cfg["lr"]}, kvstore=None)
+
+        def gluon_step():
+            with autograd.record():
+                loss = sce(net(x), y)
+            loss.backward()
+            gtr.step(b)
+            return loss
+        captures_before = op.captures
+        loop = measure("gluon_loop", gluon_step,
+                       lambda l: float(l.mean().asscalar()), 3 * fwd_flops,
+                       op)
+        loop["graph_pool_bytes"] = op.pool_bytes
+        loop["breakdown"] = profile_call(gluon_step)
+        check(op.captures == captures_before,
+              f"resnet gluon loop: {op.captures - captures_before} new "
+              "captures; the eager trainer's calls captured its entry")
+        check(loop["replays_counted"] == n1 + steps ==
+              loop["backward_replays_counted"],
+              f"resnet gluon loop: {loop['replays_counted']} forward and "
+              f"{loop['backward_replays_counted']} backward replays in the "
+              f"timed windows, want {n1 + steps} each")
+        stats1 = [p.data().asnumpy() for n, p in params.items()
+                  if _is_stat(n)]
+        launches = read_counts()
+    finally:
+        amp._deinit()
+    moved = _rel_l2(stats1, stats0)
+    finite = all(np.isfinite(s).all() for s in stats1)
+    emit({"phase": "resnet", "model": cfg["model"],
+          "dtype": "bfloat16 AMP", "batch_size": b, "image_size": size,
+          "classes": cfg["classes"], "params": n_params,
+          "running_stat_values": n_stats,
+          "forward_flops_per_image": fwd_flops / b,
+          "cachedop": {"entries": len(op), "captures": op.captures,
+                       "replays": op.replays, "pool_bytes": op.pool_bytes},
+          "cudnn_benchmark": torch.backends.cudnn.benchmark,
+          "layout": "NCHW", "running_stats_moved_rel_l2": moved,
+          "running_stats_finite": finite, "flash_launches": launches,
+          "card": nvidia_smi(), **{k: {kk: vv for kk, vv in v.items()
+                                       if kk != "breakdown"}
+                                   for k, v in parts.items()}})
+    for part, row in parts.items():
+        emit(dict({"phase": "resnet_breakdown", "call": part},
+                  **row["breakdown"]))
+    check(moved > 0 and finite, f"resnet: running statistics moved "
+          f"{moved}, finite {finite}")
+    # training goes on from one part to the next over the fixed batch:
+    # each part's loss ends no higher than it began
+    for part in ("train_eager_trainer", "gluon_loop"):
+        row = parts[part]
+        check(row["last_read"] <= row["first_read"],
+              f"resnet {part}: the loss rose from {row['first_read']} to "
+              f"{row['last_read']}")
+    check(not any(launches.values()),
+          f"resnet: the ResNet path launched flash kernels {launches}")
 
 
 # -- phase 4: parity -----------------------------------------------------------
@@ -1789,7 +2268,8 @@ def profile_call(fn, reps=3, expect=None, tries=3):
     ``reps``), its time between CUDA events (``event_ms``, median of
     ``reps``), and the device time of one call from a torch.profiler
     window of ``reps`` calls, split into the flash kernels (forward,
-    backward), matrix products and the rest.  Every call runs the same
+    backward), convolutions (cuDNN's kernels, ``CONV_KERNELS``),
+    BatchNorm, matrix products and the rest.  Every call runs the same
     kernels, so each must be recorded a multiple of ``reps`` times
     (within 10 %), and, given ``expect`` (the kernels of a call that runs
     a subset of this one's: the eager step beside its replay), at least
@@ -1828,26 +2308,37 @@ def profile_call(fn, reps=3, expect=None, tries=3):
                     device_busy_share="not measured",
                     profile_windows=tries, last_window_counts_off=lost,
                     last_window_kernels=sum(counts.values()) / reps)
-    fwd = bwd = gemm = other = 0.0
+    fwd = bwd = conv = bn = gemm = other = 0.0
     for key, t in us.items():
         name = key.lower()
         if "flash_fwd" in name:
             fwd += t
         elif "flash_bwd" in name:
             bwd += t
+        elif any(c in name for c in CONV_KERNELS):
+            conv += t
+        elif "batch_norm" in name or "batchnorm" in name:
+            bn += t
         elif any(g in name for g in ("gemm", "gemv", "cutlass", "nvjet",
                                      "xmma", "matmul")):
             gemm += t
         else:
             other += t
-    device_ms = (fwd + bwd + gemm + other) / 1e3 / reps
+    device_ms = (fwd + bwd + conv + bn + gemm + other) / 1e3 / reps
     return dict(row, device_ms=device_ms,
                 flash_ms=(fwd + bwd) / 1e3 / reps,
                 flash_fwd_ms=fwd / 1e3 / reps, flash_bwd_ms=bwd / 1e3 / reps,
+                conv_ms=conv / 1e3 / reps, bn_ms=bn / 1e3 / reps,
                 gemm_ms=gemm / 1e3 / reps, other_ms=other / 1e3 / reps,
                 kernels=sum(per_call.values()),
                 device_busy_share=device_ms / wall_ms,
                 profile_windows=attempt)
+
+
+# cuDNN's convolution kernels (forward, data and weight gradients) and its
+# layout transforms around them: the "convolution" share of a breakdown
+CONV_KERNELS = ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn",
+                "nchwtonhwc", "nhwctonchw")
 
 
 # -- phase 2: build -------------------------------------------------------------
@@ -2063,9 +2554,10 @@ def main():
     sys.path.insert(0, HERE)
     import mxnet_tpu_torch as mx
 
-    # float32 matmuls in full float32, as the kernel's contract
+    # float32 matmuls in full float32, as the kernel's contract (PyTorch's
+    # default); cuDNN's TF32 flag stays at PyTorch's default (on): the
+    # port's convolutions turn it off themselves, which resnet_parity holds
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = mx.gpu(0).device
     card = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -2098,6 +2590,10 @@ def main():
     if "imperative" in phases:
         phase_imperative(mx, dev)
     rtc = phase_rtc(mx, dev) if "rtc" in phases else None
+    if "resnet_parity" in phases:
+        phase_resnet_parity(mx, dev)
+    if "resnet" in phases:
+        phase_resnet(mx, dev)
 
     kernels = kernel_entries(rows, bwd_rows, train, serve)
     if rtc is not None:

@@ -43,20 +43,39 @@ programs run one XLA program a call:
   eager step quietly.  The garbage collector is off during a capture:
   a dead owner's graph collected then would be destroyed inside the
   capture, which CUDA refuses.
+* **Recorded calls** (``run(..., params=...)``, a hybridized block's
+  call inside ``autograd.record()``) capture two graphs into one pool:
+  the forward, with the tensors autograd saves, and the backward, the
+  gradients of the outputs with respect to every input and parameter
+  that requires one, from static gradient buffers.  The call returns
+  copies of the outputs through a ``torch.autograd.Function`` whose
+  forward replays the first graph and whose backward replays the second
+  and returns copies of the gradients, so no later call overwrites what
+  a caller holds.  One recorded call's activations live in the pool at a
+  time: a second call made while the first one's outputs still wait for
+  their backward runs eagerly, and a backward whose activations a later
+  call overwrote raises.
+* :func:`in_body` is true while a body runs in this thread (eagerly, or
+  being captured), so a hybridized block called inside another capture
+  runs inline instead of starting a capture of its own.
 
-``captures``, ``replays`` and ``pool_bytes`` (device memory the capture
-reserved, summed over the live graphs) say what happened.
+``captures``, ``replays`` (of recorded calls: ``backward_replays``
+too) and ``pool_bytes`` (device memory the capture reserved, summed over
+the live graphs) say what happened.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import threading
+import weakref
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["StepCapture"]
+__all__ = ["StepCapture", "in_body"]
 
 #: eager warm-up calls of a signature before it is captured
 WARMUP = 1
@@ -90,11 +109,86 @@ def _add_counts(deltas):
         setattr(mods[m], n, getattr(mods[m], n) + d)
 
 
+_tls = threading.local()
+
+
+def in_body() -> bool:
+    """Whether a step body runs in this thread now (see the module
+    docstring)."""
+    return getattr(_tls, "depth", 0) > 0
+
+
+@contextlib.contextmanager
+def _body_scope():
+    _tls.depth = getattr(_tls, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _tls.depth -= 1
+
+
 class _Graph:
-    """One captured signature."""
+    """One captured signature; ``bwd`` and what follows only for a
+    recorded call."""
 
     __slots__ = ("graph", "inputs", "outputs", "static_key", "generator",
-                 "credit", "pool_bytes")
+                 "credit", "pool_bytes", "bwd", "bwd_credit",
+                 "grad_outputs", "grads", "version", "pending")
+
+    def reset(self):
+        self.graph.reset()
+        if self.bwd is not None:
+            self.bwd.reset()
+
+    def busy(self) -> bool:
+        """An earlier recorded call's outputs still wait for their
+        backward, which reads the activations in the pool."""
+        return self.pending is not None and self.pending() is not None
+
+
+class _Pending:
+    """Lives as long as a recorded call's autograd node."""
+
+
+class _Replayed(torch.autograd.Function):
+    """A recorded call: the forward graph's replay, and the backward
+    graph's at ``backward``."""
+
+    @staticmethod
+    def forward(ctx, cap, g, *tensors):
+        for dst, src in zip(g.inputs, tensors):
+            dst.copy_(src)
+        _add_counts(g.credit)
+        g.graph.replay()
+        cap.replays += 1
+        g.version += 1
+        ctx.cap, ctx.g, ctx.version = cap, g, g.version
+        ctx.token = _Pending()
+        g.pending = weakref.ref(ctx.token)
+        outs = tuple(o.detach().clone() for o in g.outputs)
+        ctx.mark_non_differentiable(*[o for o, s in zip(outs, g.outputs)
+                                      if not s.requires_grad])
+        return outs
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        g = ctx.g
+        if ctx.version != g.version:
+            raise MXNetError(
+                "the activations of a captured call were overwritten by a "
+                "later call of the same block before this backward; run "
+                "backward before calling the block again")
+        for buf, grad in zip(g.grad_outputs, grads):
+            if buf is not None:
+                buf.copy_(grad)
+        if g.bwd is not None:
+            _add_counts(g.bwd_credit)
+            g.bwd.replay()
+            ctx.cap.backward_replays += 1
+        g.pending = None
+        return (None, None) + tuple(None if t is None else t.clone()
+                                    for t in g.grads)
 
 
 class StepCapture:
@@ -105,6 +199,7 @@ class StepCapture:
         self.name = name
         self.captures = 0
         self.replays = 0
+        self.backward_replays = 0
         self._graphs: Dict[tuple, _Graph] = {}
         self._warmed: Dict[tuple, int] = {}
         self._streams: Dict[torch.device, torch.cuda.Stream] = {}
@@ -114,22 +209,29 @@ class StepCapture:
         return sum(g.pool_bytes for g in self._graphs.values())
 
     def run(self, body: Callable, tensors: Sequence[torch.Tensor],
-            static_key=(), generator: torch.Generator = None) -> tuple:
+            static_key=(), generator: torch.Generator = None,
+            params: Sequence[torch.Tensor] = None) -> tuple:
         """One step: ``body(*tensors)``, eagerly, captured or replayed
         (see the module docstring).  ``generator`` is the stream the
-        body draws from (default: the device's ``mx.random`` one)."""
+        body draws from (default: the device's ``mx.random`` one).  With
+        ``params`` (the leaf tensors the body reads besides ``tensors``)
+        the call is recorded: its outputs are differentiable with respect
+        to every tensor and parameter that requires a gradient."""
         dev = tensors[0].device
         if dev.type != "cuda":
-            return body(*tensors)
+            with _body_scope():
+                return body(*tensors)
         gen = generator
         if gen is None:
             from . import random as _random
             gen = _random.generator(dev)
-        sig = tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
+        sig = tuple((tuple(t.shape), t.dtype, t.device,
+                     params is not None and t.requires_grad)
+                    for t in tensors)
         g = self._graphs.get(sig)
         if g is not None and (g.static_key != static_key
                               or g.generator is not gen):
-            g.graph.reset()
+            g.reset()
             del self._graphs[sig]
             g = None
         if g is None:
@@ -138,11 +240,14 @@ class StepCapture:
                 self._warmed[sig] = warmed + 1
                 return self._eager(body, tensors)
             g = self._graphs[sig] = self._capture(body, tensors, static_key,
-                                                  gen)
-        else:
-            with torch.no_grad():
-                for dst, src in zip(g.inputs, tensors):
-                    dst.copy_(src)
+                                                  gen, params)
+        elif params is not None and g.busy():
+            return self._eager(body, tensors)
+        if params is not None:
+            return _Replayed.apply(self, g, *tensors, *params)
+        with torch.no_grad():
+            for dst, src in zip(g.inputs, tensors):
+                dst.copy_(src)
         _add_counts(g.credit)
         g.graph.replay()
         self.replays += 1
@@ -159,17 +264,23 @@ class StepCapture:
         main = torch.cuda.current_stream(tensors[0].device)
         side = self._stream(tensors[0].device)
         side.wait_stream(main)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), _body_scope():
             out = body(*tensors)
         main.wait_stream(side)
         return out
 
-    def _capture(self, body, tensors, static_key, gen):
+    def _capture(self, body, tensors, static_key, gen, params=None):
         dev = tensors[0].device
+        stream = self._stream(dev)
         with torch.no_grad():
-            inputs = [t.clone() for t in tensors]
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(gen)
+            inputs = [t.detach().clone().requires_grad_(t.requires_grad)
+                      for t in tensors]
+        g = _Graph()
+        g.graph, g.inputs, g.bwd, g.grads = torch.cuda.CUDAGraph(), inputs, \
+            None, ()
+        g.graph.register_generator_state(gen)
+        g.static_key, g.generator, g.version, g.pending = static_key, gen, \
+            0, None
         before = _launch_counts()
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -180,8 +291,11 @@ class StepCapture:
         gc_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=self._stream(dev)):
-                outputs = body(*inputs)
+            with torch.cuda.graph(g.graph, stream=stream), _body_scope():
+                g.outputs = tuple(body(*inputs))
+            mid = _launch_counts()
+            if params is not None:
+                self._capture_backward(g, list(params), stream)
         except Exception as e:
             now = _launch_counts()
             _add_counts({k: v - now[k] for k, v in before.items()})
@@ -191,13 +305,34 @@ class StepCapture:
             if gc_on:
                 gc.enable()
         after = _launch_counts()
-        g = _Graph()
-        g.graph, g.inputs, g.outputs = graph, inputs, tuple(outputs)
-        g.static_key, g.generator = static_key, gen
-        g.credit = {k: after[k] - before[k] for k in after
-                    if after[k] != before[k]}
+        g.credit = {k: mid[k] - before[k] for k in mid
+                    if mid[k] != before[k]}
+        g.bwd_credit = {k: after[k] - mid[k] for k in after
+                        if after[k] != mid[k]}
         g.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         # the capture ran no kernel: its counts come back with the replay
-        _add_counts({k: -d for k, d in g.credit.items()})
+        _add_counts({k: before[k] - after[k] for k in after})
         self.captures += 1
         return g
+
+    @staticmethod
+    def _capture_backward(g, params, stream):
+        """The backward graph of a recorded call, into the forward's
+        pool: the gradients of the outputs that require one, from static
+        gradient buffers, with respect to every input and parameter that
+        requires one."""
+        g.grad_outputs = tuple(torch.empty_like(o) if o.requires_grad
+                               else None for o in g.outputs)
+        surface = list(g.inputs) + params
+        wrt = [t for t in surface if t.requires_grad]
+        heads = [o for o in g.outputs if o.requires_grad]
+        grads = iter(())
+        if heads and wrt:
+            g.bwd = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g.bwd, pool=g.graph.pool(),
+                                  stream=stream):
+                grads = iter(torch.autograd.grad(
+                    heads, wrt, [b for b in g.grad_outputs if b is not None],
+                    allow_unused=True))
+        g.grads = tuple(next(grads) if t.requires_grad and heads else None
+                        for t in surface)

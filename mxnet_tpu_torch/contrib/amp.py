@@ -2,9 +2,11 @@
 
 ``init()`` makes the matrix-product operators run their float32 inputs
 in bfloat16: exactly the reference's ``TARGET_DTYPE_OPS`` that the port
-has (``FullyConnected``, ``dot``, ``dot_product_attention``).  Every
-other operator keeps its input types, so a float32 residual plus a
-bfloat16 projection promotes to float32 as in the reference.  The
+has (``FullyConnected``, ``Convolution``, ``dot``,
+``dot_product_attention``).  Every other operator keeps its input types,
+so a float32 residual plus a bfloat16 projection promotes to float32,
+and BatchNorm of a bfloat16 convolution with float32 gamma and beta
+returns float32, as in the reference.  The
 operators ask :func:`cast_inputs`; nothing is patched.  ``torch.autocast``
 is not used: its operator list is not the reference's, and it does not
 reach the flash kernels' autograd function.
@@ -20,7 +22,8 @@ from ..base import MXNetError
 
 __all__ = ["init", "target_dtype", "cast_inputs", "TARGET_DTYPE_OPS"]
 
-TARGET_DTYPE_OPS = ("FullyConnected", "dot", "dot_product_attention")
+TARGET_DTYPE_OPS = ("FullyConnected", "Convolution", "dot",
+                    "dot_product_attention")
 
 _state = {"target_dtype": None}
 

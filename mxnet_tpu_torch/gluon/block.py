@@ -9,7 +9,11 @@ gluon surface.
 * **Initialization.**  Layers make their parameters on the ``meta``
   device (no memory); ``initialize(init, ctx=...)`` places the whole tree
   on the context's device and fills it there from a seeded generator, so
-  a large model is drawn on the card directly.
+  a large model is drawn on the card directly.  A parameter whose shape
+  has a 0 in it (``in_units=0``, ``in_channels=0``) is deferred: at the
+  block's first call its ``infer_shape`` completes the shape from the
+  input, and the parameter is made and filled then, with the
+  initializer and generator ``initialize`` was given.
 * **Calls.**  Called with ``torch.Tensor``s, a Block is a plain module
   (the BERT and serving paths): it records as PyTorch's grad mode says,
   and its training mode (for Dropout) is ``nn.Module.training``.  Called
@@ -21,26 +25,33 @@ gluon surface.
   call, with tensors or NDArrays (a ``hybrid_forward`` over the outer
   call's tensors), inherits the outer call's grad and training mode, and
   so do the ``mx.nd`` ops it runs.
-* **HybridBlock.**  ``hybridize()`` is accepted and the block runs
-  eagerly: the captured-graph CachedOp is not ported (ROADMAP queue 1
-  item 4).  A subclass may write ``hybrid_forward(F, x, **params)`` on
-  NDArrays, as in the reference (``F`` is ``mx.nd``).
+* **HybridBlock.**  ``hybridize()`` gives the block a :class:`CachedOp`:
+  its outermost calls run as CUDA-graph replays, one a call (see
+  :class:`CachedOp`).  Called inside another captured step
+  (``DataParallelTrainer(fuse_step=True)``, ``Trainer.compile_step``,
+  a serving dispatch), during its capture or its eager warm-up, a
+  hybridized block runs inline, as the reference inlines a CachedOp
+  into the program it traces.  A subclass may write
+  ``hybrid_forward(F, x, **params)`` on NDArrays, as in the reference
+  (``F`` is ``mx.nd``).
 """
 from __future__ import annotations
 
+import functools
 import re
 import threading
 
 import torch
 from torch import nn
+from torch.nn.parameter import UninitializedParameter
 
-from .. import autograd, initializer
+from .. import _capture, autograd, initializer
 from ..base import MXNetError
 from ..context import current_context
 from ..ndarray.ndarray import NDArray, _ctx_of
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "CachedOp"]
 
 _naming = threading.local()
 _mode = threading.local()
@@ -187,12 +198,22 @@ class Block(nn.Module):
         ``gpu(0)``, which raises without a card) and fill it: a
         parameter's own initializer, else ``init`` (default ``Uniform()``)
         by name.  Draws come from ``seed``, or from the device's
-        ``mx.random`` generator when None.  Returns ``self``."""
+        ``mx.random`` generator when None.  A deferred parameter is made
+        and filled at the first call.  Returns ``self``."""
         from .. import random as _random
         dev = (ctx or current_context()).device
         own = {n: p.mx_init for n, p in self.named_parameters()
                if getattr(p, "mx_init", None) is not None}
-        self.to_empty(device=dev)
+        deferred = [(m, n, p) for m in self.modules()
+                    for n, p in m._parameters.items()
+                    if isinstance(p, UninitializedParameter)]
+        for m, n, _ in deferred:         # to_empty cannot take them
+            m._parameters[n] = None
+        try:
+            self.to_empty(device=dev)
+        finally:
+            for m, n, p in deferred:
+                m._parameters[n] = p
         for name, p in self.named_parameters():
             if name in own:
                 p.mx_init = own[name]
@@ -202,9 +223,28 @@ class Block(nn.Module):
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
         initializer.fill(self, init, gen)
+        for _, _, p in deferred:
+            p.mx_deferred = (init, dev, gen)
         for p in self.collect_params().values():
-            p.data()
+            if not p._deferred:
+                p.data()
         return self
+
+    def infer_shape(self, *args):
+        """Complete the deferred parameter shapes from the first call's
+        input tensors (layers with deferred parameters override it)."""
+        raise MXNetError(
+            f"Cannot infer shapes of deferred-initialized parameters for "
+            f"{self.name!r}: layer does not implement infer_shape(). "
+            "Specify in_units/in_channels explicitly.")
+
+    def _finish_deferred(self, args):
+        """The first call with deferred parameters: infer their shapes
+        from ``args`` and make them."""
+        self.infer_shape(*[_unwrap(a) for a in args])
+        for attr, p in self._parameters.items():
+            if isinstance(p, UninitializedParameter):
+                self._gluon_param(attr)._finish_deferred_init()
 
     # -- calls ---------------------------------------------------------------
     def _training_mode(self) -> bool:
@@ -214,6 +254,9 @@ class Block(nn.Module):
         return self.training if override is None else override
 
     def __call__(self, *args, **kwargs):
+        if any(isinstance(p, UninitializedParameter)
+               for p in self._parameters.values()):
+            self._finish_deferred(args)
         nested = getattr(_mode, "training", None) is not None
         if not any(isinstance(a, NDArray) for a in args):
             if nested:
@@ -244,14 +287,37 @@ class Block(nn.Module):
             _mode.training = None
 
     def hybridize(self, active=True, **kwargs):
-        """Passed down to the children; every block runs eagerly."""
+        """Passed down to the children (a HybridBlock among them runs
+        its outermost calls as graph replays)."""
         for child in self._child_blocks():
             child.hybridize(active, **kwargs)
 
 
 class HybridBlock(Block):
-    """A block that may be hybridized.  ``hybridize()`` is accepted and
-    the block runs eagerly (no captured graph yet)."""
+    """A block that may be hybridized: after ``hybridize()`` its
+    outermost calls go through a :class:`CachedOp`."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._cached_op = None
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        """Turn the captured calls on (or off with ``active=False``) for
+        this block and its children.  ``static_alloc`` and
+        ``static_shape`` are accepted: a captured graph has both."""
+        self._active = bool(active)
+        self._cached_op = None
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
+
+    def _outermost(self, training, grad, args, kwargs):
+        if not self._active or _capture.in_body():
+            return super()._outermost(training, grad, args, kwargs)
+        if self._cached_op is None:
+            self._cached_op = CachedOp(self)
+        return self._cached_op(training, grad, args, kwargs)
 
     def forward(self, *args):
         """Runs ``hybrid_forward(mx.nd, *inputs, **params)`` on NDArrays
@@ -270,3 +336,120 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+_TENSOR = object()       # an input position that holds a tensor
+
+
+def _flatten(out):
+    """(tensors, tree) of a block's output: a tensor, or tuples and
+    lists of them."""
+    if isinstance(out, torch.Tensor):
+        return [out], None
+    if isinstance(out, (tuple, list)):
+        leaves, trees = [], []
+        for o in out:
+            sub, tree = _flatten(o)
+            leaves += sub
+            trees.append((len(sub), tree))
+        return leaves, (type(out), trees)
+    raise MXNetError(f"a hybridized block returned {type(out).__name__}; "
+                     "it may return tensors and tuples or lists of them")
+
+
+def _unflatten(tree, leaves):
+    if tree is None:
+        return leaves[0]
+    kind, trees = tree
+    out, i = [], 0
+    for n, sub in trees:
+        out.append(_unflatten(sub, leaves[i:i + n]))
+        i += n
+    return kind(out)
+
+
+class CachedOp:
+    """The captured calls of a hybridized block, as the reference's
+    CachedOp (``gluon/block.py:476-613``) caches one compiled program a
+    key.
+
+    One entry, a ``_capture.StepCapture``, for each key: the input
+    tensors' shapes, dtypes and devices (and, recording, whether they
+    require a gradient), the non-tensor arguments, the training mode, whether the
+    call records (``autograd.record()``, or PyTorch's grad mode for a
+    call with tensors) and the AMP type.  On the card an entry's first
+    call runs eagerly, its second is captured and every later call is
+    one graph replay; a recorded call replays a forward graph and, at
+    ``backward``, a backward graph (see ``_capture``).  The parameters'
+    storage, dtypes, shapes and ``requires_grad`` are the entry's static
+    key: ``initialize`` or a ``cast`` that puts new tensors in place
+    captures again, while ``set_data`` (a copy into the same storage) is
+    read by the next replay.  Updates a training-mode call makes in
+    place (BatchNorm's running statistics) are replayed with it.  A
+    replay's outputs are the graph's own buffers, so the caller gets
+    copies, which a later call leaves alone.  On the CPU the block runs
+    as it is.  A call with keyword arguments, or one whose block still
+    has deferred parameters (the first call), runs inline."""
+
+    def __init__(self, block):
+        self.block = block
+        self.name = f"cachedop_{block.name}"
+        self._entries = {}
+        self._trees = {}
+
+    @property
+    def captures(self):
+        return sum(c.captures for c in self._entries.values())
+
+    @property
+    def replays(self):
+        return sum(c.replays for c in self._entries.values())
+
+    @property
+    def backward_replays(self):
+        return sum(c.backward_replays for c in self._entries.values())
+
+    @property
+    def pool_bytes(self):
+        return sum(c.pool_bytes for c in self._entries.values())
+
+    def __len__(self):
+        return len(self._entries)
+
+    def __call__(self, training, grad, args, kwargs):
+        from ..contrib import amp
+        block = self.block
+        params = list(block.parameters())
+        consts = tuple(_TENSOR if isinstance(a, torch.Tensor) else a
+                       for a in args)
+        try:
+            hash(consts)
+        except TypeError:
+            consts = None
+        if kwargs or consts is None or _TENSOR not in consts or any(
+                isinstance(p, UninitializedParameter) for p in params):
+            return Block._outermost(block, training, grad, args, kwargs)
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        key = (tuple((tuple(t.shape), t.dtype, t.device,
+                      grad and t.requires_grad) for t in tensors),
+               consts, training, grad, amp.target_dtype())
+        cap = self._entries.get(key)
+        if cap is None:
+            cap = self._entries[key] = _capture.StepCapture(self.name)
+        static = tuple((t.data_ptr(), t.dtype, tuple(t.shape),
+                        t.requires_grad)
+                       for t in (*params, *block.buffers()))
+        outs = cap.run(functools.partial(self._body, key), tensors, static,
+                       params=params if grad else None)
+        if not grad:
+            # a replay's outputs are the graph's buffers
+            outs = [o.clone() for o in outs]
+        return _unflatten(self._trees[key], outs)
+
+    def _body(self, key, *tensors):
+        _, consts, training, grad, _ = key
+        it = iter(tensors)
+        args = [next(it) if c is _TENSOR else c for c in consts]
+        leaves, self._trees[key] = _flatten(
+            Block._outermost(self.block, training, grad, args, {}))
+        return tuple(leaves)

@@ -210,10 +210,11 @@ class CompiledStep:
         with autograd.record():
             loss = self.loss_fn(self.net(*args), label)
         autograd.backward([loss])
-        opt, states = self.trainer._optimizer, self.trainer._updater.states
-        for i in self._tr_idx:
-            p = self._params[i]
-            opt.apply(i, p.data(), p.grad(), states[i])
+        states = self.trainer._updater.states
+        self.trainer._optimizer.apply_multi(
+            self._tr_idx, [self._params[i].data() for i in self._tr_idx],
+            [self._params[i].grad() for i in self._tr_idx],
+            [states[i] for i in self._tr_idx])
         return (loss.tensor.detach(),)
 
     def _compiled(self, args, label, batch_size):

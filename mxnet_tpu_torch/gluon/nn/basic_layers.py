@@ -1,22 +1,23 @@
-"""Sequential containers and Dense, Embedding, LayerNorm and Dropout, as
-the JAX package's ``gluon/nn/basic_layers.py``.
+"""Sequential containers and Dense, Embedding, LayerNorm, Dropout,
+BatchNorm and Flatten, as the JAX package's ``gluon/nn/basic_layers.py``.
 
 Parameters keep the reference's names and layouts (Dense weight
 (units, in_units), Embedding weight (input_dim, output_dim), LayerNorm
-gamma/beta) so a by-name copy moves values over unchanged.  ``in_units``
-must be given: deferred shapes are not ported.
+gamma/beta, BatchNorm gamma/beta/running_mean/running_var) so a by-name
+copy moves values over unchanged.  ``in_units=0`` (Dense) and
+``in_channels=0`` (BatchNorm) defer the size to the first call.
 """
 from __future__ import annotations
 
-from torch import nn
+import math
 
-from ...base import MXNetError, torch_dtype
+from ...base import torch_dtype
 from ...initializer import param
 from ...ops import nn as ops
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Embedding",
-           "LayerNorm", "Dropout"]
+           "LayerNorm", "Dropout", "BatchNorm", "Flatten"]
 
 
 class Sequential(Block):
@@ -62,15 +63,6 @@ class HybridSequential(HybridBlock):
     __iter__ = Sequential.__iter__
 
 
-def _param(*shape, init=None, dtype="float32"):
-    p = param(*shape, init=init)
-    dt = torch_dtype(dtype)
-    if dt != p.dtype:
-        p = nn.Parameter(p.to(dt))
-        p.mx_init = init
-    return p
-
-
 class Dense(HybridBlock):
     """``act(x @ weight.T + bias)``; ``flatten`` folds every axis after
     the first."""
@@ -80,15 +72,17 @@ class Dense(HybridBlock):
                  bias_initializer="zeros", in_units=0, prefix=None,
                  params=None):
         super().__init__(prefix=prefix, params=params)
-        if not in_units:
-            raise MXNetError("Dense: in_units must be given (deferred "
-                             "shape inference is not ported)")
         self._flatten = flatten
         self._act = activation
-        self.weight = _param(units, in_units, init=weight_initializer,
-                             dtype=dtype)
-        self.bias = _param(units, init=bias_initializer, dtype=dtype) \
-            if use_bias else None
+        self.weight = param(units, in_units, init=weight_initializer,
+                            dtype=torch_dtype(dtype))
+        self.bias = param(units, init=bias_initializer,
+                          dtype=torch_dtype(dtype)) if use_bias else None
+
+    def infer_shape(self, x):
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        self._gluon_param("weight").shape = (self.weight.mx_shape[0],
+                                             in_units)
 
     def forward(self, x):
         out = ops.fully_connected(x, self.weight, self.bias,
@@ -104,8 +98,8 @@ class Embedding(HybridBlock):
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
-        self.weight = _param(input_dim, output_dim, init=weight_initializer,
-                             dtype=dtype)
+        self.weight = param(input_dim, output_dim, init=weight_initializer,
+                            dtype=torch_dtype(dtype))
 
     def forward(self, x):
         return ops.embedding(x, self.weight)
@@ -136,3 +130,57 @@ class Dropout(HybridBlock):
     def forward(self, x):
         return ops.dropout(x, p=self._rate, training=self._training_mode(),
                            axes=self._axes)
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalisation over axis ``axis`` with the reference's moving
+    statistics: in training mode the batch's mean and biased variance
+    normalise, and ``running = momentum * running + (1 - momentum) *
+    batch`` after (in place, outside the tape); in predict mode, or with
+    ``use_global_stats``, the running statistics normalise.
+    ``scale=False`` fixes gamma at 1 and ``center=False`` beta at 0 (no
+    gradient for either).  The running statistics stay float32, with
+    ``grad_req="null"``.  ``in_channels=0`` defers the size."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._kwargs = {"eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats, "axis": axis}
+        self.gamma = param(in_channels, init=gamma_initializer,
+                           requires_grad=scale)
+        self.beta = param(in_channels, init=beta_initializer,
+                          requires_grad=center)
+        self.running_mean = param(in_channels, init=running_mean_initializer,
+                                  requires_grad=False)
+        self.running_var = param(in_channels,
+                                 init=running_variance_initializer,
+                                 requires_grad=False)
+
+    def infer_shape(self, x):
+        for attr in ("gamma", "beta", "running_mean", "running_var"):
+            self._gluon_param(attr).shape = (x.shape[self._axis],)
+
+    def forward(self, x):
+        training = self._training_mode() and \
+            not self._kwargs["use_global_stats"]
+        out, mean, var = ops.batch_norm(
+            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            training=training, **self._kwargs)
+        if training:
+            ops.update_moving_stats(self.running_mean, self.running_var,
+                                    mean, var, self._kwargs["momentum"])
+        return out
+
+
+class Flatten(HybridBlock):
+    """(N, ...) -> (N, prod(...))."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)

@@ -11,10 +11,18 @@ either is seen by both.  ``grad()`` is the gradient buffer ``backward``
 writes (``grad_req`` ``"write"``) or adds to (``"add"``); ``"null"``
 turns the tensor's gradient off.
 
-Not ported: deferred shapes (a shape must be known at construction),
-several contexts per parameter, ``Constant``, ``save``/``load`` and a
-parameter-by-parameter ``initialize`` (``Block.initialize`` places and
-fills the whole block).
+A shape with a 0 in it is deferred, as in the reference
+(``allow_deferred_init``; the port's layers defer ``in_units`` and
+``in_channels`` given as 0): the tensor is a
+``torch.nn.parameter.UninitializedParameter`` until the block's first
+call, where the layer's ``infer_shape`` completes the shape from the
+input and the parameter is made on the device ``initialize`` named and
+filled by its initializer (:meth:`Parameter._finish_deferred_init`).
+Until then ``data()`` raises.
+
+Not ported: several contexts per parameter, ``Constant``,
+``save``/``load`` and a parameter-by-parameter ``initialize``
+(``Block.initialize`` places and fills the whole block).
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.parameter import UninitializedParameter
 
 from .. import autograd, initializer
 from ..base import MXNetError, torch_dtype
@@ -35,9 +44,11 @@ __all__ = ["Parameter", "ParameterDict"]
 
 
 class Parameter:
-    """The gluon view of the ``nn.Parameter`` ``attr`` of ``block``."""
+    """The gluon view of the ``nn.Parameter`` ``attr`` of ``block``.
+    ``grad_req`` defaults to ``"write"`` for a tensor that requires a
+    gradient and ``"null"`` for one that does not (running statistics)."""
 
-    def __init__(self, block, attr: str, grad_req="write", lr_mult=1.0,
+    def __init__(self, block, attr: str, grad_req=None, lr_mult=1.0,
                  wd_mult=1.0):
         self._block = weakref.ref(block)
         self._attr = attr
@@ -46,6 +57,8 @@ class Parameter:
         self.wd_mult = wd_mult
         self._grad_req = "null"
         self._nd = None
+        if grad_req is None:
+            grad_req = "write" if self._tensor.requires_grad else "null"
         self.grad_req = grad_req
 
     def __repr__(self):
@@ -61,8 +74,28 @@ class Parameter:
         return block._parameters[self._attr]
 
     @property
+    def _deferred(self) -> bool:
+        return isinstance(self._tensor, UninitializedParameter)
+
+    @property
     def shape(self):
-        return tuple(self._tensor.shape)
+        """The shape; a deferred size reads 0 until the first call."""
+        t = self._tensor
+        return t.mx_shape if isinstance(t, UninitializedParameter) \
+            else tuple(t.shape)
+
+    @shape.setter
+    def shape(self, new_shape):
+        """Complete a deferred shape (a layer's ``infer_shape``): every
+        size given at construction must stay."""
+        new_shape = tuple(int(s) for s in new_shape)
+        old = self.shape
+        if len(old) != len(new_shape) or any(
+                o not in (0, n) for o, n in zip(old, new_shape)):
+            raise MXNetError(f"Parameter {self.name!r}: shape {new_shape} "
+                             f"is incompatible with {old}")
+        if self._deferred:
+            self._tensor.mx_shape = new_shape
 
     @property
     def dtype(self):
@@ -85,7 +118,7 @@ class Parameter:
         self._grad_req = req
         t = self._tensor
         if t.is_floating_point():
-            t.requires_grad_(req != "null")
+            t.requires_grad = req != "null"
         if self._nd is not None and self._nd._t is t:
             self._bind(t)
 
@@ -107,7 +140,12 @@ class Parameter:
     def data(self, ctx: Optional[Context] = None):
         """The NDArray over the parameter's tensor."""
         t = self._tensor
-        if t.is_meta:
+        if getattr(t, "mx_deferred", None) is not None:
+            raise MXNetError(
+                f"Parameter {self.name!r} has not been initialized yet "
+                "because initialization was deferred. Actual "
+                "initialization happens during the first forward pass.")
+        if t.is_meta or isinstance(t, UninitializedParameter):
             raise MXNetError(
                 f"Parameter {self.name!r} has not been initialized. You "
                 "should initialize parameters with Block.initialize() "
@@ -138,7 +176,34 @@ class Parameter:
         return [self.grad()]
 
     def list_ctx(self):
+        deferred = getattr(self._tensor, "mx_deferred", None)
+        if deferred is not None:
+            return [_ctx_of(deferred[1])]
         return [self.data().context]
+
+    def _finish_deferred_init(self):
+        """Make a deferred parameter whose shape is now complete, on the
+        device ``initialize`` named, and fill it with its initializer
+        (the reference's ``_finish_deferred_init``)."""
+        t = self._tensor
+        if not isinstance(t, UninitializedParameter):
+            return
+        if 0 in t.mx_shape:
+            raise MXNetError(
+                f"Cannot initialize Parameter {self.name!r} because it "
+                f"has invalid shape: {t.mx_shape}. Please specify "
+                "in_units, in_channels, etc for `Block`s.")
+        deferred = getattr(t, "mx_deferred", None)
+        if deferred is None:
+            raise MXNetError(
+                f"Parameter {self.name!r} has not been initialized. You "
+                "should initialize parameters with Block.initialize() "
+                "before use.")
+        init, device, generator = deferred
+        t.materialize(t.mx_shape, device=device)
+        del t.mx_deferred
+        initializer.fill_one(self.name, t, init, generator)
+        self._bind(t)          # a leaf that backward writes gradients for
 
     def zero_grad(self):
         """Zero the gradient buffer in place."""
@@ -218,13 +283,12 @@ class ParameterDict:
         if owner is None:
             raise MXNetError(f"no Parameter {full!r}, and this dict belongs "
                              "to no block that could make it")
-        if shape is None or any(int(s) <= 0 for s in shape):
+        if shape is None or any(int(s) < 0 for s in shape) or (
+                0 in tuple(shape) and not allow_deferred_init):
             raise MXNetError(f"Parameter {full!r}: shape {shape} is not "
-                             "fully known (deferred shapes are not ported)")
-        p = initializer.param(*shape, init=init)
-        if torch_dtype(dtype) != p.dtype:
-            p = nn.Parameter(p.to(torch_dtype(dtype)))
-            p.mx_init = init
+                             "fully known and allow_deferred_init is off")
+        p = initializer.param(*shape, init=init, dtype=torch_dtype(dtype),
+                              requires_grad=grad_req != "null")
         owner.register_parameter(name, p)
         param = owner._gluon_param(name)
         param.grad_req = grad_req

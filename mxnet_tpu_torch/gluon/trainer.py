@@ -4,9 +4,11 @@ the JAX package's ``gluon/trainer.py`` on one context.
 ``step(batch_size)`` sets the optimizer's ``rescale_grad`` to
 ``1 / batch_size`` (times the optimizer's own) and updates every
 parameter whose ``grad_req`` is not ``"null"`` from its gradient buffer,
-in place.  With one context there is nothing to reduce, so ``kvstore``
-may be None, ``"device"`` or ``"local"``; several contexts and a real
-kvstore are not ported (ROADMAP queue 1 item 8).  ``compile_step(net,
+in place, all of them in one multi-tensor update
+(``Updater.call_fused``, the reference's ``_fused_update_all``).  With
+one context there is nothing to reduce, so ``kvstore`` may be None,
+``"device"`` or ``"local"``; several contexts and a real kvstore are not
+ported (ROADMAP queue 1 item 8).  ``compile_step(net,
 loss_fn)`` makes the whole training step one captured graph
 (``gluon/compiled_step.py``).
 """
@@ -89,6 +91,8 @@ class Trainer:
 
     def update(self, batch_size, ignore_stale_grad=False):
         self._optimizer.rescale_grad = self._scale / batch_size
-        for i, p in enumerate(self._params):
-            if p.grad_req != "null":
-                self._updater(i, p.grad(), p.data())
+        indices = [i for i, p in enumerate(self._params)
+                   if p.grad_req != "null"]
+        self._updater.call_fused(indices,
+                                 [self._params[i].grad() for i in indices],
+                                 [self._params[i].data() for i in indices])

@@ -8,6 +8,11 @@ weight rule.  A parameter that carries its own initializer (the
 ``mx_init`` attribute :func:`param` sets) bypasses the dispatch, as a
 per-parameter ``init=`` does in the reference.  The draws differ from
 the JAX package's numpy draws for the same seed.
+
+A shape with a 0 in it is deferred: :func:`param` makes a
+``torch.nn.parameter.UninitializedParameter``, which :func:`fill` skips;
+the block fills it at its first call, once the shape is known
+(``gluon/block.py``).
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import math
 
 import torch
 from torch import nn
+from torch.nn.parameter import UninitializedParameter
 
 from .base import MXNetError
 
@@ -101,23 +107,36 @@ def create(init) -> Initializer:
     return _REGISTRY[name]()
 
 
-def param(*shape, init=None):
+def param(*shape, init=None, dtype=torch.float32, requires_grad=True):
     """A parameter of ``shape`` on the ``meta`` device (no memory until
     the block is initialized), with its own initializer when ``init`` is
-    given."""
-    p = nn.Parameter(torch.empty(*shape, device="meta"))
+    given.  A 0 in ``shape`` leaves that size to the first call: the
+    parameter is then an ``UninitializedParameter`` whose ``mx_shape``
+    holds the known sizes."""
+    shape = tuple(int(s) for s in shape)
+    if 0 in shape:
+        p = UninitializedParameter(requires_grad=requires_grad, dtype=dtype)
+        p.mx_shape = shape
+    else:
+        p = nn.Parameter(torch.empty(*shape, device="meta", dtype=dtype),
+                         requires_grad=requires_grad)
     p.mx_init = init
     return p
 
 
 @torch.no_grad()
-def fill(module, init, generator):
-    """Fill every parameter of ``module`` in place: a parameter's own
+def fill_one(name, p, init, generator):
+    """Fill the parameter ``p`` (named ``name``) in place: its own
     initializer, else ``init`` with name dispatch."""
-    default = create(init)
+    own = getattr(p, "mx_init", None)
+    if own is not None:
+        create(own).init_weight(name, p, generator)
+    else:
+        create(init)(name, p, generator)
+
+
+def fill(module, init, generator):
+    """Fill every parameter of ``module`` whose shape is known."""
     for name, p in module.named_parameters():
-        own = getattr(p, "mx_init", None)
-        if own is not None:
-            create(own).init_weight(name, p, generator)
-        else:
-            default(name, p, generator)
+        if not isinstance(p, UninitializedParameter):
+            fill_one(name, p, init, generator)

@@ -5,7 +5,8 @@ from the op registry, as the reference generates its op stubs.  Tensor
 arguments are the leading positional arguments (NDArrays); operator
 attributes follow positionally (scalar attrs first, then the rest in
 declaration order) or as keywords; every op takes ``out=``, and ops with
-no tensor input take ``ctx=``.  ``nd.save``/``nd.load``, ``BatchNorm``
+no tensor input take ``ctx=``.  ``BatchNorm`` updates the moving
+statistics it is given, in place, when training.  ``nd.save``/``nd.load``
 and ``RNN`` are not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
@@ -74,6 +75,27 @@ def Dropout(data, p=0.5, mode="training", axes=(), **kwargs):
                   generator=_rnd.generator(data.context.device))
 
 
+def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
+              momentum=0.9, fix_gamma=True, use_global_stats=False,
+              output_mean_var=False, axis=1, **kwargs):
+    """Parity: nd.BatchNorm.  In training mode (``autograd.is_training()``
+    and not ``use_global_stats``) it normalises by the batch's statistics
+    and then updates ``moving_mean`` and ``moving_var`` in place, outside
+    the tape: ``m * moving + (1 - m) * batch`` with the biased variance."""
+    from .. import autograd
+    from ..ops.nn import update_moving_stats
+    training = autograd.is_training() and not use_global_stats
+    out, mean, var = invoke(get_op("BatchNorm"),
+                            [data, gamma, beta, moving_mean, moving_var],
+                            eps=eps, momentum=momentum, fix_gamma=fix_gamma,
+                            use_global_stats=use_global_stats, axis=axis,
+                            training=training)
+    if training:
+        update_moving_stats(moving_mean._t, moving_var._t, mean._t, var._t,
+                            momentum)
+    return (out, mean, var) if output_mean_var else out
+
+
 def maximum(lhs, rhs, out=None):
     """Parity: nd.maximum — scalar or array operands."""
     if isinstance(lhs, NDArray) and isinstance(rhs, NDArray):
@@ -96,7 +118,8 @@ def minimum(lhs, rhs, out=None):
     return min(lhs, rhs)
 
 
-_CUSTOM = {"Dropout": Dropout, "maximum": maximum, "minimum": minimum}
+_CUSTOM = {"BatchNorm": BatchNorm, "Dropout": Dropout, "maximum": maximum,
+           "minimum": minimum}
 
 _generate(_mod)
 

@@ -1,15 +1,21 @@
-"""The plain operators of the Llama, BERT and MLP paths, in PyTorch.
+"""The plain operators of the Llama, BERT, MLP and ResNet paths, in
+PyTorch.
 
 Dense layers run :func:`fully_connected` (``F.linear``, weight (out, in)
-as in the JAX package's FullyConnected).  ``fully_connected`` and
-:func:`dot` honour ``contrib.amp``.  Dropout draws its keep-mask from the
-device's ``mx.random`` generator (or one the caller passes).
+as in the JAX package's FullyConnected).  ``fully_connected``,
+:func:`convolution` and :func:`dot` honour ``contrib.amp``.  Dropout draws
+its keep-mask from the device's ``mx.random`` generator (or one the
+caller passes).
 
-The MLP's ops are also registered under the JAX package's names
-(``FullyConnected``, ``Activation``, ``softmax``, ``log_softmax``,
-``softmax_cross_entropy``, ``Dropout``, ``identity``, ``BlockGrad``), so
-``mx.nd`` and ``invoke`` reach these same functions."""
+The ops are also registered under the JAX package's names
+(``FullyConnected``, ``Convolution``, ``Pooling``, ``BatchNorm``,
+``Activation``, ``softmax``, ``log_softmax``, ``softmax_cross_entropy``,
+``Dropout``, ``identity``, ``BlockGrad``), so ``mx.nd`` and ``invoke``
+reach these same functions.  The layout is NCHW (NCW, NCDHW), the
+reference's."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -18,7 +24,8 @@ from ..contrib import amp
 from .registry import alias, register
 
 __all__ = ["silu", "rms_norm", "dot", "take", "embedding",
-           "cache_update", "fully_connected", "activation", "gelu",
+           "cache_update", "fully_connected", "convolution", "pooling",
+           "batch_norm", "update_moving_stats", "activation", "gelu",
            "layer_norm", "dropout", "softmax", "log_softmax", "pick",
            "softmax_cross_entropy"]
 
@@ -95,6 +102,193 @@ def _fully_connected_op(data, weight, *rest, num_hidden=0, no_bias=False,
                         flatten=True):
     return fully_connected(data, weight, None if no_bias else rest[0],
                            flatten=flatten)
+
+
+# -- convolution, pooling, batch normalisation (reference ops/nn.py:332-513)
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _ntuple(value, n, default):
+    return tuple(int(v) for v in value) if value else (default,) * n
+
+
+class _ieee_f32:
+    """cuDNN without TF32 inside the block, whatever the caller set in
+    ``torch.backends.cudnn.allow_tf32`` (PyTorch's default is True):
+    float32 operands get float32 math, the kernel numerics contract."""
+
+    def __enter__(self):
+        self._prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32 = self._prev
+
+
+class _Convolution(torch.autograd.Function):
+    """``F.conv{1,2,3}d`` whose forward and backward both run without
+    TF32 (PyTorch's own backward would read the caller's flag again)."""
+
+    @staticmethod
+    def forward(ctx, data, weight, bias, stride, pad, dilate, groups):
+        ctx.save_for_backward(data, weight)
+        ctx.conf = (stride, pad, dilate, groups,
+                    None if bias is None else list(bias.shape))
+        with _ieee_f32():
+            return _CONV[len(stride)](data, weight, bias, stride, pad,
+                                      dilate, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        data, weight = ctx.saved_tensors
+        stride, pad, dilate, groups, bias_shape = ctx.conf
+        need = ctx.needs_input_grad
+        with _ieee_f32():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad, data, weight, bias_shape, stride, pad, dilate, False,
+                [0] * len(stride), groups,
+                [need[0], need[1], bias_shape is not None and need[2]])
+        return gx, gw, gb, None, None, None, None
+
+
+def convolution(data, weight, bias=None, *, stride=(), pad=(), dilate=(),
+                num_group=1):
+    """Cross-correlation of ``data`` (N, C, *spatial) with ``weight``
+    (num_filter, C / num_group, *kernel), 1-, 2- or 3-D, with symmetric
+    zero padding ``pad``, plus ``bias``.  A library call (cuDNN on the
+    card), as XLA generated it in the reference."""
+    n = weight.dim() - 2
+    data, weight, bias = amp.cast_inputs("Convolution", data, weight, bias)
+    return _Convolution.apply(data, weight, bias, _ntuple(stride, n, 1),
+                              _ntuple(pad, n, 0), _ntuple(dilate, n, 1),
+                              int(num_group))
+
+
+@register("Convolution", num_inputs=None)
+def _convolution_op(data, weight, *rest, kernel=(), stride=(), dilate=(),
+                    pad=(), num_filter=0, num_group=1, no_bias=False,
+                    layout=None, workspace=0, cudnn_tune=None,
+                    cudnn_off=False):
+    return convolution(data, weight, None if no_bias else rest[0],
+                       stride=stride, pad=pad, dilate=dilate,
+                       num_group=num_group)
+
+
+def _pool_pads(sizes, kernel, stride, pad, convention):
+    """(low, high) padding of each spatial axis, as the reference's
+    arithmetic (``ops/nn.py:446-462``): "full" widens the high side until
+    the ceil-sized output's last window fits (PyTorch's ``ceil_mode``
+    would drop a last window that starts in the padding), "same" pads
+    ``ceil(x / stride)`` windows' worth, the odd element high."""
+    pads = []
+    for x, k, s, p in zip(sizes, kernel, stride, pad):
+        lo = hi = p
+        if convention == "full":
+            out = -(-(x + 2 * p - k) // s) + 1
+            hi += max((out - 1) * s + k - (x + 2 * p), 0)
+        elif convention == "same":
+            need = max((-(-x // s) - 1) * s + k - x, 0)
+            lo, hi = need // 2, need - need // 2
+        elif convention != "valid":
+            raise ValueError(f"unknown pooling_convention {convention!r}")
+        pads.append((lo, hi))
+    return pads
+
+
+def _window_sum(x, kernel, stride):
+    """The sum over each window (no padding)."""
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+@register("Pooling")
+def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
+            stride=(), pad=(), pooling_convention="valid",
+            count_include_pad=True, cudnn_off=False, layout=None):
+    """Max, average, sum or L2 (``lp``) pooling over ``kernel`` windows,
+    or over the whole of each channel with ``global_pool`` (max, else the
+    mean).  Output sizes follow the reference's conventions exactly
+    (:func:`_pool_pads`)."""
+    n = data.dim() - 2
+    if global_pool:
+        axes = tuple(range(2, data.dim()))
+        return data.amax(axes, keepdim=True) if pool_type == "max" \
+            else data.mean(axes, keepdim=True)
+    kernel = tuple(int(k) for k in kernel)
+    stride = _ntuple(stride, n, 1)
+    pads = _pool_pads(data.shape[2:], kernel, stride, _ntuple(pad, n, 0),
+                      pooling_convention)
+    flat = [v for lo, hi in reversed(pads) for v in (lo, hi)]
+    if pool_type == "max":
+        if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads, kernel)):
+            return _MAX_POOL[n](data, kernel, stride,
+                                [lo for lo, _ in pads])
+        return _MAX_POOL[n](F.pad(data, flat, value=float("-inf")), kernel,
+                            stride)
+    if pool_type not in ("avg", "sum", "lp"):
+        raise ValueError(f"unknown pool_type {pool_type!r}")
+    x = data * data if pool_type == "lp" else data
+    s = _window_sum(F.pad(x, flat) if any(flat) else x, kernel, stride)
+    if pool_type == "sum":
+        return s
+    if pool_type == "lp":
+        return torch.sqrt(s)
+    if count_include_pad:
+        return s / float(math.prod(kernel))
+    ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
+                      device=data.device)
+    return s / _window_sum(F.pad(ones, flat), kernel, stride)
+
+
+@register("BatchNorm", num_inputs=5, num_outputs=3)
+def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-5,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               output_mean_var=False, axis=1, cudnn_off=False,
+               training=False):
+    """Returns (out, mean, var): the batch's mean and **biased** variance
+    over every axis but ``axis`` when ``training`` (and not
+    ``use_global_stats``), else the moving ones, and
+    ``out = (data - mean) / sqrt(var + eps) * gamma + beta`` (gamma taken
+    as 1 with ``fix_gamma``, and then it gets no gradient).  Data of
+    another type than gamma (bf16 under AMP, with f32 gamma) is promoted,
+    as the reference's arithmetic promotes it.  No gradient flows into the
+    moving statistics.  They are the caller's to update (:func:`update_moving_stats`): the op stays
+    pure, and PyTorch's own update (unbiased, momentum ``1 - m``) is
+    never used."""
+    x = data.to(torch.promote_types(data.dtype, gamma.dtype))
+    ax = axis % x.dim()
+    if ax != 1:
+        x = x.movedim(ax, 1)
+    weight = None if fix_gamma else gamma
+    if training and not use_global_stats:
+        out, mean, invstd = torch.native_batch_norm(
+            x, weight, beta, None, None, True, 0.0, eps)
+        var = (invstd.detach().pow(-2) - eps).clamp_min_(0.0)
+        mean = mean.detach()
+    else:
+        out, _, _ = torch.native_batch_norm(
+            x, weight, beta, moving_mean.detach(), moving_var.detach(),
+            False, 0.0, eps)
+        mean, var = moving_mean, moving_var
+    if ax != 1:
+        out = out.movedim(1, ax)
+    return out, mean, var
+
+
+@torch.no_grad()
+def update_moving_stats(moving_mean, moving_var, mean, var, momentum):
+    """``moving = momentum * moving + (1 - momentum) * batch`` in place,
+    for the mean and the (biased) variance: the reference's update of
+    its auxiliary states, outside the tape."""
+    for moving, batch in ((moving_mean, mean), (moving_var, var)):
+        moving.mul_(momentum).add_(batch.to(moving.dtype) * (1.0 - momentum))
 
 
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,

@@ -4,8 +4,11 @@
 
 ``SGD`` runs the ``sgd_update`` / ``sgd_mom_update`` ops on NDArrays with
 ``out=`` (in place), with ``clip_gradient`` and each gluon Parameter's
-``lr_mult``/``wd_mult`` (``param_dict``).  Not ported: the other
-optimizers, multi-precision, learning-rate schedules.
+``lr_mult``/``wd_mult`` (``param_dict``).  ``update_multi`` updates a set
+of parameters at once with ``torch._foreach_*`` multi-tensor operators
+(the reference's ``call_fused``): the same arithmetic, a few launches for
+the whole set.  Not ported: the other optimizers, multi-precision,
+learning-rate schedules.
 
 **Per-step scalars live on the device.**  ``lr``, ``wd``,
 ``rescale_grad`` and ``-lr * rescale_grad`` (SGD) and the bias-corrected
@@ -44,7 +47,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Optimizer", "SGD", "Adam", "Updater", "DeviceScalars",
-           "create", "register", "get_updater"]
+           "create", "register", "get_updater", "sgd_multi"]
 
 
 class DeviceScalars:
@@ -139,6 +142,13 @@ class Optimizer:
     def update(self, index, weight, grad, state):
         raise NotImplementedError
 
+    def update_multi(self, indices, weights, grads, states):
+        """Update the parameters ``indices`` together; here one
+        ``update`` each, in one call for an optimizer with a
+        multi-tensor rule."""
+        for i, w, g, s in zip(indices, weights, grads, states):
+            self.update(i, w, g, s)
+
     @property
     def capturable(self):
         """Whether ``update`` is graph-safe: its per-step scalars come
@@ -227,6 +237,64 @@ class SGD(Optimizer):
             nd.sgd_update(weight, grad, lr=lr, wd=wd, rescale_grad=rescale,
                           clip_gradient=self._clip(), out=weight)
 
+    def update_multi(self, indices, weights, grads, states):
+        if type(self).update is not SGD.update:
+            return super().update_multi(indices, weights, grads, states)
+        for i in indices:
+            self._update_count(i)
+        self.apply_multi(indices, weights, grads, states)
+
+    def apply_multi(self, indices, weights, grads, states):
+        """The device side of ``update_multi``: the parameters grouped by
+        their (lr_mult, wd_mult), each group one :func:`sgd_multi`."""
+        if not indices:
+            return
+        scalars = self.stage(weights[0].tensor.device)
+        groups = {}
+        for i, w, g, s in zip(indices, weights, grads, states):
+            p = self.param_dict.get(i)
+            mults = (1.0, 1.0) if p is None else (p.lr_mult, p.wd_mult)
+            groups.setdefault(mults, []).append(
+                (w.tensor, g.tensor, None if s is None else s.tensor))
+        for mults, members in groups.items():
+            ws, gs, ms = zip(*members)
+            self.apply_tensors(list(ws), list(gs), list(ms), scalars, mults)
+
+    def apply_tensors(self, weights, grads, moms, scalars, mults=(1.0, 1.0)):
+        """:func:`sgd_multi` over tensors with the staged ``scalars``
+        (``stage``'s views) times ``mults`` (lr_mult, wd_mult)."""
+        lr, wd, rescale, _ = scalars
+        if mults[0] != 1.0:
+            lr = lr * mults[0]
+        if mults[1] != 1.0:
+            wd = wd * mults[1]
+        sgd_multi(weights, grads, None if moms[0] is None else moms, lr,
+                  wd if self.wd else None, rescale, self.momentum,
+                  self._clip())
+
+
+@torch.no_grad()
+def sgd_multi(weights, grads, moms, lr, wd, rescale, momentum, clip):
+    """SGD on lists of tensors in place, with ``torch._foreach_*``: the
+    arithmetic of ``sgd_update``/``sgd_mom_update``,
+    ``g = clip(rescale * grad) + wd * w``, then ``w -= lr * g`` or
+    ``m = momentum * m - lr * g; w += m``.  ``lr``, ``wd`` and ``rescale``
+    are 0-d device tensors (``wd`` None: no weight decay), ``moms`` None
+    without momentum, ``clip`` <= 0 for none."""
+    g = torch._foreach_mul(grads, rescale)
+    if clip > 0:
+        torch._foreach_clamp_min_(g, -clip)
+        torch._foreach_clamp_max_(g, clip)
+    if wd is not None:
+        torch._foreach_add_(g, torch._foreach_mul(weights, wd))
+    torch._foreach_mul_(g, lr)
+    if moms is None:
+        torch._foreach_sub_(weights, g)
+        return
+    torch._foreach_mul_(moms, momentum)
+    torch._foreach_sub_(moms, g)
+    torch._foreach_add_(weights, moms)
+
 
 class Updater:
     """Applies an optimizer's update per parameter index, holding the
@@ -244,6 +312,15 @@ class Updater:
             if i not in self.states:
                 self.states[i] = self.optimizer.create_state(i, w)
             self.optimizer.update(i, w, g, self.states[i])
+
+    def call_fused(self, indices, grads, weights):
+        """Update the parameters ``indices`` together
+        (``Optimizer.update_multi``), making any missing state first."""
+        for i, w in zip(indices, weights):
+            if i not in self.states:
+                self.states[i] = self.optimizer.create_state(i, w)
+        self.optimizer.update_multi(indices, weights, grads,
+                                    [self.states[i] for i in indices])
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -3,31 +3,41 @@ package's ``parallel/trainer.py``.
 
 ``step(data, label)`` runs the forward, the loss (the mean of
 ``loss_fn(block(*data), label)``), the backward (``torch.autograd.grad``
-of the loss, never accumulated in ``.grad``) and the Adam update of every
-trainable parameter, and returns the loss.  Given NDArrays (as
-``bench.py`` feeds it), the block and ``loss_fn`` see NDArrays, recorded
-as inside ``autograd.record()``, and the loss comes back as an NDArray on
-the mesh's context; given tensors or numpy arrays, they see tensors and
-the loss is a 0-d tensor.
+of the loss, never accumulated in ``.grad``) and the optimizer's update
+of every trainable parameter, and returns the loss.  The optimizer is
+``"adam"`` or ``"sgd"`` (with or without momentum), each one rule of the
+reference's ``_FUSED_RULES``: one multi-tensor update over every
+parameter.  A block with deferred parameter shapes gets them from one
+predict-mode call on the first batch, without recording, as the
+reference's ``_setup`` does.  Updates the forward makes in place
+(BatchNorm's running statistics, in training mode) happen inside the
+step, so the next step and a later call of the block read them.  Given
+NDArrays (as ``bench.py`` feeds it), the block and ``loss_fn`` see
+NDArrays, recorded as inside ``autograd.record()``, and the loss comes
+back as an NDArray on the mesh's context; given tensors or numpy arrays,
+they see tensors and the loss is a 0-d tensor.
 
 ``fuse_step=True`` makes the step one CUDA-graph replay on the card
 (``_capture.StepCapture``): the first step of each input signature runs
 eagerly, the next is captured, and every later one replays the graph;
 Adam's per-step scalars (the bias-corrected learning rate, ``wd``,
 ``rescale_grad``) go in through device tensors, so a replay computes
-exactly the step an eager call would.  ``step_multi`` runs K such steps
-over (K, B, ...) batches, or over one batch with ``repeat=K``, and
-returns the K losses.  ``fuse_step=False`` runs every step eagerly.  On
-the CPU both run the same step body eagerly.  Not ported: meshes of more
-than one device, the optimizers other than Adam, gradient compression
+exactly the step an eager call would; SGD's learning rate, ``wd`` and
+``rescale_grad`` likewise.  ``step_multi`` runs K such steps over
+(K, B, ...) batches, or over one batch with ``repeat=K``, and returns the
+K losses.  ``fuse_step=False`` runs every step eagerly.  On the CPU both
+run the same step body eagerly.  A hybridized block runs inline inside
+the step (``gluon/block.py``).  Not ported: meshes of more than one
+device, the optimizers other than Adam and SGD, gradient compression
 and sharding plans.
 """
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
+from torch.nn.parameter import UninitializedParameter
 
 from .. import autograd
 from .. import optimizer as opt
@@ -39,6 +49,45 @@ from .mesh import make_mesh
 __all__ = ["DataParallelTrainer"]
 
 
+class _Rule(NamedTuple):
+    """How a fused step creates an optimizer's states, stages its
+    per-step scalars for step ``t`` and updates every parameter."""
+    states: Callable
+    stage: Callable
+    apply: Callable
+    static_key: Callable
+
+
+# the reference's _FUSED_RULES (parallel/trainer.py:90-135) that are ported
+_FUSED_RULES = {
+    "Adam": _Rule(
+        lambda o, params: [o.create_state(p) for p in params],
+        lambda o, device, t: o.stage(device, t),
+        lambda o, params, grads, states, scalars: o.apply(
+            params, grads, states, scalars),
+        lambda o: o.static_key()),
+    "SGD": _Rule(
+        lambda o, params: [torch.zeros_like(p) if o.momentum else None
+                           for p in params],
+        lambda o, device, t: o.stage(device),
+        lambda o, params, grads, states, scalars: o.apply_tensors(
+            params, list(grads), states, scalars),
+        lambda o: o.static_key(())),
+}
+
+
+def _device_of(block):
+    """The device of the block's parameters (a deferred one's is the
+    device ``initialize`` named)."""
+    for p in block.parameters():
+        if not isinstance(p, UninitializedParameter):
+            return p.device
+        deferred = getattr(p, "mx_deferred", None)
+        if deferred is not None:
+            return torch.device(deferred[1])
+    raise MXNetError("the block has no initialized parameters")
+
+
 class DataParallelTrainer:
     """Trains ``block`` (initialized) on a one-device mesh.
 
@@ -46,7 +95,7 @@ class DataParallelTrainer:
       block: the model, an ``nn.Module`` with its parameters on the
         mesh's device.
       loss_fn: ``(outputs, label) -> loss``; the step takes its mean.
-      optimizer: the optimizer's name, ``"adam"``.
+      optimizer: the optimizer's name, ``"adam"`` or ``"sgd"``.
       optimizer_params: its keyword arguments.
       mesh: ``make_mesh({"dp": 1}, devices=[...])``; default: the mesh
         of the block's device.
@@ -59,29 +108,47 @@ class DataParallelTrainer:
         self.block = block
         self.loss_fn = loss_fn
         self.optimizer = opt.create(optimizer, **(optimizer_params or {}))
-        if not isinstance(self.optimizer, opt.Adam):
+        self._rule = _FUSED_RULES.get(type(self.optimizer).__name__)
+        if self._rule is None:
             raise MXNetError(f"optimizer {optimizer!r} is not ported for "
-                             "DataParallelTrainer, which has 'adam'")
-        self._params = [p for p in block.parameters() if p.requires_grad]
-        if not self._params:
-            raise MXNetError("the block has no trainable parameters")
+                             f"DataParallelTrainer, which has "
+                             f"{sorted(r.lower() for r in _FUSED_RULES)}")
         if mesh is None:
-            mesh = make_mesh({"dp": 1}, devices=[self._params[0].device])
+            mesh = make_mesh({"dp": 1}, devices=[_device_of(block)])
         if "dp" not in mesh.shape:
             raise MXNetError(f"the mesh {mesh} has no 'dp' axis")
         self.mesh = mesh
-        dev = mesh.device
+        self._params = None
+        self.num_update = 0
+        self._fuse = bool(fuse_step)
+        self._capture = StepCapture("DataParallelTrainer.step")
+        self._scalars = None
+        if not any(isinstance(p, UninitializedParameter)
+                   for p in block.parameters()):
+            self._setup()
+
+    def _setup(self):
+        """The trainable parameters and the optimizer's states, once
+        every parameter shape is known."""
+        self._params = [p for p in self.block.parameters()
+                        if p.requires_grad]
+        if not self._params:
+            raise MXNetError("the block has no trainable parameters")
+        dev = self.mesh.device
         for p in self._params:
             if p.device != dev:
                 raise MXNetError(f"a parameter is on {p.device}, the mesh "
                                  f"on {dev}: initialize the block on the "
                                  "mesh's device")
-        self._states = [self.optimizer.create_state(p)
-                        for p in self._params]
-        self.num_update = 0
-        self._fuse = bool(fuse_step)
-        self._capture = StepCapture("DataParallelTrainer.step")
-        self._scalars = None
+        self._states = self._rule.states(self.optimizer, self._params)
+
+    def _resolve_shapes(self, data):
+        """One predict-mode call without recording, so that every
+        deferred parameter shape is known (the reference's ``_setup``)."""
+        with autograd.pause(), torch.no_grad():
+            self.block(*[None if x is None else NDArray(x)
+                         for x in data])
+        self._setup()
 
     @property
     def captures(self):
@@ -118,7 +185,7 @@ class DataParallelTrainer:
     def _body(self, nd_in, given, *tensors):
         """One step on ``tensors`` (the data inputs that are not None, as
         ``given`` marks them, then the label): what a graph captures.
-        Adam reads the scalars staged in ``_run``."""
+        The update reads the scalars staged in ``_run``."""
         it = iter(tensors)
         data = [next(it) if g else None for g in given]
         label = next(it)
@@ -139,16 +206,18 @@ class DataParallelTrainer:
             grads = torch.autograd.grad(loss, self._params,
                                         allow_unused=True,
                                         materialize_grads=True)
-        self.optimizer.apply(self._params, grads, self._states,
-                             self._scalars)
+        self._rule.apply(self.optimizer, self._params, grads, self._states,
+                         self._scalars)
         return (loss.detach(),)
 
     def _run(self, data, label, nd_in):
         """Stage step ``num_update + 1``'s scalars and run the step
         (captured or replayed with ``fuse_step``); returns the loss."""
         from ..contrib import amp
+        if self._params is None:
+            self._resolve_shapes(data)
         t = self.num_update + 1
-        self._scalars = self.optimizer.stage(self.mesh.device, t)
+        self._scalars = self._rule.stage(self.optimizer, self.mesh.device, t)
         given = tuple(x is not None for x in data)
         tensors = [x for x in data if x is not None] + [label]
         body = functools.partial(self._body, nd_in, given)
@@ -158,7 +227,7 @@ class DataParallelTrainer:
             if self._fuse:
                 (loss,) = self._capture.run(
                     body, tensors, (nd_in, given,
-                                    self.optimizer.static_key(),
+                                    self._rule.static_key(self.optimizer),
                                     amp.target_dtype()))
             else:
                 (loss,) = body(*tensors)

@@ -86,8 +86,13 @@ def test_parameter_surface():
     fresh = mx.gluon.nn.Dense(2, in_units=3)
     with pytest.raises(MXNetError, match="not been initialized"):
         fresh.collect_params()[fresh.prefix + "weight"].data()
-    with pytest.raises(MXNetError, match="in_units"):
-        mx.gluon.nn.Dense(2)
+    lazy = mx.gluon.nn.Dense(2)                  # in_units deferred
+    w = lazy.collect_params()[lazy.prefix + "weight"]
+    assert w.shape == (2, 0)
+    lazy.initialize(ctx=CPU)
+    with pytest.raises(MXNetError, match="deferred"):
+        w.data()
+    assert lazy(x).shape == (2, 2) and w.shape == (2, 3)
 
 
 def test_grad_req_add_accumulates_over_backwards():

@@ -292,12 +292,17 @@ RANDOM_OPS = {"_random_uniform", "_random_normal", "_random_gamma",
               "Dropout"}
 
 
+# held against the JAX ops, value and gradient, in test_torch_conv_ops.py
+CONV_OPS = {"Convolution", "Pooling", "BatchNorm"}
+
+
 def test_every_op_has_a_case():
-    """Each registered op is held against the JAX package here, or by
-    its statistics in test_torch_autograd.py (the samplers, Dropout)."""
+    """Each registered op is held against the JAX package here, in
+    test_torch_conv_ops.py (CONV_OPS), or by its statistics in
+    test_torch_autograd.py (the samplers, Dropout)."""
     covered = set(UNARY) | set(SCALAR) | set(BROADCAST) | set(CREATION) \
         | {n for n, _ in REDUCE} | set(SHAPE) | {"argmax", "argmin"} \
-        | {"sgd_update", "sgd_mom_update"} | RANDOM_OPS
+        | {"sgd_update", "sgd_mom_update"} | RANDOM_OPS | CONV_OPS
     missing = sorted(set(list_ops()) - covered)
     assert missing == []
 
