@@ -25,7 +25,13 @@ Phases, each printing JSON lines:
             (CUDA events around the calls), kept for the host's cost of
             a wrapper call. The library's backward computes dQ, dK and
             dV in one kernel, so K2 + K3 are compared with the whole of
-            it; each one's share of it is only an estimate.
+            it; each one's share of it is only an estimate.  Each
+            output is held to an absolute limit (TOL) and to two
+            scale-free ones: the worst row's error over that row's rms
+            in the plain version, and the tensor's relative L2
+            (ROW_TOL, L2_TOL), printed beside the reference's typical
+            size; the same measures of the plain output with half its
+            positions zeroed must exceed both.
 4. parity:  llama_tiny in float32 on the card against the CPU: Server's
             greedy tokens with decode_steps 1 and 4 (every dispatch a
             graph replay after its variant's first graph, the flash
@@ -87,8 +93,9 @@ Phases, each printing JSON lines:
             the eager loop in phases 10-11.
 12. rtc:    mx.rtc.CudaModule (K4) compiles the user kernels (the five of
             tests/test_rtc.py, in CUDA) with NVRTC for sm_90a; each against
-            its plain version; axpy timed (device time) at 2^26 f32
-            against torch.add and its bound; the host time of a launch; and one SGD update of the
+            its plain version; axpy timed (device time, CUDA events
+            behind a spin kernel) at 2^26 f32 against torch.add and its
+            bound; the host time of a launch; and one SGD update of the
             MLP's parameters through axpy on p.data() and p.grad(), equal
             to sgd_update's.
 13. resnet_parity: resnet18_v1 and resnet18_v2 (thumbnail, 10 classes,
@@ -118,8 +125,31 @@ Phases, each printing JSON lines:
             call split into convolution, BatchNorm, GEMM and other; the
             loss falls, the running statistics move and stay finite, and
             no flash kernel runs.
+15. llama_train_parity: llama_tiny (S=128, the full logits) and
+            mistral_tiny (S=256, past its window; the chunked head) at
+            V=61, B=2, float32: 3 steps of the reference's gluon loop
+            (hybridize, gluon.Trainer "adam", record -> net.loss ->
+            backward -> step) on the card and on the CPU from the same
+            weights: losses and weights within 1e-4 relative; on the
+            card one capture, then a forward and a backward replay a
+            step, every flash counter of the f32 route layers x steps.
+            Then chunked_softmax_ce at V=128256, U=4096, N=512 against
+            the full float32 logits (loss, dH, dW within 1e-4) and the
+            memory each needs beyond its inputs and gradients: the
+            chunked one far below the 263 MB of the full logits.
+16. llama_train: the same loop at Llama-3-8B's published width (4096 /
+            14336, 32 heads over 8 KV heads, V=128256, untied head) cut
+            to 4 layers, bf16 AMP, Adam lr 1e-4, one sequence of 4096
+            seeded tokens: two timed windows (5 and 20 steps) after 3
+            warm-ups; tokens/s, ms a step, MFU of the bf16 part and the
+            float32 head's share, peak memory, the CachedOp's pool; one
+            capture before the windows, every timed step one forward and
+            one backward replay, K1, K2 and K3 each 4 a step; a profiled
+            step split into flash, bf16 GEMM, head (the chunked
+            cross-entropy, measured alone), Adam and other.
 
-Then one line of per-kernel numbers ({"kernels": [...]}), the card's name
+The kernels phase also runs K1-K3 at Llama-3-8B's training shape (B=1,
+S=4096, H=32 over KV=8, D=128, causal, bf16).  Then one line of per-kernel numbers ({"kernels": [...]}), the card's name
 and power limit as nvidia-smi gives them, and as the last line
 {"ok": true, "device": {...}}.  Any failed check exits nonzero.
 ``--phases`` runs a subset (for quick checks of a new kernel).
@@ -144,7 +174,8 @@ H100_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 without TF32
 ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,"
               "train_capture_parity,dropout,train,imperative_parity,"
-              "imperative,rtc,resnet_parity,resnet")
+              "imperative,rtc,resnet_parity,resnet,llama_train_parity,"
+              "llama_train")
 SERVING_PHASES = {"device", "build", "parity", "serve"}
 
 
@@ -191,12 +222,20 @@ def cuda_time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+#: idle seconds at each end of a profiled window (see ``profiled``)
+EDGE_S = 0.02
+
+
 def profiled(fn, reps):
     """torch.profiler's ``key_averages()`` over ``reps`` back-to-back
     calls of ``fn`` (the schedule's own step annotation left out), taken
     as the active step of a profiler schedule after one warm-up call in
     the same session: the launches at the very start of a session are
-    sometimes not recorded."""
+    sometimes not recorded.  The card idles ``EDGE_S`` at each end of
+    the active step: the profiler drops a kernel whose device timestamps
+    fall outside the step's host-clock window, so a kernel launched right
+    at its start or ending right at its end could be lost to the skew
+    between the two clocks."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -205,12 +244,49 @@ def profiled(fn, reps):
         fn()
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(EDGE_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(EDGE_S)
         prof.step()
     return [ev for ev in prof.key_averages()
             if not ev.key.startswith("ProfilerStep")]
+
+
+def queued_ms(fn, reps, warmup=2, tries=3):
+    """Device time of one call from CUDA events, the host's pace kept
+    out: a spin kernel holds the stream while the host enqueues the start
+    event, ``reps`` calls and the end event, so the calls run back to
+    back on the card.  Fails unless the host had enqueued them all
+    before the spin ended (a longer spin is tried first).  For kernels
+    launched through the driver API (NVRTC's ``cuLaunchKernel``), of
+    which torch.profiler loses a few launches in 20 (1 to 3 on an H100),
+    so that ``device_ms`` cannot count them; the events see every
+    launch."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(tries):
+        spin, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        spin.record()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        spin_ms = spin.elapsed_time(start)
+        if host_ms < spin_ms:
+            return start.elapsed_time(end) / reps
+        cycles *= 8
+    fail(f"queued_ms: the host took {host_ms} ms to enqueue {reps} calls, "
+         f"longer than the {spin_ms} ms spin meant to hold them back")
 
 
 def device_ms(fn, reps, warmup=2, by_kernel=False, tries=5):
@@ -219,9 +295,10 @@ def device_ms(fn, reps, warmup=2, by_kernel=False, tries=5):
     self device time times its launches a call, summed.  The host's pace
     does not enter it.  Every call runs the same kernels, so each must
     be recorded a nonzero multiple of ``reps`` times; the profiler
-    drops an event now and then (one NVRTC launch in 20), so a count
-    within 10 % of such a multiple passes, and a window that lost more
-    is taken again, up to ``tries`` windows.  With ``by_kernel`` also
+    drops an event now and then, so a count within 10 % of such a
+    multiple passes, and a window that lost more is taken again, up to
+    ``tries`` windows.  Driver-API launches (NVRTC) are lost too often
+    for this count: ``queued_ms`` times them.  With ``by_kernel`` also
     returns {kernel: ms a call}."""
     import torch
     for _ in range(warmup):
@@ -333,10 +410,27 @@ FLASH_CASES = [
          dtype="bfloat16", causal=False, h=12, kv=12, d=64, want_lse=True),
     dict(name="bert_b64_s128_lse_f32", b=64, s_q=128, s_k=128,
          dtype="float32", causal=False, h=12, kv=12, d=64, want_lse=True),
+    # Llama-3-8B training's forward: one sequence of 4096, H=32 over KV=8,
+    # D=128, causal, with the LSE
+    dict(name="llama_train_s4096_lse_bf16", s_q=4096, s_k=4096,
+         dtype="bfloat16", causal=True, want_lse=True),
 ]
 HEADLINE_CASE = "bert_b64_s128_lse_bf16"
+LLAMA_TRAIN_CASE = "llama_train_s4096_lse_bf16"
 SERVE_CASE = "prefill_s512_bf16"
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the scale-free limits beside TOL's absolute one (_scaled_err): the worst
+# row's error over that row's rms in the reference, and the whole
+# tensor's relative L2.  Under causal masking a row's size falls with its
+# position (at S=4096 the first keys' dV is ~10x the typical key's), so
+# an absolute limit set by the largest rows cannot see the small ones.
+# Set from the readings of every case on an H100 (PERF.md section 6):
+# the worst sound readings were, bf16, 3.3e-2 a row and 2.1e-3 in L2;
+# f32, 9.3e-3 a row (a floored row of rounding size; 5.7e-6 elsewhere)
+# and 2.6e-7 in L2; a wrong output (_check_scaled) reads >= 3.7 a row
+# and >= 0.16 in L2
+ROW_TOL = {"bfloat16": 0.1, "float32": 3e-2}
+L2_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
 
 # the backward (K2 dQ, K3 dK/dV) against flash_bwd_plain, with a random
 # dO; tolerance TOL[dtype] * max(1, max|ref|) on each gradient, and
@@ -385,8 +479,13 @@ BWD_CASES = [
          causal=True, h=8, kv=2, d=256),
     dict(name="d256_s256_f32", s_q=256, s_k=256, dtype="float32",
          causal=True, h=8, kv=2, d=256),
+    # Llama-3-8B training's backward: batch 1, S=4096, causal GQA (K3
+    # sums each group of 4 query heads)
+    dict(name="llama_train_s4096_bf16", s_q=4096, s_k=4096,
+         dtype="bfloat16", causal=True),
 ]
 BWD_HEADLINE_CASE = "bert_b64_s128_bf16"
+LLAMA_TRAIN_BWD_CASE = "llama_train_s4096_bf16"
 
 
 def _case_inputs(case, dev, n_q=1):
@@ -423,6 +522,51 @@ def _case_inputs(case, dev, n_q=1):
     return (q, k, v, *extra), kmask, keep
 
 
+def _scaled_err(got, ref):
+    """The error of ``got`` against ``ref`` on the scale of ``ref``: the
+    largest over rows (one position and head, over D) of the row's max
+    abs error over the row's rms in ``ref`` (a row below 1e-3 of the
+    tensor's rms is held over that floor: a query that sees one key has
+    a dQ of rounding size), the relative L2 of the whole tensor, and the
+    reference's typical size (its rms, and its rows' median rms)."""
+    import torch
+    a, r = got.float(), ref.float()
+    rms = r.square().mean().sqrt().clamp_min(1e-30)
+    row_rms = r.square().mean(dim=-1).sqrt()
+    row_err = (a - r).abs().amax(dim=-1)
+    row_rel = row_err / torch.maximum(row_rms, 1e-3 * rms)
+    return {"row_rel_max": row_rel.max().item(),
+            "rel_l2": ((a - r).norm() / r.norm().clamp_min(1e-30)).item(),
+            "ref_rms": rms.item(),
+            "ref_row_rms_median": row_rms.median().item(),
+            "ref_row_rms_median_late":
+                row_rms[:, r.shape[1] // 2:].median().item(),
+            "ref_max_abs": r.abs().max().item()}
+
+
+def _check_scaled(case, name, got, ref):
+    """_scaled_err of one output, held to ROW_TOL and L2_TOL; and the
+    same measures of a wrong output, ``ref`` with the second half of its
+    positions zeroed, which must exceed both limits."""
+    e = _scaled_err(got, ref)
+    dt = case["dtype"]
+    wrong = ref.clone()
+    wrong[:, ref.shape[1] // 2:] = 0
+    w = _scaled_err(wrong, ref)
+    e["wrong_half_zero"] = {"row_rel_max": w["row_rel_max"],
+                            "rel_l2": w["rel_l2"]}
+    check(w["row_rel_max"] > ROW_TOL[dt] and w["rel_l2"] > L2_TOL[dt],
+          f"{case['name']}: {name} with half its positions zeroed reads "
+          f"{w}, within the limits")
+    check(e["row_rel_max"] <= ROW_TOL[dt],
+          f"{case['name']}: {name} worst row error over its rms "
+          f"{e['row_rel_max']} > {ROW_TOL[dt]}")
+    check(e["rel_l2"] <= L2_TOL[dt],
+          f"{case['name']}: {name} relative L2 error {e['rel_l2']} > "
+          f"{L2_TOL[dt]}")
+    return e
+
+
 def _bound(flops, nbytes, dtype):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -457,6 +601,7 @@ def _flash_case(case, dev):
         lse_err = (lse - ref_lse).abs().max().item()
         check(lse_err <= tol, f"{case['name']}: lse error {lse_err} > {tol}")
     check(err <= tol, f"{case['name']}: max abs error {err} > {tol}")
+    scaled = _check_scaled(case, "out", out, ref)
 
     def kernel():
         return fa.flash_fwd(q, k, v, scale, causal=causal, kmask=kmask,
@@ -489,7 +634,9 @@ def _flash_case(case, dev):
            "dtype": case["dtype"], "causal": causal, "window": window,
            "key_padding": kmask is not None, "max_abs_err": err,
            "mean_abs_ref": ref.float().abs().mean().item(),
-           "lse_max_abs_err": lse_err, "tol": tol, "kernel_ms": kernel_ms,
+           "lse_max_abs_err": lse_err, "tol": tol, "scaled_err": scaled,
+           "row_tol": ROW_TOL[case["dtype"]],
+           "l2_tol": L2_TOL[case["dtype"]], "kernel_ms": kernel_ms,
            "launch_ms": launch_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "kernel_over_library": kernel_ms / library_ms,
@@ -533,7 +680,7 @@ def _flash_bwd_case(case, dev):
     torch.cuda.synchronize()
     ref = fa.flash_bwd_plain(q, k, v, out, lse, g, scale, **kw)
     tol = TOL[case["dtype"]]
-    errs, limits = {}, {}
+    errs, limits, scaled = {}, {}, {}
     for name, a, r in zip(("dq", "dk", "dv"), got, ref):
         check(torch.isfinite(a.float()).all().item(),
               f"{case['name']}: non-finite {name}")
@@ -542,6 +689,7 @@ def _flash_bwd_case(case, dev):
         check(errs[name] <= limits[name],
               f"{case['name']}: {name} max abs error {errs[name]} > "
               f"{limits[name]}")
+        scaled[name] = _check_scaled(case, name, a, r)
     # exact zeros: a query that sees no key, a key that no query sees
     blind_q = ~keep.any(dim=2)                            # (B, S_q)
     blind_k = ~keep.any(dim=1)                            # (B, S_k)
@@ -616,7 +764,9 @@ def _flash_bwd_case(case, dev):
            "b": b, "h": h, "kv": kv, "d": d, "s_q": s_q, "s_k": s_k,
            "dtype": case["dtype"], "causal": causal, "window": window,
            "key_padding": kmask is not None, "max_abs_err": errs,
-           "limit": limits, "forced_zeros": zeros,
+           "limit": limits, "scaled_err": scaled,
+           "row_tol": ROW_TOL[case["dtype"]],
+           "l2_tol": L2_TOL[case["dtype"]], "forced_zeros": zeros,
            "kernel_ms": kernel_ms, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
            "launch_ms": launch_ms, "dq_launch_ms": dq_launch_ms,
            "dkv_launch_ms": dkv_launch_ms, "plain_ms": plain_ms,
@@ -815,10 +965,11 @@ def phase_rtc(mx, dev):
 
     def axpy():
         k["axpy"].launch([x, y, alpha, n], ctx, grid, block)
-    ms = device_ms(axpy, reps=reps)
+    # all three timed alike, with the host's pace kept out (queued_ms)
+    ms = queued_ms(axpy, reps=reps)
     launch_ms = cuda_time_ms(axpy, reps=reps)
-    plain_ms = device_ms(lambda: axpy_plain(x._t, y._t, alpha), reps=reps)
-    library_ms = device_ms(lambda: torch.add(y._t, x._t, alpha=alpha),
+    plain_ms = queued_ms(lambda: axpy_plain(x._t, y._t, alpha), reps=reps)
+    library_ms = queued_ms(lambda: torch.add(y._t, x._t, alpha=alpha),
                            reps=reps)
     nbytes = 12 * n
     bound_ms, bound_by = _bound(2.0 * n, nbytes, "float32")
@@ -1518,6 +1669,340 @@ def phase_resnet(mx, dev, cfg=RESNET50):
               f"{row['last_read']}")
     check(not any(launches.values()),
           f"resnet: the ResNet path launched flash kernels {launches}")
+
+
+# -- phases 15-16: Llama training ----------------------------------------------
+
+# the reference's gluon loop at Llama-3-8B's published width: untied head,
+# depth cut from 32 layers to 4 (Adam's float32 state of the whole model,
+# 16 B a parameter, is 128.5 GB); one sequence of 4096 tokens a step
+LLAMA_TRAIN = dict(config="llama3_8b", vocab=128256, layers=4,
+                   batch_size=1, seq_len=4096, lr=1e-4, warmup=3,
+                   windows=(5, 20), vocab_chunk=8192)
+# the parity runs: (config, sequence length, vocab_chunk); both lengths
+# take the flash kernels' f32 routes, mistral_tiny's 256 crosses its
+# window of 32; llama_tiny's loss takes the full logits, mistral_tiny's
+# the chunked head
+LLAMA_PARITY = (("llama_tiny", 128, None), ("mistral_tiny", 256, 16))
+LLAMA_PARITY_TOL = 1e-4
+# chunked_softmax_ce against the full logits on the card
+CE_CHECK = dict(n=512, units=4096, vocab=128256, chunk=8192)
+
+
+def _llama_loop(mx, net, tokens, steps, lr, vocab_chunk=None):
+    """The reference's training loop (``tests/test_llama.py``): hybridize,
+    gluon.Trainer "adam", record -> net.loss -> backward -> step(B).
+    Returns (losses, trainer, the CachedOp the loss runs through)."""
+    from mxnet_tpu_torch import autograd, gluon
+    net.hybridize()
+    tr = gluon.Trainer(net.collect_params(), "adam", {"learning_rate": lr})
+    losses = []
+    for _ in range(steps):
+        with autograd.record():
+            loss = net.loss(tokens, vocab_chunk=vocab_chunk)
+        loss.backward()
+        tr.step(tokens.shape[0])
+        losses.append(float(loss.asnumpy()))
+    # the chunked head calls the model; the full logits, the whole LM
+    op = net.model._cached_op if vocab_chunk else net._cached_op
+    return losses, tr, op
+
+
+def _chunked_ce_check(dev, cfg=CE_CHECK):
+    """chunked_softmax_ce on the card at Llama-3-8B's vocabulary against
+    the full (N, V) float32 logits on the same inputs: loss, dH and dW
+    within LLAMA_PARITY_TOL relative, and the memory each needs beyond
+    its inputs and gradients."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as ops
+    n, u, v = cfg["n"], cfg["units"], cfg["vocab"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    h = torch.randn(n, u, generator=g, device=dev).requires_grad_(True)
+    w = (torch.randn(v, u, generator=g, device=dev) * 0.02) \
+        .requires_grad_(True)
+    lbl = torch.randint(0, v, (n,), generator=g, device=dev).float()
+    grad_bytes = 4 * (n * u + v * u)
+
+    def run(fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        loss = fn()
+        torch.cuda.synchronize(dev)
+        fwd = torch.cuda.max_memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        gh, gw = torch.autograd.grad(loss.sum(), (h, w))
+        torch.cuda.synchronize(dev)
+        bwd = torch.cuda.max_memory_allocated(dev) - base - grad_bytes
+        return loss.detach(), gh, gw, fwd, bwd
+
+    def full():
+        logits = h @ w.t()
+        return torch.logsumexp(logits, 1) - logits.gather(
+            1, lbl.long()[:, None])[:, 0]
+    got = run(lambda: ops.chunked_softmax_ce(h, w, lbl, chunk=cfg["chunk"]))
+    want = run(full)
+    errs = {k: _rel(a.cpu().numpy(), b.cpu().numpy())
+            for k, a, b in zip(("loss", "d_hidden", "d_weight"), got, want)}
+    logits_bytes = 4 * n * v
+    ms = device_ms(lambda: torch.autograd.grad(
+        ops.chunked_softmax_ce(h, w, lbl, chunk=cfg["chunk"]).sum(),
+        (h, w)), reps=3, warmup=1)
+    row = {"phase": "llama_train_parity", "check": "chunked_softmax_ce",
+           **cfg, "slabs": len(ops._slabs(v, cfg["chunk"])),
+           "rel_err": errs, "tol": LLAMA_PARITY_TOL,
+           "full_logits_bytes": logits_bytes,
+           "fwd_extra_bytes": got[3], "bwd_extra_bytes": got[4],
+           "full_fwd_extra_bytes": want[3],
+           "full_bwd_extra_bytes": want[4], "fwd_bwd_ms": ms}
+    emit(row)
+    for k, e in errs.items():
+        check(e <= LLAMA_PARITY_TOL, f"chunked_softmax_ce: {k} relative "
+              f"error {e} > {LLAMA_PARITY_TOL}")
+    # O(N * chunk): a slab's logits and their gradient, a few at a time,
+    # far below the whole (N, V) logits
+    for k in ("fwd_extra_bytes", "bwd_extra_bytes"):
+        check(row[k] <= logits_bytes / 4,
+              f"chunked_softmax_ce: {k} {row[k]} is not far below the "
+              f"full logits' {logits_bytes} bytes")
+    return row
+
+
+def phase_llama_train_parity(mx, dev, steps=3, lr=1e-3):
+    """llama_tiny (S=128) and mistral_tiny (S=256, past its window of 32)
+    at V=61, B=2, float32: 3 steps of the hybridized gluon loop on the
+    card and on the CPU from the same Xavier weights.  Losses and weights
+    (relative L2 a tensor) within LLAMA_PARITY_TOL; on the card one
+    capture, the later steps a forward and a backward replay each, and
+    every flash counter of the f32 route layers x steps.  Then
+    chunked_softmax_ce at Llama-3-8B's vocabulary against the full
+    logits."""
+    from mxnet_tpu_torch import models
+    free_earlier_phases()
+    rows = []
+    for config, s, chunk in LLAMA_PARITY:
+        tok = np.random.RandomState(0).randint(0, 61, (2, s)).astype("f4")
+
+        def make(ctx):
+            return models.LlamaForCausalLM(
+                models.get_llama(config, vocab_size=61), ctx=ctx)
+        cpu = make(mx.cpu()).initialize(mx.init.Xavier(), seed=5)
+        card = make(mx.gpu(0))
+        _copy_params(cpu, card)
+        want, _, _ = _llama_loop(mx, cpu, mx.nd.array(tok, ctx=mx.cpu()),
+                                 steps, lr, chunk)
+        reset_counts()
+        got, _, op = _llama_loop(mx, card, mx.nd.array(tok, ctx=mx.gpu(0)),
+                                 steps, lr, chunk)
+        launches = read_counts()
+        layers = len(card.model.layers)
+        loss_err = _rel(got, want)
+        weight_err = max(_rel_l2([a.data().asnumpy()], [b.data().asnumpy()])
+                         for a, b in zip(card.collect_params().values(),
+                                         cpu.collect_params().values()))
+        row = {"phase": "llama_train_parity", "config": config,
+               "seq_len": s, "vocab_chunk": chunk, "losses": got,
+               "cpu_losses": want, "loss_rel_err": loss_err,
+               "weight_rel_l2_max": weight_err, "tol": LLAMA_PARITY_TOL,
+               "captures": op.captures, "replays": op.replays,
+               "backward_replays": op.backward_replays,
+               "launches": launches}
+        emit(row)
+        rows.append(row)
+        check(loss_err <= LLAMA_PARITY_TOL and
+              weight_err <= LLAMA_PARITY_TOL,
+              f"llama_train_parity {config}: losses {loss_err}, weights "
+              f"{weight_err} > {LLAMA_PARITY_TOL}")
+        check(got[-1] < got[0], f"llama_train_parity {config}: the loss "
+              f"did not fall {got}")
+        # step 1 eager (the warm-up), step 2 captured and replayed,
+        # step 3 replayed
+        check(op.captures == 1 and op.replays == steps - 1 ==
+              op.backward_replays,
+              f"llama_train_parity {config}: captures {op.captures}, "
+              f"replays {op.replays}, backward {op.backward_replays}")
+        check(all(launches[k] == layers * steps for k in F32_ROUTE)
+              and not any(launches[k] for k in COUNTERS
+                          if k not in F32_ROUTE),
+              f"llama_train_parity {config}: launches {launches}, want "
+              f"{layers} x {steps} on the f32 route")
+    rows.append(_chunked_ce_check(dev))
+    return rows
+
+
+def _llama_split(per_kernel, head_gemm_ms, head_ms):
+    """A profiled step's device time by kind (ms): flash kernels, Adam
+    (the multi-tensor kernels), the head (the chunked cross-entropy,
+    measured alone: ``head_ms``, of it GEMMs ``head_gemm_ms``), the
+    layers' GEMMs (every GEMM kernel of the step less the head's) and
+    the rest."""
+    total = sum(per_kernel.values())
+    flash = sum(t for k, t in per_kernel.items() if "flash_" in k)
+    adam = sum(t for k, t in per_kernel.items()
+               if "multi_tensor_apply" in k)
+    gemm = sum(t for k, t in per_kernel.items() if _is_gemm(k))
+    split = {"device_ms": total, "flash_ms": flash, "adam_ms": adam,
+             "head_ms": head_ms, "head_gemm_ms": head_gemm_ms,
+             "gemm_bf16_ms": gemm - head_gemm_ms,
+             "other_ms": total - flash - adam - head_ms
+             - (gemm - head_gemm_ms)}
+    split["shares"] = {k[:-3]: v / total for k, v in split.items()
+                       if k.endswith("_ms") and k not in ("device_ms",
+                                                          "head_gemm_ms")}
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    split["top_kernels"] = [[k[:100], t] for k, t in top]
+    return split
+
+
+def _is_gemm(name):
+    name = name.lower()
+    return any(g in name for g in ("gemm", "gemv", "cutlass", "nvjet",
+                                   "xmma", "matmul"))
+
+
+def phase_llama_train(mx, dev, cfg=LLAMA_TRAIN):
+    """The reference's Llama training loop at Llama-3-8B's published width
+    (4096 / 14336, 32 heads over 8 KV heads, D=128, V=128256, untied
+    head; ``cfg["layers"]`` layers), bf16 AMP, Adam lr 1e-4, one sequence
+    of 4096 seeded tokens: warm-ups, then two timed windows of the gluon
+    loop; tokens/s, ms a step, MFU, the head's float32 share, peak
+    memory, the CachedOp's pool, captures and replays, launches, and one
+    profiled step split into flash, bf16 GEMM, head, Adam and other."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon, models
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.ops import nn as ops
+    v, layers = cfg["vocab"], cfg["layers"]
+    b, s, lr = cfg["batch_size"], cfg["seq_len"], cfg["lr"]
+    n1, n2 = cfg["windows"]
+    free_earlier_phases()
+    mx.random.seed(0)
+    amp.init(target_dtype="bfloat16")
+    try:
+        t0 = time.perf_counter()
+        net = models.LlamaForCausalLM(
+            models.get_llama(cfg["config"], vocab_size=v, num_layers=layers),
+            tie_embeddings=False, ctx=mx.gpu(0))
+        net.initialize(mx.init.Xavier())
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        net.hybridize()
+        trainer = gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": lr})
+        tok = np.random.RandomState(0).randint(0, v, (b, s)).astype("f4")
+        tokens = mx.nd.array(tok, ctx=mx.gpu(0))
+
+        def step():
+            with autograd.record():
+                loss = net.loss(tokens)
+            loss.backward()
+            trainer.step(b)
+            return loss
+        first = None
+        for _ in range(cfg["warmup"]):
+            loss = step()
+            first = last_loss(loss) if first is None else first
+        op = net.model._cached_op
+        captures0, replays0, bwd0 = op.captures, op.replays, \
+            op.backward_replays
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        step_s, naive_s, windows, used, last = timed_windows(
+            step, n1, n2, "llama_train")
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        reserved = torch.cuda.max_memory_reserved(dev)
+        replays, bwd = op.replays - replays0, op.backward_replays - bwd0
+        captures = op.captures - captures0
+        n_steps = n1 + n2
+        # the profiled step, and the head alone on the same shapes
+        step_ms, per_kernel = device_ms(step, reps=3, warmup=1,
+                                        by_kernel=True)
+        hid = torch.randn(b * (s - 1), net.model._units, device=dev,
+                          requires_grad=True)
+        head_w = net.lm_head.weight
+        lbl = tokens.tensor[:, 1:].reshape(-1)
+
+        def head():
+            return torch.autograd.grad(ops.chunked_softmax_ce(
+                hid, head_w, lbl, chunk=cfg["vocab_chunk"]).sum(),
+                (hid, head_w))
+        head_ms, head_kernels = device_ms(head, reps=3, warmup=1,
+                                          by_kernel=True)
+        head_gemm_ms = sum(t for k, t in head_kernels.items() if _is_gemm(k))
+        del hid, head_kernels
+        split = _llama_split(per_kernel, head_gemm_ms, head_ms)
+        walls = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            step()
+            torch.cuda.synchronize(dev)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        split["wall_ms"] = statistics.median(walls)
+        split["device_busy_share"] = step_ms / split["wall_ms"]
+        pool = op.pool_bytes
+        n_params = sum(p.numel() for p in net.parameters())
+        embed = net.model.embed.weight.numel() + net.lm_head.weight.numel()
+    finally:
+        amp._deinit()
+    u, heads = net.model._units, net.model.layers[0].attn._h
+    d = net.model.layers[0].attn._d
+    t = b * s
+    non_embed = n_params - embed
+    # causal attention: QK^T and PV over the kept half of the pairs,
+    # 2 S^2 D H a layer forward, twice that backward
+    attn_flops = 3 * layers * b * 2.0 * s * s * d * heads
+    bf16_flops = 6.0 * non_embed * t + attn_flops
+    # the head in float32: four products of 2 T U V (forward, the
+    # backward's recompute, dH, dW) over B (S - 1) rows
+    head_flops = 4 * 2.0 * b * (s - 1) * u * v
+    bound_s = bf16_flops / PEAK_FLOPS["bfloat16"] \
+        + head_flops / PEAK_FLOPS["float32"]
+    row = {"phase": "llama_train", "config": cfg["config"],
+           "units": u,
+           "hidden": net.model.layers[0].mlp.gate_proj.weight.shape[0],
+           "heads": heads,
+           "kv_heads": net.model.layers[0].attn._kv, "head_dim": d,
+           "vocab": v, "layers": layers, "tied": False,
+           "batch_size": b, "seq_len": s, "dtype": "bfloat16 AMP",
+           "optimizer": "adam", "lr": lr, "params": n_params,
+           "non_embedding_params": non_embed, "weights_init_s": init_s,
+           "warmup": cfg["warmup"], "windows": [n1, n2],
+           "window_s": windows, "step_ms": step_s * 1e3,
+           "naive_step_ms": naive_s * 1e3, "timing": used,
+           "tokens_per_s": t / step_s,
+           "mfu": bf16_flops / step_s / PEAK_FLOPS["bfloat16"],
+           "bf16_flops_per_step": bf16_flops,
+           "attention_flops_per_step": attn_flops,
+           "head_f32_flops_per_step": head_flops,
+           "head_f32_bound_ms": head_flops / PEAK_FLOPS["float32"] * 1e3,
+           "step_bound_ms": bound_s * 1e3,
+           "bound_over_step": bound_s / step_s,
+           "first_loss": first, "last_loss": last,
+           "peak_mem_bytes": peak, "peak_reserved_bytes": reserved,
+           "cachedop": {"entries": len(op), "captures": op.captures,
+                        "pool_bytes": pool},
+           "captures_counted": captures, "replays_counted": replays,
+           "backward_replays_counted": bwd, "steps_counted": n_steps,
+           **launches, "card": nvidia_smi()}
+    emit(row)
+    emit(dict({"phase": "llama_train_breakdown",
+               "call": "gluon loop step (profiled)"}, **split))
+    check(math.isfinite(last) and last < first,
+          f"llama_train: the loss went from {first} to {last}")
+    check(captures == 0 and op.captures == 1 and len(op) == 1,
+          f"llama_train: {op.captures} captures ({captures} in the timed "
+          f"windows), {len(op)} entries; want one, before the windows")
+    check(replays == n_steps == bwd,
+          f"llama_train: {replays} forward and {bwd} backward replays in "
+          f"the timed windows, want {n_steps} each (no eager step)")
+    check(all(n == layers * n_steps for n in launches.values()),
+          f"llama_train: launches {launches}, want {layers} x {n_steps} "
+          "each (K1 in the forward replay, K2 and K3 in the backward)")
+    return dict(launches, per_step=layers, row=row, split=split)
 
 
 # -- phase 4: parity -----------------------------------------------------------
@@ -2453,23 +2938,28 @@ def _ratios(ms, library_ms, bound_ms):
             "bound_over_kernel": bound_ms / ms}
 
 
-def kernel_entries(rows, bwd_rows, train, serve):
+def kernel_entries(rows, bwd_rows, train, serve, llama):
     """The flash kernels' entries of the {"kernels": [...]} line: each
     at BERT's training shape in bf16 (the main path's route), with its
-    f32 route's numbers at the same shape, and K1 also at the serving
-    prefill."""
+    f32 route's numbers at the same shape, K1 also at the serving
+    prefill, and each at Llama-3-8B's training shape (``llama_train``:
+    its numbers and its launches on that path)."""
     fwd = {r["case"]: r for r in rows}
     bwd = {r["case"]: r for r in bwd_rows}
     head, serve_row = fwd.get(HEADLINE_CASE), fwd.get(SERVE_CASE)
     b16, b32 = bwd.get(BWD_HEADLINE_CASE), bwd.get("bert_b64_s128_f32")
     f32 = fwd.get("bert_b64_s128_lse_f32")
-    if None in (head, serve_row, b16, b32, f32):
+    l_fwd, l_bwd = fwd.get(LLAMA_TRAIN_CASE), bwd.get(LLAMA_TRAIN_BWD_CASE)
+    if None in (head, serve_row, b16, b32, f32, l_fwd, l_bwd):
         return []
     src = "mxnet_tpu_torch/csrc/"
 
     def fwd_nums(r):
         return dict({"case": r["case"], "cores": r["cores"],
-                     "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                     "max_abs_err": r["max_abs_err"],
+                     "row_rel_err": r["scaled_err"]["row_rel_max"],
+                     "rel_l2_err": r["scaled_err"]["rel_l2"],
+                     "ms": r["kernel_ms"],
                      "launch_ms": r["launch_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]},
@@ -2479,8 +2969,12 @@ def kernel_entries(rows, bwd_rows, train, serve):
         err = (r["max_abs_err"]["dq"] if part == "dq" else
                max(r["max_abs_err"]["dk"], r["max_abs_err"]["dv"]))
         ms, est = r[f"{part}_ms"], r[f"library_{part}_share_est_ms"]
+        outs = ("dq",) if part == "dq" else ("dk", "dv")
+        sc = [r["scaled_err"][o] for o in outs]
         return {"case": r["case"], "cores": r[f"{part}_cores"],
-                "max_abs_err": err, "ms": ms,
+                "max_abs_err": err,
+                "row_rel_err": max(e["row_rel_max"] for e in sc),
+                "rel_l2_err": max(e["rel_l2"] for e in sc), "ms": ms,
                 "launch_ms": r[f"{part}_launch_ms"],
                 "plain_ms": r["plain_ms"],
                 "bound_ms": r[f"{part}_bound_ms"],
@@ -2491,6 +2985,9 @@ def kernel_entries(rows, bwd_rows, train, serve):
                 "kernel_over_library": r["kernel_ms"] / r["library_ms"],
                 "over_library_share_est": ms / est,
                 "bound_over_kernel": r[f"{part}_bound_ms"] / ms}
+    def on_llama(nums, counter):
+        return dict(nums, launches=llama.get(counter),
+                    launches_per_step=llama.get("per_step"))
     whole = ("plain_ms is flash_bwd_plain and library_ms the backward of "
              "F.scaled_dot_product_attention, each computing dq, dk and "
              "dv together; kernel_over_library is K2 + K3 (k2_plus_k3_ms) "
@@ -2510,6 +3007,8 @@ def kernel_entries(rows, bwd_rows, train, serve):
               "generate_fused_launches": serve.get(
                   "generate_fused_launches"),
               "serve": fwd_nums(serve_row),
+              "llama_train": on_llama(fwd_nums(l_fwd),
+                                      "flash_fwd_tc_launches"),
               "f32": dict(fwd_nums(f32), design=DESIGN["cuda_cores"])},
              **fwd_nums(head)),
         dict({"name": "flash_bwd_dq", "route": "cuda",
@@ -2520,6 +3019,8 @@ def kernel_entries(rows, bwd_rows, train, serve):
               "tc_launches": train.get("flash_bwd_dq_tc_launches"),
               "launches_per_replay": train.get("per_replay", {}).get(
                   "flash_bwd_dq_launches"),
+              "llama_train": on_llama(bwd_nums(l_bwd, "dq"),
+                                      "flash_bwd_dq_tc_launches"),
               "f32": dict(bwd_nums(b32, "dq"), design=DESIGN["cuda_cores"]),
               "plain_and_library": whole}, **bwd_nums(b16, "dq")),
         dict({"name": "flash_bwd_dkv", "route": "cuda",
@@ -2530,6 +3031,8 @@ def kernel_entries(rows, bwd_rows, train, serve):
               "tc_launches": train.get("flash_bwd_dkv_tc_launches"),
               "launches_per_replay": train.get("per_replay", {}).get(
                   "flash_bwd_dkv_launches"),
+              "llama_train": on_llama(bwd_nums(l_bwd, "dkv"),
+                                      "flash_bwd_dkv_tc_launches"),
               "f32": dict(bwd_nums(b32, "dkv"), design=DESIGN["cuda_cores"]),
               "plain_and_library": whole}, **bwd_nums(b16, "dkv")),
     ]
@@ -2594,8 +3097,11 @@ def main():
         phase_resnet_parity(mx, dev)
     if "resnet" in phases:
         phase_resnet(mx, dev)
+    if "llama_train_parity" in phases:
+        phase_llama_train_parity(mx, dev)
+    llama = phase_llama_train(mx, dev) if "llama_train" in phases else {}
 
-    kernels = kernel_entries(rows, bwd_rows, train, serve)
+    kernels = kernel_entries(rows, bwd_rows, train, serve, llama)
     if rtc is not None:
         kernels.append(
             {"name": "rtc_axpy", "route": "cuda",

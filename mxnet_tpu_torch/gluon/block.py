@@ -37,6 +37,7 @@ gluon surface.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import re
 import threading
@@ -51,10 +52,26 @@ from ..context import current_context
 from ..ndarray.ndarray import NDArray, _ctx_of
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "CachedOp"]
+__all__ = ["Block", "HybridBlock", "CachedOp", "inline_calls"]
 
 _naming = threading.local()
 _mode = threading.local()
+
+
+@contextlib.contextmanager
+def inline_calls():
+    """Blocks called inside run as plain modules, as inside another
+    block's call: no CachedOp of their own, in predict mode (or the
+    enclosing call's mode), with the caller's grad mode.  For a model's
+    tensor methods that call its blocks one by one (the Llama serving
+    methods ``prefill`` and ``decode_step``)."""
+    prev = getattr(_mode, "training", None)
+    if prev is None:
+        _mode.training = False
+    try:
+        yield
+    finally:
+        _mode.training = prev
 
 
 class _BlockScope:

@@ -224,13 +224,14 @@ class CompiledStep:
         tr = self.trainer
         opt = tr._optimizer
         opt.rescale_grad = tr._scale / batch_size
+        # the counts first: Adam's bias correction reads this step's
+        for i in self._tr_idx:
+            opt._update_count(i)
         opt.stage(label.tensor.device)
         tensors = [a.tensor for a in args] + [label.tensor]
         (loss,) = self._capture.run(
             functools.partial(self._body, len(args)), tensors,
             (len(args), opt.static_key(self._tr_idx), amp.target_dtype()))
-        for i in self._tr_idx:
-            opt._update_count(i)
         self.last_path = "compiled"
         # a replay's output is the graph's buffer, which the next
         # replay overwrites

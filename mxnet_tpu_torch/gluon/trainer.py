@@ -1,6 +1,7 @@
 """Gluon ``Trainer``: applies an optimizer over a set of Parameters, as
 the JAX package's ``gluon/trainer.py`` on one context.
 
+The optimizer is ``"sgd"``, ``"adam"`` or an ``mx.optimizer.Optimizer``.
 ``step(batch_size)`` sets the optimizer's ``rescale_grad`` to
 ``1 / batch_size`` (times the optimizer's own) and updates every
 parameter whose ``grad_req`` is not ``"null"`` from its gradient buffer,
@@ -53,11 +54,6 @@ class Trainer:
             self._optimizer = optimizer
             self._optimizer.param_dict = param_dict
         else:
-            klass = opt.Optimizer.opt_registry.get(str(optimizer).lower())
-            if klass is not None and not issubclass(klass, opt.Optimizer):
-                raise MXNetError(f"optimizer {optimizer!r} is not an "
-                                 "mx.optimizer.Optimizer: Trainer has "
-                                 "'sgd'")
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **(optimizer_params or {}))
         self._scale = self._optimizer.rescale_grad

@@ -122,36 +122,62 @@ def load_jax_bert_params(model, params: Dict[str, np.ndarray]):
         model, params, lambda n: jax_bert_name_to_torch(n, pretrain))
 
 
+_BLOCK_PREFIX = re.compile(r"^([^_]*?)\d*_(.*)$")
+
+
+def _unnumbered(name: str, what: str):
+    """(block alias, rest) of a parameter name, the number of its
+    leading block prefix taken off: ``llamamodel3_layer0_attn_q_weight``
+    -> (``llamamodel``, ``layer0_attn_q_weight``), ``mlp_dense0_bias``
+    -> (``mlp``, ``dense0_bias``)."""
+    m = _BLOCK_PREFIX.match(name)
+    if m is None:
+        raise MXNetError(f"{what} {name!r} has no block prefix")
+    return m.groups()
+
+
 def load_jax_gluon_params(block, params: Dict[str, np.ndarray],
-                          jax_prefix: str):
+                          jax_prefix: str = None):
     """Copy a JAX gluon block's parameters into the port's ``block`` (a
     gluon ``Block``, initialized) by name.  ``params`` is
-    ``{name: array}`` from the JAX block's ``collect_params()``, whose
-    names start with ``jax_prefix`` (the JAX block's ``prefix``); each is
-    matched to the port's ``collect_params()`` name that has
-    ``block.prefix`` in its place.  Raises ``MXNetError`` on a missing,
-    extra, unknown or wrong-shape name."""
+    ``{name: array}`` from the JAX block's ``collect_params()``.
+
+    Each name is matched to the port's ``collect_params()`` name that is
+    the same with the number of its leading block prefix taken off, so a
+    model whose parameters sit under several top-level blocks (a
+    ``LlamaForCausalLM``: ``llamamodel<N>_...`` and, untied,
+    ``llamaforcausallm<N>_head_weight``) maps whatever the numbers in
+    either process.  With ``jax_prefix`` (the JAX block's ``prefix``)
+    every name must also start with it.  Raises ``MXNetError`` on a
+    missing, extra, unknown or wrong-shape name, and on two port names
+    that differ only in their block numbers."""
     own = block.collect_params()
-    seen = set()
+    by_key = {}
+    for tname in own.keys():
+        key = _unnumbered(tname, "port parameter")
+        if key in by_key:
+            raise MXNetError(f"{tname!r} and {by_key[key]!r} differ only "
+                             "in their block numbers")
+        by_key[key] = tname
+    mapped = {}
     for name, value in params.items():
-        if not name.startswith(jax_prefix):
+        if jax_prefix is not None and not name.startswith(jax_prefix):
             raise MXNetError(f"{name!r} does not start with the prefix "
                              f"{jax_prefix!r}")
-        tname = block.prefix + name[len(jax_prefix):]
-        if tname not in own:
+        tname = by_key.get(_unnumbered(name, "parameter"))
+        if tname is None or tname not in own:
             raise MXNetError(f"{name!r} maps to {tname!r}, which this "
                              "block does not have")
         arr = np.asarray(value)
         if tuple(arr.shape) != own[tname].shape:
             raise MXNetError(f"{name!r}: shape {tuple(arr.shape)} does not "
                              f"match {tname!r} {own[tname].shape}")
-        seen.add(tname)
-    missing = sorted(set(own.keys()) - seen)
+        mapped[tname] = arr
+    missing = sorted(set(own.keys()) - set(mapped))
     if missing:
         raise MXNetError(f"parameters missing from the dict: {missing}")
-    for name, value in params.items():
-        own[block.prefix + name[len(jax_prefix):]].set_data(
-            np.ascontiguousarray(value))
+    for tname, arr in mapped.items():
+        own[tname].set_data(np.ascontiguousarray(arr))
     return block
 
 

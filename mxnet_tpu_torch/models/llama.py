@@ -1,16 +1,29 @@
-"""Llama-family decoder-only LMs in PyTorch.
+"""Llama-family decoder-only LMs as gluon HybridBlocks.
 
-* RMSNorm, RoPE (adjacent feature pairs) and grouped-query attention
-  as in the JAX package's ``models/llama.py``; prefill attention goes
-  through ``dot_product_attention``, which sends every aligned prompt
-  to the flash kernel on the card.
+* The blocks are the JAX package's (``models/llama.py``): RMSNorm,
+  RoPE (adjacent feature pairs) and grouped-query attention in
+  ``hybrid_forward(F, ...)`` over the registered ops (``F.RMSNorm``,
+  ``F.rope``, ``F.dot_product_attention``, ``F.silu``), Dense layers
+  without bias, and the reference's parameter names under
+  ``collect_params()`` (``llamamodel0_layer0_attn_q_weight``, ...).  On
+  the card attention reaches the flash kernels: the forward (K1) and,
+  when it records, the backward (K2, K3).
 * ``get_llama`` builds the structure on the ``meta`` device (no
   memory); ``LlamaForCausalLM(model, ctx=..., dtype=...)`` places it on
-  its context and fills it from the context's seeded generator, so
-  the full Llama-3-8B geometry is made on the card directly.
-* KV caches are (B, C, KV, D) tensors updated IN PLACE by ``prefill``
-  and ``decode_step``.
-* ``generate`` samples on the host, one decode step a token;
+  its context and fills it from the context's seeded generator
+  (Normal(0, 0.02), unit norm gains), so the full Llama-3-8B geometry is
+  made on the card directly.  ``initialize(mx.init.Xavier())`` refills it
+  as gluon does.
+* Training is the reference's gluon loop: ``hybridize()``,
+  ``gluon.Trainer(net.collect_params(), "adam", ...)``, ``net.loss(tokens)``
+  inside ``autograd.record()``, ``backward()``, ``trainer.step(B)``.  The
+  hybridized ``LlamaModel`` is one CUDA-graph replay a recorded call and
+  one at its backward; :meth:`LlamaForCausalLM.loss` streams the head
+  through ``chunked_softmax_ce`` around it, eagerly.
+* Serving: ``prefill``, ``decode_step`` and the ``generate`` family are
+  tensor methods over the same blocks, run inline (no CachedOp of their
+  own).  KV caches are (B, C, KV, D) tensors updated IN PLACE.
+  ``generate`` samples on the host, one decode step a token;
   ``generate_fused`` runs the whole generation as one CUDA-graph replay
   a call; ``generate_beam`` is beam search over the same cache
   (``nmt.BeamSearchSampler``), eagerly.
@@ -24,51 +37,52 @@ import functools
 
 import numpy as np
 import torch
-from torch import nn
 
 from .._capture import StepCapture
 from ..base import MXNetError, torch_dtype
 from ..context import current_context
+from ..gluon.block import HybridBlock, inline_calls
+from ..gluon.nn import Dense, Embedding
+from ..initializer import param
+from ..ndarray.ndarray import NDArray, _ctx_of
 from ..ops.attention import dot_product_attention, rope
-from ..ops.nn import cache_update, dot, embedding, rms_norm, silu, take
+from ..ops.nn import cache_update, dot, take
 from ..ops.random_ops import pick_tokens
 
 __all__ = ["LlamaModel", "LlamaForCausalLM", "RMSNormBlock",
            "get_llama", "llama_tiny", "llama3_8b"]
 
-_META = "meta"
+
+def _dense(out_units, in_units, prefix):
+    return Dense(out_units, flatten=False, use_bias=False,
+                 in_units=in_units, prefix=prefix)
 
 
-def _linear(in_units, out_units):
-    return nn.Linear(in_units, out_units, bias=False, device=_META)
+def _inline(method):
+    """A serving method: the blocks it calls run inline."""
+    @functools.wraps(method)
+    def wrapper(*args, **kwargs):
+        with inline_calls():
+            return method(*args, **kwargs)
+    return wrapper
 
 
-class RMSNormBlock(nn.Module):
-    """RMSNorm with learned gamma; Llama's eps is 1e-5."""
+class RMSNormBlock(HybridBlock):
+    """RMSNorm with learned gamma (op ``RMSNorm``); Llama's eps is 1e-5."""
 
-    def __init__(self, units, eps=1e-5):
-        super().__init__()
-        self.eps = eps
-        self.gamma = nn.Parameter(torch.ones(units, device=_META))
+    def __init__(self, units, eps=1e-5, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._eps = eps
+        self.gamma = param(units, init="ones")
 
-    def forward(self, x):
-        return rms_norm(x, self.gamma, eps=self.eps)
-
-
-class _Embedding(nn.Module):
-    def __init__(self, vocab_size, units):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(vocab_size, units,
-                                               device=_META))
-
-    def forward(self, tokens):
-        return embedding(tokens, self.weight)
+    def hybrid_forward(self, F, x, gamma=None):
+        return F.RMSNorm(x, gamma, eps=self._eps)
 
 
-class _LlamaAttention(nn.Module):
+class _LlamaAttention(HybridBlock):
     def __init__(self, units, num_heads, num_kv_heads, rope_base,
-                 sliding_window=None):
-        super().__init__()
+                 sliding_window=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if units % num_heads:
             raise MXNetError(f"units {units} % num_heads {num_heads}")
         if num_heads % num_kv_heads:
@@ -79,10 +93,22 @@ class _LlamaAttention(nn.Module):
         self._d = units // num_heads
         self._base = rope_base
         self._window = sliding_window
-        self.q_proj = _linear(units, num_heads * self._d)
-        self.k_proj = _linear(units, num_kv_heads * self._d)
-        self.v_proj = _linear(units, num_kv_heads * self._d)
-        self.o_proj = _linear(num_heads * self._d, units)
+        with self.name_scope():
+            self.q_proj = _dense(num_heads * self._d, units, "q_")
+            self.k_proj = _dense(num_kv_heads * self._d, units, "k_")
+            self.v_proj = _dense(num_kv_heads * self._d, units, "v_")
+            self.o_proj = _dense(units, num_heads * self._d, "o_")
+
+    def hybrid_forward(self, F, x):
+        b, s = x.shape[0], x.shape[1]
+        h, kv, d = self._h, self._kv, self._d
+        q = F.rope(self.q_proj(x).reshape((b, s, h, d)), base=self._base)
+        k = F.rope(self.k_proj(x).reshape((b, s, kv, d)), base=self._base)
+        v = self.v_proj(x).reshape((b, s, kv, d))
+        # GQA is native in the attention op (grouped heads)
+        out = F.dot_product_attention(q, k, v, causal=True,
+                                      window=self._window)
+        return self.o_proj(out.reshape((b, s, h * d)))
 
     def _qkv(self, x, offset=0):
         b, s = x.shape[0], x.shape[1]
@@ -122,39 +148,35 @@ class _LlamaAttention(nn.Module):
         out = dot_product_attention(q, cache_k, cache_v, mask)
         return self.o_proj(out.reshape(b, 1, self._h * self._d))
 
-    def forward(self, x):
-        b, s = x.shape[0], x.shape[1]
-        q, k, v = self._qkv(x)
-        out = dot_product_attention(q, k, v, causal=True,
-                                    window=self._window)
-        return self.o_proj(out.reshape(b, s, self._h * self._d))
 
-
-class _LlamaMLP(nn.Module):
+class _LlamaMLP(HybridBlock):
     """SwiGLU feed-forward: down(silu(gate(x)) * up(x))."""
 
-    def __init__(self, units, hidden):
-        super().__init__()
-        self.gate_proj = _linear(units, hidden)
-        self.up_proj = _linear(units, hidden)
-        self.down_proj = _linear(hidden, units)
+    def __init__(self, units, hidden, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.gate_proj = _dense(hidden, units, "gate_")
+            self.up_proj = _dense(hidden, units, "up_")
+            self.down_proj = _dense(units, hidden, "down_")
 
-    def forward(self, x):
-        return self.down_proj(silu(self.gate_proj(x)) * self.up_proj(x))
+    def hybrid_forward(self, F, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-class _LlamaLayer(nn.Module):
+class _LlamaLayer(HybridBlock):
     def __init__(self, units, hidden, num_heads, num_kv_heads, rope_base,
-                 sliding_window=None):
-        super().__init__()
-        self.input_norm = RMSNormBlock(units)
-        self.attn = _LlamaAttention(units, num_heads, num_kv_heads,
-                                    rope_base,
-                                    sliding_window=sliding_window)
-        self.post_norm = RMSNormBlock(units)
-        self.mlp = _LlamaMLP(units, hidden)
+                 sliding_window=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.input_norm = RMSNormBlock(units, prefix="innorm_")
+            self.attn = _LlamaAttention(units, num_heads, num_kv_heads,
+                                        rope_base,
+                                        sliding_window=sliding_window,
+                                        prefix="attn_")
+            self.post_norm = RMSNormBlock(units, prefix="postnorm_")
+            self.mlp = _LlamaMLP(units, hidden, prefix="mlp_")
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         x = x + self.attn(self.input_norm(x))
         return x + self.mlp(self.post_norm(x))
 
@@ -169,69 +191,89 @@ class _LlamaLayer(nn.Module):
         return x + self.mlp(self.post_norm(x))
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(HybridBlock):
     """The decoder stack, built on the ``meta`` device:
     :class:`LlamaForCausalLM` places it on its context."""
 
     def __init__(self, vocab_size, units, hidden, num_layers, num_heads,
                  num_kv_heads=None, rope_base=10000.0,
-                 sliding_window=None):
-        super().__init__()
+                 sliding_window=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         num_kv_heads = num_kv_heads or num_heads
         self._units = units
         self.vocab_size = vocab_size
         self.sliding_window = sliding_window
-        self.embed = _Embedding(vocab_size, units)
-        self.layers = nn.ModuleList(
-            _LlamaLayer(units, hidden, num_heads, num_kv_heads, rope_base,
-                        sliding_window=sliding_window)
-            for _ in range(num_layers))
-        self.final_norm = RMSNormBlock(units)
+        with self.name_scope():
+            self.embed = Embedding(vocab_size, units, prefix="embed_")
+            self.layers = torch.nn.ModuleList(
+                _LlamaLayer(units, hidden, num_heads, num_kv_heads,
+                            rope_base, sliding_window=sliding_window,
+                            prefix=f"layer{i}_")
+                for i in range(num_layers))
+            self.final_norm = RMSNormBlock(units, prefix="finalnorm_")
 
-    def forward(self, tokens):
+    def hybrid_forward(self, F, tokens):
         x = self.embed(tokens)
         for layer in self.layers:
             x = layer(x)
         return self.final_norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(HybridBlock):
     """LM head over :class:`LlamaModel`, placed on ``ctx``.
 
     ``ctx`` defaults to the current context (``gpu(0)``); without a card
     that raises ``MXNetError`` unless ``ctx=mx.cpu()`` is passed.
     ``dtype`` is the weights' type.  Weights are filled at construction
-    from the context's generator (``mx.random.seed``), with
-    :meth:`initialize`'s defaults.  ``tie_embeddings=True`` shares the
-    embedding matrix with the head (Llama-3.2-1B/3B); Llama-3-8B uses an
-    untied head (``tie_embeddings=False``)."""
+    from the context's generator (``mx.random.seed``): Normal(0, 0.02)
+    and unit norm gains.  ``tie_embeddings=True`` shares the embedding
+    matrix with the head (Llama-3.2-1B/3B); Llama-3-8B uses an untied
+    head (``tie_embeddings=False``), a Dense named ``head_``."""
 
     def __init__(self, model: LlamaModel, tie_embeddings=True, ctx=None,
-                 dtype="float32"):
+                 dtype="float32", prefix=None, params=None):
         dev = (ctx or current_context()).device    # raises without a card
         if not all(p.is_meta for p in model.parameters()):
             raise MXNetError("LlamaForCausalLM places a model built by "
                              "get_llama (on the meta device); this one "
                              "already holds weights")
-        super().__init__()
+        super().__init__(prefix=prefix, params=params)
         self._tied = tie_embeddings
-        self.model = model
+        with self.name_scope():
+            self.model = model
+            if not tie_embeddings:
+                self.lm_head = _dense(model.vocab_size, model._units,
+                                      "head_")
         # generate_fused: one StepCapture a signature, one generator a
         # device (reseeded each call)
         self._fused = {}
         self._fused_gens = {}
-        if not tie_embeddings:
-            self.lm_head = _linear(model._units, model.vocab_size)
         self.to(dtype=torch_dtype(dtype))
         self.to_empty(device=dev)
-        self.initialize()
+        self._fill_normal(0.02, None)
 
     @property
     def device(self) -> torch.device:
         return self.model.embed.weight.device
 
+    def initialize(self, init=None, ctx=None, seed=None, std=None):
+        """Gluon's ``initialize``: every weight refilled by ``init`` (by
+        name: ``mx.init.Xavier()`` as in the reference's training
+        script), on ``ctx`` (default: where the model is), from ``seed``
+        or the device's ``mx.random`` generator.  With ``std`` instead,
+        the fill of construction: Normal(0, std) weights and unit norm
+        gains, where the model is.  Returns ``self``."""
+        if std is not None:
+            if init is not None or ctx is not None:
+                raise MXNetError("initialize: std= takes neither init nor "
+                                 "ctx")
+            self._fill_normal(std, seed)
+            return self
+        return super().initialize(init, ctx=ctx or _ctx_of(self.device),
+                                  seed=seed)
+
     @torch.no_grad()
-    def initialize(self, std=0.02, seed=None):
+    def _fill_normal(self, std, seed):
         """Normal(0, std) weights and unit norm gains, drawn on the
         model's device from ``seed`` (or the device's ``mx.random``
         generator when None)."""
@@ -248,14 +290,63 @@ class LlamaForCausalLM(nn.Module):
                 p.normal_(0.0, std, generator=gen)
 
     def _tokens(self, tokens):
+        if isinstance(tokens, NDArray):
+            tokens = tokens.tensor
         if not torch.is_tensor(tokens):
             tokens = torch.as_tensor(np.asarray(tokens, np.float32))
         return tokens.to(self.device)
 
+    def _head_weight(self):
+        """The (V, U) head matrix as the NDArray of its Parameter: the
+        tied embedding or the untied head's Dense weight (one place for
+        the branch: the forward, the serving head and the loss)."""
+        block = self.model.embed if self._tied else self.lm_head
+        return block._gluon_param("weight").data()
+
     def forward(self, tokens):
-        h = self.model(self._tokens(tokens))
-        b, s = h.shape[:2]
-        return self._head(h).reshape(b, s, self.model.vocab_size)
+        return super().forward(self._tokens(tokens))
+
+    def hybrid_forward(self, F, tokens):
+        h = self.model(tokens)
+        if self._tied:
+            b, s, u = h.shape
+            return F.dot(h.reshape((b * s, u)), self._head_weight(),
+                         transpose_b=True).reshape(
+                             (b, s, self.model.vocab_size))
+        return self.lm_head(h)
+
+    def loss(self, tokens, vocab_chunk=None):
+        """Next-token cross-entropy over ``tokens`` (B, S): the mean over
+        the B * (S - 1) predictions of positions ``:-1`` against the
+        labels ``tokens[:, 1:]``, a 0-d NDArray.
+
+        ``vocab_chunk`` (and, when None, any vocabulary of 32768 or more,
+        with slabs of 8192) streams the head through
+        ``chunked_softmax_ce``: the (N, V) logits are never made (2.1 GB
+        in float32 at Llama-3-8B's 128256 and 4096 tokens) and the
+        backward recomputes each slab.  Otherwise the full logits go
+        through ``SoftmaxCrossEntropyLoss``.  Hybridized, the model's
+        call is one CUDA-graph replay (and one at ``backward``); the
+        head and the loss run around it."""
+        from .. import ndarray as nd
+        from ..gluon.loss import SoftmaxCrossEntropyLoss
+        if not isinstance(tokens, NDArray):
+            tokens = NDArray(self._tokens(tokens), ctx=_ctx_of(self.device))
+        v = self.model.vocab_size
+        if vocab_chunk is None and v >= 32768:
+            vocab_chunk = 8192
+        labels = nd.slice_axis(tokens, axis=1, begin=1,
+                               end=None).reshape((-1,))
+        if vocab_chunk:
+            h = self.model(tokens)                          # (B, S, U)
+            hid = nd.slice_axis(h, axis=1, begin=0,
+                                end=-1).reshape((-1, self.model._units))
+            return nd.chunked_softmax_ce(hid, self._head_weight(), labels,
+                                         chunk=int(vocab_chunk)).mean()
+        logits = self(tokens)
+        pred = nd.slice_axis(logits, axis=1, begin=0,
+                             end=-1).reshape((-1, v))
+        return SoftmaxCrossEntropyLoss()(pred, labels).mean()
 
     @staticmethod
     def _check_cache_dtype(dtype):
@@ -302,6 +393,7 @@ class LlamaForCausalLM(nn.Module):
                        self.model.embed.weight, transpose_b=True)
         return self.lm_head(h).reshape(-1, self.model.vocab_size)
 
+    @_inline
     @torch.no_grad()
     def prefill(self, tokens, caches, last_pos=None):
         """Prompt pass filling the caches; returns the last position's
@@ -333,6 +425,7 @@ class LlamaForCausalLM(nn.Module):
         sel = (h * onehot.reshape(b, s, 1)).sum(dim=1)
         return self._head(sel.reshape(b, 1, self.model._units))
 
+    @_inline
     @torch.no_grad()
     def decode_step(self, token, caches, offset):
         """One incremental step: token (B, 1) -> logits (B, vocab).

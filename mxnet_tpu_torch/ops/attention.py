@@ -6,6 +6,10 @@ to the flash kernel, and rotary position embedding.
 and every other call (the one-token decode step, a query-dependent
 mask, unaligned lengths) to :func:`sdpa_plain`.  Both routes are
 differentiable, the flash route through the backward kernels.
+
+Both are also registered ops (``mx.nd.dot_product_attention``,
+``mx.nd.rope``) with the JAX package's signatures, for the
+``hybrid_forward(F, ...)`` of the Llama blocks.
 """
 from __future__ import annotations
 
@@ -13,6 +17,9 @@ import math
 
 import numpy as np
 import torch
+
+from ..base import MXNetError
+from .registry import register
 
 __all__ = ["dot_product_attention", "sdpa_plain", "rope"]
 
@@ -136,6 +143,27 @@ def dot_product_attention(query, key, value, mask=None, scale=None,
     if kmask is not None and mask.dim() == 2:
         mask = mask.reshape(mask.shape[0], 1, 1, mask.shape[1])
     return sdpa_plain(query, key, value, mask, s, causal, window=window)
+
+
+@register("dot_product_attention", num_inputs=None)
+def _dot_product_attention_op(query, key, value, *rest, num_heads=1,
+                              scale=None, causal=False, use_mask=False,
+                              flash=True, window=None):
+    """The registered op: the mask is the fourth input when
+    ``use_mask``.  ``flash=False`` is not ported: on the card a call the
+    kernel takes runs the kernel."""
+    if not flash:
+        raise MXNetError("dot_product_attention(flash=False) is not "
+                         "ported: a call the flash kernel takes runs it")
+    mask = rest[0] if use_mask and rest else None
+    return dot_product_attention(query, key, value, mask, scale=scale,
+                                 causal=causal, window=window)
+
+
+@register("rope", num_inputs=1, scalar_attrs=("offset",),
+          scalar_ref_input=None)
+def _rope_op(x, offset=0, *, base=10000.0):
+    return rope(x, offset, base=base)
 
 
 def rope(x, offset=0, base=10000.0):

@@ -3,16 +3,19 @@ PyTorch.
 
 Dense layers run :func:`fully_connected` (``F.linear``, weight (out, in)
 as in the JAX package's FullyConnected).  ``fully_connected``,
-:func:`convolution` and :func:`dot` honour ``contrib.amp``.  Dropout draws
-its keep-mask from the device's ``mx.random`` generator (or one the
-caller passes).
+:func:`convolution` and :func:`dot` run float32 inputs in the AMP type
+under ``contrib.amp``.  Dropout draws its keep-mask from the
+device's ``mx.random`` generator (or one the caller passes).
+:func:`chunked_softmax_ce` is the large-vocabulary cross-entropy of the
+Llama loss: the head streamed in slabs, never the whole logits.
 
 The ops are also registered under the JAX package's names
 (``FullyConnected``, ``Convolution``, ``Pooling``, ``BatchNorm``,
-``Activation``, ``softmax``, ``log_softmax``, ``softmax_cross_entropy``,
-``Dropout``, ``identity``, ``BlockGrad``), so ``mx.nd`` and ``invoke``
-reach these same functions.  The layout is NCHW (NCW, NCDHW), the
-reference's."""
+``Activation``, ``RMSNorm``, ``silu``, ``Embedding``, ``softmax``,
+``log_softmax``, ``softmax_cross_entropy``, ``chunked_softmax_ce``,
+``chunked_softmax_ce_bias``, ``Dropout``, ``identity``, ``BlockGrad``),
+so ``mx.nd`` and ``invoke`` reach these same functions.  The layout is
+NCHW (NCW, NCDHW), the reference's."""
 from __future__ import annotations
 
 import math
@@ -20,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..base import MXNetError
 from ..contrib import amp
 from .registry import alias, register
 
@@ -27,18 +31,26 @@ __all__ = ["silu", "rms_norm", "dot", "take", "embedding",
            "cache_update", "fully_connected", "convolution", "pooling",
            "batch_norm", "update_moving_stats", "activation", "gelu",
            "layer_norm", "dropout", "softmax", "log_softmax", "pick",
-           "softmax_cross_entropy"]
+           "softmax_cross_entropy", "chunked_softmax_ce",
+           "chunked_softmax_ce_bias"]
 
 
+@register("silu")
 def silu(data):
     return F.silu(data)
 
 
-def rms_norm(data, gamma, eps=1e-6):
-    """x * rsqrt(mean(x^2) + eps) * gamma over the last axis, in the
-    input type."""
-    ms = torch.mean(torch.square(data), dim=-1, keepdim=True)
+def rms_norm(data, gamma, eps=1e-6, axis=-1):
+    """x * rsqrt(mean(x^2) + eps) * gamma over ``axis``, in the input
+    type promoted by gamma's (a bf16 input with the f32 gamma gives f32,
+    as in the reference)."""
+    ms = torch.mean(torch.square(data), dim=axis, keepdim=True)
     return data * torch.rsqrt(ms + eps) * gamma
+
+
+@register("RMSNorm", num_inputs=2)
+def _rms_norm_op(data, gamma, *, axis=-1, eps=1e-6):
+    return rms_norm(data, gamma, eps=eps, axis=axis)
 
 
 def dot(a, b, *, transpose_a=False, transpose_b=False):
@@ -63,6 +75,15 @@ def take(a, indices, axis=0):
 def embedding(data, weight):
     """Rows of ``weight`` for (float32 or integer) token ids."""
     return F.embedding(data.to(device=weight.device).long(), weight)
+
+
+@register("embedding", num_inputs=2)
+def _embedding_op(data, weight, *, input_dim=0, output_dim=0,
+                  dtype="float32", sparse_grad=False):
+    return embedding(data, weight)
+
+
+alias("Embedding", "embedding")
 
 
 def cache_update(cache, new, offset=0):
@@ -386,6 +407,151 @@ def softmax_cross_entropy(data, label):
     """The summed cross-entropy of the rows of ``data`` against class
     ``label``s."""
     return -torch.sum(pick(log_softmax(data, axis=-1), label, axis=-1))
+
+
+# -- the chunked (streaming) softmax cross-entropy (reference ops/nn.py:192-324)
+
+class _ieee_f32_matmul:
+    """cuBLAS without TF32 inside the block, whatever the caller set in
+    ``torch.backends.cuda.matmul.allow_tf32``: the slab products of a
+    float32 head get float32 math."""
+
+    def __enter__(self):
+        self._prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self._prev
+
+
+def _slabs(v, chunk):
+    """(start, stop) of each vocabulary slab: ``ceil(v / chunk)`` slabs
+    re-balanced to ``ceil(v / n)`` rows each, as the reference splits
+    them (Llama-3's 128256 rows at chunk 8192: 16 slabs of 8016).  The
+    last slab stops at ``v``: the reference's padded rows are -inf
+    logits, which add nothing to the normalizer."""
+    chunk = int(min(chunk, v))
+    if chunk <= 0:
+        raise MXNetError(f"chunked_softmax_ce: chunk must be positive, "
+                         f"got {chunk}")
+    n = -(-v // chunk)
+    chunk = -(-v // n)
+    return [(lo, min(lo + chunk, v)) for lo in range(0, v, chunk)]
+
+
+class _ChunkedCE(torch.autograd.Function):
+    """Per-row ``logsumexp(h W^T + b) - (h W^T + b)[label]`` over the
+    vocabulary slabs, carrying the online (max, sum-exp, label logit).
+    Only ``hidden``, ``weight``, ``bias``, ``label`` and the per-row
+    log-normalizer are saved; the backward recomputes each slab's logits
+    (the reference's ``jax.checkpoint`` on the slab body), so no (N, V)
+    tensor outlives a slab.  Logits are float32; the products run in
+    the promoted type of ``hidden`` and ``weight`` (float32 for the
+    Llama head, without TF32)."""
+
+    @staticmethod
+    def forward(ctx, hidden, weight, bias, label, chunk):
+        n = hidden.shape[0]
+        v = weight.shape[0]
+        ct = torch.promote_types(hidden.dtype, weight.dtype)
+        h = hidden.to(ct)
+        lbl = label.to(device=hidden.device).long().reshape(-1)
+        dev = hidden.device
+        m = torch.full((n,), float("-inf"), dtype=torch.float32, device=dev)
+        s = torch.zeros((n,), dtype=torch.float32, device=dev)
+        lab = torch.zeros((n,), dtype=torch.float32, device=dev)
+        slabs = _slabs(v, chunk)
+        with torch.no_grad(), _ieee_f32_matmul():
+            for lo, hi in slabs:
+                logits = _slab_logits(h, weight, bias, lo, hi, ct)
+                idx = lbl - lo
+                inside = (idx >= 0) & (idx < hi - lo)
+                picked = logits.gather(
+                    1, idx.clamp(0, hi - lo - 1)[:, None])[:, 0]
+                lab = lab + torch.where(inside, picked, 0.0)
+                m_new = torch.maximum(m, logits.amax(dim=1))
+                # in place: one slab of logits alive at a time
+                s = s * torch.exp(m - m_new) + logits.sub_(
+                    m_new[:, None]).exp_().sum(dim=1)
+                m = m_new
+        lse = m + torch.log(s)
+        ctx.save_for_backward(hidden, weight, bias, label, lse)
+        ctx.slabs = slabs
+        return lse - lab
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        hidden, weight, bias, label, lse = ctx.saved_tensors
+        need_h, need_w, need_b = ctx.needs_input_grad[:3]
+        ct = torch.promote_types(hidden.dtype, weight.dtype)
+        h = hidden.to(ct)
+        lbl = label.to(device=hidden.device).long().reshape(-1)
+        g = grad.float()[:, None]
+        dh = torch.zeros(hidden.shape, dtype=torch.float32,
+                         device=hidden.device) if need_h else None
+        dw = torch.empty(weight.shape, dtype=ct,
+                         device=weight.device) if need_w else None
+        db = torch.empty(bias.shape, dtype=torch.float32,
+                         device=bias.device) if need_b else None
+        with _ieee_f32_matmul():
+            for lo, hi in ctx.slabs:
+                dl = _slab_logits(h, weight, bias, lo, hi, ct).sub_(
+                    lse[:, None]).exp_()
+                idx = lbl - lo
+                inside = (idx >= 0) & (idx < hi - lo)
+                # softmax minus the one-hot of the label (rows whose
+                # label lies in another slab subtract 0)
+                dl.scatter_add_(1, idx.clamp(0, hi - lo - 1)[:, None],
+                                -inside.float()[:, None])
+                dl.mul_(g)
+                dlc = dl.to(ct)
+                if need_h:
+                    dh.add_(torch.mm(dlc, weight[lo:hi].to(ct)).float())
+                if need_w:
+                    torch.mm(dlc.t(), h, out=dw[lo:hi])
+                if need_b:
+                    db[lo:hi] = dl.sum(dim=0)
+        return (None if dh is None else dh.to(hidden.dtype),
+                None if dw is None else dw.to(weight.dtype),
+                None if db is None else db.to(bias.dtype), None, None)
+
+
+def _slab_logits(h, weight, bias, lo, hi, ct):
+    """float32 logits of the vocabulary rows ``lo:hi`` for ``h``."""
+    logits = torch.mm(h, weight[lo:hi].to(ct).t()).float()
+    if bias is not None:
+        logits = logits + bias[lo:hi].float()
+    return logits
+
+
+def _chunked_ce(hidden, weight, bias, label, chunk, axis_name):
+    if axis_name is not None:
+        raise MXNetError("chunked_softmax_ce: axis_name (a vocabulary "
+                         "sharded over a tensor-parallel axis) is not "
+                         "ported")
+    return _ChunkedCE.apply(hidden, weight, bias, label, int(chunk))
+
+
+@register("chunked_softmax_ce", num_inputs=3)
+def chunked_softmax_ce(hidden, weight, label, *, chunk=8192,
+                       axis_name=None):
+    """Streaming large-vocabulary cross-entropy: per row,
+    ``logsumexp(hidden @ weight.T) - (hidden @ weight.T)[label]`` without
+    the (N, V) logits: the head is walked in slabs of about ``chunk``
+    rows, and the backward recomputes each slab, so activation memory
+    is O(N * chunk).  ``hidden`` (N, U); ``weight`` (V, U), the tied
+    embedding or the head (both take gradients); ``label`` (N,) class
+    ids.  Returns the per-row loss (N,), float32."""
+    return _chunked_ce(hidden, weight, None, label, chunk, axis_name)
+
+
+@register("chunked_softmax_ce_bias", num_inputs=4)
+def chunked_softmax_ce_bias(hidden, weight, bias, label, *, chunk=8192,
+                            axis_name=None):
+    """:func:`chunked_softmax_ce` with a per-vocabulary-row logit bias
+    (``hidden @ weight.T + bias``), which takes a gradient too."""
+    return _chunked_ce(hidden, weight, bias, label, chunk, axis_name)
 
 
 @register("identity")

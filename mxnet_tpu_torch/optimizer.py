@@ -1,6 +1,7 @@
-"""Optimizers: the reference's ``Optimizer`` registry with ``SGD`` and the
-``Updater`` that ``gluon.Trainer`` drives (as the JAX package's
-``optimizer/optimizer.py``), and Adam for ``DataParallelTrainer``.
+"""Optimizers: the reference's ``Optimizer`` registry with ``SGD`` and
+``Adam``, and the ``Updater`` that ``gluon.Trainer`` drives (as the JAX
+package's ``optimizer/optimizer.py``).  ``DataParallelTrainer`` runs the
+same two classes.
 
 ``SGD`` runs the ``sgd_update`` / ``sgd_mom_update`` ops on NDArrays with
 ``out=`` (in place), with ``clip_gradient`` and each gluon Parameter's
@@ -35,7 +36,9 @@ The bias correction goes on the learning rate,
 
 with epsilon outside the square root (``torch.optim.Adam`` places it
 elsewhere).  One call updates every parameter with ``torch._foreach_*``
-multi-tensor operators, in place.
+multi-tensor operators, in place, in passes of at most 2^28 elements
+(a Llama-3-8B-wide model's optimizer would otherwise hold two more
+copies of its gradients at once).
 """
 from __future__ import annotations
 
@@ -123,6 +126,10 @@ class Optimizer:
     @property
     def learning_rate(self):
         return self.lr
+
+    @learning_rate.setter
+    def learning_rate(self, lr):
+        self.lr = lr
 
     def set_learning_rate(self, lr):
         self.lr = lr
@@ -327,57 +334,118 @@ def get_updater(optimizer: Optimizer) -> Updater:
     return Updater(optimizer)
 
 
-class Adam:
-    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, wd=0.0, rescale_grad=1.0,
-                 clip_gradient=None):
-        self.learning_rate = learning_rate
+@register
+class Adam(Optimizer):
+    """Adam (parity: the reference's ``Adam``), with the bias correction
+    on the learning rate: at a parameter's ``t``-th update
+    ``lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)`` (times its
+    ``lr_mult``), then the module docstring's update.  ``update`` takes
+    one parameter; ``update_multi`` (``gluon.Trainer``, ``compile_step``)
+    and :meth:`apply_tensors` (``DataParallelTrainer``) update a set in
+    one multi-tensor pass, the reference's ``multi_adam_update`` plan.
+    ``lazy_update`` is accepted: the port has no row-sparse
+    gradients."""
+
+    def __init__(self, learning_rate=None, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=True, **kwargs):
+        super().__init__(learning_rate=0.001 if learning_rate is None
+                         else learning_rate, **kwargs)
         self.beta1 = beta1
         self.beta2 = beta2
         self.epsilon = epsilon
-        self.wd = wd
-        self.rescale_grad = rescale_grad
-        self.clip_gradient = clip_gradient
+        self.lazy_update = lazy_update
         self._scalars = DeviceScalars(("lr_t", "wd", "rescale_grad"))
 
-    def stage(self, device, t):
-        """Write step ``t``'s corrected learning rate, ``wd`` and
-        ``rescale_grad`` into the device scalars of ``device``; returns
-        their 0-d views, which :meth:`apply` takes."""
-        return self._scalars.write(device, (self.corrected_lr(t), self.wd,
-                                            self.rescale_grad))
+    def create_state(self, index, weight):
+        """(mean, var), zeros like ``weight`` (an NDArray)."""
+        from .ndarray.ndarray import zeros
+        return (zeros(weight.shape, ctx=weight.context,
+                      dtype=weight.dtype.name),
+                zeros(weight.shape, ctx=weight.context,
+                      dtype=weight.dtype.name))
 
-    def static_key(self):
-        """The attributes baked into :meth:`apply`'s kernels."""
-        clip = self.clip_gradient
-        return ("Adam", self.beta1, self.beta2, self.epsilon,
-                clip if clip is not None and clip > 0 else None,
-                bool(self.wd))
-
-    def create_state(self, weight):
-        """(mean, var), zeros like ``weight``."""
-        return (torch.zeros_like(weight), torch.zeros_like(weight))
+    @property
+    def capturable(self):
+        return type(self).update is Adam.update
 
     def corrected_lr(self, t):
         """The learning rate with step ``t``'s bias correction."""
         return (self.learning_rate * math.sqrt(1.0 - self.beta2 ** t)
                 / (1.0 - self.beta1 ** t))
 
-    def update(self, weights, grads, states, t):
-        """Step ``t`` (from 1) for parallel lists of weights, gradients
-        and (mean, var) states; weights and states change in place."""
-        if not weights:
+    def stage(self, device, t=None):
+        """Write step ``t``'s corrected learning rate, ``wd`` and
+        ``rescale_grad`` into the device scalars of ``device`` (``t``
+        defaults to ``num_update``, the step the counts are at); returns
+        their 0-d views, which :meth:`apply_tensors` takes."""
+        t = self.num_update if t is None else t
+        return self._scalars.write(device, (self.corrected_lr(t), self.wd,
+                                            self.rescale_grad))
+
+    def static_key(self, indices=()):
+        return super().static_key(indices) + (
+            self.beta1, self.beta2, self.epsilon, bool(self.wd))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        self._apply_groups([index], [weight], [grad], [state],
+                           self._index_update_count[index])
+
+    def update_multi(self, indices, weights, grads, states):
+        if type(self).update is not Adam.update:
+            return super().update_multi(indices, weights, grads, states)
+        for i in indices:
+            self._update_count(i)
+        counts = {self._index_update_count[i] for i in indices}
+        if len(counts) == 1:
+            self._apply_groups(indices, weights, grads, states,
+                               counts.pop())
             return
-        self.apply(weights, grads, states,
-                   self.stage(weights[0].device, t))
+        # parameters at different steps: one bias correction each
+        for i, w, g, s in zip(indices, weights, grads, states):
+            self._apply_groups([i], [w], [g], [s],
+                               self._index_update_count[i])
+
+    def apply_multi(self, indices, weights, grads, states):
+        """The device side of ``update_multi``, at step ``num_update``:
+        the parameters grouped by (lr_mult, wd_mult), each group one
+        :meth:`apply_tensors`."""
+        self._apply_groups(indices, weights, grads, states, self.num_update)
+
+    def _apply_groups(self, indices, weights, grads, states, t):
+        if not indices:
+            return
+        scalars = self.stage(weights[0].tensor.device, t)
+        groups = {}
+        for i, w, g, s in zip(indices, weights, grads, states):
+            p = self.param_dict.get(i)
+            mults = (1.0, 1.0) if p is None else (p.lr_mult, p.wd_mult)
+            groups.setdefault(mults, []).append(
+                (w.tensor, g.tensor, (s[0].tensor, s[1].tensor)))
+        for mults, members in groups.items():
+            ws, gs, ss = zip(*members)
+            self.apply_tensors(list(ws), list(gs), list(ss), scalars,
+                               mults)
 
     @torch.no_grad()
-    def apply(self, weights, grads, states, scalars):
-        """The update with the per-step scalars ``scalars`` (the views
-        :meth:`stage` returned): no host value of the step enters it."""
+    def apply_tensors(self, weights, grads, states, scalars,
+                      mults=(1.0, 1.0)):
+        """The update of parallel lists of weight, gradient and
+        (mean, var) tensors, in place, with the per-step ``scalars``
+        (the views :meth:`stage` returned) times ``mults`` (lr_mult,
+        wd_mult): no host value of the step enters it."""
         if not weights:
             return
         lr_t, wd, rescale = scalars
+        if mults[0] != 1.0:
+            lr_t = lr_t * mults[0]
+        if mults[1] != 1.0:
+            wd = wd * mults[1]
+        for lo, hi in _spans(weights, _PASS_ELEMENTS):
+            self._adam_pass(weights[lo:hi], grads[lo:hi], states[lo:hi],
+                            lr_t, wd, rescale)
+
+    def _adam_pass(self, weights, grads, states, lr_t, wd, rescale):
         means = [s[0] for s in states]
         variances = [s[1] for s in states]
         g = torch._foreach_mul(grads, rescale)
@@ -391,17 +459,36 @@ class Adam:
         torch._foreach_add_(means, g, alpha=1.0 - self.beta1)
         torch._foreach_mul_(variances, self.beta2)
         torch._foreach_addcmul_(variances, g, g, value=1.0 - self.beta2)
-        denom = torch._foreach_sqrt(variances)
+        # the denominator in g's buffers: g is spent
+        denom = g
+        torch._foreach_copy_(denom, variances)
+        torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.epsilon)
         step = torch._foreach_mul(means, lr_t)
         torch._foreach_div_(step, denom)
         torch._foreach_sub_(weights, step)
 
 
-Optimizer.opt_registry["adam"] = Adam
+#: elements of one multi-tensor pass of Adam (a tensor larger than this
+#: is a pass of its own): the pass's temporaries (the scaled gradient,
+#: the step) are at most twice this, not twice the model
+_PASS_ELEMENTS = 1 << 28
+
+
+def _spans(tensors, limit):
+    """(start, stop) of consecutive runs of ``tensors`` holding at most
+    ``limit`` elements each (or one tensor)."""
+    spans, lo, n = [], 0, 0
+    for i, t in enumerate(tensors):
+        if i > lo and n + t.numel() > limit:
+            spans.append((lo, i))
+            lo, n = i, 0
+        n += t.numel()
+    if lo < len(tensors):
+        spans.append((lo, len(tensors)))
+    return spans
 
 
 def create(name, **kwargs):
-    """An optimizer by name: ``"sgd"`` (an ``Optimizer``, for
-    ``gluon.Trainer``) or ``"adam"`` (for ``DataParallelTrainer``)."""
+    """An optimizer by name: ``"sgd"`` or ``"adam"``."""
     return Optimizer.create_optimizer(name, **kwargs)

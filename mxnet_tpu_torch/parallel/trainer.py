@@ -61,11 +61,12 @@ class _Rule(NamedTuple):
 # the reference's _FUSED_RULES (parallel/trainer.py:90-135) that are ported
 _FUSED_RULES = {
     "Adam": _Rule(
-        lambda o, params: [o.create_state(p) for p in params],
+        lambda o, params: [(torch.zeros_like(p), torch.zeros_like(p))
+                           for p in params],
         lambda o, device, t: o.stage(device, t),
-        lambda o, params, grads, states, scalars: o.apply(
-            params, grads, states, scalars),
-        lambda o: o.static_key()),
+        lambda o, params, grads, states, scalars: o.apply_tensors(
+            params, list(grads), states, scalars),
+        lambda o: o.static_key(())),
     "SGD": _Rule(
         lambda o, params: [torch.zeros_like(p) if o.momentum else None
                            for p in params],

@@ -318,6 +318,59 @@ def test_compiled_step_body_has_no_host_sync_and_no_step_scalar(
     _assert_equal(got, want)
 
 
+def test_compiled_adam_step_body_has_no_host_sync_and_matches_eager(
+        monkeypatch):
+    """``compile_step`` with ``gluon.Trainer(..., "adam")``: the step
+    body is graph-safe (no fallback report, no host sync, step 1's and
+    step 5's non-tensor op arguments equal although the learning rate,
+    the batch size and Adam's step t changed), and step 5's weights and
+    losses equal the eager loop's with the same changes."""
+    x, y = _mlp_batch()
+    schedule = {3: ("lr", 0.02), 4: ("batch", 8)}
+
+    def run(compiled, monkeypatch=None):
+        mx.random.seed(0)
+        net = _mlp(dropout=0.2)
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": 0.01, "wd": 1e-3})
+        lf = gluon.loss.SoftmaxCrossEntropyLoss()
+        cs = tr.compile_step(net, lf)
+        xx, yy = nd.array(x, ctx=CPU), nd.array(y, ctx=CPU)
+        state = {"batch": 4}
+        losses = []
+
+        def on_step(i):
+            kind, v = schedule.get(i, (None, None))
+            if kind == "lr":
+                tr.set_learning_rate(v)
+            elif kind == "batch":
+                state["batch"] = v
+            if compiled:
+                losses.append(cs.step(xx, yy, state["batch"]).asnumpy())
+                assert cs.last_path == "compiled"
+            else:
+                losses.append(_eager_step(net, tr, lf, xx, yy,
+                                          state["batch"]).asnumpy())
+        if compiled:
+            seen = _record_body(monkeypatch, cs, (1, 5), on_step)
+            assert cs.fallback_reason is None
+        else:
+            seen = None
+            for i in range(1, 6):
+                on_step(i)
+        assert tr.optimizer.num_update == 5
+        return seen, losses, _weights(net)
+
+    csmod.clear_fallback_reports()
+    seen, got_l, got = run(True, monkeypatch)
+    assert csmod.fallback_reports() == []
+    assert len(seen[1]) > 20
+    assert seen[1] == seen[5]
+    _, want_l, want = run(False)
+    _assert_equal(got, want)
+    _assert_equal(got_l, want_l)
+
+
 # -- against the JAX package -----------------------------------------------------
 
 @pytest.fixture
@@ -403,6 +456,40 @@ def test_compile_step_mlp_matches_jax_eager_loop():
     tx, ty = nd.array(x, ctx=CPU), nd.array(y, ctx=CPU)
     got = [cs.step(tx, ty).asnumpy() for _ in range(3)]
     assert cs.last_path == "compiled"
+    for g, w in zip(got, want):
+        assert_almost_equal(g, w)
+    for g, w in zip(_weights(tnet), _weights(jnet)):
+        assert_almost_equal(g, w)
+    assert got[2].mean() < got[0].mean()
+
+
+def test_compile_step_adam_matches_jax_eager_loop():
+    """The same MLP with Adam (weight decay): 3 steps of the port's
+    compile_step against the JAX package's record -> backward ->
+    Trainer.step, from the same weights."""
+    widths = (20, 16, 16, 10)
+    x, y = _mlp_batch(32, widths, seed=0)
+    opt = {"learning_rate": 0.01, "wd": 1e-3}
+    jnet, tnet = _mlp(jmx, widths), _mlp(mx, widths)
+    models.load_jax_gluon_params(
+        tnet, {k: v.data().asnumpy()
+               for k, v in jnet.collect_params().items()}, jnet.prefix)
+    jtr = jmx.gluon.Trainer(jnet.collect_params(), "adam", opt,
+                            kvstore=None)
+    jlf = jmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    jx, jy = jmx.nd.array(x), jmx.nd.array(y)
+    want = []
+    for _ in range(3):
+        with jmx.autograd.record():
+            loss = jlf(jnet(jx), jy)
+        loss.backward()
+        jtr.step(32)
+        want.append(loss.asnumpy())
+    ttr = gluon.Trainer(tnet.collect_params(), "adam", opt, kvstore=None)
+    cs = ttr.compile_step(tnet, gluon.loss.SoftmaxCrossEntropyLoss())
+    tx, ty = nd.array(x, ctx=CPU), nd.array(y, ctx=CPU)
+    got = [cs.step(tx, ty).asnumpy() for _ in range(3)]
+    assert cs.last_path == "compiled" and cs.fallback_reason is None
     for g, w in zip(got, want):
         assert_almost_equal(g, w)
     for g, w in zip(_weights(tnet), _weights(jnet)):

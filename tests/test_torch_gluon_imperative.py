@@ -258,8 +258,8 @@ def test_trainer_surface_and_checks():
                                   .asnumpy(), before)
     with pytest.raises(MXNetError, match="kvstore"):
         gluon.Trainer(params, "sgd", kvstore="dist_sync")
-    with pytest.raises(MXNetError, match="Optimizer"):
-        gluon.Trainer(params, "adam")
+    assert isinstance(gluon.Trainer(params, "adam").optimizer,
+                      mx.optimizer.Adam)
     with pytest.raises(MXNetError, match="not ported"):
         gluon.Trainer(params, "lamb")
     with pytest.raises(ValueError):

@@ -296,13 +296,117 @@ RANDOM_OPS = {"_random_uniform", "_random_normal", "_random_gamma",
 CONV_OPS = {"Convolution", "Pooling", "BatchNorm"}
 
 
+# -- the Llama blocks' ops ---------------------------------------------------
+
+def _ids(n, v, seed):
+    return np.random.RandomState(seed).randint(0, v, n).astype("f4")
+
+
+LLAMA_OPS = {
+    "RMSNorm": (lambda F, x, g: F.RMSNorm(x, g, eps=1e-5),
+                [_u(2, 3, 8, lo=-1, hi=1), _u(8)], 1e-5),
+    "silu": (lambda F, x: F.silu(x), [_u(3, 4, lo=-2, hi=2)], 1e-5),
+    "rope": (lambda F, x: F.rope(x, base=10000.0),
+             [_u(2, 5, 4, 8, lo=-1, hi=1)], 1e-5),
+    "rope_offset": (lambda F, x: F.rope(x, 7, base=500000.0),
+                    [_u(2, 5, 4, 8, lo=-1, hi=1)], 1e-5),
+    "Embedding": (lambda F, i, w: F.Embedding(i, w, input_dim=11,
+                                             output_dim=6),
+                  [_ids((2, 5), 11, 1), _u(11, 6)], 1e-6),
+    "embedding": (lambda F, i, w: F.embedding(i, w),
+                  [_ids((7,), 11, 2), _u(11, 6)], 1e-6),
+    # grouped-query attention: 4 query heads over 2 KV heads
+    "dot_product_attention": (
+        lambda F, q, k, v: F.dot_product_attention(q, k, v, causal=True),
+        [_u(2, 8, 4, 8, lo=-1, hi=1), _u(2, 8, 2, 8, lo=-1, hi=1),
+         _u(2, 8, 2, 8, lo=-1, hi=1)], 1e-5),
+    "dot_product_attention_window": (
+        lambda F, q, k, v: F.dot_product_attention(q, k, v, causal=True,
+                                                   window=3),
+        [_u(1, 8, 2, 8, lo=-1, hi=1), _u(1, 8, 2, 8, lo=-1, hi=1),
+         _u(1, 8, 2, 8, lo=-1, hi=1)], 1e-5),
+    # S=128: the flash route (its plain version on the CPU)
+    "dot_product_attention_flash": (
+        lambda F, q, k, v: F.dot_product_attention(q, k, v, causal=True),
+        [_u(1, 128, 4, 8, lo=-1, hi=1), _u(1, 128, 2, 8, lo=-1, hi=1),
+         _u(1, 128, 2, 8, lo=-1, hi=1)], 1e-4),
+    # V=97: slabs of 33, 33 and 31 rows (chunk 40 rebalanced)
+    "chunked_softmax_ce": (
+        lambda F, h, w, lbl: F.chunked_softmax_ce(h, w, lbl, chunk=40),
+        [_u(6, 8, lo=-1, hi=1), _u(97, 8, lo=-1, hi=1), _ids(6, 97, 3)],
+        1e-5),
+    "chunked_softmax_ce_bias": (
+        lambda F, h, w, b, lbl: F.chunked_softmax_ce_bias(h, w, b, lbl,
+                                                          chunk=32),
+        [_u(6, 8, lo=-1, hi=1), _u(97, 8, lo=-1, hi=1),
+         _u(97, lo=-1, hi=1), _ids(6, 97, 4)], 1e-5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LLAMA_OPS))
+def test_llama_ops(case):
+    """Value, dtype and every gradient against the JAX op."""
+    fn, arrays, rtol = LLAMA_OPS[case]
+    torch_parity.check(fn, arrays, rtol=rtol, atol=1e-6)
+
+
+def test_rms_norm_is_float32_under_amp():
+    """Under AMP a bfloat16 input to ``RMSNorm`` with its float32 gamma
+    gives float32 by type promotion, as in the reference, whose
+    ``amp.init`` casts only its target ops: ``log_softmax`` keeps
+    bfloat16 and a target op gives bfloat16.  Values and dtypes against
+    the JAX ops under the JAX package's AMP, at the bfloat16 tolerance
+    of ``test_utils``."""
+    import mxnet_tpu as jmx
+    from mxnet_tpu.contrib import amp as jamp
+    from mxnet_tpu_torch.contrib import amp
+    xn, gn = _u(2, 8, lo=-1, hi=1), _u(8)
+    an, bn = _u(2, 8), _u(3, 8)
+
+    def run(pkg, amp_mod):
+        F, ctx = pkg.nd, pkg.cpu()
+        x = F.array(xn, ctx=ctx).astype("bfloat16")
+        amp_mod.init("bfloat16")
+        try:
+            return (F.RMSNorm(x, F.array(gn, ctx=ctx), eps=1e-5),
+                    F.log_softmax(x),
+                    F.FullyConnected(F.array(an, ctx=ctx),
+                                     F.array(bn, ctx=ctx), num_hidden=3,
+                                     no_bias=True))
+        finally:
+            amp_mod._deinit()
+
+    got, want = run(mx, amp), run(jmx, jamp)
+    assert [str(o.dtype) for o in got] == ["float32", "bfloat16",
+                                           "bfloat16"]
+    for g, w in zip(got, want):
+        assert str(g.dtype) == str(w.dtype)
+        np.testing.assert_allclose(g.astype("float32").asnumpy(),
+                                   w.astype("float32").asnumpy(),
+                                   rtol=1e-2, atol=1e-2)
+
+
+def test_chunked_softmax_ce_checks():
+    h, w = nd.array(_u(2, 4), ctx=CPU), nd.array(_u(5, 4), ctx=CPU)
+    lbl = nd.array([0.0, 4.0], ctx=CPU)
+    with pytest.raises(MXNetError, match="axis_name"):
+        nd.chunked_softmax_ce(h, w, lbl, axis_name="tp")
+    with pytest.raises(MXNetError, match="chunk"):
+        nd.chunked_softmax_ce(h, w, lbl, chunk=0)
+    with pytest.raises(MXNetError, match="flash=False"):
+        nd.dot_product_attention(*(nd.array(_u(1, 4, 1, 8), ctx=CPU)
+                                   for _ in range(3)), flash=False)
+
+
 def test_every_op_has_a_case():
-    """Each registered op is held against the JAX package here, in
-    test_torch_conv_ops.py (CONV_OPS), or by its statistics in
-    test_torch_autograd.py (the samplers, Dropout)."""
+    """Each registered op is held against the JAX package here (the
+    Llama blocks' ops in LLAMA_OPS), in test_torch_conv_ops.py
+    (CONV_OPS), or by its statistics in test_torch_autograd.py (the
+    samplers, Dropout)."""
     covered = set(UNARY) | set(SCALAR) | set(BROADCAST) | set(CREATION) \
         | {n for n, _ in REDUCE} | set(SHAPE) | {"argmax", "argmin"} \
-        | {"sgd_update", "sgd_mom_update"} | RANDOM_OPS | CONV_OPS
+        | {"sgd_update", "sgd_mom_update"} | RANDOM_OPS | CONV_OPS \
+        | set(LLAMA_OPS)
     missing = sorted(set(list_ops()) - covered)
     assert missing == []
 
