@@ -147,6 +147,31 @@ Phases, each printing JSON lines:
             one backward replay, K1, K2 and K3 each 4 a step; a profiled
             step split into flash, bf16 GEMM, head (the chunked
             cross-entropy, measured alone), Adam and other.
+17. forecast_parity: tiny DeepAR and TransformerForecaster (context 24,
+            prediction 12, 16 cells or units, float32, dropout 0; cuDNN's
+            TF32 flag left at PyTorch's default, which the recurrence
+            turns off itself) from the same Xavier weights: 3 Adam steps
+            of the hybridized gluon loop (record -> net(past,
+            future).mean() -> backward -> step) on the card and on the
+            CPU: losses within 1e-4, weights within 1e-5 in relative L2
+            (the attention key biases, whose gradient is zero in exact
+            arithmetic, within Adam's bound); forecast() within 1e-5;
+            sample() seeded twice equal; the captured loop (one capture,
+            then a forward and a backward replay a step) bit for bit the
+            eager loop on the card; no flash kernel.
+18. forecast: GluonTS's documented widths (FORECAST: DeepAR 40 cells x
+            2 LSTM layers, dropout 0.1, 20,082 parameters; the
+            Transformer 32 units, 128 hidden, 8 heads, 2 + 2 layers,
+            65,730 parameters), context 168, prediction 24, batch 32,
+            Adam lr 1e-3, float32, seeded synthetic series: the gluon
+            loop timed by the two-window slope (5 and 20 steps after 3
+            warm-ups), series/s, one capture before the windows and one
+            forward and one backward replay a timed step, a profiled
+            step split into the recurrence, GEMM, attention (plain,
+            measured alone), Adam and other, the busy share, peak
+            memory, no flash launch, the loss falling; then DeepAR's
+            sample(num_samples=100) and forecast() over 370 series: ms a
+            call, sample paths a second, peak memory.
 
 The kernels phase also runs K1-K3 at Llama-3-8B's training shape (B=1,
 S=4096, H=32 over KV=8, D=128, causal, bf16).  Then one line of per-kernel numbers ({"kernels": [...]}), the card's name
@@ -175,7 +200,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 without TF32
 ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,"
               "train_capture_parity,dropout,train,imperative_parity,"
               "imperative,rtc,resnet_parity,resnet,llama_train_parity,"
-              "llama_train")
+              "llama_train,forecast_parity,forecast")
 SERVING_PHASES = {"device", "build", "parity", "serve"}
 
 
@@ -2005,6 +2030,412 @@ def phase_llama_train(mx, dev, cfg=LLAMA_TRAIN):
     return dict(launches, per_step=layers, row=row, split=split)
 
 
+# -- phases 17-18: GluonTS forecasting (BASELINE config #4) ---------------------
+
+# GluonTS's documented defaults: DeepAREstimator (num_cells 40, num_layers
+# 2, LSTM, dropout 0.1) and TransformerEstimator's widths (model_dim 32,
+# inner_ff_dim_scale 4, num_heads 8) with the reference class's 2 + 2
+# layers; the DeepAR paper's electricity setup (hourly, context 168,
+# prediction 24, 370 series); GluonTS's Trainer batch 32, Adam lr 1e-3,
+# float32; prediction with num_parallel_samples 100.  The series are
+# synthetic (example/forecasting_deepar.py's seasonal sines, hourly
+# period 24), made from a seed with numpy: no dataset is in the repository
+FORECAST = dict(context=168, prediction=24, batch_size=32, lr=1e-3,
+                series=370, num_samples=100, warmup=3, windows=(5, 20),
+                deepar=dict(num_cells=40, num_layers=2, dropout=0.1),
+                transformer=dict(units=32, hidden_size=128, num_heads=8,
+                                 enc_layers=2, dec_layers=2),
+                params={"deepar": 20082, "transformer": 65730})
+# the parity runs: tiny configurations, float32, dropout 0
+FORECAST_PARITY = dict(context=24, prediction=12, batch_size=8, lr=1e-3,
+                       deepar=dict(num_cells=16, num_layers=2),
+                       transformer=dict(units=16, hidden_size=32,
+                                        num_heads=4, enc_layers=2,
+                                        dec_layers=2))
+FORECAST_LOSS_TOL = 1e-4
+FORECAST_WEIGHT_TOL = 1e-5
+FORECAST_FC_TOL = 1e-5
+
+
+def _forecast_series(n, length, seed, period=24):
+    """example/forecasting_deepar.py's series: seasonal sines with random
+    phase and amplitude, plus noise, shifted positive."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(length)[None, :]
+    x = (1.0 + 3.0 * rng.rand(n, 1)) * np.sin(
+        2 * np.pi * t / period + rng.rand(n, 1) * 2 * np.pi)
+    return (x + 5.0 + 0.1 * rng.randn(n, length)).astype("float32")
+
+
+def _forecaster(mx, kind, cfg, ctx, seed):
+    """``kind``'s model at ``cfg``, Xavier-initialized on ``ctx`` from
+    ``seed``, under the prefix ``kind_`` (so two of them share names)."""
+    from mxnet_tpu_torch import models
+    cls = models.DeepAR if kind == "deepar" else models.TransformerForecaster
+    net = cls(cfg["context"], cfg["prediction"], prefix=f"{kind}_",
+              **cfg[kind])
+    return net.initialize(mx.init.Xavier(), ctx=ctx, seed=seed)
+
+
+def _forecast_loop(mx, net, past, fut, steps, lr, hybridize=True):
+    """The reference's loop (example/forecasting_deepar.py): hybridize,
+    gluon.Trainer "adam", record -> net(past, future).mean() -> backward
+    -> step(B).  Returns (losses, step function)."""
+    from mxnet_tpu_torch import autograd, gluon
+    net.hybridize(hybridize)
+    tr = gluon.Trainer(net.collect_params(), "adam", {"learning_rate": lr})
+    b = past.shape[0]
+
+    def step():
+        with autograd.record():
+            loss = net(past, fut).mean()
+        loss.backward()
+        tr.step(b)
+        return loss
+    return [float(step().asnumpy()) for _ in range(steps)], step
+
+
+def _weights(net):
+    return {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+
+
+def _weight_errs(got, want, f64, lr, steps):
+    """Each tensor's relative L2 distance from ``want`` (the CPU's
+    float32 weights), and the limit it is held to: the larger of
+    FORECAST_WEIGHT_TOL and 4x the CPU's own float32-against-float64
+    distance for that tensor (as resnet_parity does: a weight whose
+    update float32 cannot resolve, such as a causal self-attention's
+    query bias, parts from float64 by more than 1e-5 on the CPU alone).
+    A key bias has no gradient in exact arithmetic (softmax is
+    shift-invariant), so Adam moves it by the sign of float32 noise, by
+    about lr a step at most: it is held to that bound instead.  Returns
+    ({name: (distance, limit)}, the key biases' largest size)."""
+    errs, key_bias = {}, 0.0
+    for k, w in want.items():
+        if k.endswith("_key_bias"):
+            key_bias = max(key_bias, float(np.abs(got[k]).max()))
+            continue
+        errs[k] = (_rel_l2([got[k]], [w]),
+                   max(FORECAST_WEIGHT_TOL, 4 * _rel_l2([w], [f64[k]])))
+    check(key_bias <= steps * lr * 1.01,
+          f"forecast_parity: a key bias moved {key_bias}, past Adam's "
+          f"bound {steps * lr}")
+    return errs, key_bias
+
+
+def phase_forecast_parity(mx, dev, steps=3):
+    """Tiny DeepAR and TransformerForecaster (C=24, P=12, 16 cells or
+    units, float32, dropout 0; cuDNN's TF32 flag left at PyTorch's
+    default, which the recurrence turns off itself) from the same Xavier
+    weights: 3 Adam steps of the hybridized gluon loop on the card and on
+    the CPU (losses within 1e-4, weights within 1e-5 in relative L2);
+    forecast() within 1e-5 of the CPU's; sample() seeded twice gives the
+    same paths; the captured loop (one capture, then a forward and a
+    backward replay a step) bit for bit the eager loop on the card; no
+    flash kernel."""
+    import torch
+    from mxnet_tpu_torch import nd
+    cfg = FORECAST_PARITY
+    free_earlier_phases()
+    check(torch.backends.cudnn.allow_tf32,
+          "forecast_parity: cuDNN's TF32 flag is meant to stay at PyTorch's "
+          "default (on) here")
+    data = _forecast_series(cfg["batch_size"],
+                            cfg["context"] + cfg["prediction"], 3)
+    rows = []
+    for kind in ("deepar", "transformer"):
+        nets, arrays = {}, {}
+        for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0)),
+                           ("card_eager", mx.gpu(0))):
+            nets[where] = _forecaster(mx, kind, cfg, ctx, seed=7)
+            arrays[where] = [mx.nd.array(data[:, :cfg["context"]], ctx=ctx),
+                             mx.nd.array(data[:, cfg["context"]:], ctx=ctx)]
+        _copy_params(nets["cpu"], nets["card"])
+        _copy_params(nets["cpu"], nets["card_eager"])
+        # the CPU's float64 twin: how far float32 itself carries the
+        # weights
+        nets["cpu_f64"] = _forecaster(mx, kind, cfg, mx.cpu(), seed=7)
+        _copy_params(nets["cpu"], nets["cpu_f64"])
+        nets["cpu_f64"].to(torch.float64)
+        arrays["cpu_f64"] = [nd.array(a.asnumpy(), ctx=mx.cpu(),
+                                      dtype="float64")
+                             for a in arrays["cpu"]]
+        losses = {}
+        reset_counts()
+        for where in nets:
+            losses[where], _ = _forecast_loop(
+                mx, nets[where], *arrays[where], steps, cfg["lr"],
+                hybridize=where != "card_eager")
+        launches = read_counts()
+        weights = {w: _weights(n) for w, n in nets.items()}
+        loss_err = _rel(losses["card"], losses["cpu"])
+        errs, key_bias = _weight_errs(weights["card"], weights["cpu"],
+                                      weights["cpu_f64"], cfg["lr"], steps)
+        weight_err = max(e for e, _ in errs.values())
+        worst = max(errs, key=lambda k: errs[k][0] / errs[k][1])
+        over = {k: e for k, e in errs.items() if e[0] > e[1]}
+        fc = {w: nets[w].forecast(arrays[w][0]).asnumpy()
+              for w in ("cpu", "card")}
+        fc_err = _rel(fc["card"], fc["cpu"])
+        bitwise = losses["card"] == losses["card_eager"] and all(
+            np.array_equal(weights["card"][k], weights["card_eager"][k])
+            for k in weights["card"])
+        op = nets["card"]._cached_op
+        row = {"phase": "forecast_parity", "model": kind,
+               "context": cfg["context"], "prediction": cfg["prediction"],
+               "batch_size": cfg["batch_size"], **cfg[kind],
+               "losses": losses["card"], "cpu_losses": losses["cpu"],
+               "loss_rel_err": loss_err, "loss_tol": FORECAST_LOSS_TOL,
+               "weight_rel_l2_max": weight_err,
+               "weight_tol": FORECAST_WEIGHT_TOL,
+               "worst_tensor": [worst, *errs[worst]],
+               "above_1e-5": {k: e for k, e in errs.items()
+                              if e[0] > FORECAST_WEIGHT_TOL},
+               "cpu_f32_vs_f64_loss_rel_err": _rel(losses["cpu"],
+                                                   losses["cpu_f64"]),
+               "key_bias_max_abs": key_bias,
+               "forecast_rel_err": fc_err, "forecast_tol": FORECAST_FC_TOL,
+               "captured_equals_eager_bitwise": bitwise,
+               "captures": op.captures, "replays": op.replays,
+               "backward_replays": op.backward_replays,
+               "launches": launches}
+        if kind == "deepar":
+            paths = []
+            for _ in range(2):
+                mx.random.seed(11)
+                paths.append(nets["card"].sample(arrays["card"][0],
+                                                 num_samples=50).asnumpy())
+            row["sample_shape"] = list(paths[0].shape)
+            row["sample_seeded_equal"] = bool(np.array_equal(*paths))
+            check(row["sample_seeded_equal"] and row["sample_shape"] == [
+                50, cfg["batch_size"], cfg["prediction"]],
+                f"forecast_parity: sample() {row['sample_shape']}, seeded "
+                f"twice equal: {row['sample_seeded_equal']}")
+        emit(row)
+        rows.append(row)
+        check(loss_err <= FORECAST_LOSS_TOL and not over
+              and fc_err <= FORECAST_FC_TOL,
+              f"forecast_parity {kind}: losses {loss_err}, weights above "
+              f"their limits {over}, forecast {fc_err}")
+        check(bitwise, f"forecast_parity {kind}: the captured loop is not "
+              f"bit for bit the eager one: {losses['card']} against "
+              f"{losses['card_eager']}")
+        check(op.captures == 1 and op.replays == steps - 1 ==
+              op.backward_replays,
+              f"forecast_parity {kind}: captures {op.captures}, replays "
+              f"{op.replays}, backward {op.backward_replays}")
+        check(not any(launches.values()),
+              f"forecast_parity {kind}: flash launches {launches}")
+        check(losses["card"][-1] < losses["card"][0],
+              f"forecast_parity {kind}: the loss did not fall "
+              f"{losses['card']}")
+    return rows
+
+
+def _forecast_split(per_kernel, attn):
+    """A profiled step's device time by kind (ms): the recurrence (cuDNN's
+    RNN kernels), GEMMs, attention (the plain path, measured alone on the
+    step's shapes: ``attn`` is (ms, of it GEMMs)), Adam (the multi-tensor
+    kernels) and the rest."""
+    total = sum(per_kernel.values())
+    rnn = sum(t for k, t in per_kernel.items()
+              if "rnn" in k.lower() or "lstm" in k.lower())
+    adam = sum(t for k, t in per_kernel.items()
+               if "multi_tensor_apply" in k)
+    gemm = sum(t for k, t in per_kernel.items()
+               if _is_gemm(k) and not ("rnn" in k.lower()
+                                       or "lstm" in k.lower()))
+    attn_ms, attn_gemm = attn
+    split = {"device_ms": total, "rnn_ms": rnn,
+             "gemm_ms": gemm - attn_gemm, "attention_plain_ms": attn_ms,
+             "adam_ms": adam,
+             "other_ms": total - rnn - gemm - adam - (attn_ms - attn_gemm)}
+    split["shares"] = {k[:-3]: v / total for k, v in split.items()
+                       if k.endswith("_ms") and k != "device_ms"}
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    split["top_kernels"] = [[k[:100], t] for k, t in top]
+    return split
+
+
+def _attention_alone(net, b, dev):
+    """(ms, of it GEMMs) of a TransformerForecaster step's attention,
+    forward and backward, run alone on the step's shapes: each encoder
+    layer's self-attention over the context, each decoder layer's causal
+    self-attention and its cross-attention into the memory."""
+    import torch
+    from mxnet_tpu_torch.ops.attention import dot_product_attention
+    c, p = net.context_length, net.prediction_length
+    h = net.encoder.layers[0].attention._num_heads
+    d = net._units // h
+    causal = torch.tril(torch.ones(p, p, device=dev)).reshape(1, 1, p, p)
+    shapes = [(c, c, None)] * len(net.encoder.layers)
+    shapes += [(p, p, causal), (p, c, None)] * len(net.dec_cells)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    qkv = [[torch.randn(b, s, h, d, generator=g, device=dev,
+                        requires_grad=True) for s in (sq, sk, sk)] + [m]
+           for sq, sk, m in shapes]
+
+    def run():
+        for q, k, v, m in qkv:
+            out = dot_product_attention(q, k, v, m)
+            torch.autograd.grad(out.sum(), (q, k, v))
+    ms, per = device_ms(run, reps=5, warmup=2, by_kernel=True)
+    return ms, sum(t for k, t in per.items() if _is_gemm(k))
+
+
+def phase_forecast(mx, dev, cfg=FORECAST):
+    """GluonTS forecasting at its documented widths (FORECAST): for each
+    model the reference's gluon loop (hybridized, Adam lr 1e-3, batch 32
+    of context 168 + prediction 24) timed by the two-window slope (5 and
+    20 steps after 3 warm-ups): ms a step, series/s, one capture before
+    the windows and one forward and one backward replay a timed step, a
+    profiled step split into the recurrence, GEMM, attention (plain),
+    Adam and other, the busy share, peak memory, no flash launch, the
+    loss falling; then DeepAR's sample(num_samples=100) and forecast()
+    over 370 series: ms a call and sample paths a second."""
+    import torch
+    free_earlier_phases()
+    c, p, b = cfg["context"], cfg["prediction"], cfg["batch_size"]
+    data = _forecast_series(b, c + p, 0)
+    past = mx.nd.array(data[:, :c], ctx=mx.gpu(0))
+    fut = mx.nd.array(data[:, c:], ctx=mx.gpu(0))
+    n1, n2 = cfg["windows"]
+    out = {}
+    for kind in ("deepar", "transformer"):
+        free_earlier_phases()
+        mx.random.seed(0)
+        net = _forecaster(mx, kind, cfg, mx.gpu(0), seed=0)
+        n_params = sum(p_.data().size
+                       for p_ in net.collect_params().values())
+        check(n_params == cfg["params"][kind],
+              f"forecast {kind}: {n_params} parameters, want "
+              f"{cfg['params'][kind]}")
+        first = None
+        _, step = _forecast_loop(mx, net, past, fut, 0, cfg["lr"])
+        for _ in range(cfg["warmup"]):
+            loss = step()
+            first = last_loss(loss) if first is None else first
+        op = net._cached_op
+        captures0, replays0, bwd0 = op.captures, op.replays, \
+            op.backward_replays
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        step_s, naive_s, windows, used, last = timed_windows(
+            step, n1, n2, f"forecast {kind}")
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        reserved = torch.cuda.max_memory_reserved(dev)
+        captures = op.captures - captures0
+        replays, bwd = op.replays - replays0, op.backward_replays - bwd0
+        step_ms, per_kernel = device_ms(step, reps=5, warmup=1,
+                                        by_kernel=True)
+        attn = _attention_alone(net, b, dev) if kind == "transformer" \
+            else (0.0, 0.0)
+        split = _forecast_split(per_kernel, attn)
+        walls = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            step()
+            torch.cuda.synchronize(dev)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        split["wall_ms"] = statistics.median(walls)
+        split["device_busy_share"] = step_ms / split["wall_ms"]
+        row = {"phase": "forecast", "model": kind, "context": c,
+               "prediction": p, "batch_size": b, **cfg[kind],
+               "dtype": "float32", "optimizer": "adam", "lr": cfg["lr"],
+               "params": n_params, "warmup": cfg["warmup"],
+               "windows": [n1, n2], "window_s": windows,
+               "step_ms": step_s * 1e3, "naive_step_ms": naive_s * 1e3,
+               "timing": used, "series_per_s": b / step_s,
+               "first_loss": first, "last_loss": last,
+               "peak_mem_bytes": peak, "peak_reserved_bytes": reserved,
+               "cachedop": {"entries": len(op), "captures": op.captures,
+                            "pool_bytes": op.pool_bytes},
+               "captures_counted": captures, "replays_counted": replays,
+               "backward_replays_counted": bwd, "steps_counted": n1 + n2,
+               "launches": launches, "card": nvidia_smi()}
+        emit(row)
+        emit(dict({"phase": "forecast_breakdown", "model": kind,
+                   "call": "gluon loop step (profiled)"}, **split))
+        check(math.isfinite(last) and last < first,
+              f"forecast {kind}: the loss went from {first} to {last}")
+        check(captures == 0 and op.captures == 1 and len(op) == 1,
+              f"forecast {kind}: {op.captures} captures ({captures} in the "
+              f"timed windows), {len(op)} entries; want one, before them")
+        check(replays == n1 + n2 == bwd,
+              f"forecast {kind}: {replays} forward and {bwd} backward "
+              f"replays in the timed windows, want {n1 + n2} each")
+        check(not any(launches.values()),
+              f"forecast {kind}: flash launches {launches}")
+        out[kind] = row
+        if kind == "deepar":
+            out["predict"] = _deepar_predict(mx, net, cfg, dev)
+    return out
+
+
+def _deepar_predict(mx, net, cfg, dev):
+    """DeepAR's sample(num_samples) and forecast() over ``cfg["series"]``
+    series of the context length: ms a call (CUDA events around 3 calls
+    after a warm-up), sample paths a second, peak memory (and the memory
+    the sample's LSTM warm-up over the context takes beyond its inputs);
+    finite paths of the reference's shape."""
+    import torch
+    from mxnet_tpu_torch.gluon.block import inline_calls
+    series = mx.nd.array(_forecast_series(cfg["series"], cfg["context"], 1),
+                         ctx=mx.gpu(0))
+    s = cfg["num_samples"]
+    mx.random.seed(5)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    paths = net.sample(series, num_samples=s)
+    torch.cuda.synchronize(dev)
+    sample_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fc = net.forecast(series)
+    torch.cuda.synchronize(dev)
+    forecast_peak = torch.cuda.max_memory_allocated(dev)
+    # the sample's warm-up alone: the LSTM over the context's first
+    # C - 1 steps of every row, one fused call a layer
+    rows = cfg["series"] * s
+    ctx_in = mx.nd.zeros((rows, cfg["context"] - 1, 1), ctx=mx.gpu(0))
+    states = net.lstm.begin_state(rows, ctx=mx.gpu(0))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with torch.no_grad(), inline_calls():
+        net.lstm(ctx_in, states)
+    torch.cuda.synchronize(dev)
+    warmup_extra = torch.cuda.max_memory_allocated(dev) - base
+    del ctx_in, states
+    sample_ms = cuda_time_ms(lambda: net.sample(series, num_samples=s),
+                             reps=3, warmup=1)
+    forecast_ms = cuda_time_ms(lambda: net.forecast(series), reps=3,
+                               warmup=1)
+    p = paths.asnumpy()
+    row = {"phase": "forecast_predict", "model": "deepar",
+           "series": cfg["series"], "num_samples": s,
+           "rows_a_step": cfg["series"] * s,
+           "prediction": cfg["prediction"], "sample_ms": sample_ms,
+           "sample_paths_per_s": cfg["series"] * s / (sample_ms / 1e3),
+           "forecast_ms": forecast_ms,
+           "forecast_series_per_s": cfg["series"] / (forecast_ms / 1e3),
+           "sample_peak_mem_bytes": sample_peak,
+           "sample_warmup_lstm_extra_bytes": warmup_extra,
+           "forecast_peak_mem_bytes": forecast_peak,
+           "sample_shape": list(p.shape),
+           "sample_mean_abs_gap_to_forecast": float(np.abs(
+               p.mean(axis=0) - fc.asnumpy()).mean()),
+           "card": nvidia_smi()}
+    emit(row)
+    check(list(p.shape) == [s, cfg["series"], cfg["prediction"]]
+          and np.isfinite(p).all(),
+          f"forecast_predict: sample paths {p.shape}, finite "
+          f"{np.isfinite(p).all()}")
+    return row
+
+
 # -- phase 4: parity -----------------------------------------------------------
 
 def phase_parity(mx, dev):
@@ -3100,6 +3531,10 @@ def main():
     if "llama_train_parity" in phases:
         phase_llama_train_parity(mx, dev)
     llama = phase_llama_train(mx, dev) if "llama_train" in phases else {}
+    if "forecast_parity" in phases:
+        phase_forecast_parity(mx, dev)
+    if "forecast" in phases:
+        phase_forecast(mx, dev)
 
     kernels = kernel_entries(rows, bwd_rows, train, serve, llama)
     if rtc is not None:

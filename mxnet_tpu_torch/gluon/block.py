@@ -178,6 +178,12 @@ class Block(nn.Module):
             p = self._gluon_params[attr] = Parameter(self, attr)
         return p
 
+    def register_child(self, block, name=None):
+        """Make ``block`` a child under ``name`` (default: its position),
+        as assigning it to an attribute does."""
+        self.add_module(str(len(self._modules)) if name is None else name,
+                        block)
+
     def _child_blocks(self, module=None):
         for child in (module or self).children():
             if isinstance(child, Block):

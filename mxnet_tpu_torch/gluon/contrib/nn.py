@@ -2,8 +2,16 @@
 ``MultiHeadAttention``, ``PositionwiseFFN``, the post-/pre-LN
 ``TransformerEncoderCell`` and ``TransformerEncoder``.
 
+They are ``HybridBlock``s that take ``prefix=`` and ``params=``, and
+their children carry the reference's prefixes, so ``collect_params()``
+names equal the JAX package's (``multiheadattention0_query_weight``,
+``layer0_positionwiseffn0_ffn1_bias``, ...).  The attribute paths stay
+``query_proj``, ``layers.{i}.attention``, ... .
+
 Attention is ``dot_product_attention``: aligned lengths run the flash
-kernels on the card, forward and backward.  ``remat=True`` recomputes
+kernels on the card, forward and backward; a query-dependent 4-D mask
+(a decoder's causal mask) takes the plain path, as the reference's takes
+XLA's.  ``remat=True`` recomputes
 each layer in the backward with ``torch.utils.checkpoint``; the
 recomputation replays the dropout draws of the device's ``mx.random``
 generator.
@@ -22,21 +30,21 @@ from ... import random as _random
 from ...base import MXNetError
 from ...ops import nn as ops
 from ...ops.attention import dot_product_attention
-from ..block import Block
+from ..block import HybridBlock
 from ..nn import Dense, Dropout, LayerNorm
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN",
            "TransformerEncoderCell", "TransformerEncoder"]
 
 
-class MultiHeadAttention(Block):
+class MultiHeadAttention(HybridBlock):
     """Multi-head self/cross attention (units == num_heads * head_dim).
     ``in_units`` (default ``units``) is the width of query, key and
     value."""
 
     def __init__(self, units, num_heads, dropout=0.0, use_bias=True,
-                 in_units=None):
-        super().__init__()
+                 in_units=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if units % num_heads:
             raise MXNetError(f"units {units} not divisible by num_heads "
                              f"{num_heads}")
@@ -44,11 +52,15 @@ class MultiHeadAttention(Block):
         self._num_heads = num_heads
         in_units = in_units or units
         kw = dict(flatten=False, use_bias=use_bias)
-        self.query_proj = Dense(units, in_units=in_units, **kw)
-        self.key_proj = Dense(units, in_units=in_units, **kw)
-        self.value_proj = Dense(units, in_units=in_units, **kw)
-        self.out_proj = Dense(units, in_units=units, **kw)
-        self.drop = Dropout(dropout) if dropout else None
+        with self.name_scope():
+            self.query_proj = Dense(units, in_units=in_units,
+                                    prefix="query_", **kw)
+            self.key_proj = Dense(units, in_units=in_units, prefix="key_",
+                                  **kw)
+            self.value_proj = Dense(units, in_units=in_units,
+                                    prefix="value_", **kw)
+            self.out_proj = Dense(units, in_units=units, prefix="out_", **kw)
+            self.drop = Dropout(dropout) if dropout else None
 
     def forward(self, query, key=None, value=None, mask=None):
         if key is None:
@@ -69,12 +81,16 @@ class MultiHeadAttention(Block):
         return out
 
 
-class PositionwiseFFN(Block):
-    def __init__(self, units, hidden_size, dropout=0.0, activation="gelu"):
-        super().__init__()
-        self.ffn_1 = Dense(hidden_size, flatten=False, in_units=units)
-        self.ffn_2 = Dense(units, flatten=False, in_units=hidden_size)
-        self.drop = Dropout(dropout) if dropout else None
+class PositionwiseFFN(HybridBlock):
+    def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.ffn_1 = Dense(hidden_size, flatten=False, in_units=units,
+                               prefix="ffn1_")
+            self.ffn_2 = Dense(units, flatten=False, in_units=hidden_size,
+                               prefix="ffn2_")
+            self.drop = Dropout(dropout) if dropout else None
         self._activation = activation
 
     def forward(self, x):
@@ -89,20 +105,22 @@ class PositionwiseFFN(Block):
         return h
 
 
-class TransformerEncoderCell(Block):
+class TransformerEncoderCell(HybridBlock):
     """Pre/post-LN encoder layer (BERT uses post-LN, the default)."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
-                 activation="gelu", pre_norm=False):
-        super().__init__()
+                 activation="gelu", pre_norm=False, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
         self._pre_norm = pre_norm
-        self.attention = MultiHeadAttention(units, num_heads,
-                                            dropout=dropout)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout=dropout,
-                                   activation=activation)
-        self.layer_norm_att = LayerNorm(units)
-        self.layer_norm_ffn = LayerNorm(units)
-        self.drop = Dropout(dropout) if dropout else None
+        with self.name_scope():
+            self.attention = MultiHeadAttention(units, num_heads,
+                                                dropout=dropout)
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout=dropout,
+                                       activation=activation)
+            self.layer_norm_att = LayerNorm(units)
+            self.layer_norm_ffn = LayerNorm(units)
+            self.drop = Dropout(dropout) if dropout else None
 
     def forward(self, x, mask=None):
         if self._pre_norm:
@@ -115,23 +133,27 @@ class TransformerEncoderCell(Block):
         return self.layer_norm_ffn(x + self.ffn(x))
 
 
-class TransformerEncoder(Block):
-    """A stack of encoder cells.  ``remat=True`` checkpoints each layer
-    when a gradient is being recorded: its activations are recomputed in
-    the backward instead of stored.  ``scan_layers=True`` runs unrolled
-    (see the module docstring)."""
+class TransformerEncoder(HybridBlock):
+    """A stack of encoder cells, named ``layer{i}_`` as in the reference.
+    ``remat=True`` checkpoints each layer when a gradient is being
+    recorded: its activations are recomputed in the backward instead of
+    stored.  ``scan_layers=True`` runs unrolled (see the module
+    docstring)."""
 
     def __init__(self, units, hidden_size, num_layers, num_heads,
                  dropout=0.0, activation="gelu", pre_norm=False,
-                 remat=False, scan_layers=False):
-        super().__init__()
+                 remat=False, scan_layers=False, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._remat = remat
         del scan_layers          # accepted; the layers run unrolled
-        self.layers = tnn.ModuleList(
-            TransformerEncoderCell(units, hidden_size, num_heads,
-                                   dropout=dropout, activation=activation,
-                                   pre_norm=pre_norm)
-            for _ in range(num_layers))
+        with self.name_scope():
+            self.layers = tnn.ModuleList(
+                TransformerEncoderCell(units, hidden_size, num_heads,
+                                       dropout=dropout,
+                                       activation=activation,
+                                       pre_norm=pre_norm,
+                                       prefix=f"layer{i}_")
+                for i in range(num_layers))
 
     def forward(self, x, mask=None):
         remat = self._remat and torch.is_grad_enabled()

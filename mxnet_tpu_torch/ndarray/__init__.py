@@ -6,8 +6,10 @@ arguments are the leading positional arguments (NDArrays); operator
 attributes follow positionally (scalar attrs first, then the rest in
 declaration order) or as keywords; every op takes ``out=``, and ops with
 no tensor input take ``ctx=``.  ``BatchNorm`` updates the moving
-statistics it is given, in place, when training.  ``nd.save``/``nd.load``
-and ``RNN`` are not ported yet (ROADMAP queue 1).
+statistics it is given, in place, when training.  ``nd.contrib`` holds
+the control-flow ops (``foreach``, ``while_loop``, ``cond``).
+``nd.save``/``nd.load`` are not ported yet (ROADMAP queue 1), and
+``nd.RNN`` raises ``NotImplementedError`` as in the JAX package.
 """
 from __future__ import annotations
 
@@ -123,7 +125,8 @@ _CUSTOM = {"BatchNorm": BatchNorm, "Dropout": Dropout, "maximum": maximum,
 
 _generate(_mod)
 
-from . import random  # noqa: E402  (nd.random namespace)
+from . import contrib, random  # noqa: E402  (nd.contrib, nd.random)
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
-           "eye", "concatenate", "waitall", "invoke", "random", "moveaxis"]
+           "eye", "concatenate", "waitall", "invoke", "contrib", "random",
+           "moveaxis"]

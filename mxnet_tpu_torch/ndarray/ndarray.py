@@ -565,7 +565,7 @@ def invoke(op: OpDef, inputs: Sequence[NDArray], out=None,
         else:
             with torch.no_grad():
                 res = op.fcompute(*tensors, *scalars, **kwargs)
-    except MXNetError:
+    except (MXNetError, NotImplementedError):
         raise
     except RuntimeError as e:
         raise MXNetError(f"{op.name}: {e}") from e

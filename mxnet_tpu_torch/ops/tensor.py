@@ -11,7 +11,7 @@ input are copied by ``invoke`` (MXNet's ops return new arrays); only
 ``NDArray.reshape`` and basic indexing keep the view.
 
 Not ported yet (ROADMAP queue 1 item 3): ``linalg_*``, sort/argsort/topk,
-the ``Sequence*`` ops, ``scatter_nd``/``gather_nd``, ``pad``, the
+``SequenceLast``, ``scatter_nd``/``gather_nd``, ``pad``, the
 ``_contrib_*`` ops and the rest of the JAX module.
 """
 from __future__ import annotations
@@ -549,3 +549,40 @@ def swapaxes(data, *, dim1=0, dim2=0):
 
 
 alias("SwapAxis", "swapaxes")
+
+
+# -- sequence ops (reference ``src/operator/sequence_*.cc``) ------------------
+
+def _valid_steps(data, seqlen, axis):
+    """(T, B) or (B, T) boolean: step t of row b lies inside its length,
+    shaped to broadcast over ``data``."""
+    steps = torch.arange(data.shape[axis], device=data.device)
+    lens = seqlen.to(device=data.device).long()
+    mask = steps[:, None] < lens[None, :] if axis == 0 else \
+        steps[None, :] < lens[:, None]
+    return mask.reshape(mask.shape + (1,) * (data.dim() - 2))
+
+
+@register("SequenceMask", num_inputs=None)
+def sequence_mask(data, *rest, use_sequence_length=False, value=0.0,
+                  axis=0):
+    """Steps at or past each row's length set to ``value``."""
+    if not use_sequence_length:
+        return data
+    return torch.where(_valid_steps(data, rest[0], axis), data,
+                       torch.full((), value, dtype=data.dtype,
+                                  device=data.device))
+
+
+@register("SequenceReverse", num_inputs=None)
+def sequence_reverse(data, *rest, use_sequence_length=False, axis=0):
+    """Time-major (T, B, ...) data with each row's first ``length``
+    steps reversed; the padding stays where it is."""
+    if not use_sequence_length:
+        return torch.flip(data, dims=(0,))
+    lens = rest[0].to(device=data.device).long()
+    steps = torch.arange(data.shape[0], device=data.device)[:, None]
+    idx = torch.where(steps < lens[None, :], lens[None, :] - 1 - steps,
+                      steps)                                  # (T, B)
+    batch = torch.arange(data.shape[1], device=data.device)[None, :]
+    return data[idx, batch]

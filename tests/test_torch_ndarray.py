@@ -205,6 +205,18 @@ SHAPE = {
                    [np.round(X), np.round(Y)]),
     "logical_xor": (lambda F, a, b: F.logical_xor(a, b),
                     [np.round(X), np.round(Y)]),
+    # the sequence ops of gluon.rnn's unroll and BidirectionalCell
+    "SequenceMask": (lambda F, a, n: F.SequenceMask(
+        a, n, use_sequence_length=True, value=-1.0),
+        [_u(4, 3, 2), np.array([4, 1, 2], "f4")]),
+    "SequenceMask_axis1": (lambda F, a, n: F.SequenceMask(
+        a, n, use_sequence_length=True, axis=1),
+        [_u(3, 4, 2), np.array([4, 1, 2], "f4")]),
+    "SequenceReverse": (lambda F, a, n: F.SequenceReverse(
+        a, n, use_sequence_length=True),
+        [_u(4, 3, 2), np.array([4, 1, 3], "f4")]),
+    "SequenceReverse_all": (lambda F, a: F.SequenceReverse(a),
+                            [_u(4, 3, 2)]),
     # nn: the MLP's ops
     "FullyConnected": (lambda F, a, w, b: F.FullyConnected(
         a, w, b, num_hidden=5), [_u(2, 3, 4), _u(5, 12), _u(5)]),
@@ -294,6 +306,9 @@ RANDOM_OPS = {"_random_uniform", "_random_normal", "_random_gamma",
 
 # held against the JAX ops, value and gradient, in test_torch_conv_ops.py
 CONV_OPS = {"Convolution", "Pooling", "BatchNorm"}
+
+# raises NotImplementedError as the JAX op does, in test_torch_rnn.py
+RNN_OPS = {"RNN"}
 
 
 # -- the Llama blocks' ops ---------------------------------------------------
@@ -401,12 +416,12 @@ def test_chunked_softmax_ce_checks():
 def test_every_op_has_a_case():
     """Each registered op is held against the JAX package here (the
     Llama blocks' ops in LLAMA_OPS), in test_torch_conv_ops.py
-    (CONV_OPS), or by its statistics in test_torch_autograd.py (the
-    samplers, Dropout)."""
+    (CONV_OPS) or test_torch_rnn.py (RNN_OPS), or by its statistics in
+    test_torch_autograd.py (the samplers, Dropout)."""
     covered = set(UNARY) | set(SCALAR) | set(BROADCAST) | set(CREATION) \
         | {n for n, _ in REDUCE} | set(SHAPE) | {"argmax", "argmin"} \
         | {"sgd_update", "sgd_mom_update"} | RANDOM_OPS | CONV_OPS \
-        | set(LLAMA_OPS)
+        | RNN_OPS | set(LLAMA_OPS)
     missing = sorted(set(list_ops()) - covered)
     assert missing == []
 
