@@ -38,7 +38,9 @@ Phases, each printing JSON lines:
             kernel once per layer per admission, counted through the
             replays), generate_fused's greedy tokens (an eager call, the
             captured call, a replay) against the CPU's generate, and
-            generate_beam's sequences (exactly) and scores (1e-4).
+            generate_beam's sequences (exactly) and scores (1e-4); given
+            an NDArray prompt on the card, all three return NDArrays on
+            the prompt's context with the same tokens.
 5. serve:   the Llama-3-8B geometry (bf16 weights drawn on the card from a
             seeded generator) served through Server: 8 prompts of 20-500
             tokens in buckets (4, 128) and (4, 512), 32 new tokens each,
@@ -173,6 +175,37 @@ Phases, each printing JSON lines:
             sample(num_samples=100) and forecast() over 370 series: ms a
             call, sample paths a second, peak memory.
 
+19. gan_parity: example/dcgan.py's generator and discriminator at tiny
+            widths (GAN_PARITY: ngf = ndf = 8, nz 16, batch 8, float32;
+            cuDNN's TF32 flag left at PyTorch's default, which the
+            convolutions turn off themselves) from the same Normal(0.02)
+            weights: 3 alternating D/G Adam iterations (lr 2e-4, beta1
+            0.5, seeded noise) on the card against the CPU: in float64
+            the same function (losses, weights and moving statistics
+            within 1e-10), in float32 losses within 1e-4 and each weight
+            and moving statistic within the larger of 1e-5 and twice the
+            sum of the CPU's and the card's own float32-against-float64
+            distances in relative L2; Deconvolution, forward and the
+            three gradients,
+            at the four generator shapes of the gan phase, a
+            target_shape and an adj case, through cuDNN (1e-4); every
+            layer and loss of the GAN slice, forward and gradient, in
+            one sweep (1e-4); the same iterations with both nets
+            hybridized bit for bit the eager ones, both CachedOps
+            captured and replayed; no flash kernel.
+20. gan:     the same nets at DCGAN's published widths (GAN: Radford et
+            al. 2016, nz 100, ngf = ndf = 64, batch 128, Adam lr 2e-4
+            beta1 0.5) on the example's 32 x 32 RGB, float32, seeded
+            blob images made up front and z drawn on the card: the
+            example's iteration eager and hybridized, each timed by the
+            two-window slope (5 and 20 iterations after 3 warm-ups): ms
+            an iteration, images/s, FLOPs from the layers' shapes
+            against the float32 peak, a profiled iteration split into
+            cuDNN's fprop, dgrad and wgrad kernels, BatchNorm, Adam and
+            other, the busy share, peak memory, the CachedOps' pools and
+            replays; losses finite, D's accuracy reported, no flash
+            kernel.
+
 The kernels phase also runs K1-K3 at Llama-3-8B's training shape (B=1,
 S=4096, H=32 over KV=8, D=128, causal, bf16).  Then one line of per-kernel numbers ({"kernels": [...]}), the card's name
 and power limit as nvidia-smi gives them, and as the last line
@@ -182,6 +215,7 @@ and power limit as nvidia-smi gives them, and as the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -200,7 +234,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 without TF32
 ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,"
               "train_capture_parity,dropout,train,imperative_parity,"
               "imperative,rtc,resnet_parity,resnet,llama_train_parity,"
-              "llama_train,forecast_parity,forecast")
+              "llama_train,forecast_parity,forecast,gan_parity,gan")
 SERVING_PHASES = {"device", "build", "parity", "serve"}
 
 
@@ -314,6 +348,20 @@ def queued_ms(fn, reps, warmup=2, tries=3):
          f"longer than the {spin_ms} ms spin meant to hold them back")
 
 
+def window_kernels(fn, reps):
+    """One profiler window of ``reps`` calls: ({kernel: self device
+    microseconds}, {kernel: recorded launches}), CUDA kernels and copies
+    that took time."""
+    import torch
+    us, counts = {}, {}
+    for ev in profiled(fn, reps):
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and ev.self_device_time_total > 0:
+            us[ev.key] = us.get(ev.key, 0.0) + ev.self_device_time_total
+            counts[ev.key] = counts.get(ev.key, 0) + ev.count
+    return us, counts
+
+
 def device_ms(fn, reps, warmup=2, by_kernel=False, tries=5):
     """Device time of one call: from one torch.profiler window of
     ``reps`` back-to-back calls, each CUDA kernel's (and copy's) mean
@@ -330,12 +378,7 @@ def device_ms(fn, reps, warmup=2, by_kernel=False, tries=5):
         fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        us, counts = {}, {}
-        for ev in profiled(fn, reps):
-            if ev.device_type == torch.autograd.DeviceType.CUDA \
-                    and ev.self_device_time_total > 0:
-                us[ev.key] = us.get(ev.key, 0.0) + ev.self_device_time_total
-                counts[ev.key] = counts.get(ev.key, 0) + ev.count
+        us, counts = window_kernels(fn, reps)
         per_call = {k: round(n / reps) for k, n in counts.items()}
         if counts and all(per_call[k] >= 1
                           and abs(n - per_call[k] * reps) <= 0.1 * reps
@@ -344,6 +387,36 @@ def device_ms(fn, reps, warmup=2, by_kernel=False, tries=5):
             total = sum(per.values())
             return (total, per) if by_kernel else total
     fail(f"device_ms: {tries} profiler windows of {reps} calls each "
+         f"recorded kernels a number of times far from a multiple of the "
+         f"calls: {counts}")
+
+
+def kernel_split_ms(fn, reps, warmup=1, tries=5):
+    """A call's device time by kernel, for a call whose total is read
+    from CUDA events (``queued_ms``): one torch.profiler window of
+    ``reps`` calls, each kernel's mean self device time a recorded
+    launch times its launches a call (its recorded count over ``reps``,
+    rounded).  Unlike ``device_ms`` it takes a window that lost an event
+    or two, which after many profiled phases in one process the profiler
+    does now and then: a window is taken again when a count sits a
+    quarter of ``reps`` or more from a multiple (the rounding would be a
+    guess) or it lost more than 1 % of its events.  Returns ({kernel: ms
+    a call}, events the window lost, windows taken)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for taken in range(1, tries + 1):
+        us, counts = window_kernels(fn, reps)
+        per_call = {k: round(n / reps) for k, n in counts.items()}
+        lost = sum(per_call[k] * reps - n for k, n in counts.items())
+        if counts and all(per_call[k] >= 1
+                          and abs(n - per_call[k] * reps) < 0.25 * reps
+                          for k, n in counts.items()) \
+                and abs(lost) <= 0.01 * sum(counts.values()):
+            return {k: us[k] / counts[k] * per_call[k] / 1e3
+                    for k in us}, lost, taken
+    fail(f"kernel_split_ms: {tries} profiler windows of {reps} calls each "
          f"recorded kernels a number of times far from a multiple of the "
          f"calls: {counts}")
 
@@ -2436,6 +2509,804 @@ def _deepar_predict(mx, net, cfg, dev):
     return row
 
 
+# -- phases 19-20: GAN training -------------------------------------------------
+
+# example/dcgan.py's nets at DCGAN's published widths (Radford et al. 2016,
+# "Unsupervised Representation Learning with Deep Convolutional GANs",
+# sections 3-4: z of 100, 64 base filters doubling each layer, batch 128,
+# Adam lr 2e-4 with beta1 0.5) on the example's four-layer 32 x 32 RGB
+GAN = dict(nz=100, ngf=64, ndf=64, nc=3, batch_size=128, lr=2e-4,
+           beta1=0.5, warmup=3, windows=(5, 20), batches=8)
+# the parity runs: tiny widths, float32
+GAN_PARITY = dict(nz=16, ngf=8, ndf=8, nc=3, batch_size=8, lr=2e-4,
+                  beta1=0.5, steps=3)
+GAN_LOSS_TOL = 1e-4
+# each weight and moving statistic, card against CPU in float32, in
+# relative L2: within the larger of GAN_WEIGHT_TOL and 4x the CPU's own
+# float32-against-float64 distance.  GAN_WEIGHT_TOL is 3x the largest
+# distance the card's float32 showed from its own float64 (1.66e-5, the
+# generator's first BatchNorm beta): every gradient of the card's first
+# iteration is ~1e-5 from float64 where the CPU's is ~6e-7, and Adam
+# carries that into the weights.  A TF32 run of the same loop lands at
+# 1e-3 to 0.2, and gan_parity runs one and requires this rule to reject it
+GAN_WEIGHT_TOL = 5e-5
+GAN_F64_TOL = 1e-10
+GAN_OP_TOL = 1e-4
+
+
+def _gan_nets(mx, cfg):
+    """example/dcgan.py's build_generator and build_discriminator at
+    ``cfg``'s widths: z (N, nz, 1, 1) -> Conv2DTranspose stack ->
+    (N, nc, 32, 32) under tanh; a strided Conv2D stack with LeakyReLU
+    0.2 -> one logit a 1 x 1 position."""
+    from mxnet_tpu_torch.gluon import nn
+    ngf, ndf, nc = cfg["ngf"], cfg["ndf"], cfg["nc"]
+    gen = nn.HybridSequential(prefix="gen_")
+    with gen.name_scope():
+        gen.add(nn.Conv2DTranspose(ngf * 4, 4, 1, 0, use_bias=False),
+                nn.BatchNorm(), nn.Activation("relu"),
+                nn.Conv2DTranspose(ngf * 2, 4, 2, 1, use_bias=False),
+                nn.BatchNorm(), nn.Activation("relu"),
+                nn.Conv2DTranspose(ngf, 4, 2, 1, use_bias=False),
+                nn.BatchNorm(), nn.Activation("relu"),
+                nn.Conv2DTranspose(nc, 4, 2, 1, use_bias=False),
+                nn.Activation("tanh"))
+    disc = nn.HybridSequential(prefix="disc_")
+    with disc.name_scope():
+        disc.add(nn.Conv2D(ndf, 4, 2, 1, use_bias=False),
+                 nn.LeakyReLU(0.2),
+                 nn.Conv2D(ndf * 2, 4, 2, 1, use_bias=False),
+                 nn.BatchNorm(), nn.LeakyReLU(0.2),
+                 nn.Conv2D(ndf * 4, 4, 2, 1, use_bias=False),
+                 nn.BatchNorm(), nn.LeakyReLU(0.2),
+                 nn.Conv2D(1, 4, 1, 0, use_bias=False))
+    return gen, disc
+
+
+def _gan_images(rng, batch, size=32):
+    """example/dcgan.py's synthetic_batch: a bright gaussian blob at a
+    random place, the three channels at three brightnesses, in [-1, 1]."""
+    y, x = np.mgrid[0:size, 0:size]
+    imgs = np.empty((batch, 3, size, size), "float32")
+    for i in range(batch):
+        cx, cy = rng.randint(8, size - 8, 2)
+        blob = np.exp(-((x - cx) ** 2 + (y - cy) ** 2) / 30.0)
+        for c in range(3):
+            imgs[i, c] = blob * (0.5 + 0.5 * c / 2) * 2 - 1
+    return imgs
+
+
+def _gan_pair(mx, cfg, ctx, seed):
+    """Generator and discriminator on ``ctx``, Normal(0.02) from
+    ``seed``, their deferred shapes made by one predict-mode call."""
+    gen, disc = _gan_nets(mx, cfg)
+    for i, net in enumerate((gen, disc)):
+        net.initialize(mx.init.Normal(0.02), ctx=ctx, seed=seed + i)
+    z = mx.nd.zeros((cfg["batch_size"], cfg["nz"], 1, 1), ctx=ctx)
+    disc(gen(z))
+    return gen, disc
+
+
+def _gan_loop(mx, gen, disc, cfg, ctx, reals, noise=None, dtype="float32"):
+    """example/dcgan.py's iteration as a function: a D step (disc(real),
+    disc(gen(z).detach()), the two SigmoidBCE means, backward, Adam) and
+    a G step (disc(gen(z)) against the real label, backward, Adam).  z is
+    ``noise[i]`` (numpy, for parity runs) or drawn on the device as the
+    example draws it.  Returns the iteration, which returns (d_loss,
+    g_loss, out_r, out_f)."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    b, nz = cfg["batch_size"], cfg["nz"]
+    opt = {"learning_rate": cfg["lr"], "beta1": cfg["beta1"]}
+    g_tr = gluon.Trainer(gen.collect_params(), "adam", dict(opt))
+    d_tr = gluon.Trainer(disc.collect_params(), "adam", dict(opt))
+    bce = gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    real_label = nd.ones((b,), ctx=ctx, dtype=dtype)
+    fake_label = nd.zeros((b,), ctx=ctx, dtype=dtype)
+    reals = [nd.array(r, ctx=ctx, dtype=dtype) for r in reals]
+    noise = None if noise is None else [nd.array(z, ctx=ctx, dtype=dtype)
+                                        for z in noise]
+    step = [0]
+
+    def iteration():
+        i = step[0]
+        step[0] += 1
+        real = reals[i % len(reals)]
+        z = noise[i] if noise is not None else \
+            nd.random.normal(shape=(b, nz, 1, 1), ctx=ctx)
+        with autograd.record():
+            out_r = disc(real).reshape((-1,))
+            fake = gen(z)
+            out_f = disc(fake.detach()).reshape((-1,))
+            d_loss = (nd.mean(bce(out_r, real_label))
+                      + nd.mean(bce(out_f, fake_label)))
+        d_loss.backward()
+        d_tr.step(b)
+        with autograd.record():
+            out = disc(gen(z)).reshape((-1,))
+            g_loss = nd.mean(bce(out, real_label))
+        g_loss.backward()
+        g_tr.step(b)
+        return d_loss, g_loss, out_r, out_f
+    return iteration
+
+
+def _gan_weights(gen, disc):
+    return {k: p.data().asnumpy().astype("f8") for net in (gen, disc)
+            for k, p in net.collect_params().items()}
+
+
+def _gan_precision_probe(mx, dev, cfg, reals, noise):
+    """Where the card's float32 leaves float64 in the first iteration:
+    the discriminator's last convolution (the logits) in the G step,
+    its input and its weight (after the D step's Adam update), the
+    gradient at the generator's output and the generator's G-step
+    gradients, each as the float32 run's relative L2 distance from the
+    float64 run of the same device, and the D step's gradient of that
+    weight with its smallest element (Adam's first step divides each
+    element by its own size plus eps / sqrt(1 - beta2)); then that
+    convolution alone on the float64 run's input and weight rounded to
+    float32, against the exact product of the rounded operands, with
+    the kernels the card ran for it."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    base = _gan_pair(mx, cfg, mx.cpu(), seed=11)
+    got = {}
+    for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+        for dt in ("float64", "float32"):
+            gen, disc = _gan_pair(mx, cfg, ctx, seed=11)
+            for src, dst in zip(base, (gen, disc)):
+                _copy_params(src, dst)
+            if dt == "float64":
+                gen.to(torch.float64)
+                disc.to(torch.float64)
+            seen = {"logits": [], "grad": [], "wgrad": []}
+            last = list(disc.children())[-1]
+
+            def keep(mod, inputs, out, seen=seen):
+                seen["logits"].append((inputs[0].detach().cpu().double(),
+                                       out.detach().cpu().double()))
+
+            def keep_grad(mod, inputs, out, seen=seen):
+                if out.requires_grad:
+                    out.register_hook(lambda g: seen["grad"].append(
+                        g.detach().cpu().double()))
+            hooks = [last.register_forward_hook(keep),
+                     list(gen.children())[-1].register_forward_hook(
+                         keep_grad),
+                     last.weight.register_hook(lambda g, seen=seen: seen[
+                         "wgrad"].append(g.detach().cpu().double()))]
+            try:
+                _gan_loop(mx, gen, disc, cfg, ctx, reals, noise, dtype=dt)()
+            finally:
+                for h in hooks:
+                    h.remove()
+            # the third call of the discriminator is the G step's
+            got[where, dt] = {
+                "logits_input": seen["logits"][2][0].numpy(),
+                "logits": seen["logits"][2][1].numpy(),
+                "grad_at_gen_output": seen["grad"][-1].numpy(),
+                "weight": last.weight.detach().cpu().double().numpy(),
+                # the first backward through the last weight: the D step's
+                "d_step_wgrad": seen["wgrad"][0].numpy().ravel(),
+                "grads": {k: p.grad().asnumpy().astype("f8") for k, p in
+                          gen.collect_params().items()
+                          if p.grad_req != "null"}}
+    w0_norm = float(np.linalg.norm(
+        list(base[1].children())[-1].weight.detach().numpy()))
+
+    def first_step(g):
+        """Adam's first step (the optimizer's defaults, Trainer.step's
+        1 / batch rescale) in float64."""
+        g = g / cfg["batch_size"]
+        return cfg["lr"] * g / (abs(g) + 1e-8 / math.sqrt(1 - 0.999))
+    row = {}
+    for where in ("cpu", "card"):
+        a, b = got[where, "float32"], got[where, "float64"]
+        row[where] = {k: _rel_l2([a[k]], [b[k]]) for k in (
+            "logits_input", "weight", "logits", "grad_at_gen_output")}
+        row[where]["gen_grads_max"] = max(
+            _rel_l2([a["grads"][k]], [b["grads"][k]]) for k in b["grads"])
+        # Adam's first step, lr g / (|g| + eps / sqrt(1 - beta2)), is
+        # sensitive where |g| is small: the smallest element's rounding
+        g32, g64 = a["d_step_wgrad"], b["d_step_wgrad"]
+        i = int(np.argmin(np.abs(g64)))
+        row[where]["d_step_wgrad"] = {
+            "rel_l2": _rel_l2([g32], [g64]),
+            "smallest_f64": float(g64[i]), "smallest_f32": float(g32[i]),
+            "max_abs_f64": float(np.abs(g64).max()),
+            # the weight distance that element's step alone makes
+            "its_step_over_weight_norm": abs(
+                first_step(g32[i]) - first_step(g64[i])) / w0_norm}
+    x64, w64 = got["card", "float64"]["logits_input"], \
+        got["card", "float64"]["weight"]
+    x32, w32 = (torch.from_numpy(a.astype("f4")) for a in (x64, w64))
+    exact = torch.nn.functional.conv2d(x32.double(), w32.double()).numpy()
+    alone = {"logit_abs_mean": float(np.abs(exact).mean()),
+             "term_abs_sum_mean": float(np.einsum(
+                 "nchw,ochw->no", np.abs(x64), np.abs(w64)).mean())}
+    for where, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        xs, ws = x32.to(device), w32.to(device)
+        alone[where] = _rel_l2([ops_nn.convolution(xs, ws).cpu().numpy()],
+                               [exact])
+    xs, ws = x32.to(dev), w32.to(dev)
+    alone["card_kernels"] = sorted(k[:90] for k in window_kernels(
+        lambda: ops_nn.convolution(xs, ws), 3)[0])
+    row["logits_conv_alone"] = alone
+    return row
+
+
+def _d_accuracy(out_r, out_f):
+    """D's real/fake accuracy from its logits (as the example reads it)."""
+    pr = out_r.asnumpy() > 0.0
+    pf = out_f.asnumpy() <= 0.0
+    return float(0.5 * (pr.mean() + pf.mean()))
+
+
+def _deconv_case(mx, dev, name, data, weight, bias, attrs):
+    """Deconvolution on the card against the CPU: the output and the
+    gradients of sum(out * head) for data, weight and bias; the kernels
+    one profiler window of its forward saw on the card named (cuDNN's,
+    or the case fails; only the names are read, so a lost event of a
+    tiny kernel does not matter here)."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as ops
+
+    def run(device, head=None):
+        ts = [torch.from_numpy(a).to(device).requires_grad_(True)
+              for a in (data, weight, bias)]
+        out = ops.deconvolution(*ts, **attrs)
+        if head is None:
+            head = np.random.RandomState(5).uniform(
+                -1, 1, tuple(out.shape)).astype("f4")
+        grads = torch.autograd.grad(out, ts,
+                                    torch.from_numpy(head).to(device))
+        return [t.detach().cpu().numpy() for t in (out, *grads)], head
+    want, head = run(torch.device("cpu"))
+    got, _ = run(dev, head)
+    ts = [torch.from_numpy(a).to(dev) for a in (data, weight, bias)]
+    per = set(window_kernels(lambda: ops.deconvolution(*ts, **attrs), 5)[0])
+    errs = [_rel(g, w) for g, w in zip(got, want)]
+    row = {"case": name, "data": list(data.shape),
+           "weight": list(weight.shape), "attrs": {k: list(v) if isinstance(
+               v, tuple) else v for k, v in attrs.items()},
+           "out": list(got[0].shape),
+           "rel_err": dict(zip(("out", "d_data", "d_weight", "d_bias"),
+                               errs)),
+           "card_kernels": sorted(k[:80] for k in per)}
+    check(max(errs) <= GAN_OP_TOL,
+          f"gan_parity: Deconvolution {name} differs from the CPU by "
+          f"{row['rel_err']}")
+    check(any(c in k.lower() for k in per for c in CONV_KERNELS),
+          f"gan_parity: Deconvolution {name} ran no cuDNN kernel: "
+          f"{sorted(per)}")
+    return row
+
+
+def _gan_deconv_cases(mx, dev):
+    """Deconvolution at the four generator shapes of the full-width run
+    (the ``gan`` phase), with a bias, plus a target_shape and an adj
+    case."""
+    cfg = GAN
+    rng = np.random.RandomState(3)
+    b, chans = cfg["batch_size"], [cfg["nz"], cfg["ngf"] * 4,
+                                   cfg["ngf"] * 2, cfg["ngf"], cfg["nc"]]
+    sizes = [1, 4, 8, 16]
+    cases = []
+    for i in range(4):
+        cin, cout, s = chans[i], chans[i + 1], sizes[i]
+        stride, pad = (1, 0) if i == 0 else (2, 1)
+        cases.append((f"gen_layer{i}", (b, cin, s, s), (cin, cout, 4, 4),
+                      dict(stride=(stride, stride), pad=(pad, pad))))
+    cases.append(("target_shape", (4, 8, 7, 7), (8, 6, 3, 3),
+                  dict(stride=(2, 2), target_shape=(14, 13))))
+    cases.append(("adj_groups", (4, 8, 5, 6), (8, 3, 3, 3),
+                  dict(stride=(3, 2), pad=(1, 1), adj=(2, 1),
+                       num_group=2)))
+    rows = []
+    for name, dshape, wshape, attrs in cases:
+        cout = wshape[1] * attrs.get("num_group", 1)
+        rows.append(_deconv_case(
+            mx, dev, name, rng.randn(*dshape).astype("f4"),
+            (rng.randn(*wshape) * 0.05).astype("f4"),
+            rng.randn(cout).astype("f4"), attrs))
+    return rows
+
+
+def _gan_layer_sweep(mx, dev):
+    """Each layer and loss the GAN slice added, on the card against the
+    CPU from the same weights: the output and the gradients of sum(out *
+    head) for the input and every parameter, within GAN_OP_TOL."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.gluon import loss as L
+    from mxnet_tpu_torch.gluon import nn
+    layers = {
+        "Conv1DTranspose": (lambda: nn.Conv1DTranspose(
+            4, 3, strides=2, padding=1, output_padding=1), (2, 3, 7)),
+        "Conv2DTranspose": (lambda: nn.Conv2DTranspose(
+            6, 3, strides=2, padding=1, output_padding=1, groups=2,
+            dilation=2), (2, 4, 5, 5)),
+        "Conv3DTranspose": (lambda: nn.Conv3DTranspose(
+            3, 3, strides=2, padding=1), (1, 2, 3, 4, 3)),
+        "LeakyReLU": (lambda: nn.LeakyReLU(0.2), (3, 8)),
+        "PReLU": (lambda: nn.PReLU(in_channels=3), (2, 3, 4)),
+        "ELU": (lambda: nn.ELU(0.7), (3, 8)),
+        "SELU": (lambda: nn.SELU(), (3, 8)),
+        "Swish": (lambda: nn.Swish(1.5), (3, 8)),
+        "SiLU": (lambda: nn.SiLU(), (3, 8)),
+        "GELU": (lambda: nn.GELU(), (3, 8)),
+        "GELU_tanh": (lambda: nn.GELU("tanh"), (3, 8)),
+        "MaxPool1D": (lambda: nn.MaxPool1D(3, 2, 1), (2, 3, 9)),
+        "MaxPool3D": (lambda: nn.MaxPool3D(2, ceil_mode=True),
+                      (1, 2, 5, 4, 5)),
+        "AvgPool1D": (lambda: nn.AvgPool1D(3, 2, 1,
+                                           count_include_pad=False),
+                      (2, 3, 9)),
+        "AvgPool3D": (lambda: nn.AvgPool3D(2, padding=1), (1, 2, 4, 5, 4)),
+        "GlobalMaxPool1D": (lambda: nn.GlobalMaxPool1D(), (2, 3, 7)),
+        "GlobalMaxPool2D": (lambda: nn.GlobalMaxPool2D(), (2, 3, 5, 6)),
+        "GlobalMaxPool3D": (lambda: nn.GlobalMaxPool3D(), (1, 2, 3, 4, 5)),
+        "GlobalAvgPool1D": (lambda: nn.GlobalAvgPool1D(), (2, 3, 7)),
+        "GlobalAvgPool3D": (lambda: nn.GlobalAvgPool3D(), (1, 2, 3, 4, 5)),
+        "InstanceNorm": (lambda: nn.InstanceNorm(scale=True), (2, 3, 4, 5)),
+        "GroupNorm": (lambda: nn.GroupNorm(2), (2, 4, 3, 3)),
+        "Identity": (lambda: nn.Identity(), (3, 4)),
+        "Lambda": (lambda: nn.Lambda("tanh"), (3, 4)),
+        "HybridLambda": (lambda: nn.HybridLambda(
+            lambda F, x: F.relu(x) * 2.0), (3, 4)),
+        "Concatenate": (lambda: _concat(nn.Concatenate), (3, 5)),
+        "HybridConcatenate": (lambda: _concat(nn.HybridConcatenate),
+                              (3, 5)),
+        "ReflectionPad2D": (lambda: nn.ReflectionPad2D(2), (2, 3, 5, 6)),
+    }
+
+    def _concat(cls):
+        net = cls(axis=1)
+        with net.name_scope():
+            net.add(nn.Dense(4), nn.Activation("tanh"))
+        return net
+
+    rng = np.random.RandomState(4)
+
+    def run(fn, inputs, ctx, params):
+        arrays = [None if a is None else nd.array(a, ctx=ctx)
+                  for a in inputs]
+        for a in arrays:
+            if a is not None:
+                a.attach_grad()
+        with autograd.record():
+            out = fn(*arrays)
+            total = (out * nd.array(np.linspace(-1, 1, out.size)
+                                    .reshape(out.shape).astype("f4"),
+                                    ctx=ctx)).sum()
+        total.backward()
+        return ([out.asnumpy()] + [a.grad.asnumpy() for a in arrays
+                                   if a is not None]
+                + [p.grad().asnumpy() for p in params
+                   if p.grad_req != "null"])
+
+    errs = {}
+    for name, (make, shape) in layers.items():
+        x = rng.randn(*shape).astype("f4")
+        nets = {}
+        for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+            net = make()
+            net.initialize(mx.init.Xavier(), ctx=ctx, seed=1)
+            net(nd.array(x, ctx=ctx))
+            nets[where] = net
+        _copy_params(nets["cpu"], nets["card"])
+        got, want = (run(nets[w], [x], c, list(
+            nets[w].collect_params().values()))
+            for w, c in (("card", mx.gpu(0)), ("cpu", mx.cpu())))
+        errs[name] = max(_rel(g, w) for g, w in zip(got, want))
+    b, k = 6, 5
+    binary = (rng.rand(b, k) > 0.5).astype("f4")
+    signed = binary * 2 - 1
+    prob = rng.uniform(0.05, 0.95, (b, k)).astype("f4")
+    dist = np.exp(rng.randn(b, k))
+    dist = (dist / dist.sum(-1, keepdims=True)).astype("f4")
+    x, y = rng.randn(b, k).astype("f4") * 2, rng.randn(b, k).astype("f4")
+    sw = rng.uniform(0.5, 1.5, (b, 1)).astype("f4")
+    pw = rng.uniform(0.5, 2.0, (k,)).astype("f4")
+    losses = {
+        "L2Loss": (L.L2Loss(), [x, y, sw]),
+        "L1Loss": (L.L1Loss(weight=0.5), [x, y]),
+        "SigmoidBCELoss": (L.SigmoidBCELoss(), [x, binary, sw]),
+        "SigmoidBCELoss_pos_weight": (L.SigmoidBCELoss(),
+                                      [x, binary, None, pw]),
+        "SigmoidBCELoss_from_sigmoid": (
+            L.SigmoidBCELoss(from_sigmoid=True), [prob, binary, None, pw]),
+        "SoftmaxCELoss": (L.SoftmaxCELoss(),
+                          [x, rng.randint(0, k, b).astype("f4")]),
+        "SoftmaxCELoss_dense": (L.SoftmaxCELoss(sparse_label=False),
+                                [x, dist, sw]),
+        "KLDivLoss": (L.KLDivLoss(from_logits=False), [x, dist]),
+        "HuberLoss": (L.HuberLoss(rho=0.5), [x, y]),
+        "HingeLoss": (L.HingeLoss(), [x, signed]),
+        "SquaredHingeLoss": (L.SquaredHingeLoss(), [x, signed]),
+        "LogisticLoss": (L.LogisticLoss(), [x, signed]),
+        "TripletLoss": (L.TripletLoss(), [x, y, y[::-1].copy()]),
+        "CosineEmbeddingLoss": (L.CosineEmbeddingLoss(margin=0.1),
+                                [x, y, signed[:, 0]]),
+    }
+    for name, (fn, inputs) in losses.items():
+        got, want = (run(fn, inputs, c, [])
+                     for c in (mx.gpu(0), mx.cpu()))
+        errs[name] = max(_rel(g, w) for g, w in zip(got, want))
+    over = {k: e for k, e in errs.items() if e > GAN_OP_TOL}
+    check(not over, f"gan_parity: layers and losses on the card differ from "
+          f"the CPU: {over}")
+    return errs
+
+
+def gan_cachedop_counts(n):
+    """The CachedOps' counts over ``n`` iterations of the hybridized
+    loop.  The generator's first call in an iteration (the D step's
+    fake) replays without a backward (its output is detached); its
+    G-step call finds that output alive and runs eagerly.  The
+    discriminator's real-batch and G-step calls replay with their
+    backward; its fake-batch call finds the real batch's backward
+    pending and runs eagerly.  The first iteration warms each net up
+    eagerly and captures at the next call."""
+    return {"gen": {"captures": 1, "replays": n, "backward_replays": 1,
+                    "calls": 2 * n},
+            "disc": {"captures": 1, "replays": 2 * n,
+                     "backward_replays": 2 * n, "calls": 3 * n}}
+
+
+@contextlib.contextmanager
+def _tf32_convolutions():
+    """The port's convolutions with their TF32 guard bypassed, so that
+    cuDNN's flag (PyTorch's default, on) applies: gan_parity's control
+    run, which its weight rule must reject."""
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    guard = ops_nn._ieee_f32
+    ops_nn._ieee_f32 = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        ops_nn._ieee_f32 = guard
+
+
+def phase_gan_parity(mx, dev):
+    """example/dcgan.py's nets at tiny widths (GAN_PARITY: ngf = ndf = 8,
+    nz 16, batch 8, float32; cuDNN's TF32 flag left at PyTorch's
+    default, which the convolutions turn off themselves) from the same
+    Normal(0.02) weights: 3 alternating D/G Adam iterations (lr 2e-4,
+    beta1 0.5, seeded numpy noise) on the card against the CPU: in
+    float64 the same function (losses and every weight and moving
+    statistic within 1e-10 relative); in float32 the D and G losses
+    within 1e-4, and each weight and moving statistic within the larger
+    of GAN_WEIGHT_TOL and 4x the CPU's own float32-against-float64
+    distance in relative L2, the card's own float32-against-float64
+    distance within the same limit; a control run with the convolutions
+    in TF32 must break that rule; ``_gan_precision_probe``'s readings
+    of where the card's float32 leaves float64 (reported).
+    Deconvolution on the card against
+    the CPU, forward and the three gradients, at the four generator
+    shapes of the ``gan`` phase, a target_shape and an adj case, through
+    cuDNN; every new layer and loss, forward and gradient, in one sweep;
+    the same iterations with both nets hybridized on the card bit for
+    bit the eager ones (cuDNN's deterministic algorithms), with the
+    CachedOps' captures, replays, backward replays and eager calls
+    exactly gan_cachedop_counts; no flash launch."""
+    import torch
+    cfg = GAN_PARITY
+    free_earlier_phases()
+    check(torch.backends.cudnn.allow_tf32,
+          "gan_parity: cuDNN's TF32 flag is meant to stay at PyTorch's "
+          "default (on) here")
+    reset_counts()
+    deconv = _gan_deconv_cases(mx, dev)
+    sweep = _gan_layer_sweep(mx, dev)
+    steps, b = cfg["steps"], cfg["batch_size"]
+    rng = np.random.RandomState(0)
+    reals = [_gan_images(rng, b) for _ in range(steps)]
+    noise = np.random.RandomState(1).randn(steps, b, cfg["nz"], 1, 1) \
+        .astype("f4")
+    runs = {"cpu": (mx.cpu(), False), "cpu_f64": (mx.cpu(), False),
+            "card": (mx.gpu(0), True), "card_eager": (mx.gpu(0), False),
+            "card_f64": (mx.gpu(0), False), "card_tf32": (mx.gpu(0), False)}
+    f64 = ("cpu_f64", "card_f64")
+    nets, losses = {}, {}
+    for where, (ctx, hyb) in runs.items():
+        nets[where] = _gan_pair(mx, cfg, ctx, seed=11)
+    for where in runs:
+        if where != "cpu":
+            for src, dst in zip(nets["cpu"], nets[where]):
+                _copy_params(src, dst)
+    for where in f64:
+        for net in nets[where]:
+            net.to(torch.float64)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        probe = _gan_precision_probe(mx, dev, cfg, reals, noise)
+        for where, (ctx, hyb) in runs.items():
+            gen, disc = nets[where]
+            if hyb:
+                gen.hybridize()
+                disc.hybridize()
+            it = _gan_loop(mx, gen, disc, cfg, ctx, reals, noise,
+                           dtype="float64" if where in f64 else "float32")
+            with _tf32_convolutions() if where == "card_tf32" \
+                    else contextlib.nullcontext():
+                out = [it() for _ in range(steps)]
+            losses[where] = [[float(o[0].asnumpy()) for o in out],
+                             [float(o[1].asnumpy()) for o in out]]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launches = read_counts()
+    weights = {w: _gan_weights(*n) for w, n in nets.items()}
+    loss_err = max(_rel(losses["card"][i], losses["cpu"][i])
+                   for i in range(2))
+    f64_loss_err = max(_rel(losses["card_f64"][i], losses["cpu_f64"][i])
+                       for i in range(2))
+    f64_errs = {k: _rel_l2([weights["card_f64"][k]], [w])
+                for k, w in weights["cpu_f64"].items()}
+    own = {where: {k: _rel_l2([weights[where][k]], [weights[ref][k]])
+                   for k in weights[where]}
+           for where, ref in (("cpu", "cpu_f64"), ("card", "card_f64"),
+                              ("card_tf32", "card_f64"))}
+    limit = {k: max(GAN_WEIGHT_TOL, 4 * own["cpu"][k])
+             for k in weights["cpu"]}
+    errs = {k: (_rel_l2([weights["card"][k]], [w]), limit[k])
+            for k, w in weights["cpu"].items()}
+    over = {k: e for k, e in errs.items() if e[0] > e[1]}
+    own_over = {k: (e, limit[k]) for k, e in own["card"].items()
+                if e > limit[k]}
+    control = {k: _rel_l2([weights["card_tf32"][k]], [w])
+               for k, w in weights["cpu"].items()}
+    control_over = sorted(k for k, e in control.items() if e > limit[k])
+    worst = max(errs, key=lambda k: errs[k][0] / errs[k][1])
+    bitwise = losses["card"] == losses["card_eager"] and all(
+        np.array_equal(weights["card"][k], weights["card_eager"][k])
+        for k in weights["card"])
+    ops = {n: nets["card"][i]._cached_op for i, n in enumerate(("gen",
+                                                                 "disc"))}
+    want = gan_cachedop_counts(steps)
+    counted = {n: {"captures": op.captures, "replays": op.replays,
+                   "backward_replays": op.backward_replays,
+                   "calls": want[n]["calls"]} for n, op in ops.items()}
+    row = {"phase": "gan_parity", **cfg,
+           "d_losses": losses["card"][0], "g_losses": losses["card"][1],
+           "cpu_d_losses": losses["cpu"][0], "cpu_g_losses": losses["cpu"][1],
+           "loss_rel_err": loss_err, "loss_tol": GAN_LOSS_TOL,
+           "weight_rel_l2_max": max(e for e, _ in errs.values()),
+           "weight_tol": GAN_WEIGHT_TOL, "worst_tensor": [worst, *errs[worst]],
+           "above_1e-5": {k: e for k, e in errs.items() if e[0] > 1e-5},
+           "cpu_f32_vs_f64_loss_rel_err": max(
+               _rel(losses["cpu"][i], losses["cpu_f64"][i])
+               for i in range(2)),
+           "f64_loss_rel_err": f64_loss_err,
+           "f64_weight_rel_l2_max": max(f64_errs.values()),
+           "f64_tol": GAN_F64_TOL,
+           "f32_vs_f64_weight_rel_l2": {
+               where: {k: own[where][k] for k in sorted(
+                   own[where], key=lambda k: -own[where][k])[:4]}
+               for where in own},
+           "tf32_control": {
+               "loss_rel_err": max(_rel(losses["card_tf32"][i],
+                                        losses["cpu"][i]) for i in range(2)),
+               "weight_rel_l2_max": max(control.values()),
+               "tensors_over_limit": len(control_over),
+               "of": len(control)},
+           "f32_vs_f64_first_iteration": probe,
+           "hybridized_equals_eager_bitwise": bitwise,
+           "cachedop": {n: dict(c, eager_calls=c["calls"] - c["replays"],
+                                entries=len(ops[n]))
+                        for n, c in counted.items()},
+           "deconvolution": deconv, "layer_and_loss_rel_err": sweep,
+           "launches": launches}
+    emit(row)
+    check(f64_loss_err <= GAN_F64_TOL
+          and max(f64_errs.values()) <= GAN_F64_TOL,
+          f"gan_parity: in float64 the card's losses differ from the CPU's "
+          f"by {f64_loss_err} and its weights by "
+          f"{max(f64_errs.values())}")
+    check(loss_err <= GAN_LOSS_TOL and not over and not own_over,
+          f"gan_parity: losses {loss_err}, weights above their limits "
+          f"{over}, the card's own float32-vs-float64 distances above "
+          f"them {own_over}")
+    check(control_over, "gan_parity: the TF32 control run passed the "
+          "weight rule, which then cannot tell TF32 from float32: "
+          f"{row['tf32_control']}")
+    check(bitwise, f"gan_parity: the hybridized loop is not bit for bit "
+          f"the eager one: {losses['card']} against {losses['card_eager']}")
+    check(counted == want, f"gan_parity: the CachedOps counted {counted}, "
+          f"want {want}")
+    check(not any(launches.values()),
+          f"gan_parity: flash launches {launches}")
+    return row
+
+
+def _gan_flops(gen, disc, z, real):
+    """Forward FLOPs (2 a multiply-add) of one generator call on ``z``
+    and one discriminator call on ``real``, from the shapes their
+    convolutions see: a convolution's output elements times its
+    weight's per-filter size, a transposed convolution's input elements
+    times its weight's per-input-channel size."""
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv, _ConvTranspose
+    total = {}
+
+    def hook(kind):
+        def fn(mod, inputs, out):
+            w = mod.weight
+            n = out.numel() * w[0].numel() if kind == "disc" else \
+                inputs[0].numel() * w[0].numel()
+            total[kind] = total.get(kind, 0) + 2 * n
+        return fn
+    hooks = [m.register_forward_hook(hook("gen")) for m in gen.modules()
+             if isinstance(m, _ConvTranspose)]
+    hooks += [m.register_forward_hook(hook("disc")) for m in disc.modules()
+              if isinstance(m, _Conv)]
+    try:
+        gen(z)
+        disc(real)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total["gen"], total["disc"]
+
+
+def _gan_split(per_kernel):
+    """A profiled iteration's device time by kind (ms): cuDNN's
+    convolution kernels by what they compute (fprop: the discriminator's
+    forward and the generator's data gradient; dgrad: the generator's
+    transposed forward and the discriminator's data gradient; wgrad: both
+    nets' weight gradients; their layout transforms apart), BatchNorm,
+    Adam (the multi-tensor kernels) and the rest."""
+    split = {"fprop": 0.0, "dgrad": 0.0, "wgrad": 0.0, "conv_other": 0.0,
+             "batchnorm": 0.0, "adam": 0.0, "other": 0.0}
+    for k, t in per_kernel.items():
+        name = k.lower()
+        if "batch_norm" in name or "batchnorm" in name or "bn_" in name:
+            split["batchnorm"] += t
+        elif "multi_tensor_apply" in name:
+            split["adam"] += t
+        elif "dgrad" in name:
+            split["dgrad"] += t
+        elif "wgrad" in name:
+            split["wgrad"] += t
+        elif "fprop" in name:
+            split["fprop"] += t
+        elif any(c in name for c in CONV_KERNELS):
+            split["conv_other"] += t
+        else:
+            split["other"] += t
+    total = sum(per_kernel.values())
+    out = {"device_ms": total, **{f"{k}_ms": v for k, v in split.items()}}
+    out["conv_transpose_dgrad_wgrad_ms"] = split["dgrad"] + split["wgrad"]
+    out["shares"] = {k: v / total for k, v in split.items()}
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    out["top_kernels"] = [[k[:100], t] for k, t in top]
+    return out
+
+
+def phase_gan(mx, dev, cfg=GAN):
+    """example/dcgan.py's GAN at DCGAN's published widths (GAN: nz 100,
+    ngf = ndf = 64, batch 128, Adam lr 2e-4 beta1 0.5, float32, seeded
+    synthetic blob images made up front, z drawn on the card): the
+    example's iteration (a D step and a G step), eager as the example
+    runs it and with both nets hybridized, each timed by the two-window
+    slope (5 and 20 iterations after 3 warm-ups): ms an iteration,
+    images/s, FLOPs from the layers' own shapes against the float32
+    peak; a profiled iteration split into cuDNN's fprop, dgrad and wgrad
+    kernels, BatchNorm, Adam and other (``kernel_split_ms``), beside the
+    iteration's device time from CUDA events with the host held back
+    (``queued_ms``); the busy share, peak memory, the CachedOps' pools;
+    the captures, replays and backward replays of the timed windows
+    exactly those of a warm loop; both losses finite, D's accuracy after
+    the windows (reported), no flash launch."""
+    import torch
+    free_earlier_phases()
+    b, n1, n2 = cfg["batch_size"], *cfg["windows"]
+    rng = np.random.RandomState(0)
+    reals = [_gan_images(rng, b) for _ in range(cfg["batches"])]
+    out = {}
+    for mode in ("eager", "hybridized"):
+        free_earlier_phases()
+        mx.random.seed(0)
+        gen, disc = _gan_pair(mx, cfg, mx.gpu(0), seed=0)
+        n_params = {n: sum(p.data().size for p in net.collect_params()
+                           .values() if p.grad_req != "null")
+                    for n, net in (("gen", gen), ("disc", disc))}
+        g_flops, d_flops = _gan_flops(
+            gen, disc, mx.nd.zeros((b, cfg["nz"], 1, 1), ctx=mx.gpu(0)),
+            mx.nd.array(reals[0], ctx=mx.gpu(0)))
+        if mode == "hybridized":
+            gen.hybridize()
+            disc.hybridize()
+        # an iteration: D forward on real and fake, G forward; D backward
+        # twice (data and weight gradients, 2 forwards' worth each); G
+        # forward, D forward, D backward and G backward in the G step
+        it_flops = 4 * g_flops + 9 * d_flops
+        iteration = _gan_loop(mx, gen, disc, cfg, mx.gpu(0), reals)
+        first = None
+        for _ in range(cfg["warmup"]):
+            res = iteration()
+            first = first or [float(res[0].asnumpy()),
+                              float(res[1].asnumpy())]
+        ops = {"gen": gen._cached_op, "disc": disc._cached_op} \
+            if mode == "hybridized" else {}
+        before = {n: (op.captures, op.replays, op.backward_replays)
+                  for n, op in ops.items()}
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        it_s, naive_s, windows, used, g_last = timed_windows(
+            iteration, n1, n2, f"gan {mode}",
+            read=lambda r: float(r[1].asnumpy()))
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        reserved = torch.cuda.max_memory_reserved(dev)
+        counted = {n: [a - b_ for a, b_ in zip(
+            (op.captures, op.replays, op.backward_replays), before[n])]
+            for n, op in ops.items()}
+        last = iteration()
+        d_last = float(last[0].asnumpy())
+        d_acc = _d_accuracy(last[2], last[3])
+        per_kernel, lost, taken = kernel_split_ms(iteration, reps=5)
+        split = _gan_split(per_kernel)
+        split["profiler_lost_events"] = lost
+        split["profiler_windows_taken"] = taken
+        # two iterations at most: an eager one is ~400 launches, and a
+        # third would fill the launch queue behind the spin
+        split["queued_ms"] = statistics.median(
+            queued_ms(iteration, reps=2, warmup=1) for _ in range(3))
+        walls = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            iteration()
+            torch.cuda.synchronize(dev)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        split["wall_ms"] = statistics.median(walls)
+        split["device_busy_share"] = split["device_ms"] / split["wall_ms"]
+        split["device_over_queued"] = split["device_ms"] / split["queued_ms"]
+        bound_ms = it_flops / PEAK_FLOPS["float32"] * 1e3
+        row = {"phase": "gan", "mode": mode, "model": "dcgan (example)",
+               **{k: cfg[k] for k in ("nz", "ngf", "ndf", "nc", "lr",
+                                      "beta1")},
+               "batch_size": b, "image_size": 32, "dtype": "float32",
+               "params": n_params, "warmup": cfg["warmup"],
+               "windows": [n1, n2], "window_s": windows,
+               "iteration_ms": it_s * 1e3, "naive_iteration_ms":
+                   naive_s * 1e3, "timing": used,
+               "images_per_s": b / it_s,
+               "gen_forward_flops_per_image": g_flops / b,
+               "disc_forward_flops_per_image": d_flops / b,
+               "iteration_flops": it_flops,
+               "f32_bound_ms": bound_ms,
+               "achieved_tflops": it_flops / it_s / 1e12,
+               "first_losses": first, "last_d_loss": d_last,
+               "last_g_loss": g_last, "d_accuracy_after": d_acc,
+               "peak_mem_bytes": peak, "peak_reserved_bytes": reserved,
+               "cachedop": {n: {"entries": len(op), "captures":
+                                op.captures, "pool_bytes": op.pool_bytes}
+                            for n, op in ops.items()},
+               "graph_pool_bytes": sum(op.pool_bytes for op in ops.values()),
+               "captures_replays_backward_in_windows": counted,
+               "iterations_counted": n1 + n2, "launches": launches,
+               "card": nvidia_smi()}
+        emit(row)
+        emit(dict({"phase": "gan_breakdown", "mode": mode,
+                   "call": "one iteration (a D step and a G step)"},
+                  **split))
+        check(math.isfinite(d_last) and math.isfinite(g_last),
+              f"gan {mode}: losses {d_last}, {g_last}")
+        check(not any(launches.values()),
+              f"gan {mode}: flash launches {launches}")
+        if ops:
+            # warm: each iteration one generator replay without a
+            # backward, two discriminator replays with theirs
+            want = {"gen": [0, n1 + n2, 0],
+                    "disc": [0, 2 * (n1 + n2), 2 * (n1 + n2)]}
+            check(counted == want,
+                  f"gan {mode}: captures, replays and backward replays in "
+                  f"the timed windows {counted}, want {want}")
+        out[mode] = row
+    return out
+
+
 # -- phase 4: parity -----------------------------------------------------------
 
 def phase_parity(mx, dev):
@@ -2535,6 +3406,27 @@ def phase_parity(mx, dev):
           f"{score_err} (> 1e-4)")
     check(launches == layers, f"parity: generate_beam ran {launches} flash "
           f"launches, want {layers} (one prefill)")
+
+    # given an NDArray prompt the generate family returns NDArrays on the
+    # prompt's context, as the reference does
+    nd_tok = mx.nd.array(tok, ctx=mx.gpu(0))
+    got = {"generate": gpu_lm.generate(nd_tok, max_new_tokens=8),
+           "generate_fused": gpu_lm.generate_fused(nd_tok, max_new_tokens=8),
+           "generate_beam": gpu_lm.generate_beam(nd_tok, **beam_kw)}
+    kinds = {k: [type(o).__name__ + "@" + str(o.context)
+                 for o in (v if isinstance(v, tuple) else (v,))]
+             for k, v in got.items()}
+    same = bool(np.array_equal(got["generate"].asnumpy(), want)
+                and np.array_equal(got["generate_fused"].asnumpy(), want)
+                and np.array_equal(got["generate_beam"][0].asnumpy(),
+                                   cseq.numpy()))
+    emit({"phase": "parity_generate_ndarray", "returns": kinds,
+          "tokens_equal": same})
+    check(all(isinstance(o, mx.nd.NDArray) and o.context == mx.gpu(0)
+              for v in got.values()
+              for o in (v if isinstance(v, tuple) else (v,))) and same,
+          f"parity: the generate family given an NDArray prompt returned "
+          f"{kinds}, tokens equal {same}")
 
 
 # -- phase 5: serve ------------------------------------------------------------
@@ -3206,12 +4098,7 @@ def profile_call(fn, reps=3, expect=None, tries=3):
     wall_ms = statistics.median(walls)
     row = {"wall_ms": wall_ms, "event_ms": statistics.median(events)}
     for attempt in range(1, tries + 1):
-        us, counts = {}, {}
-        for ev in profiled(fn, reps):
-            if ev.device_type == torch.autograd.DeviceType.CUDA \
-                    and ev.self_device_time_total > 0:
-                us[ev.key] = us.get(ev.key, 0.0) + ev.self_device_time_total
-                counts[ev.key] = counts.get(ev.key, 0) + ev.count
+        us, counts = window_kernels(fn, reps)
         per_call = {k: round(n / reps) for k, n in counts.items()}
         lost = {k[:80]: n for k, n in counts.items()
                 if per_call[k] < 1 or abs(n - per_call[k] * reps) > 0.1 * reps}
@@ -3535,6 +4422,10 @@ def main():
         phase_forecast_parity(mx, dev)
     if "forecast" in phases:
         phase_forecast(mx, dev)
+    if "gan_parity" in phases:
+        phase_gan_parity(mx, dev)
+    if "gan" in phases:
+        phase_gan(mx, dev)
 
     kernels = kernel_entries(rows, bwd_rows, train, serve, llama)
     if rtc is not None:

@@ -20,7 +20,8 @@ passes ``ctx=mx.cpu()``; without a card and without that, they raise
                             {"learning_rate": 0.05})
 
     import mxnet_tpu_torch as mx
-    lm = mx.models.LlamaForCausalLM(mx.models.llama_tiny(vocab_size=61))
+    lm = mx.models.LlamaForCausalLM(mx.models.llama_tiny(vocab_size=61),
+                                    ctx=mx.gpu(0))
     srv = mx.serving.Server(lm, buckets=[(2, 128)], max_new_tokens=8)
 
     net = mx.models.BERTForPretrain(mx.models.bert_base())

@@ -2,7 +2,7 @@
 
 ``init()`` makes the matrix-product operators run their float32 inputs
 in bfloat16: exactly the reference's ``TARGET_DTYPE_OPS`` that the port
-has (``FullyConnected``, ``Convolution``, ``dot``,
+has (``FullyConnected``, ``Convolution``, ``Deconvolution``, ``dot``,
 ``dot_product_attention``).  Every other operator keeps its input types,
 so a float32 residual plus a bfloat16 projection promotes to float32,
 and BatchNorm of a bfloat16 convolution with float32 gamma and beta
@@ -22,8 +22,8 @@ from ..base import MXNetError
 
 __all__ = ["init", "target_dtype", "cast_inputs", "TARGET_DTYPE_OPS"]
 
-TARGET_DTYPE_OPS = ("FullyConnected", "Convolution", "dot",
-                    "dot_product_attention")
+TARGET_DTYPE_OPS = ("FullyConnected", "Convolution", "Deconvolution",
+                    "dot", "dot_product_attention")
 
 _state = {"target_dtype": None}
 

@@ -281,18 +281,20 @@ class Block(nn.Module):
                for p in self._parameters.values()):
             self._finish_deferred(args)
         nested = getattr(_mode, "training", None) is not None
-        if not any(isinstance(a, NDArray) for a in args):
+        nds = [a for a in (*args, *kwargs.values()) if isinstance(a, NDArray)]
+        if not nds:
             if nested:
                 return super().__call__(*args, **kwargs)
             return self._outermost(self.training, torch.is_grad_enabled(),
                                    args, kwargs)
-        ctx = next(a for a in args if isinstance(a, NDArray)).context
+        ctx = nds[0].context
         tensors = [_unwrap(a) for a in args]
+        kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
         if nested:
             return _wrap(super().__call__(*tensors, **kwargs), ctx)
         recording = autograd.is_recording()
         if recording:
-            autograd._mark_inputs([t for t in tensors
+            autograd._mark_inputs([t for t in (*tensors, *kwargs.values())
                                    if isinstance(t, torch.Tensor)])
         return _wrap(self._outermost(autograd.is_training(), recording,
                                      tensors, kwargs), ctx)

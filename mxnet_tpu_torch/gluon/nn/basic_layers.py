@@ -1,23 +1,31 @@
-"""Sequential containers and Dense, Embedding, LayerNorm, Dropout,
-BatchNorm and Flatten, as the JAX package's ``gluon/nn/basic_layers.py``.
+"""Sequential containers and Dense, Embedding, LayerNorm, InstanceNorm,
+GroupNorm, Dropout, BatchNorm, Flatten, Identity, Lambda, HybridLambda,
+Concatenate and HybridConcatenate, as the JAX package's
+``gluon/nn/basic_layers.py``.
 
 Parameters keep the reference's names and layouts (Dense weight
 (units, in_units), Embedding weight (input_dim, output_dim), LayerNorm
-gamma/beta, BatchNorm gamma/beta/running_mean/running_var) so a by-name
-copy moves values over unchanged.  ``in_units=0`` (Dense) and
-``in_channels=0`` (BatchNorm) defer the size to the first call.
+and InstanceNorm gamma/beta, GroupNorm gamma/beta one a group,
+BatchNorm gamma/beta/running_mean/running_var) so a by-name copy moves
+values over unchanged.  ``in_units=0`` (Dense) and ``in_channels=0``
+(BatchNorm, InstanceNorm) defer the size to the first call.
 """
 from __future__ import annotations
 
 import math
 
+import torch
+
 from ...base import torch_dtype
+from ...ndarray.ndarray import _ctx_of
 from ...initializer import param
 from ...ops import nn as ops
-from ..block import Block, HybridBlock
+from ..block import Block, HybridBlock, _unwrap, _wrap
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Embedding",
-           "LayerNorm", "Dropout", "BatchNorm", "Flatten"]
+           "LayerNorm", "InstanceNorm", "GroupNorm", "Dropout", "BatchNorm",
+           "Flatten", "Identity", "Lambda", "HybridLambda", "Concatenate",
+           "HybridConcatenate"]
 
 
 class Sequential(Block):
@@ -184,3 +192,119 @@ class Flatten(HybridBlock):
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+
+class InstanceNorm(HybridBlock):
+    """Instance normalisation: each sample's channels normalised over
+    their spatial axes, then ``* gamma + beta`` a channel.  ``scale=False``
+    (the default) keeps gamma at its initial 1 with ``grad_req="null"``;
+    ``in_channels=0`` defers the size."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._eps = epsilon
+        self.gamma = param(in_channels, init=gamma_initializer,
+                           requires_grad=scale)
+        self.beta = param(in_channels, init=beta_initializer,
+                          requires_grad=center)
+
+    def infer_shape(self, x):
+        for attr in ("gamma", "beta"):
+            self._gluon_param(attr).shape = (x.shape[self._axis],)
+
+    def forward(self, x):
+        return ops.instance_norm(x, self.gamma, self.beta, eps=self._eps)
+
+
+class GroupNorm(HybridBlock):
+    """Group normalisation over ``num_groups`` groups of channels; gamma
+    and beta are one a group, (num_groups,), the reference's layout."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._num_groups = num_groups
+        self._eps = epsilon
+        self.gamma = param(num_groups, init=gamma_initializer,
+                           requires_grad=scale)
+        self.beta = param(num_groups, init=beta_initializer,
+                          requires_grad=center)
+
+    def forward(self, x):
+        return ops.group_norm(x, self.gamma, self.beta,
+                              num_groups=self._num_groups, eps=self._eps)
+
+
+class Identity(HybridBlock):
+    def forward(self, x):
+        return x
+
+
+def _nd_function(function):
+    """``function``, or the ``mx.nd`` function of that name."""
+    if not isinstance(function, str):
+        return function
+    from ... import ndarray as nd
+    assert hasattr(nd, function), \
+        f"Function name {function!r} is not found in ndarray."
+    return getattr(nd, function)
+
+
+class Lambda(Block):
+    """A function of NDArrays as a Block: ``function``, or the name of an
+    ``mx.nd`` function."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func = _nd_function(function)
+
+    def forward(self, *args):
+        t = next(a for a in args if torch.is_tensor(a))
+        return _unwrap(self._func(*_wrap(args, _ctx_of(t.device))))
+
+
+class HybridLambda(HybridBlock):
+    """A function ``(F, *inputs)`` (``F`` is ``mx.nd``), or the name of
+    an ``mx.nd`` function, as a HybridBlock."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            fn = _nd_function(function)
+            self._func = lambda F, *args: fn(*args)
+        else:
+            self._func = function
+
+    def hybrid_forward(self, F, *args):
+        return self._func(F, *args)
+
+
+class HybridConcatenate(HybridBlock):
+    """Runs every child on the same input and concatenates their outputs
+    along ``axis``."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    add = Sequential.add
+
+    def forward(self, x):
+        return torch.cat([block(x) for block in self._modules.values()],
+                         dim=self.axis)
+
+
+class Concatenate(Block):
+    """Runs every child on the same input and concatenates their outputs
+    along ``axis``."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    add = Sequential.add
+    forward = HybridConcatenate.forward

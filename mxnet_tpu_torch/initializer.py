@@ -1,5 +1,5 @@
 """Weight initializers, as the JAX package's ``initializer.py``: Xavier,
-Normal, Uniform, Zero and One, drawn from a ``torch.Generator`` on the
+Normal, Uniform, Zero, One and Constant, drawn from a ``torch.Generator`` on the
 parameter's device.
 
 Name dispatch is the reference's: a parameter named ``*bias`` or
@@ -25,7 +25,7 @@ from torch.nn.parameter import UninitializedParameter
 from .base import MXNetError
 
 __all__ = ["Initializer", "Xavier", "Normal", "Uniform", "Zero", "One",
-           "create", "param"]
+           "Constant", "create", "param"]
 
 
 class Initializer:
@@ -52,6 +52,18 @@ class Zero(Initializer):
 class One(Initializer):
     def init_weight(self, name, arr, generator):
         arr.fill_(1.0)
+
+
+class Constant(Initializer):
+    """Every element ``value`` (a number, or an array that broadcasts to
+    the parameter's shape)."""
+
+    def __init__(self, value=0.0):
+        self.value = value
+
+    def init_weight(self, name, arr, generator):
+        arr.copy_(torch.as_tensor(self.value, dtype=arr.dtype)
+                  .expand(arr.shape))
 
 
 class Uniform(Initializer):
@@ -90,7 +102,8 @@ class Xavier(Initializer):
 
 
 _REGISTRY = {"xavier": Xavier, "normal": Normal, "uniform": Uniform,
-             "zero": Zero, "zeros": Zero, "one": One, "ones": One}
+             "zero": Zero, "zeros": Zero, "one": One, "ones": One,
+             "constant": Constant}
 
 
 def create(init) -> Initializer:

@@ -9,11 +9,13 @@
   the card attention reaches the flash kernels: the forward (K1) and,
   when it records, the backward (K2, K3).
 * ``get_llama`` builds the structure on the ``meta`` device (no
-  memory); ``LlamaForCausalLM(model, ctx=..., dtype=...)`` places it on
-  its context and fills it from the context's seeded generator
-  (Normal(0, 0.02), unit norm gains), so the full Llama-3-8B geometry is
-  made on the card directly.  ``initialize(mx.init.Xavier())`` refills it
-  as gluon does.
+  memory), and ``LlamaForCausalLM(model)`` leaves it there, as the
+  reference's constructor makes no weights: ``initialize(init, ctx=...)``
+  places and fills them, as gluon does.  ``LlamaForCausalLM(model,
+  ctx=..., dtype=...)`` places it on ``ctx`` at once and fills it from the
+  context's seeded generator (Normal(0, 0.02), unit norm gains), the
+  serving entry point, so the full Llama-3-8B geometry is made on the
+  card directly.
 * Training is the reference's gluon loop: ``hybridize()``,
   ``gluon.Trainer(net.collect_params(), "adam", ...)``, ``net.loss(tokens)``
   inside ``autograd.record()``, ``backward()``, ``trainer.step(B)``.  The
@@ -24,6 +26,8 @@
   tensor methods over the same blocks, run inline (no CachedOp of their
   own).  KV caches are (B, C, KV, D) tensors updated IN PLACE.
   ``generate`` samples on the host, one decode step a token;
+  given NDArrays, the ``generate`` family returns NDArrays on the
+  prompt's context, as the reference does (tensors for tensors);
   ``generate_fused`` runs the whole generation as one CUDA-graph replay
   a call; ``generate_beam`` is beam search over the same cache
   (``nmt.BeamSearchSampler``), eagerly.
@@ -220,19 +224,19 @@ class LlamaModel(HybridBlock):
 
 
 class LlamaForCausalLM(HybridBlock):
-    """LM head over :class:`LlamaModel`, placed on ``ctx``.
+    """LM head over :class:`LlamaModel`.
 
-    ``ctx`` defaults to the current context (``gpu(0)``); without a card
-    that raises ``MXNetError`` unless ``ctx=mx.cpu()`` is passed.
-    ``dtype`` is the weights' type.  Weights are filled at construction
-    from the context's generator (``mx.random.seed``): Normal(0, 0.02)
-    and unit norm gains.  ``tie_embeddings=True`` shares the embedding
-    matrix with the head (Llama-3.2-1B/3B); Llama-3-8B uses an untied
-    head (``tie_embeddings=False``), a Dense named ``head_``."""
+    Without ``ctx`` the weights stay on the ``meta`` device (no memory)
+    until ``initialize`` places and fills them, as in the reference.
+    With ``ctx`` they are placed there at construction and filled from
+    the context's generator (``mx.random.seed``): Normal(0, 0.02) and
+    unit norm gains.  ``dtype`` is the weights' type.
+    ``tie_embeddings=True`` shares the embedding matrix with the head
+    (Llama-3.2-1B/3B); Llama-3-8B uses an untied head
+    (``tie_embeddings=False``), a Dense named ``head_``."""
 
     def __init__(self, model: LlamaModel, tie_embeddings=True, ctx=None,
                  dtype="float32", prefix=None, params=None):
-        dev = (ctx or current_context()).device    # raises without a card
         if not all(p.is_meta for p in model.parameters()):
             raise MXNetError("LlamaForCausalLM places a model built by "
                              "get_llama (on the meta device); this one "
@@ -249,28 +253,36 @@ class LlamaForCausalLM(HybridBlock):
         self._fused = {}
         self._fused_gens = {}
         self.to(dtype=torch_dtype(dtype))
-        self.to_empty(device=dev)
-        self._fill_normal(0.02, None)
+        if ctx is not None:
+            self.to_empty(device=ctx.device)
+            self._fill_normal(0.02, None)
 
     @property
     def device(self) -> torch.device:
         return self.model.embed.weight.device
 
     def initialize(self, init=None, ctx=None, seed=None, std=None):
-        """Gluon's ``initialize``: every weight refilled by ``init`` (by
-        name: ``mx.init.Xavier()`` as in the reference's training
-        script), on ``ctx`` (default: where the model is), from ``seed``
-        or the device's ``mx.random`` generator.  With ``std`` instead,
+        """Gluon's ``initialize``: every weight placed on ``ctx`` and
+        filled by ``init`` (by name: ``mx.init.Xavier()`` as in the
+        reference's training script), from ``seed`` or the device's
+        ``mx.random`` generator.  ``ctx`` defaults to where the model is,
+        or, for a model still on the ``meta`` device, the current context
+        (``gpu(0)``, which raises without a card).  With ``std`` instead,
         the fill of construction: Normal(0, std) weights and unit norm
-        gains, where the model is.  Returns ``self``."""
+        gains, where the model is (a model still on ``meta`` is placed on
+        the current context first).  Returns ``self``."""
+        placed = self.device.type != "meta"
         if std is not None:
             if init is not None or ctx is not None:
                 raise MXNetError("initialize: std= takes neither init nor "
                                  "ctx")
+            if not placed:
+                self.to_empty(device=current_context().device)
             self._fill_normal(std, seed)
             return self
-        return super().initialize(init, ctx=ctx or _ctx_of(self.device),
-                                  seed=seed)
+        if ctx is None and placed:
+            ctx = _ctx_of(self.device)
+        return super().initialize(init, ctx=ctx, seed=seed)
 
     @torch.no_grad()
     def _fill_normal(self, std, seed):
@@ -290,6 +302,10 @@ class LlamaForCausalLM(HybridBlock):
                 p.normal_(0.0, std, generator=gen)
 
     def _tokens(self, tokens):
+        if self.device.type == "meta":
+            raise MXNetError(
+                f"{self.name}: the weights have not been initialized; call "
+                "initialize(init, ctx=...) (or construct with ctx=)")
         if isinstance(tokens, NDArray):
             tokens = tokens.tensor
         if not torch.is_tensor(tokens):
@@ -486,8 +502,11 @@ class LlamaForCausalLM(HybridBlock):
         tokens: (B, S) prompt.  Greedy when ``temperature=0``; else
         softmax sampling with optional top-k truncation, drawn on the
         host from ``np.random.RandomState(seed)``.  ``rolling=True``
-        (sliding-window models) bounds the cache at O(W).  Returns a
-        (B, S + max_new_tokens) float32 tensor on the model's device."""
+        (sliding-window models) bounds the cache at O(W).  Returns the
+        (B, S + max_new_tokens) float32 tokens: an NDArray on the
+        prompt's context for an NDArray prompt, else a tensor on the
+        model's device."""
+        like = tokens
         tokens = self._tokens(tokens)
         dev = tokens.device
         b, s = tokens.shape
@@ -519,8 +538,8 @@ class LlamaForCausalLM(HybridBlock):
                 logits = self.decode_step(
                     torch.as_tensor(host_tok, device=dev), caches,
                     s + step_i)
-        return torch.as_tensor(np.concatenate(out_tokens, axis=1),
-                               device=dev)
+        return _like(like, torch.as_tensor(
+            np.concatenate(out_tokens, axis=1), device=dev))
 
     @torch.no_grad()
     def generate_beam(self, tokens, max_new_tokens, beam_size=4,
@@ -531,9 +550,11 @@ class LlamaForCausalLM(HybridBlock):
         once per batch row and the caches repeated per beam (row-major,
         the sampler's ``i * beam + j`` layout).  ``eos_id=None`` runs
         every beam the full ``max_new_tokens``.  Returns ``(sequences
-        (B, beam, S + <=N), scores (B, beam))`` on the model's device,
-        best first, the sequences starting with the prompt."""
+        (B, beam, S + <=N), scores (B, beam))``, best first, the sequences
+        starting with the prompt: NDArrays on the prompt's context for an
+        NDArray prompt, else tensors on the model's device."""
         from .nmt import BeamSearchSampler, BeamSearchScorer
+        like = tokens
         tokens = self._tokens(tokens)
         dev = tokens.device
         b, s = tokens.shape
@@ -560,7 +581,8 @@ class LlamaForCausalLM(HybridBlock):
         prompt = tokens.cpu().numpy().astype(np.int64)
         out = np.concatenate([np.repeat(prompt[:, None], k, axis=1), samp],
                              axis=2)
-        return torch.as_tensor(out.astype("f4"), device=dev), scores
+        return (_like(like, torch.as_tensor(out.astype("f4"), device=dev)),
+                _like(like, scores))
 
     @torch.no_grad()
     def generate_fused(self, tokens, max_new_tokens, temperature=0.0,
@@ -578,11 +600,13 @@ class LlamaForCausalLM(HybridBlock):
         than :meth:`generate`'s host stream).  One graph a signature
         ``(b, s, max_new_tokens, sampling, top_k when sampling, rolling,
         cache_dtype, dtype)``; the temperature is an input of the graph.
-        On the CPU the same body runs eagerly.  Returns a new (B, S +
-        max_new_tokens) float32 tensor."""
+        On the CPU the same body runs eagerly.  Returns new (B, S +
+        max_new_tokens) float32 tokens: an NDArray on the prompt's
+        context for an NDArray prompt, else a tensor."""
+        like = tokens
         tokens = self._tokens(tokens)
         if max_new_tokens <= 0:
-            return tokens.clone()
+            return _like(like, tokens.clone())
         dev = tokens.device
         b, s = tokens.shape
         n = int(max_new_tokens)
@@ -606,7 +630,8 @@ class LlamaForCausalLM(HybridBlock):
                           dtype=torch.float32, device=dev)
         (out,) = cap.run(functools.partial(self._fused_body, key, gen),
                          [tokens, temp], generator=gen)
-        return out.clone()          # the graph's buffer: the next call's
+        # the graph's buffer is the next call's: hand out a copy
+        return _like(like, out.clone())
 
     def _fused_body(self, key, gen, tokens, temp):
         b, s, n, sample, kk, rolling, cache_dtype, _ = key
@@ -626,6 +651,15 @@ class LlamaForCausalLM(HybridBlock):
             tok = pick(self.decode_step(tok, caches, s + i))
             out.append(tok)
         return (torch.cat(out, dim=1),)
+
+
+def _like(prompt, out):
+    """``out`` as the generation functions return it: an NDArray on the
+    context of an NDArray ``prompt`` (the reference's return type), else
+    the tensor itself."""
+    if isinstance(prompt, NDArray):
+        return NDArray(out.to(prompt.context.device), ctx=prompt.context)
+    return out
 
 
 _LLAMA_SPECS = {

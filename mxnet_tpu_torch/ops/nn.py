@@ -10,10 +10,12 @@ device's ``mx.random`` generator (or one the caller passes).
 Llama loss: the head streamed in slabs, never the whole logits.
 
 The ops are also registered under the JAX package's names
-(``FullyConnected``, ``Convolution``, ``Pooling``, ``BatchNorm``,
-``Activation``, ``RMSNorm``, ``silu``, ``Embedding``, ``softmax``,
-``log_softmax``, ``softmax_cross_entropy``, ``chunked_softmax_ce``,
-``chunked_softmax_ce_bias``, ``Dropout``, ``identity``, ``BlockGrad``),
+(``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Pooling``,
+``BatchNorm``, ``Activation``, ``LeakyReLU``, ``gelu_tanh``,
+``RMSNorm``, ``LayerNorm``, ``InstanceNorm``, ``GroupNorm``, ``silu``,
+``Embedding``, ``softmax``, ``log_softmax``, ``softmax_cross_entropy``,
+``chunked_softmax_ce``, ``chunked_softmax_ce_bias``, ``Dropout``,
+``identity``, ``BlockGrad``),
 so ``mx.nd`` and ``invoke`` reach these same functions.  The layout is
 NCHW (NCW, NCDHW), the reference's."""
 from __future__ import annotations
@@ -28,9 +30,11 @@ from ..contrib import amp
 from .registry import alias, register
 
 __all__ = ["silu", "rms_norm", "dot", "take", "embedding",
-           "cache_update", "fully_connected", "convolution", "pooling",
-           "batch_norm", "update_moving_stats", "activation", "gelu",
-           "layer_norm", "dropout", "softmax", "log_softmax", "pick",
+           "cache_update", "fully_connected", "convolution",
+           "deconvolution", "pooling", "batch_norm", "update_moving_stats",
+           "activation", "leaky_relu", "gelu", "gelu_tanh", "layer_norm",
+           "instance_norm", "group_norm", "dropout", "softmax",
+           "log_softmax", "pick",
            "softmax_cross_entropy", "chunked_softmax_ce",
            "chunked_softmax_ce_bias"]
 
@@ -148,29 +152,37 @@ class _ieee_f32:
 
 
 class _Convolution(torch.autograd.Function):
-    """``F.conv{1,2,3}d`` whose forward and backward both run without
-    TF32 (PyTorch's own backward would read the caller's flag again)."""
+    """``F.conv{1,2,3}d``, or with ``transposed`` ``F.conv_transpose{1,2,3}d``
+    (its ``output_padding`` ``out_pad``), whose forward and backward both
+    run without TF32 (PyTorch's own backward would read the caller's flag
+    again)."""
 
     @staticmethod
-    def forward(ctx, data, weight, bias, stride, pad, dilate, groups):
+    def forward(ctx, data, weight, bias, stride, pad, dilate, groups,
+                transposed, out_pad):
         ctx.save_for_backward(data, weight)
-        ctx.conf = (stride, pad, dilate, groups,
+        ctx.conf = (stride, pad, dilate, groups, transposed, out_pad,
                     None if bias is None else list(bias.shape))
         with _ieee_f32():
+            if transposed:
+                return _CONV_T[len(stride)](data, weight, bias, stride, pad,
+                                            out_pad, groups, dilate)
             return _CONV[len(stride)](data, weight, bias, stride, pad,
                                       dilate, groups)
 
     @staticmethod
     def backward(ctx, grad):
         data, weight = ctx.saved_tensors
-        stride, pad, dilate, groups, bias_shape = ctx.conf
+        stride, pad, dilate, groups, transposed, out_pad, bias_shape = \
+            ctx.conf
         need = ctx.needs_input_grad
         with _ieee_f32():
             gx, gw, gb = torch.ops.aten.convolution_backward(
-                grad, data, weight, bias_shape, stride, pad, dilate, False,
-                [0] * len(stride), groups,
+                grad, data, weight, bias_shape, stride, pad, dilate,
+                transposed, out_pad if transposed else [0] * len(stride),
+                groups,
                 [need[0], need[1], bias_shape is not None and need[2]])
-        return gx, gw, gb, None, None, None, None
+        return gx, gw, gb, None, None, None, None, None, None
 
 
 def convolution(data, weight, bias=None, *, stride=(), pad=(), dilate=(),
@@ -183,7 +195,7 @@ def convolution(data, weight, bias=None, *, stride=(), pad=(), dilate=(),
     data, weight, bias = amp.cast_inputs("Convolution", data, weight, bias)
     return _Convolution.apply(data, weight, bias, _ntuple(stride, n, 1),
                               _ntuple(pad, n, 0), _ntuple(dilate, n, 1),
-                              int(num_group))
+                              int(num_group), False, None)
 
 
 @register("Convolution", num_inputs=None)
@@ -194,6 +206,68 @@ def _convolution_op(data, weight, *rest, kernel=(), stride=(), dilate=(),
     return convolution(data, weight, None if no_bias else rest[0],
                        stride=stride, pad=pad, dilate=dilate,
                        num_group=num_group)
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def deconvolution(data, weight, bias=None, *, stride=(), pad=(), dilate=(),
+                  adj=(), num_group=1, target_shape=()):
+    """The transposed convolution: the gradient of ``Convolution`` with
+    respect to its input, for ``weight`` (C_in, num_filter / num_group,
+    *kernel), PyTorch's own layout.  The output's spatial size is
+    ``(x - 1) * stride - 2 * pad + (kernel - 1) * dilate + 1 + adj``;
+    ``adj`` must be below ``stride`` (``ValueError``, as the reference).
+    A ``target_shape`` overrides ``pad`` and ``adj``: the full output is
+    cropped to it, ``ceil(total / 2)`` at the low end and
+    ``floor(total / 2)`` at the high end (the reference's
+    ``deconvolution-inl.h`` arithmetic), which PyTorch's symmetric
+    ``padding`` cannot express, so that case runs unpadded and is
+    sliced.  A library call (cuDNN on the card), with TF32 off."""
+    n = weight.dim() - 2
+    stride = _ntuple(stride, n, 1)
+    dilate = _ntuple(dilate, n, 1)
+    pad = _ntuple(pad, n, 0)
+    adj = _ntuple(adj, n, 0)
+    for i in range(n):
+        if adj[i] >= stride[i]:
+            raise ValueError(f"Deconvolution: adj[{i}]={adj[i]} must be < "
+                             f"stride[{i}]={stride[i]}")
+    data, weight, bias = amp.cast_inputs("Deconvolution", data, weight,
+                                         bias)
+    groups = int(num_group)
+    if not target_shape:
+        return _Convolution.apply(data, weight, bias, stride, pad, dilate,
+                                  groups, True, adj)
+    full = _Convolution.apply(data, weight, bias, stride, (0,) * n, dilate,
+                              groups, True, (0,) * n)
+    crop = []
+    for i, size in enumerate(int(t) for t in target_shape):
+        total = full.shape[2 + i] - size
+        if total < 0:
+            raise ValueError(
+                f"Deconvolution: target_shape {tuple(target_shape)} "
+                f"unreachable with kernel/stride/dilate along axis {i} "
+                f"(needs total pad {total})")
+        lo = (total + 1) // 2
+        crop.append(slice(lo, lo + size))
+    return full[(slice(None), slice(None), *crop)]
+
+
+@register("Deconvolution", num_inputs=None)
+def _deconvolution_op(data, weight, *rest, kernel=(), stride=(), dilate=(),
+                      pad=(), adj=(), num_filter=0, num_group=1,
+                      no_bias=True, layout=None, target_shape=(),
+                      workspace=0, cudnn_tune=None, cudnn_off=False):
+    if num_filter and num_filter != weight.shape[1] * num_group:
+        raise MXNetError(f"Deconvolution: num_filter {num_filter} does not "
+                         f"match the weight {tuple(weight.shape)} over "
+                         f"{num_group} groups")
+    bias = rest[0] if not no_bias and rest else None
+    return deconvolution(data, weight, bias, stride=stride, pad=pad,
+                         dilate=dilate, adj=adj, num_group=num_group,
+                         target_shape=target_shape)
 
 
 def _pool_pads(sizes, kernel, stride, pad, convention):
@@ -332,9 +406,47 @@ def _activation_op(data, *, act_type="relu"):
     return activation(data, act_type)
 
 
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+@register("LeakyReLU", num_inputs=None)
+def leaky_relu(data, *rest, act_type="leaky", slope=0.25, lower_bound=0.125,
+               upper_bound=0.334):
+    """The reference's ``LeakyReLU`` family: ``leaky`` (``slope`` below
+    0), ``elu`` (``slope * (exp(x) - 1)`` below 0), ``selu`` (the
+    reference's two constants), ``gelu`` (exact, erf), ``prelu`` (a
+    learned slope, the second input: one a channel of axis 1 when it has
+    more than one element) and ``rrelu`` (the mean slope
+    ``(lower_bound + upper_bound) / 2``, as the reference always uses)."""
+    if act_type == "leaky":
+        return F.leaky_relu(data, float(slope))
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * (torch.exp(data) - 1.0))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(
+            data > 0, data, _SELU_ALPHA * (torch.exp(data) - 1.0))
+    if act_type == "gelu":
+        return gelu(data)
+    if act_type == "prelu":
+        gamma = rest[0]
+        if data.dim() > 1 and gamma.numel() > 1:
+            gamma = gamma.reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.where(data > 0, data, gamma * data)
+    if act_type == "rrelu":
+        return torch.where(data > 0, data,
+                           (lower_bound + upper_bound) / 2.0 * data)
+    raise ValueError(f"unknown act_type {act_type}")
+
+
 def gelu(data):
     """Exact (erf) GELU: ``LeakyReLU(act_type="gelu")``."""
     return F.gelu(data)
+
+
+@register("gelu_tanh")
+def gelu_tanh(data):
+    """GELU's tanh approximation."""
+    return F.gelu(data, approximate="tanh")
 
 
 def layer_norm(data, gamma, beta, eps=1e-5):
@@ -345,6 +457,37 @@ def layer_norm(data, gamma, beta, eps=1e-5):
     if data.dtype == gamma.dtype:
         return F.layer_norm(data, shape, gamma, beta, eps)
     return F.layer_norm(data, shape, eps=eps) * gamma + beta
+
+
+@register("LayerNorm", num_inputs=3)
+def _layer_norm_op(data, gamma, beta, *, axis=-1, eps=1e-5,
+                   output_mean_var=False):
+    ax = axis % data.dim()
+    if ax == data.dim() - 1:
+        return layer_norm(data, gamma, beta, eps)
+    return layer_norm(data.movedim(ax, -1), gamma, beta, eps).movedim(-1, ax)
+
+
+@register("InstanceNorm", num_inputs=3)
+def instance_norm(data, gamma, beta, *, eps=1e-3):
+    """(N, C, *spatial) normalised per sample and channel over the
+    spatial axes (biased variance), then ``* gamma + beta`` per channel.
+    The op's default ``eps`` is the reference's 1e-3; the layer passes
+    its own (1e-5)."""
+    return F.instance_norm(data, weight=gamma, bias=beta, eps=eps)
+
+
+@register("GroupNorm", num_inputs=3)
+def group_norm(data, gamma, beta, *, num_groups=1, eps=1e-5,
+               output_mean_var=False):
+    """(N, C, ...) normalised per sample over ``num_groups`` groups of
+    channels; gamma and beta are one a **group**, shape (num_groups,),
+    the reference's layout (``group_norm.cc``), spread over each group's
+    channels here."""
+    per = data.shape[1] // num_groups
+    return F.group_norm(data, num_groups,
+                        gamma.repeat_interleave(per),
+                        beta.repeat_interleave(per), eps)
 
 
 def dropout(data, p=0.5, training=False, generator=None, axes=()):

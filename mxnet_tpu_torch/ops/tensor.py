@@ -10,8 +10,8 @@ last axis of ``a`` with the first of ``b``.  Ops that return a view of an
 input are copied by ``invoke`` (MXNet's ops return new arrays); only
 ``NDArray.reshape`` and basic indexing keep the view.
 
-Not ported yet (ROADMAP queue 1 item 3): ``linalg_*``, sort/argsort/topk,
-``SequenceLast``, ``scatter_nd``/``gather_nd``, ``pad``, the
+Not ported yet (ROADMAP queue 1 item 2.7): ``linalg_*``,
+sort/argsort/topk, ``SequenceLast``, ``scatter_nd``/``gather_nd``, the
 ``_contrib_*`` ops and the rest of the JAX module.
 """
 from __future__ import annotations
@@ -586,3 +586,47 @@ def sequence_reverse(data, *rest, use_sequence_length=False, axis=0):
                       steps)                                  # (T, B)
     batch = torch.arange(data.shape[1], device=data.device)[None, :]
     return data[idx, batch]
+
+
+# -- padding (reference ``ops/tensor.py`` ``pad``) -----------------------------
+
+_PAD_MODES = {"constant": "constant", "edge": "replicate",
+              "reflect": "reflect"}
+
+
+@register("pad")
+def pad(data, *, mode="constant", pad_width=(), constant_value=0.0):
+    """Pad each axis by the (before, after) pair ``pad_width`` gives for
+    it, first axis first (``F.pad`` takes them last axis first):
+    ``constant`` with ``constant_value``, ``edge`` (the border value
+    repeated, PyTorch's ``replicate``) or ``reflect`` (mirrored without
+    the border).  PyTorch pads the last one, two or three axes only in
+    the last two modes, so there the pairs of every axis before those
+    must be 0."""
+    if mode not in _PAD_MODES:
+        raise MXNetError(f"pad: mode {mode!r}; options "
+                         f"{sorted(_PAD_MODES)}")
+    pw = [int(v) for v in pad_width]
+    if len(pw) != 2 * data.dim():
+        raise MXNetError(f"pad: pad_width has {len(pw)} values for "
+                         f"{data.dim()} axes; it needs a pair an axis")
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(data.dim())]
+    padded = [i for i, p in enumerate(pairs) if p != (0, 0)]
+    if not padded:
+        return data.clone()
+    if mode == "constant":
+        flat = [v for p in reversed(pairs) for v in p]
+        return F.pad(data, flat, value=constant_value)
+    k = data.dim() - padded[0]          # the trailing axes PyTorch pads
+    if k > 3:
+        raise MXNetError(f"pad: mode {mode!r} pads at most the last three "
+                         f"axes; pad_width {tuple(pw)} pads axis "
+                         f"{padded[0]} of {data.dim()}")
+    lead = data.shape[:data.dim() - k]
+    x = data.reshape((1, -1) + tuple(data.shape[data.dim() - k:]))
+    flat = [v for p in reversed(pairs[data.dim() - k:]) for v in p]
+    out = F.pad(x, flat, mode=_PAD_MODES[mode])
+    return out.reshape(tuple(lead) + tuple(out.shape[2:]))
+
+
+alias("Pad", "pad")

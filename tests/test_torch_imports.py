@@ -152,7 +152,9 @@ def test_entry_points_default_to_the_card(entry):
                     "valid here")
     with pytest.raises(MXNetError, match="CUDA"):
         if entry == "LlamaForCausalLM":
-            LlamaForCausalLM(llama_tiny(vocab_size=61))
+            # the constructor makes no weights; initialize places them
+            LlamaForCausalLM(llama_tiny(vocab_size=61)).initialize(
+                mx.init.Xavier())
         elif entry == "Server":
             lm = LlamaForCausalLM(llama_tiny(vocab_size=61), ctx=mx.cpu())
             Server(lm, buckets=[(1, 8)], max_new_tokens=2)
@@ -179,7 +181,8 @@ def test_entry_points_default_to_the_card(entry):
 
 def test_cpu_scope_sets_the_default_context():
     with mx.cpu():
-        lm = LlamaForCausalLM(llama_tiny(vocab_size=61))
+        lm = LlamaForCausalLM(llama_tiny(vocab_size=61)).initialize(
+            mx.init.Xavier())
         assert lm.device == torch.device("cpu")
         srv = Server(lm, buckets=[(1, 8)], max_new_tokens=2)
     assert srv.ctx == mx.cpu()

@@ -240,3 +240,76 @@ def test_load_untied_head():
     load_jax_params(lm, params)
     head = next(v for k, v in params.items() if k.endswith("head_weight"))
     np.testing.assert_array_equal(lm.lm_head.weight.detach().numpy(), head)
+
+
+# -- F4: the generate family returns NDArrays for NDArrays -------------------
+
+@pytest.mark.parametrize("method", ["generate", "generate_fused",
+                                    "generate_beam"])
+def test_generation_returns_ndarrays_on_the_prompt_context(pair, method):
+    """Given an NDArray prompt, each generation function returns what the
+    JAX package's returns: NDArrays (the beam's sequences and scores
+    both) on the prompt's context, with the same values; given a tensor,
+    tensors as before."""
+    _, jlm, lm = pair
+    tok = _tokens(2, 16, seed=9)
+    kw = dict(max_new_tokens=4)
+    if method == "generate_beam":
+        kw["beam_size"] = 2
+    want = getattr(jlm, method)(nd.array(tok), **kw)
+    got = getattr(lm, method)(mx.nd.array(tok, ctx=mx.cpu()), **kw)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert isinstance(w, jmx.nd.NDArray)
+        assert isinstance(g, mx.nd.NDArray)
+        assert g.context == mx.cpu()
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.asnumpy(), w.asnumpy(), rtol=1e-5,
+                                   atol=1e-5)
+    g.wait_to_read()                 # example/llama_generate.py's call
+    tensors = getattr(lm, method)(torch.from_numpy(tok), **kw)
+    for t in (tensors if isinstance(tensors, tuple) else (tensors,)):
+        assert isinstance(t, torch.Tensor)
+
+
+# -- F5: the constructor makes no weights; initialize places them ------------
+
+def test_constructor_allocates_nothing_until_initialize():
+    """As example/llama_generate.py orders it: the model, then
+    ``initialize(init, ctx=mx.cpu())``.  Nothing is placed before (every
+    weight on ``meta``, so no card is needed), and after it every weight
+    is on the CPU, filled by Xavier (unit norm gains)."""
+    lm = LlamaForCausalLM(get_llama("llama_tiny", vocab_size=V))
+    assert all(p.is_meta for p in lm.parameters())
+    with pytest.raises(MXNetError, match="not been initialized"):
+        lm.generate(torch.zeros(1, 4), max_new_tokens=1)
+    assert lm.initialize(mx.init.Xavier(), ctx=mx.cpu()) is lm
+    assert all(p.device == torch.device("cpu") for p in lm.parameters())
+    for name, p in lm.named_parameters():
+        if name.endswith("gamma"):
+            assert torch.equal(p, torch.ones_like(p))
+        else:
+            assert 0 < float(p.detach().abs().max()) < 1
+    out = lm.generate(mx.nd.array(_tokens(1, 8), ctx=mx.cpu()),
+                      max_new_tokens=2)
+    assert out.shape == (1, 10) and out.context == mx.cpu()
+
+
+def test_initialize_std_places_a_meta_model_on_the_current_context():
+    """``initialize(std=...)`` on a model still on ``meta`` places it on
+    the current context (here the CPU scope) and fills Normal(0, std)."""
+    with mx.cpu():
+        lm = LlamaForCausalLM(get_llama("llama_tiny", vocab_size=V))
+        lm.initialize(std=0.02, seed=1)
+    assert lm.device == torch.device("cpu")
+    w = lm.model.embed.weight.detach()
+    assert abs(float(w.std()) - 0.02) < 0.002
+
+
+def test_ctx_at_construction_still_places_and_fills():
+    lm = LlamaForCausalLM(get_llama("llama_tiny", vocab_size=V),
+                          ctx=mx.cpu())
+    assert lm.device == torch.device("cpu")
+    assert float(lm.model.embed.weight.detach().abs().max()) > 0

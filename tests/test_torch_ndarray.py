@@ -310,6 +310,10 @@ CONV_OPS = {"Convolution", "Pooling", "BatchNorm"}
 # raises NotImplementedError as the JAX op does, in test_torch_rnn.py
 RNN_OPS = {"RNN"}
 
+# held against the JAX ops, value and gradient, in test_torch_nn_layers.py
+NN_LAYER_OPS = {"Deconvolution", "LeakyReLU", "gelu_tanh", "InstanceNorm",
+                "GroupNorm", "LayerNorm", "pad", "Pad"}
+
 
 # -- the Llama blocks' ops ---------------------------------------------------
 
@@ -416,12 +420,13 @@ def test_chunked_softmax_ce_checks():
 def test_every_op_has_a_case():
     """Each registered op is held against the JAX package here (the
     Llama blocks' ops in LLAMA_OPS), in test_torch_conv_ops.py
-    (CONV_OPS) or test_torch_rnn.py (RNN_OPS), or by its statistics in
-    test_torch_autograd.py (the samplers, Dropout)."""
+    (CONV_OPS), test_torch_rnn.py (RNN_OPS) or test_torch_nn_layers.py
+    (NN_LAYER_OPS), or by its statistics in test_torch_autograd.py (the
+    samplers, Dropout)."""
     covered = set(UNARY) | set(SCALAR) | set(BROADCAST) | set(CREATION) \
         | {n for n, _ in REDUCE} | set(SHAPE) | {"argmax", "argmin"} \
         | {"sgd_update", "sgd_mom_update"} | RANDOM_OPS | CONV_OPS \
-        | RNN_OPS | set(LLAMA_OPS)
+        | RNN_OPS | NN_LAYER_OPS | set(LLAMA_OPS)
     missing = sorted(set(list_ops()) - covered)
     assert missing == []
 
