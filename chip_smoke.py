@@ -205,6 +205,40 @@ Phases, each printing JSON lines:
             other, the busy share, peak memory, the CachedOps' pools and
             replays; losses finite, D's accuracy reported, no flash
             kernel.
+21. wordlm_parity: example/word_lm.py's RNNModel at its defaults
+            (WORDLM_PARITY: vocab 64, embed 32, hidden 64, 1 LSTM layer,
+            dropout 0, Embedding(sparse_grad=True)) from the same Xavier
+            weights: 3 lazy-Adam and 3 lazy-SGD-momentum steps (weight
+            decay on) on the card against the CPU: losses within 1e-4,
+            each weight within the larger of 1e-5 and 4x the CPU's own
+            float32-against-float64 distance in relative L2; the
+            embedding rows no step touched bit for bit their start, their
+            optimizer states exactly 0; hybridized bit for bit eager; a
+            TF32 run that the weight rule must reject; no flash kernel.
+22. wordlm:  the same loop at the medium width of Zaremba, Sutskever &
+            Vinyals 2014, section 4 (WORDLM: V 10,000, 2 x 650 LSTM,
+            embedding 650, batch 20 x 35 steps, dropout 0.5, the gradient
+            norm clipped at 5 through gluon.utils.clip_global_norm, Adam
+            3e-3; 19,780,400 parameters) over a Zipf-bigram corpus of
+            PTB's training length drawn from seed 0, eager, hybridized
+            and eager again: the two-window slope (5 and 20 steps after 3
+            warm-ups), tokens/s, FLOPs against the float32 peak, peak
+            memory, a profiled step split into cuDNN's LSTM kernels, the
+            decoder's and the recurrence's GEMMs, softmax and CE, dense
+            Adam, lazy Adam, the clip and other, the busy share;
+            perplexity falling; rows the last step did not touch bit for
+            bit unchanged by it; no flash kernel.
+23. data:    example/train_mnist.py --synthetic at its size (DATA) and
+            example/estimator_fit.py --synthetic: the DataLoader's batches
+            (2 workers, shuffled under one numpy seed) equal on the CPU's
+            and the card's context, and with prefetch_to_device=gpu(0)
+            byte-equal and on the card; epochs with and without prefetch
+            (images/s, the loader's share of host time); the MLP through
+            trainer.compile_step with a FactorScheduler against the eager
+            loop (the rate follows the schedule, weights within 1e-6, one
+            capture); the Estimator's validation accuracy above 0.8 and
+            its best checkpoint reloading to the trained net's outputs bit
+            for bit.
 
 The kernels phase also runs K1-K3 at Llama-3-8B's training shape (B=1,
 S=4096, H=32 over KV=8, D=128, causal, bf16).  Then one line of per-kernel numbers ({"kernels": [...]}), the card's name
@@ -234,7 +268,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 without TF32
 ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,"
               "train_capture_parity,dropout,train,imperative_parity,"
               "imperative,rtc,resnet_parity,resnet,llama_train_parity,"
-              "llama_train,forecast_parity,forecast,gan_parity,gan")
+              "llama_train,forecast_parity,forecast,gan_parity,gan,"
+              "wordlm_parity,wordlm,data")
 SERVING_PHASES = {"device", "build", "parity", "serve"}
 
 
@@ -3307,6 +3342,766 @@ def phase_gan(mx, dev, cfg=GAN):
     return out
 
 
+# -- phases 21-23: the word-level LM, data and the Estimator -------------------
+
+# Zaremba, Sutskever & Vinyals 2014, "Recurrent Neural Network
+# Regularization", section 4, the medium model: vocabulary 10,000, 2 LSTM
+# layers of 650 units, embedding 650, unrolled 35 steps, batch 20,
+# dropout 0.5, gradient norm clipped at 5; PTB's training length; the loop
+# is example/word_lm.py's (untied dense decoder, Adam at 3e-3)
+WORDLM = dict(vocab=10000, embed=650, hidden=650, layers=2, batch_size=20,
+              seq_len=35, dropout=0.5, clip=5.0, lr=3e-3, corpus=929589,
+              warmup=3, windows=(5, 20), params=19780400)
+# the parity runs: example/word_lm.py's defaults, dropout 0
+WORDLM_PARITY = dict(vocab=64, embed=32, hidden=64, layers=1, batch_size=8,
+                     seq_len=16, dropout=0.0, corpus=2000, steps=3)
+WORDLM_OPTIMIZERS = {"adam": ("adam", {"learning_rate": 3e-3, "wd": 1e-4}),
+                     "sgd_momentum": ("sgd", {"learning_rate": 0.5,
+                                              "momentum": 0.9, "wd": 1e-4})}
+WORDLM_LOSS_TOL = 1e-4
+WORDLM_WEIGHT_TOL = 1e-5
+# the captured lazy-Adam steps against the eager loop, on the card
+WORDLM_CAPTURE_TOL = 1e-6
+
+
+def word_lm_corpus(vocab, length, seed=0):
+    """example/word_lm.py's law, drawn vectorized from ``seed``: Zipf
+    unigrams, and token t followed by (3t + 1) mod vocab with probability
+    0.8.  A token that follows k steps after the last fresh draw t0 is
+    3^k t0 + (3^k - 1) / 2 mod vocab."""
+    rng = np.random.RandomState(seed)
+    probs = 1.0 / np.arange(1, vocab + 1)
+    probs /= probs.sum()
+    follow = rng.rand(length) < 0.8
+    fresh = rng.choice(vocab, length, p=probs)
+    follow[0], fresh[0] = False, 1
+    pos = np.arange(length)
+    start = np.maximum.accumulate(np.where(follow, 0, pos))
+    k = pos - start
+    pow3 = np.ones(k.max() + 1, np.int64)
+    geo = np.zeros(k.max() + 1, np.int64)
+    for i in range(1, k.max() + 1):
+        pow3[i] = pow3[i - 1] * 3 % vocab
+        geo[i] = (geo[i - 1] * 3 + 1) % vocab
+    return (pow3[k] * fresh[start] + geo[k]) % vocab
+
+
+def word_lm_batches(corpus, batch_size, seq_len):
+    """example/word_lm.py's batchify, cycling over the corpus: (data,
+    target) float32 segments of (batch, seq_len)."""
+    n = (len(corpus) - 1) // (batch_size * seq_len)
+    usable = n * batch_size * seq_len
+    data = corpus[:usable].reshape(batch_size, -1).astype("f4")
+    target = corpus[1:usable + 1].reshape(batch_size, -1).astype("f4")
+    while True:
+        for i in range(n):
+            s = i * seq_len
+            yield data[:, s:s + seq_len], target[:, s:s + seq_len]
+
+
+def word_lm_model(mx, cfg, ctx, seed):
+    """example/word_lm.py's RNNModel ("lstm": Embedding(sparse_grad=True)
+    -> LSTM (NTC) -> Dropout -> untied Dense decoder) at ``cfg``, Xavier
+    from ``seed`` on ``ctx``, called once (the LSTM's deferred width)."""
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn, rnn
+
+    class RNNModel(gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.embed = nn.Embedding(cfg["vocab"], cfg["embed"],
+                                          sparse_grad=True)
+                self.rnn = rnn.LSTM(cfg["hidden"], num_layers=cfg["layers"],
+                                    layout="NTC", dropout=cfg["dropout"])
+                self.drop = nn.Dropout(cfg["dropout"])
+                self.decoder = nn.Dense(cfg["vocab"], flatten=False,
+                                        in_units=cfg["hidden"])
+
+        def hybrid_forward(self, F, tokens, state):
+            out, state = self.rnn(self.embed(tokens), state)
+            return self.decoder(self.drop(out)), state
+
+    net = RNNModel(prefix="rnnmodel_")
+    net.initialize(mx.init.Xavier(), ctx=ctx, seed=seed)
+    net(mx.nd.zeros((cfg["batch_size"], cfg["seq_len"]), ctx=ctx),
+        net.rnn.begin_state(batch_size=cfg["batch_size"], ctx=ctx))
+    return net
+
+
+def word_lm_loop(mx, net, cfg, corpus, ctx, optimizer, params, clip=None,
+                 hybridize=True, dtype="float32"):
+    """example/word_lm.py's step as a function: a segment as NDArrays,
+    the hidden state detached, record -> net -> mean softmax CE ->
+    backward -> (``clip_global_norm`` of the gradients at ``clip``) ->
+    ``trainer.step(1)``.  Returns (trainer, step, the tokens of the last
+    step); a step returns its loss (not synchronised)."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    net.hybridize(hybridize)
+    tr = gluon.Trainer(net.collect_params(), optimizer, dict(params))
+    sce = gluon.loss.SoftmaxCrossEntropyLoss()
+    batches = word_lm_batches(corpus, cfg["batch_size"], cfg["seq_len"])
+    state = [[nd.array(s.asnumpy(), ctx=ctx, dtype=dtype) for s in
+              net.rnn.begin_state(batch_size=cfg["batch_size"], ctx=ctx)]]
+    grads = [p for p in net.collect_params().values()
+             if p.grad_req != "null"]
+    last = [None]
+
+    def step():
+        data, target = next(batches)
+        last[0] = data
+        x = nd.array(data, ctx=ctx, dtype=dtype)
+        y = nd.array(target.reshape(-1), ctx=ctx, dtype=dtype)
+        st = [s.detach() for s in state[0]]
+        with autograd.record():
+            out, st = net(x, st)
+            loss = nd.mean(sce(out.reshape((-1, cfg["vocab"])), y))
+        loss.backward()
+        if clip is not None:
+            gluon.utils.clip_global_norm([p.grad() for p in grads], clip)
+        tr.step(1)
+        state[0] = st
+        return loss
+    return tr, step, last
+
+
+@contextlib.contextmanager
+def _tf32_everywhere():
+    """TF32 in every float32 product: the matmul and cuDNN flags on and
+    the port's guards (convolutions, the recurrence) bypassed.
+    wordlm_parity's control run, which its weight rule must reject."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    from mxnet_tpu_torch.ops import rnn as ops_rnn
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32, ops_nn._ieee_f32,
+             ops_rnn._ieee_f32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    ops_nn._ieee_f32 = ops_rnn._ieee_f32 = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32, ops_nn._ieee_f32,
+         ops_rnn._ieee_f32) = saved
+
+
+def _optimizer_states(tr):
+    """{name: [state arrays]} of a gluon Trainer."""
+    out = {}
+    for i, p in enumerate(tr._params):
+        st = tr._updater.states.get(i)
+        st = () if st is None else (st if isinstance(st, tuple) else (st,))
+        out[p.name] = [s.asnumpy() for s in st]
+    return out
+
+
+def phase_wordlm_parity(mx, dev):
+    """example/word_lm.py's RNNModel at its defaults (WORDLM_PARITY: vocab
+    64, embed 32, hidden 64, 1 layer, dropout 0, sparse_grad=True) from
+    the same Xavier weights: 3 lazy-Adam and 3 lazy-SGD-momentum steps
+    (weight decay on) on the card against the CPU: losses within 1e-4,
+    each weight within the larger of 1e-5 and 4x the CPU's own
+    float32-against-float64 distance in relative L2; the embedding rows
+    no step touched bit for bit their start on the card, their optimizer
+    states exactly 0; hybridized bit for bit eager; a TF32 run (Adam)
+    that the weight rule must reject; no flash kernel."""
+    import torch
+    cfg = WORDLM_PARITY
+    free_earlier_phases()
+    corpus = word_lm_corpus(cfg["vocab"], cfg["corpus"], seed=1)
+    segments = word_lm_batches(corpus, cfg["batch_size"], cfg["seq_len"])
+    touched = {int(t) for _ in range(cfg["steps"])
+               for t in next(segments)[0].ravel()}
+    emb_name = "rnnmodel_embedding0_weight"
+    rows = []
+    for name, (optimizer, params) in WORDLM_OPTIMIZERS.items():
+        runs = {"cpu": (mx.cpu(), True, "float32"),
+                "cpu_f64": (mx.cpu(), True, "float64"),
+                "card": (mx.gpu(0), True, "float32"),
+                "card_eager": (mx.gpu(0), False, "float32")}
+        if name == "adam":
+            runs["card_tf32"] = (mx.gpu(0), True, "float32")
+        start = word_lm_model(mx, cfg, mx.cpu(), seed=7)
+        w0 = _weights(start)
+        losses, weights, states, nets = {}, {}, {}, {}
+        reset_counts()
+        for where, (ctx, hyb, dtype) in runs.items():
+            net = word_lm_model(mx, cfg, ctx, seed=7)
+            _copy_params(start, net)
+            if dtype != "float32":
+                net.to(getattr(torch, dtype))
+            tr, step, _ = word_lm_loop(mx, net, cfg, corpus, ctx, optimizer,
+                                       params, hybridize=hyb, dtype=dtype)
+            with _tf32_everywhere() if where == "card_tf32" \
+                    else contextlib.nullcontext():
+                losses[where] = [float(step().asnumpy())
+                                 for _ in range(cfg["steps"])]
+            weights[where] = _weights(net)
+            states[where] = _optimizer_states(tr)
+            nets[where] = net
+        launches = read_counts()
+        f64 = {k: v.astype("f4") for k, v in weights["cpu_f64"].items()}
+        limits = {k: max(WORDLM_WEIGHT_TOL, 4 * _rel_l2([w], [f64[k]]))
+                  for k, w in weights["cpu"].items()}
+        errs = {k: _rel_l2([weights["card"][k]], [w])
+                for k, w in weights["cpu"].items()}
+        over = {k: [e, limits[k]] for k, e in errs.items() if e > limits[k]}
+        loss_err = _rel(losses["card"], losses["cpu"])
+        untouched = sorted(set(range(cfg["vocab"])) - touched)
+        emb_same = bool(np.array_equal(weights["card"][emb_name][untouched],
+                                       w0[emb_name][untouched]))
+        state_zero = all(not np.any(s[untouched])
+                         for s in states["card"][emb_name])
+        bitwise = losses["card"] == losses["card_eager"] and all(
+            np.array_equal(weights["card"][k], weights["card_eager"][k])
+            for k in weights["card"])
+        row = {"phase": "wordlm_parity", "optimizer": name, **cfg,
+               "params": dict(params), "losses": losses["card"],
+               "cpu_losses": losses["cpu"], "loss_rel_err": loss_err,
+               "loss_tol": WORDLM_LOSS_TOL,
+               "weight_rel_l2": errs, "weight_limits": limits,
+               "over_limit": over,
+               "cpu_f32_vs_f64_loss_rel_err": _rel(losses["cpu"],
+                                                   losses["cpu_f64"]),
+               "untouched_rows": len(untouched),
+               "untouched_rows_bitwise_start": emb_same,
+               "untouched_rows_state_zero": state_zero,
+               "embedding_states": len(states["card"][emb_name]),
+               "hybridized_equals_eager_bitwise": bitwise,
+               "launches": launches}
+        if "card_tf32" in weights:
+            control = {k: _rel_l2([weights["card_tf32"][k]], [w])
+                       for k, w in weights["cpu"].items()}
+            row["tf32_control"] = {
+                "loss_rel_err": _rel(losses["card_tf32"], losses["cpu"]),
+                "weight_rel_l2_max": max(control.values()),
+                "over_limit": sorted(k for k, e in control.items()
+                                     if e > limits[k])}
+        emit(row)
+        rows.append(row)
+        check(loss_err <= WORDLM_LOSS_TOL and not over,
+              f"wordlm_parity {name}: losses {loss_err}, weights over their "
+              f"limits {over}")
+        check(untouched and emb_same and state_zero
+              and len(states["card"][emb_name]) >= 1,
+              f"wordlm_parity {name}: {len(untouched)} untouched rows, "
+              f"bitwise their start {emb_same}, states zero {state_zero}")
+        check(bitwise, f"wordlm_parity {name}: hybridized {losses['card']} "
+              f"is not bit for bit eager {losses['card_eager']}")
+        check(not any(launches.values()),
+              f"wordlm_parity {name}: flash launches {launches}")
+        if "tf32_control" in row:
+            check(row["tf32_control"]["over_limit"],
+                  f"wordlm_parity: the TF32 control passed the weight rule "
+                  f"{row['tf32_control']}: the rule cannot tell TF32 from "
+                  "float32")
+    captures, replays, rates, eager_rates, err = _wordlm_captured(
+        mx, cfg, corpus, start)
+    row = {"phase": "wordlm_parity", "optimizer": "adam",
+           "call": "compile_step, FactorScheduler(step=2)",
+           "captures": captures, "replays": replays, "rates": rates,
+           "eager_rates": eager_rates, "weight_rel_l2_to_eager": err}
+    emit(row)
+    rows.append(row)
+    check(captures == 1 and replays == len(rates) - 1
+          and rates == eager_rates and len(set(rates)) > 1
+          and err <= WORDLM_CAPTURE_TOL,
+          f"wordlm_parity: the captured lazy step {row}")
+    check_no_fallback("wordlm_parity")
+    return rows
+
+
+def _wordlm_captured(mx, cfg, corpus, start, steps=6):
+    """The tiny model's step (zero initial states, lazy Adam with a
+    FactorScheduler halving the rate every 2 updates) through
+    ``trainer.compile_step`` on the card, against the eager gluon loop
+    on the card from the same weights: (captures, replays, the captured
+    rates, the eager rates, the largest relative L2 distance between the
+    two runs' weights).  Each step looks up other rows."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    gpu = mx.gpu(0)
+    segments = word_lm_batches(corpus, cfg["batch_size"], cfg["seq_len"])
+    data = [next(segments) for _ in range(steps)]
+    runs = {}
+    for kind in ("captured", "eager"):
+        lm = word_lm_model(mx, cfg, gpu, seed=7)
+        _copy_params(start, lm)
+        zeros = [s.asnumpy() for s in lm.rnn.begin_state(
+            batch_size=cfg["batch_size"], ctx=gpu)]
+
+        class Step(gluon.HybridBlock):
+            """The model on (tokens, h, c): its logits, (B * T, V)."""
+
+            def __init__(self):
+                super().__init__(prefix="")
+                self.lm = lm
+
+            def hybrid_forward(self, F, x, h, c):
+                return self.lm(x, [h, c])[0].reshape((-1, cfg["vocab"]))
+        net = Step()
+        sched = mx.lr_scheduler.FactorScheduler(step=2, factor=0.5)
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": 3e-3, "wd": 1e-4,
+                            "lr_scheduler": sched})
+        sce = gluon.loss.SoftmaxCrossEntropyLoss()
+        cs = tr.compile_step(net, sce) if kind == "captured" else None
+        rates = []
+        for x_np, y_np in data:
+            args = [nd.array(a, ctx=gpu) for a in (x_np, *zeros)]
+            y = nd.array(y_np.reshape(-1), ctx=gpu)
+            if cs is not None:
+                cs.step(args, y, batch_size=1)
+            else:
+                with autograd.record():
+                    loss = sce(net(*args), y)
+                loss.backward()
+                tr.step(1)
+            rates.append(tr.learning_rate)
+        runs[kind] = (cs, rates, _weights(lm))
+    cs = runs["captured"][0]
+    err = max(_rel_l2([runs["captured"][2][k]], [w])
+              for k, w in runs["eager"][2].items())
+    return cs.captures, cs.replays, runs["captured"][1], \
+        runs["eager"][1], err
+
+
+def _wordlm_split(per_kernel, lazy_ms, clip_ms, decoder_ms):
+    """A profiled step's device time by kind (ms): cuDNN's LSTM pointwise
+    kernels, GEMMs (the decoder's three products, measured alone on the
+    step's shapes: ``decoder_ms``; the rest are cuDNN's recurrence
+    products), softmax and cross-entropy, dense Adam (the multi-tensor
+    kernels), lazy Adam and the clip (each measured alone on the step's
+    tensors: ``lazy_ms``, ``clip_ms``) and the rest."""
+    total = sum(per_kernel.values())
+
+    def kind(k):
+        low = k.lower()
+        if any(n in low for n in ("rnn", "lstm", "generic_elementwise")):
+            return "rnn"
+        if _is_gemm(k):
+            return "gemm"
+        if "softmax" in low or "nll" in low:
+            return "softmax_ce"
+        if "multi_tensor_apply" in k:
+            return "adam_dense"
+        return "other"
+    split = dict.fromkeys(("rnn_ms", "gemm_ms", "softmax_ce_ms",
+                           "adam_dense_ms", "other_ms"), 0.0)
+    for k, t in per_kernel.items():
+        split[kind(k) + "_ms"] += t
+    split["device_ms"] = total
+    split["adam_lazy_ms"] = lazy_ms
+    split["clip_ms"] = clip_ms
+    split["other_ms"] -= lazy_ms + clip_ms
+    split["gemm_decoder_ms"] = decoder_ms
+    split["gemm_recurrence_ms"] = split.pop("gemm_ms") - decoder_ms
+    split["shares"] = {k[:-3]: v / total for k, v in split.items()
+                       if k.endswith("_ms") and k != "device_ms"}
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    split["top_kernels"] = [[k[:100], t] for k, t in top]
+    return split
+
+
+def _wordlm_alone(mx, net, tr, cfg):
+    """(lazy Adam on the embedding, the clip over every gradient, the
+    decoder's forward and two gradient products), each alone on the
+    step's tensors: device ms from CUDA events (``queued_ms``; the
+    profiler loses events after many profiled phases in one process)."""
+    import torch
+    from mxnet_tpu_torch import gluon
+    opt = tr.optimizer
+    names = [p.name for p in tr._params]
+    i = names.index("rnnmodel_embedding0_weight")
+    emb, state = tr._params[i], tr._updater.states[i]
+    scalars = opt.stage(emb.data().tensor.device)
+    lazy_ms = queued_ms(lambda: opt._apply_lazy(
+        emb.data().tensor, emb.grad().tensor,
+        (state[0].tensor, state[1].tensor), scalars, (1.0, 1.0)), reps=10)
+    grads = [p.grad() for p in tr._params if p.grad_req != "null"]
+    clip_ms = queued_ms(lambda: gluon.utils.clip_global_norm(
+        grads, 1e30, check_isfinite=False), reps=10)
+    w = net.collect_params()["rnnmodel_dense0_weight"].data().tensor
+    g = torch.Generator(device=w.device)
+    g.manual_seed(4)
+    tokens = cfg["batch_size"] * cfg["seq_len"]
+    h = torch.randn(tokens, cfg["hidden"], generator=g, device=w.device)
+    dy = torch.randn(tokens, cfg["vocab"], generator=g, device=w.device)
+
+    def decoder():
+        torch.mm(h, w.t())
+        torch.mm(dy, w)
+        torch.mm(dy.t(), h)
+    return lazy_ms, clip_ms, queued_ms(decoder, reps=10)
+
+
+def _wordlm_flops(cfg):
+    """A step's FLOPs from the shapes: the LSTM layers' gate products
+    (input and recurrent) and the decoder, forward and twice that
+    backward."""
+    t = cfg["batch_size"] * cfg["seq_len"]
+    h, e, v = cfg["hidden"], cfg["embed"], cfg["vocab"]
+    lstm = sum(2 * 4 * h * ((e if i == 0 else h) + h)
+               for i in range(cfg["layers"]))
+    return 3 * t * (lstm + 2 * h * v)
+
+
+def phase_wordlm(mx, dev, cfg=WORDLM):
+    """The word-level LM at the medium width of Zaremba et al. 2014
+    (WORDLM: V 10,000, 2 x 650 LSTM, embedding 650, b20 x 35, dropout 0.5,
+    clip 5, Adam 3e-3, sparse_grad=True: lazy Adam on the embedding),
+    example/word_lm.py's loop over a seeded Zipf-bigram corpus of PTB's
+    training length, eager, hybridized and eager again: the two-window
+    slope (5 and 20
+    steps after 3 warm-ups), tokens/s, FLOPs against the float32 peak,
+    peak memory, a profiled step split into the recurrence, GEMM, softmax
+    and CE, dense Adam, lazy Adam, the clip and other, the busy share;
+    perplexity falling; the embedding rows the last step did not touch
+    bit for bit unchanged by it; no flash launch."""
+    import torch
+    free_earlier_phases()
+    corpus = word_lm_corpus(cfg["vocab"], cfg["corpus"], seed=0)
+    n1, n2 = cfg["windows"]
+    optimizer = ("adam", {"learning_rate": cfg["lr"]})
+    flops = _wordlm_flops(cfg)
+    out = {}
+    alone = None
+    # eager again last: whether the second mode's host time is its own
+    # or the process's after a profiled window
+    for mode in ("eager", "hybridized", "eager_again"):
+        free_earlier_phases()
+        mx.random.seed(0)
+        net = word_lm_model(mx, cfg, mx.gpu(0), seed=0)
+        n_params = sum(p.data().size for p in net.collect_params().values())
+        check(n_params == cfg["params"], f"wordlm: {n_params} parameters, "
+              f"want {cfg['params']}")
+        tr, step, last = word_lm_loop(mx, net, cfg, corpus, mx.gpu(0),
+                                      *optimizer, clip=cfg["clip"],
+                                      hybridize=mode == "hybridized")
+        first = None
+        for _ in range(cfg["warmup"]):
+            loss = step()
+            first = last_loss(loss) if first is None else first
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset_counts()
+        step_s, naive_s, windows, used, last_l = timed_windows(
+            step, n1, n2, f"wordlm {mode}")
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        # the last step's untouched rows: bit for bit unchanged by it
+        emb = net.collect_params()["rnnmodel_embedding0_weight"]
+        before = emb.data().asnumpy()
+        step()
+        torch.cuda.synchronize(dev)
+        after = emb.data().asnumpy()
+        hit = set(last[0].astype(np.int64).ravel().tolist())
+        untouched = sorted(set(range(cfg["vocab"])) - hit)
+        same = bool(np.array_equal(after[untouched], before[untouched]))
+        moved = int(np.any(after[sorted(hit)] != before[sorted(hit)],
+                           axis=1).sum())
+        per_kernel, lost, taken = kernel_split_ms(step, reps=5)
+        if alone is None:      # the same tensors in every mode
+            alone = _wordlm_alone(mx, net, tr, cfg)
+        split = _wordlm_split(per_kernel, *alone)
+        walls = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            step()
+            torch.cuda.synchronize(dev)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        split["wall_ms"] = statistics.median(walls)
+        split["device_busy_share"] = split["device_ms"] / split["wall_ms"]
+        split["profile_events_lost"], split["profile_windows"] = lost, taken
+        tokens = cfg["batch_size"] * cfg["seq_len"]
+        row = {"phase": "wordlm", "mode": mode, **cfg,
+               "optimizer": "adam (lazy on the embedding)",
+               "params_counted": n_params, "warmup": cfg["warmup"],
+               "window_s": windows, "step_ms": step_s * 1e3,
+               "naive_step_ms": naive_s * 1e3, "timing": used,
+               "tokens_per_s": tokens / step_s,
+               "flops_per_step": flops,
+               "tflops_per_s": flops / step_s / 1e12,
+               "f32_bound_ms": flops / PEAK_FLOPS["float32"] * 1e3,
+               "first_loss": first, "last_loss": last_l,
+               "first_perplexity": math.exp(min(first, 20.0)),
+               "last_perplexity": math.exp(min(last_l, 20.0)),
+               "peak_mem_bytes": peak,
+               "peak_over_start_bytes": peak - base,
+               "last_step_untouched_rows": len(untouched),
+               "untouched_rows_unchanged": same,
+               "last_step_touched_rows": len(hit),
+               "touched_rows_moved": moved,
+               "launches": launches, "card": nvidia_smi()}
+        emit(row)
+        emit(dict({"phase": "wordlm_breakdown", "mode": mode,
+                   "call": "one training step (profiled)"}, **split))
+        check(math.isfinite(last_l) and last_l < first,
+              f"wordlm {mode}: the loss went from {first} to {last_l}")
+        check(untouched and same and moved > 0,
+              f"wordlm {mode}: {len(untouched)} rows the last step did not "
+              f"touch, unchanged {same}; touched rows moved {moved} of "
+              f"{len(hit)}")
+        check(not any(launches.values()),
+              f"wordlm {mode}: flash launches {launches}")
+        out[mode] = row
+    return out
+
+
+# example/train_mnist.py --synthetic and example/estimator_fit.py
+# --synthetic at their own sizes
+DATA = dict(train=2048, val=512, batch_size=128, workers=2,
+            widths=(784, 128, 64, 10), lr=0.1, sched_step=4,
+            sched_factor=0.5, capture_steps=12, est_epochs=3)
+
+
+def _mnist_net(mx, ctx, seed, prefix="mlp_"):
+    """example/train_mnist.py's build_net: Dense 128 relu, 64 relu, 10,
+    hybridized, Xavier from ``seed``."""
+    from mxnet_tpu_torch.gluon import nn
+    w = DATA["widths"]
+    net = nn.HybridSequential(prefix=prefix)
+    with net.name_scope():
+        net.add(nn.Dense(w[1], activation="relu", in_units=w[0]),
+                nn.Dense(w[2], activation="relu", in_units=w[1]),
+                nn.Dense(w[3], in_units=w[2]))
+    net.initialize(mx.init.Xavier(), ctx=ctx, seed=seed)
+    net.hybridize()
+    return net
+
+
+def _mnist_loaders(mx, prefetch=None):
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.data.vision import MNIST, transforms
+    to_tensor = transforms.ToTensor()
+    train = MNIST(train=True, synthetic=DATA["train"]).transform_first(
+        to_tensor)
+    val = MNIST(train=False, synthetic=DATA["val"]).transform_first(
+        to_tensor)
+    kw = {"num_workers": DATA["workers"], "prefetch_to_device": prefetch}
+    return (gluon.data.DataLoader(train, DATA["batch_size"], shuffle=True,
+                                  **kw),
+            gluon.data.DataLoader(val, DATA["batch_size"], **kw))
+
+
+def _loader_pass(loader, ctx_scope, seed=0):
+    """One seeded pass: the batches (as given) and their host copies."""
+    np.random.seed(seed)
+    with ctx_scope:
+        batches = list(loader)
+    return batches, [[b.asnumpy() for b in batch] for batch in batches]
+
+
+def _mnist_epoch(mx, net, trainer, loader, metric, ctx):
+    """example/train_mnist.py's epoch; returns (seconds, seconds the host
+    waited on the loader, images)."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    metric.reset()
+    waited, images = 0.0, 0
+    t0 = time.perf_counter()
+    it = iter(loader)
+    while True:
+        t1 = time.perf_counter()
+        batch = next(it, None)
+        waited += time.perf_counter() - t1
+        if batch is None:
+            break
+        x, y = (b.as_in_context(ctx) for b in batch)
+        with autograd.record():
+            out = net(x.reshape((x.shape[0], -1)))
+            loss = loss_fn(out, y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        metric.update([y], [out])
+        images += x.shape[0]
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, waited, images
+
+
+def _estimator_fit(mx, ctx, ckpt_dir):
+    """example/estimator_fit.py --synthetic on ``ctx``: returns (the
+    estimator, its net, the validation loader, the results)."""
+    from mxnet_tpu_torch import gluon, nd
+    from mxnet_tpu_torch.gluon.contrib.estimator import (
+        CheckpointHandler, EarlyStoppingHandler, Estimator)
+    from mxnet_tpu_torch.metric import Accuracy
+    rng = np.random.RandomState(0)
+    x = rng.rand(1024, 784).astype("f4")
+    w = rng.randn(784, 10).astype("f4")
+    y = (x @ w).argmax(axis=1).astype("f4")
+    split = int(0.9 * len(x))
+
+    def loader(a, b, bs, shuffle):
+        return gluon.data.DataLoader(gluon.data.ArrayDataset(
+            nd.array(a, ctx=ctx), nd.array(b, ctx=ctx)), batch_size=bs,
+            shuffle=shuffle)
+    with ctx:
+        net = _mnist_net(mx, ctx, seed=0, prefix="est_")
+        train, val = loader(x[:split], y[:split], 128, True), \
+            loader(x[split:], y[split:], 256, False)
+        est = Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                        metrics=Accuracy(), context=ctx,
+                        trainer=gluon.Trainer(net.collect_params(), "adam",
+                                              {"learning_rate": 1e-3}))
+        est.fit(train, val_data=val, epochs=DATA["est_epochs"],
+                event_handlers=[
+                    CheckpointHandler(ckpt_dir, monitor=est.train_loss_metric,
+                                      save_best=True),
+                    EarlyStoppingHandler(monitor=est.train_loss_metric,
+                                         patience=3)])
+        results = dict(est.evaluate(val))
+    return est, net, val, results
+
+
+def phase_data(mx, dev, cfg=DATA):
+    """example/train_mnist.py --synthetic at its size (DATA: 2048 and 512
+    images, batch 128, 2 workers, hybridized 784-128-64-10 MLP, SGD 0.1,
+    metric.Accuracy): the loader's batches on the card's context equal
+    the CPU context's, in order (seeded); with prefetch_to_device=gpu(0)
+    every batch byte-equal to the one without, and on the card; an epoch
+    without and with prefetch: images/s and the loader's share of the
+    host's time (plain, prefetch, prefetch, plain: two of each); the MLP
+    through trainer.compile_step with a
+    FactorScheduler (the rate halves every 4 updates) against the eager
+    loop from the same weights: the rate follows the schedule, the
+    weights agree to 1e-6 in relative L2, one capture; then
+    example/estimator_fit.py --synthetic on the card: validation accuracy
+    > 0.8, and the best checkpoint, reloaded into a fresh net, gives the
+    trained net's outputs bit for bit."""
+    import shutil
+    import tempfile
+    import torch
+    from mxnet_tpu_torch import gluon, nd
+    free_earlier_phases()
+    gpu = mx.gpu(0)
+    train, val = _mnist_loaders(mx)
+    _, on_cpu = _loader_pass(train, mx.cpu())
+    _, on_card = _loader_pass(train, gpu)
+    same_order = len(on_cpu) == len(on_card) == math.ceil(
+        cfg["train"] / cfg["batch_size"]) and all(
+        a.tobytes() == b.tobytes() for x, y in zip(on_cpu, on_card)
+        for a, b in zip(x, y))
+    ptrain, pval = _mnist_loaders(mx, prefetch=gpu)
+    staged, staged_host = _loader_pass(ptrain, gpu)
+    prefetch_equal = len(staged_host) == len(on_cpu) and all(
+        a.tobytes() == b.tobytes() and a.dtype == b.dtype
+        for x, y in zip(staged_host, on_cpu) for a, b in zip(x, y))
+    prefetch_on_card = all(b.context == gpu and b.tensor.is_cuda
+                           for batch in staged for b in batch)
+    del staged
+    check(same_order, "data: the loader's batches on the card's context "
+          "differ from the CPU context's")
+    check(prefetch_equal and prefetch_on_card,
+          f"data: prefetch_to_device batches equal {prefetch_equal}, on "
+          f"the card {prefetch_on_card}")
+    epochs = {"plain": [], "prefetch": []}
+    for mode, loader, vloader in (("plain", train, val),
+                                  ("prefetch", ptrain, pval),
+                                  ("prefetch", ptrain, pval),
+                                  ("plain", train, val)):
+        net = _mnist_net(mx, gpu, seed=0)
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": cfg["lr"]})
+        metric = mx.metric.Accuracy()
+        with gpu:
+            np.random.seed(1)
+            _mnist_epoch(mx, net, trainer, loader, metric, gpu)  # warm-up
+            secs, waited, images = _mnist_epoch(mx, net, trainer, loader,
+                                                metric, gpu)
+            train_acc = metric.get()[1]
+            metric.reset()
+            for x, y in vloader:
+                x, y = x.as_in_context(gpu), y.as_in_context(gpu)
+                metric.update([y], [net(x.reshape((x.shape[0], -1)))])
+        epochs[mode].append({"epoch_s": secs, "images_per_s": images / secs,
+                        "loader_wait_s": waited,
+                        "loader_share": waited / secs,
+                        "train_accuracy": train_acc,
+                        "validation_accuracy": metric.get()[1]})
+    # compile_step with a scheduled learning rate against the eager loop
+    x_np = on_cpu[0][0].reshape(cfg["batch_size"], -1)
+    y_np = on_cpu[0][1]
+    runs = {}
+    for kind in ("compiled", "eager"):
+        net = _mnist_net(mx, gpu, seed=2)
+        sched = mx.lr_scheduler.FactorScheduler(step=cfg["sched_step"],
+                                                factor=cfg["sched_factor"])
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": cfg["lr"],
+                            "lr_scheduler": sched})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        x, y = nd.array(x_np, ctx=gpu), nd.array(y_np, ctx=gpu)
+        cs = tr.compile_step(net, loss_fn) if kind == "compiled" else None
+        lrs = []
+        for _ in range(cfg["capture_steps"]):
+            if cs is not None:
+                cs.step(x, y)
+            else:
+                with mx.autograd.record():
+                    loss = loss_fn(net(x), y)
+                loss.backward()
+                tr.step(cfg["batch_size"])
+            lrs.append(tr.learning_rate)
+        runs[kind] = (lrs, _weights(net), cs)
+    want_sched = mx.lr_scheduler.FactorScheduler(step=cfg["sched_step"],
+                                                 factor=cfg["sched_factor"],
+                                                 base_lr=cfg["lr"])
+    want_lrs = [want_sched(i) for i in range(1, cfg["capture_steps"] + 1)]
+    cs = runs["compiled"][2]
+    sched_err = max(_rel_l2([runs["compiled"][1][k]], [w])
+                    for k, w in runs["eager"][1].items())
+    check_no_fallback("data")
+    # example/estimator_fit.py --synthetic on the card
+    ckpt = tempfile.mkdtemp(prefix="estimator_ckpt_")
+    try:
+        est, net, vloader, results = _estimator_fit(mx, gpu, ckpt)
+        best = os.path.join(ckpt, "model-best.params")
+        last = os.path.join(ckpt, f"model-epoch{cfg['est_epochs'] - 1}"
+                            ".params")
+        best_is_last = open(best, "rb").read() == open(last, "rb").read()
+        fresh = _mnist_net(mx, gpu, seed=5, prefix="est_")
+        fresh.load_parameters(best)
+        with gpu:
+            xb = next(iter(vloader))[0]
+            reload_bitwise = bool(np.array_equal(fresh(xb).asnumpy(),
+                                                 net(xb).asnumpy()))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    row = {"phase": "data", **cfg, "batches": len(on_cpu),
+           "loader_order_equal_cpu": same_order,
+           "prefetch_batches_byte_equal": prefetch_equal,
+           "prefetch_batches_on_card": prefetch_on_card,
+           "epoch": epochs,
+           "schedule": {"lrs": runs["compiled"][0], "want": want_lrs,
+                        "eager_lrs": runs["eager"][0],
+                        "weight_rel_l2_max": sched_err,
+                        "captures": cs.captures, "replays": cs.replays,
+                        "last_path": cs.last_path},
+           "estimator": {"results": results, "best_is_last_epoch":
+                         best_is_last, "reload_bitwise": reload_bitwise,
+                         "train_metrics": [m.get() for m in
+                                           est.train_metrics]},
+           "card": nvidia_smi()}
+    emit(row)
+    check(runs["compiled"][0] == want_lrs == runs["eager"][0],
+          f"data: learning rates {runs['compiled'][0]}, want {want_lrs}")
+    check(sched_err <= 1e-6, f"data: the captured steps' weights are "
+          f"{sched_err} from the eager loop's")
+    check(cs.captures == 1 and cs.last_path == "compiled",
+          f"data: captures {cs.captures}, last path {cs.last_path}")
+    check(results.get("validation accuracy", 0.0) > 0.8,
+          f"data: estimator_fit's validation accuracy {results}")
+    check(best_is_last and reload_bitwise,
+          f"data: the best checkpoint is the last epoch's {best_is_last}, "
+          f"reloads bit for bit {reload_bitwise}")
+    return row
+
+
 # -- phase 4: parity -----------------------------------------------------------
 
 def phase_parity(mx, dev):
@@ -4426,6 +5221,12 @@ def main():
         phase_gan_parity(mx, dev)
     if "gan" in phases:
         phase_gan(mx, dev)
+    if "wordlm_parity" in phases:
+        phase_wordlm_parity(mx, dev)
+    if "wordlm" in phases:
+        phase_wordlm(mx, dev)
+    if "data" in phases:
+        phase_data(mx, dev)
 
     kernels = kernel_entries(rows, bwd_rows, train, serve, llama)
     if rtc is not None:

@@ -28,8 +28,8 @@ passes ``ctx=mx.cpu()``; without a card and without that, they raise
     net.initialize(mx.initializer.Xavier(), ctx=mx.gpu(0))
 """
 from . import (autograd, base, context, contrib, envs, gluon, initializer,
-               models, ndarray, ops, optimizer, parallel, random, rtc,
-               serving, test_utils)
+               lr_scheduler, metric, models, ndarray, ops, optimizer,
+               parallel, random, rtc, serving, test_utils)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 
@@ -40,5 +40,6 @@ __version__ = "0.1.0"
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "autograd", "base", "context", "contrib", "envs", "gluon", "init",
-           "initializer", "models", "nd", "ndarray", "ops", "optimizer",
-           "parallel", "random", "rtc", "serving", "test_utils"]
+           "initializer", "lr_scheduler", "metric", "models", "nd", "ndarray",
+           "ops", "optimizer", "parallel", "random", "rtc", "serving",
+           "test_utils"]

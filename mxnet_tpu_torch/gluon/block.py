@@ -184,12 +184,20 @@ class Block(nn.Module):
         self.add_module(str(len(self._modules)) if name is None else name,
                         block)
 
-    def _child_blocks(self, module=None):
-        for child in (module or self).children():
+    def _child_blocks(self):
+        for _, child in self._named_child_blocks():
+            yield child
+
+    def _named_child_blocks(self, module=None, path=""):
+        """(name, block) of the child Blocks, a name being the attribute
+        path through any plain modules between them."""
+        module = self if module is None else module
+        for name, child in module.named_children():
             if isinstance(child, Block):
-                yield child
+                yield path + name, child
             else:
-                yield from self._child_blocks(child)
+                yield from self._named_child_blocks(child,
+                                                    f"{path}{name}.")
 
     @property
     def params(self) -> ParameterDict:
@@ -214,6 +222,73 @@ class Block(nn.Module):
 
     def zero_grad(self):
         self.collect_params().zero_grad()
+
+    # -- saving and loading --------------------------------------------------
+    def _collect_params_with_prefix(self, prefix=""):
+        """{attribute path: Parameter}: ``"0.weight"``, ``"encoder.weight"``,
+        the reference's keys of a ``.params`` file."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + attr: self._gluon_param(attr)
+               for attr in self._parameters}
+        for name, child in self._named_child_blocks():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Every parameter, keyed by its attribute path, in ``nd.save``'s
+        file (the JAX package's bytes for the same weights)."""
+        from .. import ndarray as nd
+        arg_dict, seen = {}, set()
+        for key, param in self._collect_params_with_prefix().items():
+            if deduplicate and id(param) in seen:
+                continue
+            seen.add(id(param))
+            arg_dict[key] = param.data()
+        nd.save(filename, arg_dict)
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load a ``save_parameters`` file (the port's, the JAX package's,
+        or the reference's dmlc file, whose ``arg:``/``aux:`` prefixes go),
+        keyed by attribute path or by full parameter name.  A parameter
+        not placed yet is made on ``ctx`` (default: the current context)
+        from the file; a placed one takes the values in place."""
+        from ..ndarray.ndarray import _load_numpy
+        with open(filename, "rb") as f:
+            loaded = _load_numpy(f, filename)
+        if not isinstance(loaded, dict):
+            raise MXNetError(f"file {filename!r} holds an unnamed NDArray "
+                             "list, not named parameters")
+        loaded = {(k[4:] if k.startswith(("arg:", "aux:")) else k): v
+                  for k, v in loaded.items()}
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        by_name = {p.name: p for p in self.collect_params().values()}
+        if any(k in by_name and k not in params for k in loaded) or (
+                not any("." in k for k in loaded)
+                and any("." in k for k in params)):
+            # saved under full parameter names
+            targets = by_name
+        else:
+            targets = params
+            if not allow_missing:
+                for name in params:
+                    if name not in loaded:
+                        raise MXNetError(
+                            f"Parameter {name!r} is missing in file "
+                            f"{filename!r}, which contains parameters: "
+                            f"{sorted(loaded)[:10]}")
+        for name, value in loaded.items():
+            if name not in targets:
+                if not ignore_extra:
+                    raise MXNetError(f"Parameter {name!r} loaded from file "
+                                     f"{filename!r} is not present in this "
+                                     "Block")
+                continue
+            targets[name]._load_init(value, ctx, cast_dtype=cast_dtype)
 
     # -- initialization ------------------------------------------------------
     def initialize(self, init=None, ctx=None, seed=None):

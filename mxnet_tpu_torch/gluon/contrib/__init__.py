@@ -1,4 +1,4 @@
-"""Contrib blocks: the transformer encoder."""
-from . import nn
+"""Contrib blocks: the transformer encoder, and the Estimator."""
+from . import estimator, nn
 
-__all__ = ["nn"]
+__all__ = ["estimator", "nn"]

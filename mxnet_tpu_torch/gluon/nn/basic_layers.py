@@ -101,13 +101,19 @@ class Dense(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Index -> row lookup; ids may be float32, as in the reference."""
+    """Index -> row lookup; ids may be float32, as in the reference.
+    ``sparse_grad=True`` types the weight's gradient ``row_sparse``, so
+    the optimizers update only the rows a batch touched (the lazy
+    update); the gradient itself is the dense buffer."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, prefix=None, params=None):
+                 weight_initializer=None, sparse_grad=False, prefix=None,
+                 params=None):
         super().__init__(prefix=prefix, params=params)
         self.weight = param(input_dim, output_dim, init=weight_initializer,
                             dtype=torch_dtype(dtype))
+        if sparse_grad:
+            self._gluon_param("weight").grad_stype = "row_sparse"
 
     def forward(self, x):
         return ops.embedding(x, self.weight)

@@ -20,9 +20,14 @@ input and the parameter is made on the device ``initialize`` named and
 filled by its initializer (:meth:`Parameter._finish_deferred_init`).
 Until then ``data()`` raises.
 
+``grad_stype="row_sparse"`` (``Embedding(sparse_grad=True)``) makes the
+gradient buffer a ``RowSparseNDArray``, so the optimizers update only
+the rows its gradient touches; a parameter asked for twice through
+``ParameterDict.get`` keeps ``"row_sparse"`` if either asks for it.
+
 Not ported: several contexts per parameter, ``Constant``,
-``save``/``load`` and a parameter-by-parameter ``initialize``
-(``Block.initialize`` places and fills the whole block).
+``save``/``load`` of a ``ParameterDict`` and a parameter-by-parameter
+``initialize`` (``Block.initialize`` places and fills the whole block).
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ from torch.nn.parameter import UninitializedParameter
 from .. import autograd, initializer
 from ..base import MXNetError, torch_dtype
 from ..context import Context
-from ..ndarray.ndarray import NDArray, _ctx_of
+from ..ndarray.ndarray import NDArray, _ctx_of, _grad_buffer
 
 __all__ = ["Parameter", "ParameterDict"]
 
@@ -49,13 +54,14 @@ class Parameter:
     gradient and ``"null"`` for one that does not (running statistics)."""
 
     def __init__(self, block, attr: str, grad_req=None, lr_mult=1.0,
-                 wd_mult=1.0):
+                 wd_mult=1.0, grad_stype="default"):
         self._block = weakref.ref(block)
         self._attr = attr
         self.name = block.prefix + attr
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self._grad_req = "null"
+        self._grad_stype = grad_stype
         self._nd = None
         if grad_req is None:
             grad_req = "write" if self._tensor.requires_grad else "null"
@@ -122,6 +128,25 @@ class Parameter:
         if self._nd is not None and self._nd._t is t:
             self._bind(t)
 
+    @property
+    def grad_stype(self):
+        """The gradient's storage type: ``"default"`` or ``"row_sparse"``."""
+        return self._grad_stype
+
+    @grad_stype.setter
+    def grad_stype(self, stype):
+        if stype not in ("default", "row_sparse"):
+            raise MXNetError(f"grad_stype must be default or row_sparse, "
+                             f"got {stype!r}")
+        self._grad_stype = stype
+        nd_ = self._nd
+        if nd_ is not None and nd_._grad is not None and \
+                nd_._grad.stype != stype:
+            # a buffer made before the stype was asked for takes it now
+            old = nd_._grad
+            nd_._grad = _grad_buffer(nd_, stype)
+            nd_._grad._t.copy_(old._t)
+
     def _bind(self, t):
         """The NDArray over ``t``, a leaf of the autograd graph.  Its
         gradient buffer is made by the first ``grad()`` or ``backward``
@@ -133,6 +158,10 @@ class Parameter:
         if self._grad_req == "null" or (
                 nd_._grad is not None and nd_._grad._t.shape != t.shape):
             nd_._grad = None
+        if self._grad_stype != "default" and self._grad_req != "null" \
+                and nd_._grad is None:
+            # typed now: backward would otherwise make a dense buffer
+            nd_._grad = _grad_buffer(nd_, self._grad_stype)
         autograd._leaves[id(nd_)] = nd_
         return nd_
 
@@ -168,8 +197,7 @@ class Parameter:
                              f"{self.name!r} because grad_req='null'")
         nd_ = self.data(ctx)
         if nd_._grad is None:
-            nd_._grad = NDArray(torch.zeros_like(nd_._t.detach()),
-                                ctx=nd_._ctx)
+            nd_._grad = _grad_buffer(nd_, self._grad_stype)
         return nd_._grad
 
     def list_grad(self):
@@ -210,6 +238,34 @@ class Parameter:
         if self._grad_req != "null" and self._nd is not None \
                 and self._nd._grad is not None:
             self._nd._grad._t.zero_()
+
+    def _load_init(self, data, ctx=None, cast_dtype=False):
+        """Take the loaded numpy ``data``: in place when the parameter is
+        placed on ``ctx`` with the file's type (or ``cast_dtype``), else
+        as a new tensor on ``ctx`` (default: its device, or the current
+        context for one not placed yet) in the file's type."""
+        from ..context import current_context
+        from ..ndarray.ndarray import array
+        shape = self.shape
+        if 0 not in shape and tuple(shape) != tuple(data.shape):
+            raise MXNetError(f"Failed loading Parameter {self.name!r} from "
+                             f"saved params: shape incompatible expected "
+                             f"{shape} vs saved {tuple(data.shape)}")
+        t = self._tensor
+        placed = not t.is_meta and not isinstance(t, UninitializedParameter)
+        if ctx is None:
+            ctx = _ctx_of(t.device) if placed else current_context()
+        dtype = t.dtype if cast_dtype else torch_dtype(data.dtype)
+        src = array(data, ctx=ctx, dtype=dtype)._t
+        if placed and t.dtype == dtype and t.device == src.device:
+            with torch.no_grad():
+                t.copy_(src)
+            return
+        new = nn.Parameter(src, requires_grad=t.requires_grad)
+        if getattr(t, "mx_init", None) is not None:
+            new.mx_init = t.mx_init
+        self._block()._parameters[self._attr] = new
+        self._bind(new)
 
     def set_data(self, data):
         """Copy ``data`` (an NDArray or array-like) into the parameter in
@@ -272,13 +328,18 @@ class ParameterDict:
             self._params[k] = v
 
     def get(self, name, shape=None, dtype="float32", init=None,
-            grad_req="write", allow_deferred_init=False, **kwargs):
+            grad_req="write", allow_deferred_init=False,
+            grad_stype="default", **kwargs):
         """The parameter ``prefix + name``; on a block's own ``params`` it
         is made (on the ``meta`` device, until ``initialize``) when it
-        does not exist yet."""
+        does not exist yet.  A ``grad_stype="row_sparse"`` asked of an
+        existing parameter types its gradient row-sparse."""
         full = self._prefix + name
         if full in self._params:
-            return self._params[full]
+            param = self._params[full]
+            if grad_stype == "row_sparse":
+                param.grad_stype = grad_stype
+            return param
         owner = self._owner() if self._owner is not None else None
         if owner is None:
             raise MXNetError(f"no Parameter {full!r}, and this dict belongs "
@@ -292,6 +353,7 @@ class ParameterDict:
         owner.register_parameter(name, p)
         param = owner._gluon_param(name)
         param.grad_req = grad_req
+        param.grad_stype = grad_stype
         return param
 
     def zero_grad(self):

@@ -11,7 +11,11 @@ one context there is nothing to reduce, so ``kvstore`` may be None,
 ``"device"`` or ``"local"``; several contexts and a real kvstore are not
 ported (ROADMAP queue 1 item 8).  ``compile_step(net,
 loss_fn)`` makes the whole training step one captured graph
-(``gluon/compiled_step.py``).
+(``gluon/compiled_step.py``).  A parameter with a row-sparse gradient
+(``Embedding(sparse_grad=True)``) takes the optimizer's lazy update on
+its own; the dense ones keep the one multi-tensor pass.
+``save_states``/``load_states`` pickle the optimizer's states and the
+optimizer, update counts included, as the reference does.
 """
 from __future__ import annotations
 
@@ -92,3 +96,22 @@ class Trainer:
         self._updater.call_fused(indices,
                                  [self._params[i].grad() for i in indices],
                                  [self._params[i].data() for i in indices])
+
+    def save_states(self, fname):
+        """The optimizer's states and the optimizer itself, to ``fname``."""
+        with open(fname, "wb") as f:
+            f.write(self._updater.get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        """Take ``save_states``' file: the states go on the parameters'
+        context, and the loaded optimizer (its counts, its learning rate
+        or scheduler) takes this trainer's parameters."""
+        with open(fname, "rb") as f:
+            states = f.read()
+        self._updater.set_states(
+            states, lambda i: self._params[i].list_ctx()[0])
+        old, self._optimizer = self._optimizer, self._updater.optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))
+        if type(self._optimizer) is type(old):
+            # a captured step reads the old optimizer's scalar tensors
+            self._optimizer._scalars = old._scalars

@@ -7,9 +7,11 @@ attributes follow positionally (scalar attrs first, then the rest in
 declaration order) or as keywords; every op takes ``out=``, and ops with
 no tensor input take ``ctx=``.  ``BatchNorm`` updates the moving
 statistics it is given, in place, when training.  ``nd.contrib`` holds
-the control-flow ops (``foreach``, ``while_loop``, ``cond``).
-``nd.save``/``nd.load`` are not ported yet (ROADMAP queue 1), and
-``nd.RNN`` raises ``NotImplementedError`` as in the JAX package.
+the control-flow ops (``foreach``, ``while_loop``, ``cond``) and
+``nd.sparse`` the row_sparse and csr arrays.  ``nd.save``/``nd.load``
+write and read the JAX package's files (and read the reference's dmlc
+``.params`` files).  ``nd.RNN`` raises ``NotImplementedError`` as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import sys
 from .. import ops  # noqa: F401  (registers every op)
 from ..ops.registry import OpDef, get_op, list_ops
 from .ndarray import (NDArray, arange, array, concatenate, empty, eye, full,
-                      invoke, moveaxis, ones, waitall, zeros)
+                      invoke, load, load_buffer, moveaxis, ones, save,
+                      waitall, zeros)
 
 _mod = sys.modules[__name__]
 
@@ -125,8 +128,8 @@ _CUSTOM = {"BatchNorm": BatchNorm, "Dropout": Dropout, "maximum": maximum,
 
 _generate(_mod)
 
-from . import contrib, random  # noqa: E402  (nd.contrib, nd.random)
+from . import contrib, random, sparse  # noqa: E402
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "eye", "concatenate", "waitall", "invoke", "contrib", "random",
-           "moveaxis"]
+           "sparse", "moveaxis", "save", "load", "load_buffer"]

@@ -20,6 +20,9 @@ As the JAX package's ``ndarray/ndarray.py``, on PyTorch:
 from __future__ import annotations
 
 import builtins
+import io
+import json
+import struct
 from typing import Optional, Sequence
 
 import numpy as np
@@ -31,7 +34,8 @@ from ..context import Context, cpu, current_context, gpu
 from ..ops.registry import OpDef, get_op
 
 __all__ = ["NDArray", "invoke", "array", "empty", "zeros", "ones", "full",
-           "arange", "eye", "concatenate", "waitall", "moveaxis"]
+           "arange", "eye", "concatenate", "waitall", "moveaxis", "save",
+           "load", "load_buffer"]
 
 
 def _ctx_of(device: torch.device) -> Context:
@@ -308,16 +312,19 @@ class NDArray:
     def attach_grad(self, grad_req="write", stype=None):
         """Allocate a zero gradient buffer and make this array a leaf of
         the autograd graph: ``backward`` writes (``"write"``), adds
-        (``"add"``) or skips (``"null"``) its gradient."""
+        (``"add"``) or skips (``"null"``) its gradient.  With
+        ``stype="row_sparse"`` the buffer is a ``RowSparseNDArray`` (a
+        dense buffer typed row-sparse), so the optimizers update only the
+        rows its gradient touches (the lazy update)."""
         from ..autograd import _make_leaf
         if grad_req not in ("write", "add", "null"):
             raise MXNetError(f"grad_req must be write, add or null, got "
                              f"{grad_req!r}")
-        if stype not in (None, "default"):
-            raise MXNetError(f"gradient storage {stype!r} is not ported")
+        if stype not in (None, "default", "row_sparse"):
+            raise MXNetError(f"gradient storage {stype!r} is not "
+                             "supported: default or row_sparse")
         self.grad_req = grad_req
-        self._grad = NDArray(torch.zeros_like(self._t.detach()),
-                             ctx=self._ctx)
+        self._grad = _grad_buffer(self, stype)
         _make_leaf(self)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
@@ -490,6 +497,15 @@ class NDArray:
 
     def __itruediv__(self, o):
         return self._inplace(o, "broadcast_div", "_div_scalar")
+
+
+def _grad_buffer(arr, stype=None):
+    """A zero gradient buffer for ``arr``, of storage type ``stype``."""
+    zeros_t = torch.zeros_like(arr._t.detach())
+    if stype == "row_sparse":
+        from .sparse import RowSparseNDArray
+        return RowSparseNDArray(zeros_t, ctx=arr._ctx)
+    return NDArray(zeros_t, ctx=arr._ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -673,3 +689,95 @@ def waitall():
             torch.cuda.synchronize(i)
     except RuntimeError as e:
         raise _sync_error("waitall", e) from e
+
+
+# ---------------------------------------------------------------------------
+# serialization: mx.nd.save / load / load_buffer
+# ---------------------------------------------------------------------------
+
+#: the JAX package's file layout, written byte for byte as it writes it:
+#: the magic, the count (int64), then per array its name, a JSON header
+#: {"dtype", "shape"} and the raw little-endian bytes, each behind its
+#: int64 length
+_MAGIC = b"MXTPU001"
+
+
+def save(fname: str, data):
+    """``mx.nd.save``: an NDArray, a list of them, or a dict of them by
+    name, in the JAX package's MXTPU001 layout (its bytes exactly, so a
+    file moves between the packages either way)."""
+    if fname.endswith(".safetensors"):
+        raise MXNetError("nd.save to .safetensors is not ported: it waits "
+                         "with models/hf_loader.py")
+    if isinstance(data, NDArray):
+        pairs = [("", data)]
+    elif isinstance(data, dict):
+        pairs = list(data.items())
+    else:
+        pairs = [("", d) for d in data]
+    with open(fname, "wb") as f:
+        f.write(_MAGIC)
+        f.write(struct.pack("<q", len(pairs)))
+        for name, arr in pairs:
+            a = arr.asnumpy()
+            nb = name.encode()
+            hdr = json.dumps({"dtype": a.dtype.name,
+                              "shape": list(a.shape)}).encode()
+            raw = np.ascontiguousarray(a).tobytes()
+            for blob in (nb, hdr, raw):
+                f.write(struct.pack("<q", len(blob)))
+                f.write(blob)
+
+
+def _np_dtype(name):
+    return numpy_dtype(torch.bfloat16) if name == "bfloat16" \
+        else np.dtype(name)
+
+
+def _load_numpy(f, what: str):
+    """A saved file as numpy arrays: a dict by name, or a list when it
+    was saved unnamed.  Reads the MXTPU001 layout, else the reference's
+    dmlc layout (``legacy_io``)."""
+    magic = f.read(8)
+    if magic != _MAGIC:
+        from . import legacy_io
+        if legacy_io.looks_legacy(magic):
+            f.seek(0)
+            names, arrays = legacy_io.load_legacy(f)
+            return dict(zip(names, arrays)) if names else list(arrays)
+        raise MXNetError(f"{what}: not an NDArray file")
+    n = struct.unpack("<q", f.read(8))[0]
+    named, unnamed = {}, []
+    for _ in range(n):
+        blobs = []
+        for _ in range(3):
+            ln = struct.unpack("<q", f.read(8))[0]
+            blobs.append(f.read(ln))
+        name = blobs[0].decode()
+        hdr = json.loads(blobs[1].decode())
+        a = np.frombuffer(blobs[2], dtype=_np_dtype(hdr["dtype"])) \
+            .reshape(hdr["shape"])
+        if name:
+            named[name] = a
+        else:
+            unnamed.append(a)
+    return named if named else unnamed
+
+
+def _wrap_loaded(loaded):
+    if isinstance(loaded, dict):
+        return {k: array(a, dtype=a.dtype) for k, a in loaded.items()}
+    return [array(a, dtype=a.dtype) for a in loaded]
+
+
+def load(fname: str):
+    """``mx.nd.load``: a dict of NDArrays by name, or a list when the file
+    was saved unnamed, on the current context.  Reads the JAX package's
+    files and the reference's dmlc ``.params`` files."""
+    with open(fname, "rb") as f:
+        return _wrap_loaded(_load_numpy(f, fname))
+
+
+def load_buffer(buf: bytes):
+    """``mx.nd.load`` from bytes in memory (``MXNDArrayLoadFromBuffer``)."""
+    return _wrap_loaded(_load_numpy(io.BytesIO(buf), "<buffer>"))

@@ -460,6 +460,18 @@ def _slice_basic(x, *, key=()):
     return x[tuple(dec(e) for e in key)]
 
 
+@register("add_n", num_inputs=None)
+def add_n(*arrays):
+    """The element-wise sum of the arrays (``ElementWiseSum``)."""
+    out = arrays[0]
+    for a in arrays[1:]:
+        out = out + a
+    return out
+
+
+alias("ElementWiseSum", "add_n")
+
+
 @register("concat", num_inputs=None)
 def concat(*args, dim=1):
     return torch.cat(args, dim=dim)

@@ -8,10 +8,21 @@ same two classes.
 ``lr_mult``/``wd_mult`` (``param_dict``).  ``update_multi`` updates a set
 of parameters at once with ``torch._foreach_*`` multi-tensor operators
 (the reference's ``call_fused``): the same arithmetic, a few launches for
-the whole set.  Not ported: the other optimizers, multi-precision,
-learning-rate schedules.
+the whole set.  ``lr_scheduler`` (``mx.lr_scheduler``) gives the
+learning rate of each update from the update count.  Not ported: the
+other optimizers, multi-precision.
 
-**Per-step scalars live on the device.**  ``lr``, ``wd``,
+**Row-sparse gradients** (``Embedding(sparse_grad=True)``,
+``attach_grad(stype="row_sparse")``) take the lazy update when
+``lazy_update`` is on (the default): only the rows the gradient touches
+(any nonzero) change, weight decay and optimizer state included, through
+``sgd_update``/``sgd_mom_update``/``adam_update`` with ``lazy_update``
+on that parameter alone (``torch.where`` over the dense buffer, so a
+captured step takes it); the dense parameters keep the multi-tensor
+pass, as the reference's ``_fused_supported`` takes a row-sparse
+gradient out of its fused update.
+
+**Per-step scalars live on the device.**  ``lr`` (the scheduled one too), ``wd``,
 ``rescale_grad`` and ``-lr * rescale_grad`` (SGD) and the bias-corrected
 learning rate, ``wd`` and ``rescale_grad`` (Adam) change between steps, so an update reads them
 from a float32 tensor on the weights' device (:class:`DeviceScalars`),
@@ -43,6 +54,7 @@ copies of its gradients at once).
 from __future__ import annotations
 
 import math
+import pickle
 from typing import Dict
 
 import torch
@@ -97,6 +109,7 @@ class Optimizer:
     """Base optimizer (parity: ``mx.optimizer.Optimizer``)."""
 
     opt_registry: Dict[str, type] = {}
+    lazy_update = False
 
     @staticmethod
     def register(klass):
@@ -112,9 +125,12 @@ class Optimizer:
         return Optimizer.opt_registry[key](**kwargs)
 
     def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=None, param_dict=None):
+                 learning_rate=None, lr_scheduler=None, param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate if learning_rate is not None else 0.01
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None and learning_rate is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.num_update = 0
@@ -125,14 +141,33 @@ class Optimizer:
 
     @property
     def learning_rate(self):
+        """The learning rate of the current update: the scheduler's at
+        ``num_update`` when there is one."""
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
     @learning_rate.setter
     def learning_rate(self, lr):
-        self.lr = lr
+        self.set_learning_rate(lr)
 
     def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise MXNetError("LRScheduler of the optimizer has already been "
+                             "defined.")
         self.lr = lr
+
+    def __getstate__(self):
+        # the parameters and the device scalars stay behind: Trainer binds
+        # the parameters again after a load, and the scalars are made anew
+        state = self.__dict__.copy()
+        state["param_dict"] = {}
+        state["_scalars"] = DeviceScalars(self._scalars.names)
+        return state
+
+    def _lazy(self, grad):
+        """Whether ``grad`` takes the lazy (touched rows only) update."""
+        return self.lazy_update and grad.stype == "row_sparse"
 
     def _update_count(self, index):
         count = self._index_update_count.get(index, 0) + 1
@@ -190,9 +225,10 @@ class SGD(Optimizer):
     ``w -= lr * (clip(rescale_grad * g) + wd * w)``, or with momentum
     ``m = momentum * m - lr * (...)``, ``w += m``."""
 
-    def __init__(self, momentum=0.0, **kwargs):
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -216,16 +252,18 @@ class SGD(Optimizer):
         """The device side of ``update``: lr, wd and rescale_grad come
         from the device scalars (staged now when they changed), times the
         parameter's multipliers.  Without momentum, clipping, weight
-        decay or a learning-rate multiplier it is ``sgd_update``'s fused
-        form, ``w += (-lr * rescale_grad) * g``: one kernel, in place."""
+        decay, a learning-rate multiplier or a lazy update it is
+        ``sgd_update``'s fused form, ``w += (-lr * rescale_grad) * g``: one
+        kernel, in place."""
         from . import ndarray as nd
         from .ndarray.ndarray import NDArray
         lr, wd, rescale, neg_lr_rescale = self.stage(weight.tensor.device)
         p = self.param_dict.get(index)
         lr_mult, wd_mult = (1.0, 1.0) if p is None else (p.lr_mult,
                                                           p.wd_mult)
+        lazy = self._lazy(grad)
         if state is None and self._clip() <= 0 and self.wd == 0 \
-                and lr_mult == 1.0:
+                and lr_mult == 1.0 and not lazy:
             with torch.no_grad():
                 weight.tensor.addcmul_(grad.tensor, neg_lr_rescale)
             return
@@ -238,11 +276,12 @@ class SGD(Optimizer):
         if state is not None:
             nd.sgd_mom_update(weight, grad, state, lr=lr, wd=wd,
                               momentum=self.momentum, rescale_grad=rescale,
-                              clip_gradient=self._clip(),
+                              clip_gradient=self._clip(), lazy_update=lazy,
                               out=[weight, state])
         else:
             nd.sgd_update(weight, grad, lr=lr, wd=wd, rescale_grad=rescale,
-                          clip_gradient=self._clip(), out=weight)
+                          clip_gradient=self._clip(), lazy_update=lazy,
+                          out=weight)
 
     def update_multi(self, indices, weights, grads, states):
         if type(self).update is not SGD.update:
@@ -253,12 +292,16 @@ class SGD(Optimizer):
 
     def apply_multi(self, indices, weights, grads, states):
         """The device side of ``update_multi``: the parameters grouped by
-        their (lr_mult, wd_mult), each group one :func:`sgd_multi`."""
+        their (lr_mult, wd_mult), each group one :func:`sgd_multi`; a
+        parameter with a lazy update alone through :meth:`apply`."""
         if not indices:
             return
         scalars = self.stage(weights[0].tensor.device)
         groups = {}
         for i, w, g, s in zip(indices, weights, grads, states):
+            if self._lazy(g):
+                self.apply(i, w, g, s)
+                continue
             p = self.param_dict.get(i)
             mults = (1.0, 1.0) if p is None else (p.lr_mult, p.wd_mult)
             groups.setdefault(mults, []).append(
@@ -320,6 +363,26 @@ class Updater:
                 self.states[i] = self.optimizer.create_state(i, w)
             self.optimizer.update(i, w, g, self.states[i])
 
+    def get_states(self, dump_optimizer=False):
+        """The states (and with ``dump_optimizer`` the optimizer, its
+        update counts included) pickled, the arrays as numpy."""
+        states = {k: _states_to_np(v) for k, v in self.states.items()}
+        return pickle.dumps((states, self.optimizer) if dump_optimizer
+                            else states)
+
+    def set_states(self, states, ctx_of=None):
+        """Take ``get_states``' bytes.  Each state goes on the context
+        ``ctx_of(index)`` (default: the current context), into the
+        existing state's arrays in place where their shapes match (a
+        captured step reads those)."""
+        loaded = pickle.loads(states)
+        if isinstance(loaded, tuple) and len(loaded) == 2 and \
+                isinstance(loaded[1], Optimizer):
+            loaded, self.optimizer = loaded
+        for i, st in loaded.items():
+            ctx = ctx_of(i) if ctx_of is not None else None
+            self.states[i] = _states_from_np(st, ctx, self.states.get(i))
+
     def call_fused(self, indices, grads, weights):
         """Update the parameters ``indices`` together
         (``Optimizer.update_multi``), making any missing state first."""
@@ -328,6 +391,37 @@ class Updater:
                 self.states[i] = self.optimizer.create_state(i, w)
         self.optimizer.update_multi(indices, weights, grads,
                                     [self.states[i] for i in indices])
+
+
+def _states_to_np(state):
+    from .ndarray.ndarray import NDArray
+    if state is None:
+        return None
+    if isinstance(state, NDArray):
+        return ("nd", state.asnumpy())
+    if isinstance(state, (list, tuple)):
+        return ("tuple", [_states_to_np(s) for s in state])
+    return ("raw", state)
+
+
+def _states_from_np(state, ctx, old=None):
+    from .ndarray.ndarray import NDArray, array
+    if state is None:
+        return None
+    kind, val = state
+    if kind == "nd":
+        new = array(val, ctx=ctx, dtype=val.dtype)
+        if isinstance(old, NDArray) and old.shape == new.shape \
+                and old.dtype == new.dtype and old.context == new.context:
+            with torch.no_grad():
+                old._t.copy_(new._t)
+            return old
+        return new
+    if kind == "tuple":
+        olds = old if isinstance(old, tuple) and len(old) == len(val) \
+            else (None,) * len(val)
+        return tuple(_states_from_np(s, ctx, o) for s, o in zip(val, olds))
+    return val
 
 
 def get_updater(optimizer: Optimizer) -> Updater:
@@ -342,9 +436,11 @@ class Adam(Optimizer):
     ``lr_mult``), then the module docstring's update.  ``update`` takes
     one parameter; ``update_multi`` (``gluon.Trainer``, ``compile_step``)
     and :meth:`apply_tensors` (``DataParallelTrainer``) update a set in
-    one multi-tensor pass, the reference's ``multi_adam_update`` plan.
-    ``lazy_update`` is accepted: the port has no row-sparse
-    gradients."""
+    one multi-tensor pass, the reference's ``multi_adam_update`` plan;
+    a parameter with a row-sparse gradient takes ``adam_update``'s lazy
+    form alone (``lazy_update``, on by default).  The step count ``t`` is
+    the parameter's, so a row its gradient skips still sees ``t`` rise,
+    as in the reference."""
 
     def __init__(self, learning_rate=None, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=True, **kwargs):
@@ -420,12 +516,27 @@ class Adam(Optimizer):
         for i, w, g, s in zip(indices, weights, grads, states):
             p = self.param_dict.get(i)
             mults = (1.0, 1.0) if p is None else (p.lr_mult, p.wd_mult)
-            groups.setdefault(mults, []).append(
-                (w.tensor, g.tensor, (s[0].tensor, s[1].tensor)))
+            tensors = (w.tensor, g.tensor, (s[0].tensor, s[1].tensor))
+            if self._lazy(g):
+                self._apply_lazy(*tensors, scalars, mults)
+                continue
+            groups.setdefault(mults, []).append(tensors)
         for mults, members in groups.items():
             ws, gs, ss = zip(*members)
             self.apply_tensors(list(ws), list(gs), list(ss), scalars,
                                mults)
+
+    @torch.no_grad()
+    def _apply_lazy(self, weight, grad, state, scalars, mults):
+        """``adam_update``'s lazy form on one parameter, in place."""
+        from .ops.optimizer_ops import adam_update
+        lr_t, wd, rescale = scalars
+        new = adam_update(weight, grad, *state, lr_t * mults[0],
+                          wd * mults[1], rescale, beta1=self.beta1,
+                          beta2=self.beta2, epsilon=self.epsilon,
+                          clip_gradient=self._clip(), lazy_update=True)
+        for dst, src in zip((weight, *state), new):
+            dst.copy_(src)
 
     @torch.no_grad()
     def apply_tensors(self, weights, grads, states, scalars,

@@ -42,6 +42,12 @@ EXAMPLES = {
                        "--num-masked", "4", "--steps", "2"],
                       "samples/sec"),
     "actor_critic": (["--episodes", "80"], "avg reward"),
+    # unmodified: nn.Embedding(sparse_grad=True) takes the lazy Adam
+    "word_lm": (["--steps", "40"], "perplexity"),
+    "train_mnist": (["--synthetic", "--epochs", "1"],
+                    "validation accuracy="),
+    "estimator_fit": (["--synthetic", "--epochs", "3"],
+                      "final validation accuracy"),
 }
 
 

@@ -246,10 +246,14 @@ def test_shape_and_nn_ops(name):
 
 
 @pytest.mark.parametrize("name", ["sgd_update", "sgd_mom_update",
-                                  "sgd_update_clip_wd", "sgd_lazy"])
+                                  "sgd_update_clip_wd", "sgd_lazy",
+                                  "adam_update", "adam_lazy",
+                                  "clip_by_global_norm", "add_n",
+                                  "ElementWiseSum"])
 def test_optimizer_ops(name):
     w, g, m = _u(4, 5), _u(4, 5, lo=-1, hi=1), _u(4, 5, lo=-0.1, hi=0.1)
-    if name == "sgd_lazy":
+    v = _u(4, 5, lo=0.01, hi=0.1)
+    if name in ("sgd_lazy", "adam_lazy"):
         g[1] = 0.0
     fns = {
         "sgd_update": lambda F, w, g: F.sgd_update(
@@ -260,8 +264,19 @@ def test_optimizer_ops(name):
             w, g, lr=0.1, wd=0.1, lazy_update=True),
         "sgd_mom_update": lambda F, w, g, m: F.sgd_mom_update(
             w, g, m, lr=0.1, wd=0.01, momentum=0.9, rescale_grad=0.5),
+        "adam_update": lambda F, w, g, m, v: F.adam_update(
+            w, g, m, v, 0.01, 0.001, rescale_grad=0.5, beta1=0.8,
+            clip_gradient=0.3),
+        "adam_lazy": lambda F, w, g, m, v: F.adam_update(
+            w, g, m, v, lr=0.01, wd=0.1, lazy_update=True),
+        "clip_by_global_norm": lambda F, w, g: F.clip_by_global_norm(
+            w, g, max_norm=1.5),
+        "add_n": lambda F, w, g, m: F.add_n(w, g, m),
+        "ElementWiseSum": lambda F, w, g: F.ElementWiseSum(w, g),
     }
-    arrays = [w, g, m] if name == "sgd_mom_update" else [w, g]
+    arrays = {"sgd_mom_update": [w, g, m], "adam_update": [w, g, m, v],
+              "adam_lazy": [w, g, m, v], "add_n": [w, g, m]}.get(name,
+                                                                [w, g])
     torch_parity.check(fns[name], arrays, rtol=1e-6, grad=False)
 
 
@@ -425,7 +440,9 @@ def test_every_op_has_a_case():
     samplers, Dropout)."""
     covered = set(UNARY) | set(SCALAR) | set(BROADCAST) | set(CREATION) \
         | {n for n, _ in REDUCE} | set(SHAPE) | {"argmax", "argmin"} \
-        | {"sgd_update", "sgd_mom_update"} | RANDOM_OPS | CONV_OPS \
+        | {"sgd_update", "sgd_mom_update", "adam_update",
+           "clip_by_global_norm", "add_n", "ElementWiseSum"} \
+        | RANDOM_OPS | CONV_OPS \
         | RNN_OPS | NN_LAYER_OPS | set(LLAMA_OPS)
     missing = sorted(set(list_ops()) - covered)
     assert missing == []
