@@ -240,6 +240,36 @@ Phases, each printing JSON lines:
             its best checkpoint reloading to the trained net's outputs bit
             for bit.
 
+24. fp16_parity: K1-K3's float16 route (F6) against the plain versions
+            at BERT's shape (b64 s128, H=12, D=64; with and without a
+            pretraining batch's key padding) and Llama training's (S=4096,
+            32 over 8 heads, D=128, causal), held to float16's limits;
+            3 steps of the reference's fp16 AMP loop (amp.init("float16"),
+            init_trainer, scale_loss, unscale, LAMB) on a tiny BERT, card
+            against CPU: losses, loss scales and skip flags, weights in
+            relative L2 (a tensor that starts at 0 within LAMB's bound of
+            lr a step), K1-K3 on the tensor cores, no sdpa_plain call; a
+            net cast to float16 with SGD momentum and multi_precision: the
+            float32 masters' change against the CPU's, each float16 weight
+            its master's rounding.
+25. optimizers_parity: the nine optimizers the port added (NAG, AdamW,
+            AdaGrad, AdaDelta, RMSProp plain and centered, Ftrl, SignSGD,
+            Signum, LAMB) and Test, 3 steps of an MLP (32-64-10, f32) on
+            the card against the CPU through gluon.Trainer, compile_step
+            (one capture) and, for the four fused rules (NAG, RMSProp,
+            AdamW, AdaGrad), DataParallelTrainer(fuse_step=True): losses
+            and weights within 1e-4.
+26. bert_fp16: BERT-base pretraining (bench_bert_pretrain's batch: b64
+            s128, 20 masked, dropout 0.1) under amp.init("float16") with
+            the dynamic loss scaler and LAMB (lr 1e-4, wd 0.01), the
+            model hybridized, through the reference's gluon AMP loop: the
+            two-window slope a step (5 and 20 steps after 3 warm-ups),
+            samples/s, the busy share, a profiled step split into flash,
+            GEMM, LAMB and other, peak memory, the loss-scale trajectory
+            and the skipped steps; K1-K3 in float16, 12 launches each a
+            step; no sdpa_plain call; losses finite and falling after the
+            scaler settles.
+
 The kernels phase also runs K1-K3 at Llama-3-8B's training shape (B=1,
 S=4096, H=32 over KV=8, D=128, causal, bf16).  Then one line of per-kernel numbers ({"kernels": [...]}), the card's name
 and power limit as nvidia-smi gives them, and as the last line
@@ -264,12 +294,14 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense; f32 without TF32
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,
+              "float32": 67e12}   # dense; f32 without TF32
 ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,"
               "train_capture_parity,dropout,train,imperative_parity,"
               "imperative,rtc,resnet_parity,resnet,llama_train_parity,"
               "llama_train,forecast_parity,forecast,gan_parity,gan,"
-              "wordlm_parity,wordlm,data")
+              "wordlm_parity,wordlm,data,fp16_parity,optimizers_parity,"
+              "bert_fp16")
 SERVING_PHASES = {"device", "build", "parity", "serve"}
 
 
@@ -381,6 +413,16 @@ def queued_ms(fn, reps, warmup=2, tries=3):
         cycles *= 8
     fail(f"queued_ms: the host took {host_ms} ms to enqueue {reps} calls, "
          f"longer than the {spin_ms} ms spin meant to hold them back")
+
+
+def events_ms(fn, reps, warmup=2, by_kernel=False):
+    """``device_ms``'s reading from CUDA events (``queued_ms``): the
+    device time of one call, the host's pace kept out, with no profiler
+    session; with ``by_kernel`` also an empty {kernel: ms}.  For kernel
+    readings taken after many profiled phases, where the profiler starts
+    to lose events."""
+    ms = queued_ms(fn, reps, warmup)
+    return (ms, {}) if by_kernel else ms
 
 
 def window_kernels(fn, reps):
@@ -551,7 +593,7 @@ FLASH_CASES = [
 HEADLINE_CASE = "bert_b64_s128_lse_bf16"
 LLAMA_TRAIN_CASE = "llama_train_s4096_lse_bf16"
 SERVE_CASE = "prefill_s512_bf16"
-TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+TOL = {"bfloat16": 2e-2, "float16": 1e-2, "float32": 1e-4}
 # the scale-free limits beside TOL's absolute one (_scaled_err): the worst
 # row's error over that row's rms in the reference, and the whole
 # tensor's relative L2.  Under causal masking a row's size falls with its
@@ -559,11 +601,13 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # an absolute limit set by the largest rows cannot see the small ones.
 # Set from the readings of every case on an H100 (PERF.md section 6):
 # the worst sound readings were, bf16, 3.3e-2 a row and 2.1e-3 in L2;
-# f32, 9.3e-3 a row (a floored row of rounding size; 5.7e-6 elsewhere)
-# and 2.6e-7 in L2; a wrong output (_check_scaled) reads >= 3.7 a row
-# and >= 0.16 in L2
-ROW_TOL = {"bfloat16": 0.1, "float32": 3e-2}
-L2_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+# float16, 3.1e-2 a row (the floored dQ row at Llama's shape, as bf16's;
+# 3.9e-3 elsewhere) and 2.0e-4 in L2; f32, 9.3e-3 a row (a floored row
+# of rounding size; 5.7e-6 elsewhere) and 2.6e-7 in L2; a wrong output
+# (_check_scaled) reads >= 3.7 a row and >= 0.16 in L2.  float16's TOL
+# is mxnet_tpu/test_utils.py's (its worst reading 3.9e-3)
+ROW_TOL = {"bfloat16": 0.1, "float16": 0.1, "float32": 3e-2}
+L2_TOL = {"bfloat16": 1e-2, "float16": 2e-3, "float32": 1e-5}
 
 # the backward (K2 dQ, K3 dK/dV) against flash_bwd_plain, with a random
 # dO; tolerance TOL[dtype] * max(1, max|ref|) on each gradient, and
@@ -706,7 +750,7 @@ def _bound(flops, nbytes, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _flash_case(case, dev):
+def _flash_case(case, dev, phase="kernels", timer=None):
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -719,6 +763,7 @@ def _flash_case(case, dev):
     want_lse = case.get("want_lse", False)
     scale = 1.0 / d ** 0.5
 
+    timer = timer or device_ms
     out, lse = fa.flash_fwd(q, k, v, scale, causal=causal, kmask=kmask,
                             window=window, want_lse=want_lse)
     torch.cuda.synchronize()
@@ -739,16 +784,16 @@ def _flash_case(case, dev):
     def kernel():
         return fa.flash_fwd(q, k, v, scale, causal=causal, kmask=kmask,
                             window=window, want_lse=want_lse)
-    kernel_ms = device_ms(kernel, reps=20)
+    kernel_ms = timer(kernel, reps=20)
     launch_ms = cuda_time_ms(kernel, reps=20)
-    plain_ms = device_ms(lambda: fa.flash_attention_plain(
+    plain_ms = timer(lambda: fa.flash_attention_plain(
         q, k, v, scale, causal=causal, kmask=kmask, window=window,
         want_lse=want_lse), reps=5, warmup=1)
 
     # the work this run's masks need, and the bound it sets
     pairs = int(keep.sum().item())
     flops = 4.0 * h * d * pairs
-    elem = 2 if dt == torch.bfloat16 else 4
+    elem = q.element_size()
     nbytes = elem * d * (2 * b * s_q * h + 2 * b * s_k * kv)
     if kmask is not None:
         nbytes += 4 * b * s_k
@@ -759,9 +804,9 @@ def _flash_case(case, dev):
     # the library yardstick: (B, H, S, D) layout, GQA, same mask
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib_kw = _library_mask(case, keep, kmask)
-    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, enable_gqa=True, scale=scale, **lib_kw), reps=20)
-    row = {"phase": "kernels", "kernel": "flash_fwd", "case": case["name"],
+    row = {"phase": phase, "kernel": "flash_fwd", "case": case["name"],
            "cores": _cores(dt), "b": b, "h": h, "kv": kv, "d": d,
            "s_q": s_q, "s_k": s_k,
            "dtype": case["dtype"], "causal": causal, "window": window,
@@ -771,7 +816,8 @@ def _flash_case(case, dev):
            "row_tol": ROW_TOL[case["dtype"]],
            "l2_tol": L2_TOL[case["dtype"]], "kernel_ms": kernel_ms,
            "launch_ms": launch_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
+           "library_ms": library_ms, "timer": timer.__name__,
+           "bound_ms": bound_ms,
            "bound_by": bound_by, "kernel_over_library": kernel_ms / library_ms,
            "bound_over_kernel": bound_ms / kernel_ms, "flops": flops,
            "bytes": nbytes,
@@ -782,7 +828,7 @@ def _flash_case(case, dev):
 
 def _cores(dtype):
     import torch
-    return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+    return "cuda_cores" if dtype == torch.float32 else "tensor_cores"
 
 
 def _library_mask(case, keep, kmask):
@@ -795,7 +841,7 @@ def _library_mask(case, keep, kmask):
     return {}
 
 
-def _flash_bwd_case(case, dev):
+def _flash_bwd_case(case, dev, phase="kernels", timer=None):
     """K2 and K3 against flash_bwd_plain on the kernel forward's output
     and LSE, with a random dO."""
     import torch
@@ -808,6 +854,7 @@ def _flash_bwd_case(case, dev):
     window, causal = case.get("window"), case["causal"]
     scale = 1.0 / d ** 0.5
     kw = dict(causal=causal, kmask=kmask, window=window)
+    timer = timer or device_ms
     out, lse = fa.flash_fwd(q, k, v, scale, want_lse=True, **kw)
     got = fa.flash_bwd(q, k, v, out, lse, g, scale, **kw)
     torch.cuda.synchronize()
@@ -846,11 +893,11 @@ def _flash_bwd_case(case, dev):
     def dkv_only():
         return fa._bwd_dkv(q, k, v, out, g, lse, delta, km, scale, causal,
                            window)
-    kernel_ms, dq_ms, dkv_ms = (device_ms(f, reps=reps)
+    kernel_ms, dq_ms, dkv_ms = (timer(f, reps=reps)
                                 for f in (whole, dq_only, dkv_only))
     launch_ms, dq_launch_ms, dkv_launch_ms = (
         cuda_time_ms(f, reps=reps) for f in (whole, dq_only, dkv_only))
-    plain_ms = device_ms(
+    plain_ms = timer(
         lambda: fa.flash_bwd_plain(q, k, v, out, lse, g, scale, **kw),
         reps=3, warmup=1)
 
@@ -861,9 +908,9 @@ def _flash_bwd_case(case, dev):
     gt = g.transpose(1, 2).contiguous()
     lib_kw = dict(enable_gqa=True, scale=scale,
                   **_library_mask(case, keep, kmask))
-    lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+    lib_fwd = timer(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, **lib_kw), reps=reps)
-    lib_all, lib_kernels = device_ms(lambda: torch.autograd.grad(
+    lib_all, lib_kernels = timer(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qt, kt, vt, **lib_kw),
         (qt, kt, vt), gt), reps=reps, by_kernel=True)
     lib_bwd = lib_all - lib_fwd
@@ -892,7 +939,7 @@ def _flash_bwd_case(case, dev):
     dq_ops = 6.0 * d * pairs + 2.0 * d * b * s_q * h
     dq_share = lib_bwd * dq_ops / (dq_ops + 8.0 * d * pairs)
     dkv_share = lib_bwd - dq_share
-    row = {"phase": "kernels", "kernel": "flash_bwd", "case": case["name"],
+    row = {"phase": phase, "kernel": "flash_bwd", "case": case["name"],
            "dq_cores": _cores(q.dtype), "dkv_cores": _cores(q.dtype),
            "b": b, "h": h, "kv": kv, "d": d, "s_q": s_q, "s_k": s_k,
            "dtype": case["dtype"], "causal": causal, "window": window,
@@ -905,6 +952,7 @@ def _flash_bwd_case(case, dev):
            "dkv_launch_ms": dkv_launch_ms, "plain_ms": plain_ms,
            "library_ms": lib_bwd, "library_fwd_ms": lib_fwd,
            "library_fwd_bwd_ms": lib_all, "library_kernels": lib_kernels,
+           "timer": timer.__name__,
            "library_dq_share_est_ms": dq_share,
            "library_dkv_share_est_ms": dkv_share,
            "bound_ms": total[0], "bound_by": total[1],
@@ -4939,16 +4987,458 @@ CONV_KERNELS = ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn",
                 "nchwtonhwc", "nhwctonchw")
 
 
+# -- phases 24-26: fp16 mixed precision and the optimizers ----------------------
+
+# the valid lengths of a pretraining batch of 64 at S=128: 65 to 128
+BERT_LENS = tuple(128 - (37 * i) % 64 for i in range(64))
+
+# the flash kernels' float16 route (F6): BERT's shape as the bf16 rows (the
+# kernels line's float16 rows), with a pretraining batch's key padding, and
+# Llama training's shape
+F16_FLASH_CASES = [
+    dict(name="bert_b64_s128_lse_f16", b=64, s_q=128, s_k=128,
+         dtype="float16", causal=False, h=12, kv=12, d=64, want_lse=True),
+    dict(name="bert_b64_s128_kpad_lse_f16", b=64, s_q=128, s_k=128,
+         dtype="float16", causal=False, h=12, kv=12, d=64, want_lse=True,
+         kmask_lens=BERT_LENS),
+    dict(name="llama_train_s4096_lse_f16", s_q=4096, s_k=4096,
+         dtype="float16", causal=True, want_lse=True),
+]
+F16_BWD_CASES = [
+    dict(name="bert_b64_s128_f16", b=64, s_q=128, s_k=128, h=12, kv=12,
+         d=64, dtype="float16", causal=False),
+    dict(name="bert_b64_s128_kpad_f16", b=64, s_q=128, s_k=128, h=12,
+         kv=12, d=64, dtype="float16", causal=False, kmask_lens=BERT_LENS),
+    dict(name="llama_train_s4096_f16", s_q=4096, s_k=4096,
+         dtype="float16", causal=True),
+]
+F16_CASE, BWD_F16_CASE = "bert_b64_s128_lse_f16", "bert_b64_s128_f16"
+# the AMP loop's tiny BERT (float16 products: float16's tolerance of
+# mxnet_tpu/test_utils.py, 1e-2, on the losses and, in relative L2, on
+# the weights), and its LAMB
+AMP_BERT = dict(vocab_size=96, max_length=128, dropout=0.0, num_layers=2,
+                units=64, hidden_size=128, num_heads=2)
+AMP_LR = 1e-2
+F16_TOL = 1e-2
+# the optimizers' MLP, float32: losses within 1e-4 relative and each
+# weight within 1e-4 in relative L2 (test_utils' float32 rtol) of the
+# CPU's
+OPT_MLP = dict(widths=(32, 64, 10), batch_size=16, steps=3)
+OPT_TOL = 1e-4
+NEW_OPTIMIZERS = [
+    ("nag", {"momentum": 0.9}), ("adamw", {"beta1": 0.8}),
+    ("adagrad", {}), ("adadelta", {"rho": 0.8}), ("rmsprop", {}),
+    ("rmsprop", {"centered": True, "gamma2": 0.8}),
+    ("ftrl", {"lamda1": 0.001}), ("signsgd", {}),
+    ("signum", {"momentum": 0.8, "wd_lh": 0.01}),
+    ("lamb", {"lower_bound": 0.01, "upper_bound": 10.0}), ("test", {})]
+FUSED_RULES = ("nag", "rmsprop", "adamw", "adagrad")
+
+
+@contextlib.contextmanager
+def sdpa_plain_calls():
+    """Count the calls of the attention's plain path (``sdpa_plain``)
+    while inside: a list whose length is the count."""
+    from mxnet_tpu_torch.ops import attention
+    calls, plain = [], attention.sdpa_plain
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].dtype)
+        return plain(*args, **kwargs)
+    attention.sdpa_plain = counted
+    try:
+        yield calls
+    finally:
+        attention.sdpa_plain = plain
+
+
+def _amp_batch(mx, ctx, b=2, s=128, m=4, vocab=96):
+    """A pretraining batch with key padding (the second row 37 short) as
+    NDArrays on ``ctx``: (tokens, types, valid lengths, masked positions),
+    MLM labels, NSP labels."""
+    rng = np.random.RandomState(0)
+    data = (rng.randint(0, vocab, (b, s)).astype("f4"),
+            rng.randint(0, 2, (b, s)).astype("f4"),
+            np.array([s] + [s - 37] * (b - 1), "f4"),
+            rng.randint(0, s - 37, (b, m)).astype("f4"))
+    labels = np.concatenate([rng.randint(0, vocab, (b, m)),
+                             rng.randint(0, 2, (b, 1))], 1).astype("f4")
+    return ([mx.nd.array(x, ctx=ctx) for x in data],
+            mx.nd.array(labels[:, :m].reshape(-1), ctx=ctx),
+            mx.nd.array(labels[:, m], ctx=ctx))
+
+
+def amp_loop(mx, net, trainer, batch, steps, b):
+    """The reference's fp16 AMP loop (record -> loss -> scale_loss ->
+    backward -> unscale -> step unless it overflowed), ``steps`` times;
+    returns [(loss, the scale it ran at, skipped)]."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    sce = SoftmaxCrossEntropyLoss()
+    args, mlm_label, nsp_label = batch
+    out = []
+    for _ in range(steps):
+        scale = trainer._amp_loss_scaler.loss_scale
+        with autograd.record():
+            mlm, nsp = net(*args)
+            loss = sce(mlm, mlm_label).mean() + sce(nsp, nsp_label).mean()
+            with amp.scale_loss(loss, trainer) as scaled:
+                scaled.backward()
+        skipped = amp.unscale(trainer)
+        if not skipped:
+            trainer.step(b)
+        out.append((loss, scale, bool(skipped)))
+    return out
+
+
+def _state_values(net):
+    return {k: t.detach().float().cpu().numpy()
+            for k, t in net.state_dict().items()}
+
+
+def _amp_bert_parity(mx, dev, steps=3):
+    """3 steps of the AMP loop on a tiny BERT with LAMB, card against
+    CPU from the same weights."""
+    from mxnet_tpu_torch import gluon, models
+    from mxnet_tpu_torch.contrib import amp
+    runs, start = [], None
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        amp.init("float16")
+        try:
+            net = models.BERTForPretrain(models.bert_small(**AMP_BERT))
+            net.initialize(mx.init.Xavier(), ctx=ctx, seed=3)
+            if start is None:
+                start = {k: t.detach().clone()
+                         for k, t in net.state_dict().items()}
+            else:
+                net.load_state_dict(start)
+            tr = gluon.Trainer(net.collect_params(), "lamb",
+                               {"learning_rate": AMP_LR, "wd": 0.01})
+            amp.init_trainer(tr)
+            reset_counts()
+            with sdpa_plain_calls() as plain:
+                loop = amp_loop(mx, net, tr, _amp_batch(mx, ctx), steps, 2)
+            runs.append(([(float(l.asnumpy()), s, k) for l, s, k in loop],
+                         _state_values(net), read_counts(), len(plain)))
+        finally:
+            amp._deinit()
+    (cpu, cpu_w, _, _), (card, card_w, launches, plain) = runs
+    start = {k: t.float().numpy() for k, t in start.items()}
+    loss_rel = max(abs(g[0] - c[0]) / abs(c[0]) for g, c in zip(card, cpu))
+    zero_start = [k for k in cpu_w if not start[k].any()]
+    rels = {k: _rel_l2([card_w[k]], [cpu_w[k]]) for k in cpu_w
+            if k not in zero_start}
+    bound = float(max(max(np.abs(card_w[k]).max(), np.abs(cpu_w[k]).max())
+                      for k in zero_start))
+    model_rel = _rel_l2(list(card_w.values()), list(cpu_w.values()))
+    row = {"phase": "fp16_parity", "check": "bert_amp_lamb", "steps": steps,
+           "cpu": cpu, "gpu": card, "loss_max_rel_diff": loss_rel,
+           "weight_max_rel_l2": max(rels.values()),
+           "weight_worst": max(rels, key=rels.get), "model_rel_l2": model_rel,
+           "zero_start_max_abs": bound, "zero_start_bound": steps * AMP_LR,
+           "tol": F16_TOL, "sdpa_plain_calls": plain, **launches}
+    emit(row)
+    check([c[1:] for c in card] == [c[1:] for c in cpu],
+          f"fp16_parity: scales and skip flags {card} differ from the CPU's "
+          f"{cpu}")
+    check(loss_rel <= F16_TOL, f"fp16_parity: AMP losses differ by {loss_rel}")
+    check(max(rels.values()) <= F16_TOL and model_rel <= F16_TOL,
+          f"fp16_parity: weights differ: {row['weight_worst']} "
+          f"{max(rels.values())}, model {model_rel}")
+    check(bound <= steps * AMP_LR, f"fp16_parity: a tensor that starts at 0 "
+          f"moved {bound}, past LAMB's bound {steps * AMP_LR}")
+    check(plain == 0, f"fp16_parity: {plain} sdpa_plain calls on the card")
+    ran = steps * AMP_BERT["num_layers"]
+    check(launches["flash_fwd_tc_launches"] == ran
+          and launches["flash_bwd_dq_tc_launches"] == ran
+          and launches["flash_bwd_dkv_tc_launches"] == ran,
+          f"fp16_parity: launches {launches}, want {ran} of K1-K3 each on "
+          "the tensor cores")
+    return row
+
+
+def _mp_sgd_parity(mx, dev, steps=3):
+    """A net cast to float16 with SGD momentum and multi_precision: the
+    float32 master weights' change over ``steps`` steps, card against
+    CPU, and each float16 weight the rounding of its master."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon import nn
+    rng = np.random.RandomState(1)
+    x = rng.randn(16, 32).astype("f4")
+    y = rng.randint(0, 10, 16).astype("f4")
+    runs, start = [], None
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        net = nn.HybridSequential()
+        with net.name_scope():
+            net.add(nn.Dense(64, activation="relu", in_units=32),
+                    nn.Dense(10, in_units=64))
+        net.initialize(mx.init.Xavier(), ctx=ctx, seed=2)
+        params = list(net.collect_params().values())
+        if start is None:
+            start = [p.data().asnumpy() for p in params]
+        for p, v in zip(params, start):
+            p.set_data(mx.nd.array(v, ctx=ctx))
+        net.cast("float16")
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.1, "momentum": 0.9,
+                            "multi_precision": True})
+        sce = gluon.loss.SoftmaxCrossEntropyLoss()
+        xx = mx.nd.array(x, ctx=ctx).astype("float16")
+        yy = mx.nd.array(y, ctx=ctx)
+        for _ in range(steps):
+            with autograd.record():
+                loss = sce(net(xx), yy).mean()
+            loss.backward()
+            tr.step(1)
+        states = tr._updater.states
+        masters = [states[i][0].asnumpy() for i in range(len(params))]
+        halves = [p.data().asnumpy() for p in params]
+        runs.append((masters, halves))
+    (cpu_m, _), (card_m, card_h) = runs
+    moved = _rel_l2([g - s for g, s in zip(card_m, start)],
+                    [c - s for c, s in zip(cpu_m, start)])
+    exact = all(np.array_equal(h, m.astype("float16"))
+                for h, m in zip(card_h, card_m))
+    row = {"phase": "fp16_parity", "check": "mp_sgd_momentum",
+           "steps": steps, "master_change_rel_l2": moved,
+           "float16_is_master_rounding": exact, "tol": F16_TOL}
+    emit(row)
+    check(moved <= F16_TOL, f"fp16_parity: multi-precision masters moved "
+          f"differently from the CPU's: {moved}")
+    check(exact, "fp16_parity: a float16 weight is not its master's rounding")
+    return row
+
+
+def phase_fp16_parity(mx, dev):
+    """F6 on the card: K1-K3's float16 route against the plain versions
+    (BERT's shape, with and without key padding; Llama training's), the
+    AMP loop on a tiny BERT with LAMB against the CPU, and multi-precision
+    SGD against the CPU."""
+    from mxnet_tpu_torch.contrib import amp
+    rows = [_flash_case(c, dev, "fp16_parity", events_ms)
+            for c in F16_FLASH_CASES]
+    bwd_rows = [_flash_bwd_case(c, dev, "fp16_parity", events_ms)
+                for c in F16_BWD_CASES]
+    check(amp.target_dtype() is None, "fp16_parity: AMP left on")
+    bert = _amp_bert_parity(mx, dev)
+    mp = _mp_sgd_parity(mx, dev)
+    return rows, bwd_rows, dict(bert=bert, mp=mp)
+
+
+def _opt_mlp(mx, ctx, start=None):
+    """The optimizers' MLP on ``ctx`` from ``start`` (numpy weights; made
+    on the CPU from seed 4 when None)."""
+    from mxnet_tpu_torch.gluon import nn
+    w = OPT_MLP["widths"]
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(w[1], activation="tanh", in_units=w[0]),
+                nn.Dense(w[2], in_units=w[1]))
+    net.initialize(mx.init.Xavier(), ctx=ctx, seed=4)
+    params = list(net.collect_params().values())
+    if start is None:
+        start = [p.data().asnumpy() for p in params]
+    for p, v in zip(params, start):
+        p.set_data(mx.nd.array(v, ctx=ctx))
+    return net, start
+
+
+def _opt_run(mx, ctx, name, kw, path, start):
+    """``steps`` steps of optimizer ``name`` on the MLP through ``path``:
+    "trainer" (record -> backward -> Trainer.step), "compile_step" or
+    "dpt" (DataParallelTrainer(fuse_step=True)); (losses, weights, the
+    captures)."""
+    from mxnet_tpu_torch import autograd, gluon, parallel
+    rng = np.random.RandomState(5)
+    b = OPT_MLP["batch_size"]
+    x = mx.nd.array(rng.randn(b, OPT_MLP["widths"][0]).astype("f4"), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, 10, b).astype("f4"), ctx=ctx)
+    net, _ = _opt_mlp(mx, ctx, start)
+    params = dict(learning_rate=0.01, wd=0.01, clip_gradient=1.0, **kw)
+    sce = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses, captures = [], None
+    if path == "dpt":
+        dpt = parallel.DataParallelTrainer(
+            net, sce, name, params,
+            mesh=parallel.make_mesh({"dp": 1}, devices=[ctx.device]),
+            fuse_step=True)
+        losses = [float(dpt.step(x, y).asnumpy())
+                  for _ in range(OPT_MLP["steps"])]
+        captures = dpt.captures
+    else:
+        tr = gluon.Trainer(net.collect_params(), name, params)
+        if path == "compile_step":
+            cs = tr.compile_step(net, sce)
+            losses = [float(cs.step(x, y).asnumpy().mean())
+                      for _ in range(OPT_MLP["steps"])]
+            captures = cs.captures
+        else:
+            for _ in range(OPT_MLP["steps"]):
+                with autograd.record():
+                    loss = sce(net(x), y)
+                loss.backward()
+                tr.step(b)
+                losses.append(float(loss.asnumpy().mean()))
+    return losses, [p.data().asnumpy()
+                    for p in net.collect_params().values()], captures
+
+
+def phase_optimizers_parity(mx, dev):
+    """Each optimizer this port added, 3 steps of an MLP on the card
+    against the CPU, through gluon.Trainer, compile_step (one capture on
+    the card) and, for the four fused rules, DataParallelTrainer(
+    fuse_step=True)."""
+    from mxnet_tpu_torch.gluon import compiled_step
+    compiled_step.clear_fallback_reports()
+    _, start = _opt_mlp(mx, mx.cpu())
+    rows = []
+    for name, kw in NEW_OPTIMIZERS:
+        paths = ["trainer", "compile_step"] + (
+            ["dpt"] if name in FUSED_RULES and not kw.get("centered")
+            else [])
+        for path in paths:
+            cpu = _opt_run(mx, mx.cpu(), name, kw, path, start)
+            card = _opt_run(mx, mx.gpu(0), name, kw, path, start)
+            loss_rel = max(abs(g - c) / abs(c)
+                           for g, c in zip(card[0], cpu[0]))
+            w_rel = max(_rel_l2([g], [c]) for g, c in zip(card[1], cpu[1]))
+            moved = _rel_l2(cpu[1], start)
+            row = {"phase": "optimizers_parity", "optimizer": name,
+                   "kwargs": kw, "path": path, "cpu_losses": cpu[0],
+                   "gpu_losses": card[0], "loss_max_rel_diff": loss_rel,
+                   "weight_max_rel_l2": w_rel, "moved_rel_l2": moved,
+                   "captures": card[2], "tol": OPT_TOL}
+            emit(row)
+            rows.append(row)
+            check(loss_rel <= OPT_TOL and w_rel <= OPT_TOL,
+                  f"optimizers_parity: {name} {kw} via {path}: losses "
+                  f"{loss_rel}, weights {w_rel}")
+            check(moved > 0, f"optimizers_parity: {name} moved nothing")
+            if path != "trainer":
+                check(card[2] == 1, f"optimizers_parity: {name} via {path}: "
+                      f"{card[2]} captures, want 1")
+    check_no_fallback("optimizers_parity")
+    return rows
+
+
+BERT_FP16 = dict(model="bert_base", vocab=30522, batch_size=64, seq_len=128,
+                 num_masked=20, hidden=768, layers=12, steps=20, warmup=3,
+                 max_length=512, lr=1e-4, wd=0.01)
+
+
+def _bert_fp16_split(per_kernel):
+    """A profiled step's device time by kind (ms): the flash kernels, the
+    GEMMs, LAMB (the multi-tensor kernels and the norms they feed),
+    the rest."""
+    total = sum(per_kernel.values())
+    flash = sum(t for k, t in per_kernel.items() if "flash_" in k)
+    lamb = sum(t for k, t in per_kernel.items()
+               if "multi_tensor_apply" in k or "lpnorm" in k.lower())
+    gemm = sum(t for k, t in per_kernel.items()
+               if _is_gemm(k) and "flash_" not in k)
+    return {"device_ms": total, "flash_f16_ms": flash, "gemm_ms": gemm,
+            "lamb_ms": lamb, "other_ms": total - flash - gemm - lamb}
+
+
+def phase_bert_fp16(mx, dev, ctx, cfg=BERT_FP16):
+    """BERT-base pretraining under fp16 AMP with the dynamic loss scaler
+    and LAMB (You et al. 2019's large-batch recipe), through the
+    reference's gluon AMP loop at bench_bert_pretrain's batch, the model
+    hybridized: the two-window slope a step, samples/s, the busy share,
+    a profiled step's split, peak memory, the loss-scale trajectory and
+    the skipped steps; K1-K3 12 launches each a step in float16, no
+    sdpa_plain call."""
+    import torch
+    from mxnet_tpu_torch import gluon, models
+    from mxnet_tpu_torch.contrib import amp
+    free_earlier_phases()
+    mx.random.seed(0)
+    b, m, layers = cfg["batch_size"], cfg["num_masked"], cfg["layers"]
+    amp.init("float16")
+    try:
+        inner = models.BERTForPretrain(getattr(models, cfg["model"])(
+            vocab_size=cfg["vocab"], max_length=cfg["max_length"],
+            dropout=0.1))
+        model = _full_len_pretrain(inner)
+        model.initialize(mx.init.Xavier(), ctx=ctx)
+        model.hybridize()
+        tr = gluon.Trainer(model.collect_params(), "lamb",
+                           {"learning_rate": cfg["lr"], "wd": cfg["wd"]})
+        amp.init_trainer(tr)
+        (tokens, types, positions), label = _pretrain_batch(
+            mx, cfg["vocab"], b, cfg["seq_len"], m, ctx)
+        batch = ([tokens, types, positions],
+                 label[:, :m].reshape((-1,)), label[:, m])
+        trail = []
+
+        def step():
+            (loss, scale, skipped), = amp_loop(mx, model, tr, batch, 1, b)
+            trail.append((scale, skipped))
+            return loss
+        with sdpa_plain_calls() as plain:
+            first = [float(step().asnumpy()) for _ in range(cfg["warmup"])]
+            n1, n2 = 5, cfg["steps"]
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            step_s, naive_s, windows, used, last = timed_windows(
+                step, n1, n2, "bert_fp16")
+            launches = read_counts()
+            peak = torch.cuda.max_memory_allocated(dev)
+            breakdown = profile_call(step)
+            reps = 3
+            us, counts = window_kernels(step, reps)
+            whole = all(n % reps == 0 for n in counts.values())
+            per_kernel = {k: t / reps / 1e3 for k, t in us.items()}
+        skips = sum(s for _, s in trail)
+        # the first warm-up step the scaler let through
+        settled = next((i for i, (_, s) in enumerate(trail[:len(first)])
+                        if not s), None)
+    finally:
+        amp._deinit()
+    timed = n1 + n2
+    row = {"phase": "bert_fp16", "model": cfg["model"],
+           "dtype": "float16 AMP, dynamic loss scale", "optimizer": "lamb",
+           "batch_size": b, "seq_len": cfg["seq_len"], "num_masked": m,
+           "layers": layers, "path": "gluon loop, hybridized",
+           "warmup_losses": first, "last_loss": last,
+           "windows": [n1, n2], "window_s": windows,
+           "step_ms": step_s * 1e3, "naive_step_ms": naive_s * 1e3,
+           "timing": used, "samples_per_s": b / step_s,
+           "device_busy_share": breakdown.get("device_busy_share"),
+           "split": _bert_fp16_split(per_kernel) if whole
+           else "not measured (the profiler lost events)",
+           "breakdown": breakdown,
+           "peak_mem_bytes": peak, "loss_scales": [s for s, _ in trail],
+           "skipped": [k for _, k in trail], "skipped_steps": skips,
+           "steps_run": len(trail), "sdpa_plain_calls": len(plain),
+           "timed_steps": timed, **launches, "card": nvidia_smi()}
+    emit(row)
+    check(math.isfinite(last) and all(math.isfinite(v) for v in first),
+          "bert_fp16: a loss is not finite")
+    check(len(plain) == 0, f"bert_fp16: {len(plain)} sdpa_plain calls")
+    check(settled is not None, f"bert_fp16: every warm-up step overflowed: "
+          f"scales {row['loss_scales']}")
+    check(last < first[settled], f"bert_fp16: the loss did not fall after "
+          f"the scaler settled: {first} -> {last}")
+    for k in ("flash_fwd_tc_launches", "flash_bwd_dq_tc_launches",
+              "flash_bwd_dkv_tc_launches"):
+        check(launches[k] == layers * timed,
+              f"bert_fp16: {k} {launches[k]}, want {layers} x {timed}")
+    return dict(launches, steps=timed, per_step=layers)
+
+
 # -- phase 2: build -------------------------------------------------------------
 
 def _kernel_name(mangled):
-    """``flash_fwd_tc_kernel<64,64>`` from a mangled kernel name."""
-    m = re.search(r"\d(flash_[a-z0-9_]*?_kernel)I((?:Li\d+E|f|13__nv_bfloat16)+)E",
-                  mangled)
+    """``flash_fwd_tc_kernel<bf16,64>`` from a mangled kernel name."""
+    m = re.search(r"\d(flash_[a-z0-9_]*?_kernel)I((?:Li\d+E|f|13__nv_bfloat16|"
+                  r"6__half)+)E", mangled)
     if m is None:
         return mangled
-    args = [a or ("float" if f else "bf16") for a, f, _ in re.findall(
-        r"Li(\d+)E|(f)|(13__nv_bfloat16)", m.group(2))]
+    args = [a or ("float" if f else "bf16" if b else "f16")
+            for a, f, b, _ in re.findall(
+                r"Li(\d+)E|(f)|(13__nv_bfloat16)|(6__half)", m.group(2))]
     return f"{m.group(1)}<{','.join(args)}>"
 
 
@@ -5027,7 +5517,7 @@ def phase_build(names=None):
             if "_tc_kernel" not in k:
                 continue
             check(v.get("hmma", 0) > 0, f"build: {k} has no HMMA instruction")
-            if int(re.search(r"<(\d+)", k).group(1)) <= 128:
+            if int(re.search(r"(\d+)>", k).group(1)) <= 128:
                 check(v.get("spill_stores") == 0 and v.get("spill_loads") == 0,
                       f"build: {k} spills: {v}")
     check(tiles == want,
@@ -5043,6 +5533,9 @@ DESIGN = {
                     "cp.async, double-buffered, ldmatrix fragments",
     "cuda_cores": "f32 FMAs on the CUDA cores, 256 threads, tiles staged "
                   "in shared memory as f32",
+    "tensor_cores_f16": "float16: the bf16 kernel's template with f16 "
+                        "operands (mma.sync m16n8k16 .f16, f32 accumulate), "
+                        "P and dS rounded to f16",
 }
 
 
@@ -5051,21 +5544,23 @@ def _ratios(ms, library_ms, bound_ms):
             "bound_over_kernel": bound_ms / ms}
 
 
-def kernel_entries(rows, bwd_rows, train, serve, llama):
+def kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows=(),
+                   f16_bwd_rows=(), bert16=None):
     """The flash kernels' entries of the {"kernels": [...]} line: each
     at BERT's training shape in bf16 (the main path's route), with its
     f32 route's numbers at the same shape, K1 also at the serving
     prefill, and each at Llama-3-8B's training shape (``llama_train``:
-    its numbers and its launches on that path)."""
+    its numbers and its launches on that path); then each at BERT's
+    shape in float16 (``fp16_parity``'s readings, ``bert_fp16``'s
+    launches), with its key-padded and Llama-shaped readings."""
     fwd = {r["case"]: r for r in rows}
     bwd = {r["case"]: r for r in bwd_rows}
     head, serve_row = fwd.get(HEADLINE_CASE), fwd.get(SERVE_CASE)
     b16, b32 = bwd.get(BWD_HEADLINE_CASE), bwd.get("bert_b64_s128_f32")
     f32 = fwd.get("bert_b64_s128_lse_f32")
     l_fwd, l_bwd = fwd.get(LLAMA_TRAIN_CASE), bwd.get(LLAMA_TRAIN_BWD_CASE)
-    if None in (head, serve_row, b16, b32, f32, l_fwd, l_bwd):
-        return []
     src = "mxnet_tpu_torch/csrc/"
+    entries = []
 
     def fwd_nums(r):
         return dict({"case": r["case"], "cores": r["cores"],
@@ -5101,6 +5596,35 @@ def kernel_entries(rows, bwd_rows, train, serve, llama):
     def on_llama(nums, counter):
         return dict(nums, launches=llama.get(counter),
                     launches_per_step=llama.get("per_step"))
+    f16 = {r["case"]: r for r in f16_rows}
+    f16b = {r["case"]: r for r in f16_bwd_rows}
+    if F16_CASE in f16 and BWD_F16_CASE in f16b:
+        bert16 = bert16 or {}
+        for name, part, site, counter in (
+                ("flash_fwd", None, 76, "flash_fwd_tc_launches"),
+                ("flash_bwd_dq", "dq", 303, "flash_bwd_dq_tc_launches"),
+                ("flash_bwd_dkv", "dkv", 386, "flash_bwd_dkv_tc_launches")):
+            def nums(case, part=part):
+                return fwd_nums(f16[case]) if part is None \
+                    else bwd_nums(f16b[case], part)
+            entries.append(dict(
+                {"name": name + "_f16", "route": "cuda",
+                 "design": DESIGN["tensor_cores_f16"],
+                 "source": src + ("flash_fwd.cu" if part is None
+                                  else "flash_bwd.cu"),
+                 "replaces": f"mxnet_tpu/ops/flash_attention.py:{site}",
+                 "dtype": "float16", "launches": bert16.get(counter),
+                 "launches_main_path": "bert_fp16",
+                 "launches_per_step": bert16.get("per_step"),
+                 "key_padding": nums("bert_b64_s128_kpad_lse_f16"
+                                     if part is None
+                                     else "bert_b64_s128_kpad_f16"),
+                 "llama_train_shape": nums("llama_train_s4096_lse_f16"
+                                           if part is None
+                                           else "llama_train_s4096_f16")},
+                **nums(F16_CASE if part is None else BWD_F16_CASE)))
+    if None in (head, serve_row, b16, b32, f32, l_fwd, l_bwd):
+        return entries
     whole = ("plain_ms is flash_bwd_plain and library_ms the backward of "
              "F.scaled_dot_product_attention, each computing dq, dk and "
              "dv together; kernel_over_library is K2 + K3 (k2_plus_k3_ms) "
@@ -5148,7 +5672,7 @@ def kernel_entries(rows, bwd_rows, train, serve, llama):
                                       "flash_bwd_dkv_tc_launches"),
               "f32": dict(bwd_nums(b32, "dkv"), design=DESIGN["cuda_cores"]),
               "plain_and_library": whole}, **bwd_nums(b16, "dkv")),
-    ]
+    ] + entries
 
 
 def main():
@@ -5172,8 +5696,13 @@ def main():
 
     # float32 matmuls in full float32, as the kernel's contract (PyTorch's
     # default); cuDNN's TF32 flag stays at PyTorch's default (on): the
-    # port's convolutions turn it off themselves, which resnet_parity holds
+    # port's convolutions turn it off themselves, which resnet_parity holds.
+    # float16 products accumulate in float32, as the reference's: AMP's
+    # init("float16") turns cuBLAS's reduced-precision reduction off
+    # itself, and here it is off for the float16 nets outside AMP too
+    # (fp16_parity's multi-precision net)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     dev = mx.gpu(0).device
     card = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -5227,8 +5756,16 @@ def main():
         phase_wordlm(mx, dev)
     if "data" in phases:
         phase_data(mx, dev)
+    f16_rows, f16_bwd_rows = [], []
+    if "fp16_parity" in phases:
+        f16_rows, f16_bwd_rows, _ = phase_fp16_parity(mx, dev)
+    if "optimizers_parity" in phases:
+        phase_optimizers_parity(mx, dev)
+    bert16 = phase_bert_fp16(mx, dev, mx.gpu(0)) if "bert_fp16" in phases \
+        else {}
 
-    kernels = kernel_entries(rows, bwd_rows, train, serve, llama)
+    kernels = kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows,
+                             f16_bwd_rows, bert16)
     if rtc is not None:
         kernels.append(
             {"name": "rtc_axpy", "route": "cuda",

@@ -31,7 +31,7 @@ from . import (autograd, base, context, contrib, envs, gluon, initializer,
                lr_scheduler, metric, models, ndarray, ops, optimizer,
                parallel, random, rtc, serving, test_utils)
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu
+from .context import Context, cpu, current_context, gpu, num_gpus
 
 init = initializer
 nd = ndarray
@@ -39,6 +39,7 @@ nd = ndarray
 __version__ = "0.1.0"
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "num_gpus",
            "autograd", "base", "context", "contrib", "envs", "gluon", "init",
            "initializer", "lr_scheduler", "metric", "models", "nd", "ndarray",
            "ops", "optimizer", "parallel", "random", "rtc", "serving",

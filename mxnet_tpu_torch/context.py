@@ -13,7 +13,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus"]
 
 
 class Context:
@@ -71,6 +71,13 @@ def cpu(device_id: int = 0) -> Context:
 
 def gpu(device_id: int = 0) -> Context:
     return Context("gpu", device_id)
+
+
+def num_gpus() -> int:
+    """The number of CUDA cards this process sees (parity:
+    ``mx.context.num_gpus``): ``torch.cuda.device_count()``, 0 without
+    CUDA."""
+    return torch.cuda.device_count()
 
 
 def current_context() -> Context:

@@ -25,7 +25,13 @@
 //     changes no result; the forward may skip only when S_k >= S_q);
 //   * f32 inputs use f32 FMAs (never TF32); bf16 inputs accumulate in f32
 //     and round P to bf16 before P^T dO and dS to bf16 before dS K and
-//     dS^T Q, as the TPU kernels feed their matrix unit.
+//     dS^T Q, as the TPU kernels feed their matrix unit. f16 inputs take
+//     the same route with f16 operands: there the TPU kernels keep P and
+//     dS in f32 (their `lowp` is bf16-only), and the rounding to f16 for
+//     the tensor cores costs at most 2^-11 relative on each element, far
+//     inside float16's tolerance (1e-2); the plain version rounds alike.
+//     A dS past f16's range (65504) becomes inf, as the gradient it feeds
+//     would: the loss scaler of fp16 training then skips the step.
 //
 // Layout: q, O, dO (B, S_q, H, D), k, v (B, S_k, KV, D), read through
 // their strides (the last dimension contiguous). dQ, dK, dV are contiguous in
@@ -44,9 +50,10 @@
 // H=12, D=64, bf16) that is 6.4 GFLOP, 6.5 us of tensor-core time,
 // against 76 MB, 23 us: the bound is the bytes.
 //
-// bf16: both kernels run on the tensor cores, in the style of
-// FlashAttention-2, with mma.sync m16n8k16 (bf16 in, f32 accumulate), tiles
-// in shared memory as bf16 by 16-byte cp.async, and operand fragments by
+// bf16 and f16: both kernels run on the tensor cores (the element type T
+// a template argument), in the style of FlashAttention-2, with mma.sync
+// m16n8k16 (T in, f32 accumulate), tiles in shared memory as T by 16-byte
+// cp.async, and operand fragments by
 // ldmatrix (csrc/flash_tc.cuh):
 //   * K2 (flash_bwd_dq_tc_kernel): one block of 4 warps per (64-query tile,
 //     head, batch row), each warp owning 16 query rows. The Q and dO tiles
@@ -58,7 +65,7 @@
 //     while the current one is computed); S = Q K^T and dP = dO V^T run 64
 //     keys a pass (32 where that would spill), with K and V as B operands
 //     of the row-major tiles; P and dS are formed on the accumulator
-//     fragments and dS is packed straight into bf16 A fragments for
+//     fragments and dS is packed straight into T A fragments for
 //     dQ += dS K, whose B operand is K through ldmatrix.trans. The 16 x D
 //     f32 dQ accumulator of a warp is scaled, rounded and staged in the
 //     warp's own shared rows, then written 16 bytes a store. K2 does three
@@ -72,7 +79,7 @@
 //     32 queries a pass; K and V are A fragments held in registers at
 //     D <= 64 and read from shared memory above it, where the dK and dV
 //     accumulators (two 16 x D f32 tiles a warp) leave no room. P^T and
-//     dS^T go straight into bf16 A fragments for dV += P^T dO and
+//     dS^T go straight into T A fragments for dV += P^T dO and
 //     dK += dS^T Q, whose B operands come from the Q and dO tiles through
 //     ldmatrix.trans.
 // Head dims that are not a multiple of 16 are zero-padded in shared memory;
@@ -442,7 +449,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
-// ---- K2 and K3 in bf16 on the tensor cores -----------------------------------
+// ---- K2 and K3 in bf16 and f16 on the tensor cores --------------------------
 
 constexpr int TC_NT = 128;   // threads per block: 4 warps
 constexpr int TC_BKV = 64;   // keys per block (K3, 16 per warp) and per tile (K2)
@@ -456,11 +463,11 @@ __host__ __device__ constexpr size_t dq_tc_smem_bytes(int D) {
   return (size_t)(2 * TC_BQ + 4 * TC_BKV) * flash_tc::row_ld(D) * sizeof(bf16);
 }
 
-// K2 for bf16: Delta and dQ for one (64-query tile, head, batch row), over
+// K2 on the tensor cores: Delta and dQ for one (64-query tile, head, batch row), over
 // the visible 64-key tiles of KV head h / (H / KV). Q and dO stay in
 // registers as A fragments for DMAX <= 64, and are read from shared memory
 // per product above that (the dQ accumulator takes DMAX / 2 registers).
-template <int DMAX>
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(TC_NT) flash_bwd_dq_tc_kernel(Params p) {
   using namespace flash_tc;
   constexpr bool QG_REGS = DMAX <= 64;
@@ -473,10 +480,10 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dq_tc_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int D = p.D, DP = dpad(D), LD = row_ld(D);
   const int nkd = DP / 16;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // TC_BQ x LD
-  bf16* Gs = Qs + TC_BQ * LD;                    // TC_BQ x LD (dO)
-  bf16* Ks = Gs + TC_BQ * LD;                    // 2 x TC_BKV x LD
-  bf16* Vs = Ks + 2 * TC_BKV * LD;               // 2 x TC_BKV x LD
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // TC_BQ x LD
+  T* Gs = Qs + TC_BQ * LD;                    // TC_BQ x LD (dO)
+  T* Ks = Gs + TC_BQ * LD;                    // 2 x TC_BKV x LD
+  T* Vs = Ks + 2 * TC_BKV * LD;               // 2 x TC_BKV x LD
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -503,10 +510,10 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dq_tc_kernel(Params p) {
   }
   const int nvis = max(kb_hi - kb_lo, 0);
 
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.qsb + h * p.qsh + q0 * p.qss;
-  const bf16* gg = static_cast<const bf16*>(p.g) + b * p.gsb + h * p.gsh + q0 * p.gss;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.ksb + kvh * p.ksh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vsb + kvh * p.vsh;
+  const T* qg = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh + q0 * p.qss;
+  const T* gg = static_cast<const T*>(p.g) + b * p.gsb + h * p.gsh + q0 * p.gss;
+  const T* kg = static_cast<const T*>(p.k) + b * p.ksb + kvh * p.ksh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.vsb + kvh * p.vsh;
   const TileSplit split = tile_split<TC_NT>(D);
   // visible key tile t's K and V into buffer buf
   auto stage = [&](int t, int buf) {
@@ -529,21 +536,21 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dq_tc_kernel(Params p) {
   // base 2 like the exponent
   float del[2], lse2[2];
   {
-    const bf16* og = static_cast<const bf16*>(p.o) + b * p.osb + h * p.osh;
+    const T* og = static_cast<const T*>(p.o) + b * p.osb + h * p.osh;
     const long long lrow = ((long long)b * p.H + h) * p.Sq;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qr = row0 + 8 * r;
-      const bf16* orow = og + (long long)qr * p.oss;
-      const bf16* grow = Gs + (qr - q0) * LD;
+      const T* orow = og + (long long)qr * p.oss;
+      const T* grow = Gs + (qr - q0) * LD;
       float sum = 0.f;
       for (int c = t4; c < D / 8; c += 4) {
         const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
         const uint4 gv = *reinterpret_cast<const uint4*>(grow + c * 8);
-        const bf16* o8 = reinterpret_cast<const bf16*>(&ov);
-        const bf16* g8 = reinterpret_cast<const bf16*>(&gv);
+        const T* o8 = reinterpret_cast<const T*>(&ov);
+        const T* g8 = reinterpret_cast<const T*>(&gv);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) sum = fmaf(__bfloat162float(g8[i]), __bfloat162float(o8[i]), sum);
+        for (int i = 0; i < 8; ++i) sum = fmaf(to_float(g8[i]), to_float(o8[i]), sum);
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -555,8 +562,8 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dq_tc_kernel(Params p) {
   const float scale2 = p.scale * LOG2E;
 
   uint32_t qf[QG_REGS ? NKD : 1][4], gf[QG_REGS ? NKD : 1][4];
-  const bf16* qw = Qs + (16 * warp + a_row(lane)) * LD + a_col(lane);
-  const bf16* gw = Gs + (16 * warp + a_row(lane)) * LD + a_col(lane);
+  const T* qw = Qs + (16 * warp + a_row(lane)) * LD + a_col(lane);
+  const T* gw = Gs + (16 * warp + a_row(lane)) * LD + a_col(lane);
   if (QG_REGS) {
 #pragma unroll
     for (int kk = 0; kk < NKD; ++kk) {
@@ -582,8 +589,8 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dq_tc_kernel(Params p) {
     }
     __syncthreads();
     const int k0 = (kb_lo + t) * TC_BKV;
-    const bf16* Kb = Ks + buf * TC_BKV * LD;
-    const bf16* Vb = Vs + buf * TC_BKV * LD;
+    const T* Kb = Ks + buf * TC_BKV * LD;
+    const T* Vb = Vs + buf * TC_BKV * LD;
 
 #pragma unroll 1
     for (int kc0 = 0; kc0 < TC_BKV; kc0 += KC) {
@@ -613,11 +620,11 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dq_tc_kernel(Params p) {
             const int r = (kc0 + np * 16 + bn_row(lane)) * LD + kk * 16 + bn_col(lane);
             uint32_t bk[4], bv[4];
             ldsm_x4(bk, Kb + r);
-            mma(s[2 * np], aq, bk[0], bk[1]);
-            mma(s[2 * np + 1], aq, bk[2], bk[3]);
+            mma<T>(s[2 * np], aq, bk[0], bk[1]);
+            mma<T>(s[2 * np + 1], aq, bk[2], bk[3]);
             ldsm_x4(bv, Vb + r);
-            mma(dpv[2 * np], ag, bv[0], bv[1]);
-            mma(dpv[2 * np + 1], ag, bv[2], bv[3]);
+            mma<T>(dpv[2 * np], ag, bv[0], bv[1]);
+            mma<T>(dpv[2 * np + 1], ag, bv[2], bv[3]);
           }
         }
       }
@@ -643,18 +650,18 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dq_tc_kernel(Params p) {
         }
       }
 
-      // dQ += dS K: dS rounded to bf16 as A fragments, K through ldmatrix.trans
+      // dQ += dS K: dS rounded to T as A fragments, K through ldmatrix.trans
 #pragma unroll
       for (int kc = 0; kc < KC / 16; ++kc) {
         uint32_t ads[4];
-        c_to_a(ads, s[2 * kc], s[2 * kc + 1]);
+        c_to_a<T>(ads, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
         for (int dp = 0; dp < NND / 2; ++dp) {
           if (dp < nkd) {
             uint32_t bk[4];
             ldsm_x4_t(bk, Kb + (kc0 + kc * 16 + a_row(lane)) * LD + dp * 16 + a_col(lane));
-            mma(dq[2 * dp], ads, bk[0], bk[1]);
-            mma(dq[2 * dp + 1], ads, bk[2], bk[3]);
+            mma<T>(dq[2 * dp], ads, bk[0], bk[1]);
+            mma<T>(dq[2 * dp + 1], ads, bk[2], bk[3]);
           }
         }
       }
@@ -665,21 +672,19 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dq_tc_kernel(Params p) {
 
   // epilogue: dQ * scale, staged in this warp's rows of Qs (only this warp
   // reads them), written 16 bytes a store
-  bf16* dqs = Qs + 16 * warp * LD;
+  T* dqs = Qs + 16 * warp * LD;
   __syncwarp();
 #pragma unroll
   for (int j = 0; j < NND; ++j) {
     if (j * 8 < D) {
       const int c = j * 8 + 2 * t4;
-      *reinterpret_cast<__nv_bfloat162*>(dqs + g * LD + c) =
-          __floats2bfloat162_rn(dq[j][0] * p.scale, dq[j][1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dqs + (g + 8) * LD + c) =
-          __floats2bfloat162_rn(dq[j][2] * p.scale, dq[j][3] * p.scale);
+      store2<T>(dqs + g * LD + c, dq[j][0] * p.scale, dq[j][1] * p.scale);
+      store2<T>(dqs + (g + 8) * LD + c, dq[j][2] * p.scale, dq[j][3] * p.scale);
     }
   }
   __syncwarp();
   const long long base = (((long long)b * p.Sq + w0) * p.H + h) * D;
-  store_rows16(static_cast<bf16*>(p.dq) + base, (long long)p.H * D, dqs, D, LD, lane);
+  store_rows16(static_cast<T*>(p.dq) + base, (long long)p.H * D, dqs, D, LD, lane);
 }
 
 __host__ __device__ constexpr size_t dkv_tc_smem_bytes(int D) {
@@ -687,11 +692,11 @@ __host__ __device__ constexpr size_t dkv_tc_smem_bytes(int D) {
          4 * TC_BQ * sizeof(float);
 }
 
-// K3 for bf16: dK and dV for one (64-key tile, KV head, batch row), summed
+// K3 on the tensor cores: dK and dV for one (64-key tile, KV head, batch row), summed
 // over the query heads of the group. K and V stay in registers as A
 // fragments for DMAX <= 64, and are read from shared memory per product
 // above that (at D = 128 the dK and dV accumulators take 128 registers).
-template <int DMAX>
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(TC_NT) flash_bwd_dkv_tc_kernel(Params p) {
   using namespace flash_tc;
   constexpr bool KV_REGS = DMAX <= 64;
@@ -701,10 +706,10 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dkv_tc_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int D = p.D, DP = dpad(D), LD = row_ld(D);
   const int nkd = DP / 16;
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // TC_BKV x LD
-  bf16* Vs = Ks + TC_BKV * LD;                   // TC_BKV x LD
-  bf16* Qs = Vs + TC_BKV * LD;                   // 2 x TC_BQ x LD
-  bf16* Gs = Qs + 2 * TC_BQ * LD;                // 2 x TC_BQ x LD (dO)
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // TC_BKV x LD
+  T* Vs = Ks + TC_BKV * LD;                   // TC_BKV x LD
+  T* Qs = Vs + TC_BKV * LD;                   // 2 x TC_BQ x LD
+  T* Gs = Qs + 2 * TC_BQ * LD;                // 2 x TC_BQ x LD (dO)
   float* lse_s = reinterpret_cast<float*>(Gs + 2 * TC_BQ * LD);  // 2 x TC_BQ
   float* del_s = lse_s + 2 * TC_BQ;                              // 2 x TC_BQ
 
@@ -733,15 +738,15 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dkv_tc_kernel(Params p) {
   const int nvis = max(qb_hi - qb_lo, 0);
   const int items = group * nvis;  // (query head, query tile) pairs
 
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.ksb + kvh * p.ksh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vsb + kvh * p.vsh;
+  const T* kg = static_cast<const T*>(p.k) + b * p.ksb + kvh * p.ksh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.vsb + kvh * p.vsh;
   const TileSplit split = tile_split<TC_NT>(D);
   // item t's Q, dO, LSE and Delta into buffer buf
   auto stage = [&](int t, int buf) {
     const int h = kvh * group + t / nvis;
     const int q0 = (qb_lo + t % nvis) * TC_BQ;
-    const bf16* qg = static_cast<const bf16*>(p.q) + b * p.qsb + h * p.qsh + q0 * p.qss;
-    const bf16* gg = static_cast<const bf16*>(p.g) + b * p.gsb + h * p.gsh + q0 * p.gss;
+    const T* qg = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh + q0 * p.qss;
+    const T* gg = static_cast<const T*>(p.g) + b * p.gsb + h * p.gsh + q0 * p.gss;
     load_rows(Qs + buf * TC_BQ * LD, qg, p.qss, TC_BQ, LD, split);
     load_rows(Gs + buf * TC_BQ * LD, gg, p.gss, TC_BQ, LD, split);
     const long long row = ((long long)b * p.H + h) * p.Sq + q0;
@@ -763,8 +768,8 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dkv_tc_kernel(Params p) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
   uint32_t kf[KV_REGS ? NKD : 1][4], vf[KV_REGS ? NKD : 1][4];
-  const bf16* kw = Ks + (16 * warp + a_row(lane)) * LD + a_col(lane);
-  const bf16* vw = Vs + (16 * warp + a_row(lane)) * LD + a_col(lane);
+  const T* kw = Ks + (16 * warp + a_row(lane)) * LD + a_col(lane);
+  const T* vw = Vs + (16 * warp + a_row(lane)) * LD + a_col(lane);
 
   for (int t = 0; t < items; ++t) {
     const int buf = t & 1;
@@ -786,8 +791,8 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dkv_tc_kernel(Params p) {
       }
     }
     const int q0 = (qb_lo + t % nvis) * TC_BQ;
-    const bf16* Qb = Qs + buf * TC_BQ * LD;
-    const bf16* Gb = Gs + buf * TC_BQ * LD;
+    const T* Qb = Qs + buf * TC_BQ * LD;
+    const T* Gb = Gs + buf * TC_BQ * LD;
     const float* lb = lse_s + buf * TC_BQ;
     const float* db = del_s + buf * TC_BQ;
 
@@ -819,11 +824,11 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dkv_tc_kernel(Params p) {
             const int r = (qc0 + np * 16 + bn_row(lane)) * LD + kk * 16 + bn_col(lane);
             uint32_t bq[4], bg[4];
             ldsm_x4(bq, Qb + r);
-            mma(st[2 * np], ak, bq[0], bq[1]);
-            mma(st[2 * np + 1], ak, bq[2], bq[3]);
+            mma<T>(st[2 * np], ak, bq[0], bq[1]);
+            mma<T>(st[2 * np + 1], ak, bq[2], bq[3]);
             ldsm_x4(bg, Gb + r);
-            mma(dpt[2 * np], av, bg[0], bg[1]);
-            mma(dpt[2 * np + 1], av, bg[2], bg[3]);
+            mma<T>(dpt[2 * np], av, bg[0], bg[1]);
+            mma<T>(dpt[2 * np + 1], av, bg[2], bg[3]);
           }
         }
       }
@@ -849,24 +854,24 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dkv_tc_kernel(Params p) {
         }
       }
 
-      // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16 as A
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to T as A
       // fragments, dO and Q through ldmatrix.trans
 #pragma unroll
       for (int qc = 0; qc < TC_QC / 16; ++qc) {
         uint32_t ap[4], ads[4];
-        c_to_a(ap, st[2 * qc], st[2 * qc + 1]);
-        c_to_a(ads, dpt[2 * qc], dpt[2 * qc + 1]);
+        c_to_a<T>(ap, st[2 * qc], st[2 * qc + 1]);
+        c_to_a<T>(ads, dpt[2 * qc], dpt[2 * qc + 1]);
 #pragma unroll
         for (int dp = 0; dp < NND / 2; ++dp) {
           if (dp < nkd) {
             const int r = (qc0 + qc * 16 + a_row(lane)) * LD + dp * 16 + a_col(lane);
             uint32_t bg[4], bq[4];
             ldsm_x4_t(bg, Gb + r);
-            mma(dv[2 * dp], ap, bg[0], bg[1]);
-            mma(dv[2 * dp + 1], ap, bg[2], bg[3]);
+            mma<T>(dv[2 * dp], ap, bg[0], bg[1]);
+            mma<T>(dv[2 * dp + 1], ap, bg[2], bg[3]);
             ldsm_x4_t(bq, Qb + r);
-            mma(dk[2 * dp], ads, bq[0], bq[1]);
-            mma(dk[2 * dp + 1], ads, bq[2], bq[3]);
+            mma<T>(dk[2 * dp], ads, bq[0], bq[1]);
+            mma<T>(dk[2 * dp + 1], ads, bq[2], bq[3]);
           }
         }
       }
@@ -881,26 +886,22 @@ __global__ void __launch_bounds__(TC_NT) flash_bwd_dkv_tc_kernel(Params p) {
 
   // epilogue: dK * scale and dV, staged in this warp's rows of Ks and Vs,
   // written 16 bytes a store
-  bf16* dks = Ks + 16 * warp * LD;
-  bf16* dvs = Vs + 16 * warp * LD;
+  T* dks = Ks + 16 * warp * LD;
+  T* dvs = Vs + 16 * warp * LD;
 #pragma unroll
   for (int j = 0; j < NND; ++j) {
     if (j * 8 < D) {
       const int c = j * 8 + 2 * t4;
-      *reinterpret_cast<__nv_bfloat162*>(dks + g * LD + c) =
-          __floats2bfloat162_rn(dk[j][0] * p.scale, dk[j][1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dks + (g + 8) * LD + c) =
-          __floats2bfloat162_rn(dk[j][2] * p.scale, dk[j][3] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvs + g * LD + c) =
-          __floats2bfloat162_rn(dv[j][0], dv[j][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvs + (g + 8) * LD + c) =
-          __floats2bfloat162_rn(dv[j][2], dv[j][3]);
+      store2<T>(dks + g * LD + c, dk[j][0] * p.scale, dk[j][1] * p.scale);
+      store2<T>(dks + (g + 8) * LD + c, dk[j][2] * p.scale, dk[j][3] * p.scale);
+      store2<T>(dvs + g * LD + c, dv[j][0], dv[j][1]);
+      store2<T>(dvs + (g + 8) * LD + c, dv[j][2], dv[j][3]);
     }
   }
   __syncwarp();
   const long long base = (((long long)b * p.Sk + k0 + 16 * warp) * p.KV + kvh) * D;
-  store_rows16(static_cast<bf16*>(p.dk) + base, (long long)p.KV * D, dks, D, LD, lane);
-  store_rows16(static_cast<bf16*>(p.dv) + base, (long long)p.KV * D, dvs, D, LD, lane);
+  store_rows16(static_cast<T*>(p.dk) + base, (long long)p.KV * D, dks, D, LD, lane);
+  store_rows16(static_cast<T*>(p.dv) + base, (long long)p.KV * D, dvs, D, LD, lane);
 }
 
 template <int DMAX>
@@ -914,14 +915,14 @@ cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <typename T, int DMAX>
 cudaError_t launch_dq_tc(const Params& p, cudaStream_t stream) {
   const size_t smem = dq_tc_smem_bytes(p.D);
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<DMAX>,
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<T, DMAX>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid(p.Sq / TC_BQ, p.H, p.B);
-  flash_bwd_dq_tc_kernel<DMAX><<<grid, TC_NT, smem, stream>>>(p);
+  flash_bwd_dq_tc_kernel<T, DMAX><<<grid, TC_NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -936,14 +937,14 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <typename T, int DMAX>
 cudaError_t launch_dkv_tc(const Params& p, cudaStream_t stream) {
   const size_t smem = dkv_tc_smem_bytes(p.D);
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<DMAX>,
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<T, DMAX>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid(p.KV, p.B, p.Sk / TC_BKV);
-  flash_bwd_dkv_tc_kernel<DMAX><<<grid, TC_NT, smem, stream>>>(p);
+  flash_bwd_dkv_tc_kernel<T, DMAX><<<grid, TC_NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -953,10 +954,11 @@ cudaError_t dispatch_dq_f32(const Params& p, cudaStream_t s) {
   return launch_dq<256>(p, s);
 }
 
+template <typename T>
 cudaError_t dispatch_dq_tc(const Params& p, cudaStream_t s) {
-  if (p.D <= 64) return launch_dq_tc<64>(p, s);
-  if (p.D <= 128) return launch_dq_tc<128>(p, s);
-  return launch_dq_tc<256>(p, s);
+  if (p.D <= 64) return launch_dq_tc<T, 64>(p, s);
+  if (p.D <= 128) return launch_dq_tc<T, 128>(p, s);
+  return launch_dq_tc<T, 256>(p, s);
 }
 
 cudaError_t dispatch_dkv_f32(const Params& p, cudaStream_t s) {
@@ -965,10 +967,11 @@ cudaError_t dispatch_dkv_f32(const Params& p, cudaStream_t s) {
   return launch_dkv<256>(p, s);
 }
 
+template <typename T>
 cudaError_t dispatch_dkv_tc(const Params& p, cudaStream_t s) {
-  if (p.D <= 64) return launch_dkv_tc<64>(p, s);
-  if (p.D <= 128) return launch_dkv_tc<128>(p, s);
-  return launch_dkv_tc<256>(p, s);
+  if (p.D <= 64) return launch_dkv_tc<T, 64>(p, s);
+  if (p.D <= 128) return launch_dkv_tc<T, 128>(p, s);
+  return launch_dkv_tc<T, 256>(p, s);
 }
 
 bool aligned16(const void* ptr, long long s0, long long s1, long long s2) {
@@ -979,25 +982,27 @@ bool aligned16(const void* ptr, long long s0, long long s1, long long s2) {
 int run(const Params& p, int dtype, bool dq, void* stream) {
   if (p.D < 8 || p.D > 256 || p.D % 8 || p.KV < 1 || p.H % p.KV || p.Sq % BQ ||
       p.Sq % BQ3 || p.Sq % TC_BQ || p.Sk % BK || p.Sk % BKV || p.Sk % TC_BKV || p.B < 1 ||
-      p.Sq < 1 || p.Sk < 1 || (dtype != 0 && dtype != 1))
+      p.Sq < 1 || p.Sk < 1 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)(dq ? dispatch_dq_f32(p, s) : dispatch_dkv_f32(p, s));
-  // the bf16 kernels read q, k, v, dO (and K2 O) 16 bytes at a time, and
-  // K3 LSE and Delta
+  // the tensor-core kernels read q, k, v, dO (and K2 O) 16 bytes at a
+  // time, and K3 LSE and Delta
   if (!aligned16(p.q, p.qsb, p.qss, p.qsh) || !aligned16(p.k, p.ksb, p.kss, p.ksh) ||
       !aligned16(p.v, p.vsb, p.vss, p.vsh) || !aligned16(p.g, p.gsb, p.gss, p.gsh) ||
       !aligned16(p.lse, 0, 0, 0) || !aligned16(p.delta, 0, 0, 0) ||
       (dq && !aligned16(p.o, p.osb, p.oss, p.osh)))
     return (int)cudaErrorMisalignedAddress;
-  return (int)(dq ? dispatch_dq_tc(p, s) : dispatch_dkv_tc(p, s));
+  if (dtype == 1)
+    return (int)(dq ? dispatch_dq_tc<flash_tc::bf16>(p, s) : dispatch_dkv_tc<flash_tc::bf16>(p, s));
+  return (int)(dq ? dispatch_dq_tc<flash_tc::f16>(p, s) : dispatch_dkv_tc<flash_tc::f16>(p, s));
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores: q, k, v, dO,
-// LSE and Delta, and for the dQ kernel O, 16-byte aligned, strides multiples
-// of 8). Strides are in elements, for q, k, v, O and dO in that order.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16, 2 = float16 (tensor cores:
+// q, k, v, dO, LSE and Delta, and for the dQ kernel O, 16-byte aligned,
+// strides multiples of 8). Strides are in elements, for q, k, v, O and dO in that order.
 // mxtpu_flash_bwd_dq writes Delta (B*H, S_q) f32 beside dQ;
 // mxtpu_flash_bwd_dkv reads it (launch it after the dQ kernel on the same
 // stream; O is not read). Each returns a cudaError_t: 0 when the launch was
@@ -1034,8 +1039,8 @@ extern "C" int mxtpu_flash_bwd_dkv(const void* q, const void* k, const void* v, 
 
 // 1 when the dQ pass (K2) or the dK/dV pass (K3) runs on the tensor cores
 // for this dtype, 0 when on the CUDA cores.
-extern "C" int mxtpu_flash_bwd_dq_tc(int dtype) { return dtype == 1; }
-extern "C" int mxtpu_flash_bwd_dkv_tc(int dtype) { return dtype == 1; }
+extern "C" int mxtpu_flash_bwd_dq_tc(int dtype) { return dtype == 1 || dtype == 2; }
+extern "C" int mxtpu_flash_bwd_dkv_tc(int dtype) { return dtype == 1 || dtype == 2; }
 
 // The tile sizes, for the wrapper's shape checks: S_q must be a multiple
 // of block_q and S_k of block_k, the largest tiles of any of the kernels.

@@ -13,8 +13,18 @@
 //     out as the uniform average of V, not NaN;
 //   * key tiles wholly outside the causal band (and below the window's
 //     lower edge) are skipped, only when S_k >= S_q as on the TPU;
-//   * f32 inputs use f32 FMAs (never TF32); bf16 inputs accumulate in f32
-//     and round P to bf16 before P.V.
+//   * f32 inputs use f32 FMAs (never TF32); bf16 and f16 inputs accumulate
+//     in f32 and round P to the input type before P.V.
+//
+// The f16 route differs from the TPU kernel in one rounding: the TPU
+// kernel keeps P in f32 for P.V when the inputs are not bf16 (its `lowp`
+// is bf16-only), while the tensor cores take P as f16, a relative error
+// of at most 2^-11 on each probability (P <= 1, so it never overflows;
+// a probability below 2^-24 flushes to 0). That is far inside float16's
+// tolerance (1e-2), and the plain version rounds P the same way. Q K^T
+// takes f16 operands with an f32 accumulator, exactly as the TPU kernel's
+// HIGHEST-precision product of f16 inputs. Masked scores are the f32
+// -1e30 in both routes, never an f16 constant (f16 tops out at 65504).
 //
 // Layout: q (B, S_q, H, D), k and v (B, S_k, KV, D), read through their
 // strides (the last dimension contiguous), with no fold or transpose.
@@ -32,17 +42,17 @@
 //
 // Two routes, picked by the input type:
 //
-// bf16: tensor cores (flash_fwd_tc_kernel), in the style of
+// bf16 and f16: tensor cores (flash_fwd_tc_kernel<T>), in the style of
 // FlashAttention-2. One block of 4 warps per (64-query tile, head, batch
 // row); each warp owns 16 query rows. The Q tile is loaded once into
 // mma A fragments (ldmatrix) and stays in registers (D <= 128). K and V
-// tiles of 64 keys come into shared memory as bf16 by 16-byte cp.async,
+// tiles of 64 keys come into shared memory as T by 16-byte cp.async,
 // double-buffered: the next tile's copy is in flight while the current
-// one is computed. S = Q K^T and O += P V run as mma.sync m16n8k16 (bf16
+// one is computed. S = Q K^T and O += P V run as mma.sync m16n8k16 (T
 // in, f32 accumulate); the scale, the masks and the online softmax work
 // on the accumulator fragments in registers (row max and sum over the
 // four lanes of a row by shuffles), and P goes from the S fragments
-// straight into bf16 A fragments, which is the rounding of the plain
+// straight into T A fragments, which is the rounding of the plain
 // version; V comes through ldmatrix.trans. Head dims that are not a
 // multiple of 16 are zero-padded in shared memory, and the padding
 // columns are never written out. The output is staged through shared
@@ -256,7 +266,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
     p.lse[((long long)b * p.H + h) * p.Sq + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
-// ---- bf16 on the tensor cores ----------------------------------------------
+// ---- bf16 and f16 on the tensor cores -------------------------------------
 
 constexpr int TC_BQ = 64;   // query rows per block: 16 per warp
 constexpr int TC_NT = 128;  // threads per block: 4 warps
@@ -270,9 +280,10 @@ __host__ __device__ constexpr size_t tc_smem_bytes(int D) {
 }
 
 // One (64-query tile, head, batch row); TC_BK keys a tile; head dims up to
-// DMAX (a multiple of 16). Q stays in registers for DMAX <= 128 and is
-// read again from shared memory per key tile above that.
-template <int DMAX>
+// DMAX (a multiple of 16); elements of type T (bf16 or f16). Q stays in
+// registers for DMAX <= 128 and is read again from shared memory per key
+// tile above that.
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(TC_NT) flash_fwd_tc_kernel(Params p) {
   using namespace flash_tc;
   constexpr bool Q_REGS = DMAX <= 128;
@@ -282,9 +293,9 @@ __global__ void __launch_bounds__(TC_NT) flash_fwd_tc_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int D = p.D, DP = dpad(D), LD = row_ld(D);
   const int nkd = DP / 16;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // TC_BQ x LD
-  bf16* Ks = Qs + TC_BQ * LD;                    // 2 x TC_BK x LD
-  bf16* Vs = Ks + 2 * TC_BK * LD;                // 2 x TC_BK x LD
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // TC_BQ x LD
+  T* Ks = Qs + TC_BQ * LD;                    // 2 x TC_BK x LD
+  T* Vs = Ks + 2 * TC_BK * LD;                // 2 x TC_BK x LD
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -314,9 +325,9 @@ __global__ void __launch_bounds__(TC_NT) flash_fwd_tc_kernel(Params p) {
     }
   }
 
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.qsb + h * p.qsh + q0 * p.qss;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.ksb + kvh * p.ksh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vsb + kvh * p.vsh;
+  const T* qg = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh + q0 * p.qss;
+  const T* kg = static_cast<const T*>(p.k) + b * p.ksb + kvh * p.ksh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.vsb + kvh * p.vsh;
 
   const TileSplit split = tile_split<TC_NT>(D);
   zero_pad<TC_NT>(Qs, TC_BQ + 4 * TC_BK, D, LD);
@@ -331,7 +342,7 @@ __global__ void __launch_bounds__(TC_NT) flash_fwd_tc_kernel(Params p) {
   for (int j = 0; j < NND; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // this lane's share of each row's sum
-  const bf16* qw = Qs + (16 * warp + a_row(lane)) * LD + a_col(lane);
+  const T* qw = Qs + (16 * warp + a_row(lane)) * LD + a_col(lane);
 
   for (int kb = kb_lo; kb < kb_hi; ++kb) {
     const int buf = (kb - kb_lo) & 1;
@@ -345,8 +356,8 @@ __global__ void __launch_bounds__(TC_NT) flash_fwd_tc_kernel(Params p) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Kb = Ks + buf * TC_BK * LD;
-    const bf16* Vb = Vs + buf * TC_BK * LD;
+    const T* Kb = Ks + buf * TC_BK * LD;
+    const T* Vb = Vs + buf * TC_BK * LD;
     const int k0 = kb * TC_BK;
     if (Q_REGS && kb == kb_lo) {
 #pragma unroll
@@ -372,8 +383,8 @@ __global__ void __launch_bounds__(TC_NT) flash_fwd_tc_kernel(Params p) {
         for (int np = 0; np < NNK / 2; ++np) {
           uint32_t bk[4];
           ldsm_x4(bk, Kb + (np * 16 + bn_row(lane)) * LD + kk * 16 + bn_col(lane));
-          mma(s[2 * np], a, bk[0], bk[1]);
-          mma(s[2 * np + 1], a, bk[2], bk[3]);
+          mma<T>(s[2 * np], a, bk[0], bk[1]);
+          mma<T>(s[2 * np + 1], a, bk[2], bk[3]);
         }
       }
     }
@@ -432,18 +443,18 @@ __global__ void __launch_bounds__(TC_NT) flash_fwd_tc_kernel(Params p) {
       }
     }
 
-    // O += P V: P rounded to bf16 as A fragments, V through ldmatrix.trans
+    // O += P V: P rounded to T as A fragments, V through ldmatrix.trans
 #pragma unroll
     for (int kc = 0; kc < TC_BK / 16; ++kc) {
       uint32_t a[4];
-      c_to_a(a, s[2 * kc], s[2 * kc + 1]);
+      c_to_a<T>(a, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
       for (int dp = 0; dp < NND / 2; ++dp) {
         if (dp < nkd) {
           uint32_t bv[4];
           ldsm_x4_t(bv, Vb + (kc * 16 + a_row(lane)) * LD + dp * 16 + a_col(lane));
-          mma(o[2 * dp], a, bv[0], bv[1]);
-          mma(o[2 * dp + 1], a, bv[2], bv[3]);
+          mma<T>(o[2 * dp], a, bv[0], bv[1]);
+          mma<T>(o[2 * dp + 1], a, bv[2], bv[3]);
         }
       }
     }
@@ -458,19 +469,17 @@ __global__ void __launch_bounds__(TC_NT) flash_fwd_tc_kernel(Params p) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / l[r];
   }
-  bf16* Os = Qs + 16 * warp * LD;
+  T* Os = Qs + 16 * warp * LD;
 #pragma unroll
   for (int j = 0; j < NND; ++j) {
     if (j * 8 < D) {
       const int c = j * 8 + 2 * t4;
-      *reinterpret_cast<__nv_bfloat162*>(Os + g * LD + c) =
-          __floats2bfloat162_rn(o[j][0] * inv[0], o[j][1] * inv[0]);
-      *reinterpret_cast<__nv_bfloat162*>(Os + (g + 8) * LD + c) =
-          __floats2bfloat162_rn(o[j][2] * inv[1], o[j][3] * inv[1]);
+      store2<T>(Os + g * LD + c, o[j][0] * inv[0], o[j][1] * inv[0]);
+      store2<T>(Os + (g + 8) * LD + c, o[j][2] * inv[1], o[j][3] * inv[1]);
     }
   }
   __syncwarp();
-  bf16* og = static_cast<bf16*>(p.o) +
+  T* og = static_cast<T*>(p.o) +
              (((long long)b * p.Sq + q0 + 16 * warp) * p.H + h) * D;
   store_rows16(og, (long long)p.H * D, Os, D, LD, lane);
   if (p.lse != nullptr && t4 == 0) {
@@ -491,14 +500,14 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <typename T, int DMAX>
 cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes(p.D);
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<DMAX>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<T, DMAX>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid(p.H, p.B, p.Sq / TC_BQ);
-  flash_fwd_tc_kernel<DMAX><<<grid, TC_NT, smem, stream>>>(p);
+  flash_fwd_tc_kernel<T, DMAX><<<grid, TC_NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -508,10 +517,11 @@ cudaError_t dispatch_f32(const Params& p, cudaStream_t stream) {
   return launch<256>(p, stream);
 }
 
+template <typename T>
 cudaError_t dispatch_tc(const Params& p, cudaStream_t stream) {
-  if (p.D <= 64) return launch_tc<64>(p, stream);
-  if (p.D <= 128) return launch_tc<128>(p, stream);
-  return launch_tc<256>(p, stream);
+  if (p.D <= 64) return launch_tc<T, 64>(p, stream);
+  if (p.D <= 128) return launch_tc<T, 128>(p, stream);
+  return launch_tc<T, 256>(p, stream);
 }
 
 bool aligned16(const void* ptr, long long s0, long long s1, long long s2) {
@@ -521,10 +531,10 @@ bool aligned16(const void* ptr, long long s0, long long s1, long long s2) {
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). Strides
-// are in elements. S_q and S_k must be multiples of the route's tiles
-// (32 keys for f32, 64 queries and 64 keys for bf16). The bf16 route
-// reads q, k and v 16 bytes at a time: their pointers must be 16-byte
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16, 2 = float16 (both on the
+// tensor cores). Strides are in elements. S_q and S_k must be multiples of
+// the route's tiles (32 keys for f32, 64 queries and 64 keys for the
+// tensor cores). The tensor-core route reads q, k and v 16 bytes at a time: their pointers must be 16-byte
 // aligned and their strides multiples of 8. Returns a cudaError_t: 0 when
 // the launch was accepted.
 extern "C" int mxtpu_flash_fwd(const void* q, const void* k, const void* v, void* o,
@@ -535,7 +545,7 @@ extern "C" int mxtpu_flash_fwd(const void* q, const void* k, const void* v, void
                                float scale, int causal, int window,
                                void* stream) {
   if (D < 8 || D > 256 || D % 8 || KV < 1 || H % KV || Sq % BQ || Sk % BK || B < 1 ||
-      Sq < 1 || Sk < 1 || (dtype != 0 && dtype != 1))
+      Sq < 1 || Sk < 1 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   Params p{q,   k,   v,   o,   lse, kmask, B,     H,      KV,     Sq, Sk, D, qsb,
            qss, qsh, ksb, kss, ksh, vsb,   vss,   vsh,    scale,  causal, window};
@@ -545,11 +555,11 @@ extern "C" int mxtpu_flash_fwd(const void* q, const void* k, const void* v, void
   if (!aligned16(q, qsb, qss, qsh) || !aligned16(k, ksb, kss, ksh) ||
       !aligned16(v, vsb, vss, vsh))
     return (int)cudaErrorMisalignedAddress;
-  return (int)dispatch_tc(p, s);
+  return (int)(dtype == 1 ? dispatch_tc<flash_tc::bf16>(p, s) : dispatch_tc<flash_tc::f16>(p, s));
 }
 
 // 1 when inputs of this dtype run on the tensor cores, 0 on the CUDA cores.
-extern "C" int mxtpu_flash_fwd_tc(int dtype) { return dtype == 1; }
+extern "C" int mxtpu_flash_fwd_tc(int dtype) { return dtype == 1 || dtype == 2; }
 
 // The tile sizes, for the wrapper's shape checks: the largest of either
 // route's (S_q a multiple of block_q, S_k of block_k).

@@ -6,6 +6,14 @@ gluon surface.
   ``name_scope()`` prefixed by the parent's (``hybridsequential0_dense0_``).
   ``collect_params()`` returns a ``ParameterDict`` of the block's and its
   children's parameters under those names (``gluon/parameter.py``).
+* **Sharing.**  ``params=`` (another block's ``params`` or
+  ``collect_params()``) names this block's parameters, and those of the
+  children made in its ``name_scope()``, after that dict's prefix, as the
+  reference does; a parameter whose name the dict holds is not made
+  again: the block reads the owner's tensor (one tensor, so a gradient
+  sums over both uses and an update moves both), and its gluon
+  ``Parameter`` is the owner's.  The owner's ``initialize`` places and
+  fills it; ``parameters()`` yields it once.
 * **Initialization.**  Layers make their parameters on the ``meta``
   device (no memory); ``initialize(init, ctx=...)`` places the whole tree
   on the context's device and fills it there from a seeded generator, so
@@ -134,20 +142,85 @@ class Block(nn.Module):
 
     def __init__(self, prefix=None, params=None):
         super().__init__()
-        if params is not None:
-            raise MXNetError("sharing parameters through params= is not "
-                             "ported")
         self._empty_prefix = prefix == ""
+        current = getattr(_naming, "current", None)
         self._prefix = _BlockScope.create(prefix, self._alias())
+        # the prefix of this block's parameter names and the dict of
+        # shared parameters (params=), as the reference's _BlockScope
+        if params is not None:
+            self._param_prefix, self._shared = params.prefix, params
+        elif current is not None:
+            parent = current._block
+            self._param_prefix = parent._param_prefix + \
+                self._prefix[len(parent.prefix):]
+            self._shared = parent._shared
+        else:
+            self._param_prefix, self._shared = self._prefix, None
         self._name = self._prefix[:-1] if self._prefix.endswith("_") \
             else self._prefix
         self._scope = _BlockScope(self)
         self._gluon_params = {}
+        self._shared_attrs = {}
 
     def _alias(self):
         return self.__class__.__name__.lower()
 
+    def _share(self, attr, param, made):
+        """Read ``param`` (another block's) as this block's ``attr`` in
+        place of ``made``, the tensor the layer made for it."""
+        want = made.mx_shape if isinstance(made, UninitializedParameter) \
+            else tuple(made.shape)
+        have = param.shape
+        if len(want) != len(have) or any(
+                w not in (0, h) and h != 0 for w, h in zip(want, have)):
+            raise MXNetError(f"cannot share Parameter {param.name!r} of "
+                             f"shape {have} as {attr!r} of shape {want}")
+        self._shared_attrs[attr] = param
+
+    def __getattr__(self, name):
+        shared = self.__dict__.get("_shared_attrs")
+        if shared and name in shared:
+            return shared[name]._tensor
+        return super().__getattr__(name)
+
+    def _param_attrs(self):
+        """This block's parameter attributes: its own, then those it
+        shares from another block."""
+        return (*self._parameters, *self._shared_attrs)
+
+    def named_parameters(self, prefix="", recurse=True,
+                         remove_duplicate=True):
+        """``nn.Module``'s, then the tensors this block and the blocks
+        below it share from others (``params=``), each tensor once."""
+        seen = set()
+        for name, p in super().named_parameters(prefix, recurse,
+                                                remove_duplicate):
+            seen.add(id(p))
+            yield name, p
+        mods = self.named_modules(prefix=prefix) if recurse \
+            else [(prefix, self)]
+        for mname, m in mods:
+            for attr, param in getattr(m, "_shared_attrs", {}).items():
+                t = param._tensor
+                if id(t) not in seen:
+                    seen.add(id(t))
+                    yield (f"{mname}." if mname else "") + attr, t
+
+    def cast(self, dtype):
+        """Cast every parameter of this block and its children to
+        ``dtype`` (parity: ``Block.cast``); a hybridized block captures
+        again."""
+        for child in self._child_blocks():
+            child.cast(dtype)
+        for attr in self._parameters:
+            self._gluon_param(attr).cast(dtype)
+
     def __setattr__(self, name, value):
+        shared = self.__dict__.get("_shared")
+        if shared is not None and isinstance(value, nn.Parameter) and \
+                self._param_prefix + name in shared:
+            self._share(name, shared[self._param_prefix + name], value)
+            return
         if isinstance(value, Parameter):
             # ``self.w = self.params.get("w", ...)``: ``get`` registered
             # the tensor under ``name`` already
@@ -173,6 +246,9 @@ class Block(nn.Module):
         return self._scope
 
     def _gluon_param(self, attr) -> Parameter:
+        shared = self._shared_attrs.get(attr)
+        if shared is not None:
+            return shared
         p = self._gluon_params.get(attr)
         if p is None:
             p = self._gluon_params[attr] = Parameter(self, attr)
@@ -201,9 +277,10 @@ class Block(nn.Module):
 
     @property
     def params(self) -> ParameterDict:
-        """This block's own parameters (not its children's)."""
-        ret = ParameterDict(self._prefix, owner=self)
-        for attr in self._parameters:
+        """This block's own parameters (not its children's), those it
+        shares included."""
+        ret = ParameterDict(self._param_prefix, owner=self)
+        for attr in self._param_attrs():
             p = self._gluon_param(attr)
             ret._params[p.name] = p
         return ret
@@ -211,7 +288,7 @@ class Block(nn.Module):
     def collect_params(self, select=None) -> ParameterDict:
         """This block's and its children's parameters, by name;
         ``select`` is a regex the names must match."""
-        ret = ParameterDict(self._prefix)
+        ret = ParameterDict(self._param_prefix)
         pattern = re.compile(select) if select else None
         for name, p in self.params.items():
             if pattern is None or pattern.match(name):
@@ -230,7 +307,7 @@ class Block(nn.Module):
         if prefix:
             prefix += "."
         ret = {prefix + attr: self._gluon_param(attr)
-               for attr in self._parameters}
+               for attr in self._param_attrs()}
         for name, child in self._named_child_blocks():
             ret.update(child._collect_params_with_prefix(prefix + name))
         return ret
@@ -300,7 +377,8 @@ class Block(nn.Module):
         and filled at the first call.  Returns ``self``."""
         from .. import random as _random
         dev = (ctx or current_context()).device
-        own = {n: p.mx_init for n, p in self.named_parameters()
+        # this tree's own tensors: a shared one is its owner's to place
+        own = {n: p.mx_init for n, p in nn.Module.named_parameters(self)
                if getattr(p, "mx_init", None) is not None}
         deferred = [(m, n, p) for m in self.modules()
                     for n, p in m._parameters.items()
@@ -312,7 +390,7 @@ class Block(nn.Module):
         finally:
             for m, n, p in deferred:
                 m._parameters[n] = p
-        for name, p in self.named_parameters():
+        for name, p in nn.Module.named_parameters(self):
             if name in own:
                 p.mx_init = own[name]
         if seed is None:
@@ -320,7 +398,11 @@ class Block(nn.Module):
         else:
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
-        initializer.fill(self, init, gen)
+        # the initializer sees each parameter's gluon name, as in the
+        # reference (Mixed matches on it)
+        names = {id(p._tensor): p.name
+                 for p in self.collect_params().values()}
+        initializer.fill(self, init, gen, names)
         for _, _, p in deferred:
             p.mx_deferred = (init, dev, gen)
         for p in self.collect_params().values():
@@ -412,6 +494,10 @@ class HybridBlock(Block):
         super().hybridize(active, static_alloc=static_alloc,
                           static_shape=static_shape, **kwargs)
 
+    def cast(self, dtype):
+        self._cached_op = None
+        super().cast(dtype)
+
     def _outermost(self, training, grad, args, kwargs):
         if not self._active or _capture.in_body():
             return super()._outermost(training, grad, args, kwargs)
@@ -428,7 +514,7 @@ class HybridBlock(Block):
         t = next((a for a in args if isinstance(a, torch.Tensor)), None)
         ctx = _ctx_of(t.device) if t is not None else None
         params = {attr: self._gluon_param(attr).data()
-                  for attr in self._parameters}
+                  for attr in self._param_attrs()}
         inputs = [a.detach() if isinstance(a, torch.Tensor)
                   and not a.requires_grad else a for a in args]
         out = self.hybrid_forward(nd, *_wrap(inputs, ctx), **params)

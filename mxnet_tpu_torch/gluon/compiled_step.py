@@ -194,9 +194,7 @@ class CompiledStep:
         updater = self.trainer._updater
         for i in self._tr_idx:
             p = self._params[i]
-            if i not in updater.states:
-                updater.states[i] = self.trainer._optimizer.create_state(
-                    i, p.data())
+            updater._ensure_state(i, p.data())
             p.grad()
         self._ready = True
 

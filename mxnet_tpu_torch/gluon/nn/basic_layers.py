@@ -181,6 +181,13 @@ class BatchNorm(HybridBlock):
         for attr in ("gamma", "beta", "running_mean", "running_var"):
             self._gluon_param(attr).shape = (x.shape[self._axis],)
 
+    def cast(self, dtype):
+        """float16 and bfloat16 leave BatchNorm in float32, its
+        statistics among them (the reference's ``BatchNorm.cast``)."""
+        if str(dtype).replace("torch.", "") in ("float16", "bfloat16"):
+            dtype = "float32"
+        super().cast(dtype)
+
     def forward(self, x):
         training = self._training_mode() and \
             not self._kwargs["use_global_stats"]

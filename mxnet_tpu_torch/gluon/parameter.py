@@ -25,9 +25,15 @@ gradient buffer a ``RowSparseNDArray``, so the optimizers update only
 the rows its gradient touches; a parameter asked for twice through
 ``ParameterDict.get`` keeps ``"row_sparse"`` if either asks for it.
 
-Not ported: several contexts per parameter, ``Constant``,
-``save``/``load`` of a ``ParameterDict`` and a parameter-by-parameter
-``initialize`` (``Block.initialize`` places and fills the whole block).
+``cast(dtype)`` puts a new tensor of ``dtype`` in the block's place
+(its values rounded); a ``Constant`` holds a fixed value and takes no
+gradient, on its own (``Constant(name, value)``, placed by its
+``initialize``) or as a block's (``block.params.get_constant``).
+
+Not ported: several contexts per parameter, ``save``/``load`` of a
+``ParameterDict`` and a parameter-by-parameter ``initialize`` of a
+block's parameters (``Block.initialize`` places and fills the whole
+block).
 """
 from __future__ import annotations
 
@@ -45,7 +51,13 @@ from ..base import MXNetError, torch_dtype
 from ..context import Context
 from ..ndarray.ndarray import NDArray, _ctx_of, _grad_buffer
 
-__all__ = ["Parameter", "ParameterDict"]
+__all__ = ["Parameter", "ParameterDict", "Constant",
+           "DeferredInitializationError"]
+
+
+class DeferredInitializationError(MXNetError):
+    """A parameter's data was asked for before its first call made it
+    (its shape had a 0 in it)."""
 
 
 class Parameter:
@@ -57,7 +69,7 @@ class Parameter:
                  wd_mult=1.0, grad_stype="default"):
         self._block = weakref.ref(block)
         self._attr = attr
-        self.name = block.prefix + attr
+        self.name = block._param_prefix + attr
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self._grad_req = "null"
@@ -170,7 +182,7 @@ class Parameter:
         """The NDArray over the parameter's tensor."""
         t = self._tensor
         if getattr(t, "mx_deferred", None) is not None:
-            raise MXNetError(
+            raise DeferredInitializationError(
                 f"Parameter {self.name!r} has not been initialized yet "
                 "because initialization was deferred. Actual "
                 "initialization happens during the first forward pass.")
@@ -267,6 +279,31 @@ class Parameter:
         self._block()._parameters[self._attr] = new
         self._bind(new)
 
+    def cast(self, dtype):
+        """A tensor of ``dtype`` in the parameter's place (parity:
+        ``Parameter.cast``): the values rounded, a new gradient buffer; a
+        parameter not made yet gets the type for when it is."""
+        dtype = torch_dtype(dtype)
+        t = self._tensor
+        if t.dtype == dtype:
+            return
+        if isinstance(t, UninitializedParameter):
+            new = UninitializedParameter(requires_grad=t.requires_grad,
+                                         dtype=dtype)
+            for key in ("mx_shape", "mx_deferred"):
+                if hasattr(t, key):
+                    setattr(new, key, getattr(t, key))
+        else:
+            new = nn.Parameter(t.detach().to(dtype),
+                               requires_grad=t.requires_grad)
+        if getattr(t, "mx_init", None) is not None:
+            new.mx_init = t.mx_init
+        self._block()._parameters[self._attr] = new
+        if self._nd is not None:
+            self._nd._grad = None
+        if not t.is_meta and not isinstance(new, UninitializedParameter):
+            self._bind(new)
+
     def set_data(self, data):
         """Copy ``data`` (an NDArray or array-like) into the parameter in
         place: the tensor, its NDArray and its gradient buffer stay."""
@@ -279,6 +316,78 @@ class Parameter:
                              f"{tuple(dst.shape)}")
         with torch.no_grad():
             dst.copy_(src)
+
+
+class _Holder(nn.Module):
+    """The module that holds a standalone Constant's tensor."""
+
+    prefix = _param_prefix = ""
+
+
+class Constant(Parameter):
+    """A parameter that holds ``value`` and takes no gradient (parity:
+    ``gluon.Constant``).  ``Constant(name, value)`` stands alone and is
+    placed by :meth:`initialize`; ``block.params.get_constant(name,
+    value)`` makes one of the block's, which the block's ``initialize``
+    places."""
+
+    def __init__(self, name, value, _block=None, _attr=None):
+        value = _constant_value(value)
+        if _block is None:
+            _block, _attr = _Holder(), "value"
+            _block.register_parameter("value", _constant_tensor(value))
+            self._holder = _block          # a Parameter holds its block weakly
+        self.value = value
+        super().__init__(_block, _attr, grad_req="null")
+        self.name = name
+
+    @property
+    def grad_req(self):
+        return "null"
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req != "null":
+            raise MXNetError(f"Constant {self.name!r} takes no gradient: "
+                             f"grad_req stays 'null', not {req!r}")
+        Parameter.grad_req.fset(self, req)
+
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False):
+        """Place a standalone constant on ``ctx`` (default: the current
+        context) with its value."""
+        from ..context import current_context
+        holder = getattr(self, "_holder", None)
+        if holder is None:
+            raise MXNetError(f"Constant {self.name!r} belongs to a block: "
+                             "the block's initialize places it")
+        t = self._tensor
+        if not t.is_meta and not force_reinit:
+            return
+        dev = (ctx or current_context()).device
+        new = nn.Parameter(torch.as_tensor(self.value, device=dev),
+                           requires_grad=False)
+        holder._parameters["value"] = new
+        self._bind(new)
+
+
+def _constant_value(value):
+    """``value`` as a numpy array: float32 for lists, numbers and float64
+    arrays, an array's or NDArray's own type otherwise."""
+    if isinstance(value, NDArray):
+        value = value.asnumpy()
+    elif not hasattr(value, "dtype"):          # lists and numbers
+        value = np.asarray(value, dtype="float32")
+    value = np.asarray(value)
+    return value.astype("float32") if value.dtype == np.float64 else value
+
+
+def _constant_tensor(value):
+    """A ``meta`` parameter that ``initialize`` fills with ``value``."""
+    return initializer.param(*value.shape,
+                             init=initializer.Constant(value),
+                             dtype=torch_dtype(value.dtype),
+                             requires_grad=False)
 
 
 class ParameterDict:
@@ -355,6 +464,25 @@ class ParameterDict:
         param.grad_req = grad_req
         param.grad_stype = grad_stype
         return param
+
+    def get_constant(self, name, value=None):
+        """The constant ``prefix + name``; on a block's own ``params`` it
+        is made from ``value`` when it does not exist yet."""
+        full = self._prefix + name
+        if full in self._params:
+            return self._params[full]
+        owner = self._owner() if self._owner is not None else None
+        if owner is None or value is None:
+            raise MXNetError(f"no Constant {full!r}, and "
+                             + ("no value to make it from" if value is None
+                                else "this dict belongs to no block that "
+                                "could make it"))
+        value = _constant_value(value)
+        owner.register_parameter(name, _constant_tensor(value))
+        const = owner._gluon_params[name] = Constant(full, value,
+                                                     _block=owner,
+                                                     _attr=name)
+        return const
 
     def zero_grad(self):
         for p in self.values():

@@ -103,10 +103,11 @@ def sdpa_plain(q, k, v, mask, scale, causal, window=None):
 def _flash_viable(q, k, v):
     """Shapes the flash kernel takes: both lengths multiples of 128,
     head dim a multiple of 8 up to 256, whole head groups, and one
-    dtype of float32 or bfloat16."""
+    dtype of float32, bfloat16 or float16 (the reference's test does not
+    look at the dtype; the kernels take these three)."""
     if q.shape[2] % k.shape[2]:
         return False  # ragged head grouping
-    if q.dtype not in (torch.float32, torch.bfloat16) \
+    if q.dtype not in (torch.float32, torch.bfloat16, torch.float16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         return False
     d = q.shape[-1]

@@ -11,16 +11,21 @@ kernels for CUDA tensors and run :func:`flash_attention_plain` and
 :func:`flash_bwd_plain` for CPU tensors; a CUDA tensor the kernels
 cannot take raises, they never fall back.
 
-The library picks each kernel's route by dtype: bf16 runs the forward,
-the dQ pass and the dK/dV pass on the tensor cores (mma.sync), f32 on
-the CUDA cores in f32 FMAs (the tensor cores would take f32 only as
-TF32, which the kernel contract forbids).  ``flash_fwd_launches`` and
+The library picks each kernel's route by dtype: bf16 and float16 run
+the forward, the dQ pass and the dK/dV pass on the tensor cores
+(mma.sync, f32 accumulation), f32 on the CUDA cores in f32 FMAs (the
+tensor cores would take f32 only as TF32, which the kernel contract
+forbids).  The float16 route rounds P (and in the backward dS) to
+float16 for the tensor cores where the JAX package keeps them in f32: at
+most 2^-11 relative on each element, and the plain versions round the
+same way.  ``flash_fwd_launches`` and
 ``flash_bwd_launches`` count kernel launches (one dQ and dK/dV pair per
 backward launch), ``flash_bwd_dq_launches`` and
 ``flash_bwd_dkv_launches`` each backward kernel's own, and
 ``flash_fwd_tc_launches``, ``flash_bwd_dq_tc_launches`` and
-``flash_bwd_dkv_tc_launches`` those that took the tensor-core route, so
-a run can show which kernels its attention went through.
+``flash_bwd_dkv_tc_launches`` those that took the tensor-core route
+(bf16 and float16 alike), so a run can show which kernels its attention
+went through.
 
 Layout is (B, S, H, D) in and out.  Grouped-query attention is native:
 K/V may carry fewer heads than Q, and query head h reads KV head
@@ -57,7 +62,7 @@ flash_bwd_dkv_tc_launches = 0
 FWD_BLOCK_Q = FWD_BLOCK_K = 64
 BWD_BLOCK_Q = BWD_BLOCK_K = 64
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _NEG = -1e30
 _fwd_lib = None
 _bwd_lib = None
@@ -224,8 +229,8 @@ def _check(q, k, v, kmask, who="flash_fwd"):
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise MXNetError(
-            f"{who}: q, k, v must share one dtype of float32 or "
-            f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+            f"{who}: q, k, v must share one dtype of float32, "
+            f"bfloat16 or float16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise MXNetError(
             f"{who}: want q (B,S_q,H,D), k = v (B,S_k,KV,D); got "

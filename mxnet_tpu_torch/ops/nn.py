@@ -708,3 +708,37 @@ def block_grad(data):
 
 
 alias("stop_gradient", "BlockGrad")
+
+
+# -- mixed precision (reference ops/nn.py:649-670) ----------------------------
+
+@register("amp_cast")
+def amp_cast(data, *, dtype="float16"):
+    """``data`` in ``dtype``."""
+    from ..base import torch_dtype
+    return data.to(torch_dtype(dtype))
+
+
+@register("amp_multicast", num_inputs=None, num_outputs=-1)
+def amp_multicast(*data, num_outputs=1, cast_narrow=False):
+    """Every input in the widest of their types (the narrowest with
+    ``cast_narrow``)."""
+    dtypes = [d.dtype for d in data]
+    if cast_narrow:
+        to = min(dtypes, key=lambda t: t.itemsize)
+    else:
+        to = dtypes[0]
+        for t in dtypes[1:]:
+            to = torch.promote_types(to, t)
+    return tuple(d.to(to) for d in data)
+
+
+@register("all_finite", num_inputs=None)
+def all_finite(*arrays, init_output=True):
+    """1.0 (float32) when no element of any array is inf or NaN, else
+    0.0: one device value, read on the host by the loss scaler."""
+    ok = torch.stack([torch.isfinite(a).all() for a in arrays]).all()
+    return ok.float()
+
+
+alias("multi_all_finite", "all_finite")

@@ -1,7 +1,9 @@
-"""Optimizers: the reference's ``Optimizer`` registry with ``SGD`` and
-``Adam``, and the ``Updater`` that ``gluon.Trainer`` drives (as the JAX
-package's ``optimizer/optimizer.py``).  ``DataParallelTrainer`` runs the
-same two classes.
+"""Optimizers: the reference's ``Optimizer`` registry with its eleven
+optimizers (``SGD``, ``NAG``, ``Adam``, ``AdamW``, ``AdaGrad``,
+``AdaDelta``, ``RMSProp``, ``Ftrl``, ``SignSGD``, ``Signum``, ``LAMB``)
+and ``Test``, and the ``Updater`` that ``gluon.Trainer`` drives (as the
+JAX package's ``optimizer/optimizer.py``).  ``DataParallelTrainer`` runs
+the same classes.
 
 ``SGD`` runs the ``sgd_update`` / ``sgd_mom_update`` ops on NDArrays with
 ``out=`` (in place), with ``clip_gradient`` and each gluon Parameter's
@@ -9,8 +11,26 @@ same two classes.
 of parameters at once with ``torch._foreach_*`` multi-tensor operators
 (the reference's ``call_fused``): the same arithmetic, a few launches for
 the whole set.  ``lr_scheduler`` (``mx.lr_scheduler``) gives the
-learning rate of each update from the update count.  Not ported: the
-other optimizers, multi-precision.
+learning rate of each update from the update count.
+
+**Multi-precision** (``multi_precision=True``): a float16 weight keeps a
+float32 master copy in its state, ``(master, inner state)``
+(``create_state_multi_precision``); the update runs on the master with
+the gradient in float32 and writes the master's rounding back into the
+weight (``update_multi_precision``), the arithmetic of the reference's
+``mp_sgd_update``/``mp_sgd_mom_update``.  ``Updater.call_fused`` updates
+the whole set in one multi-tensor pass where the reference has a fused
+plan for it, and parameter by parameter where its ``_fused_plan``
+returns None: multi-precision float16 weights under any optimizer but
+SGD, and a set that mixes float16 and other weights
+(``_fused_supported``).
+
+The optimizers after SGD and Adam (``_PerTensor``: NAG, AdamW, AdaGrad,
+AdaDelta, RMSProp, Ftrl, SignSGD, Signum, Test, and LAMB with its own
+multi-tensor pass) update each parameter with the reference's update op
+(``ops/optimizer_ops.py``), their per-step scalars staged as device
+scalars like Adam's, so ``compile_step`` and
+``DataParallelTrainer(fuse_step=True)`` capture them.
 
 **Row-sparse gradients** (``Embedding(sparse_grad=True)``,
 ``attach_grad(stype="row_sparse")``) take the lazy update when
@@ -61,8 +81,10 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "DeviceScalars",
-           "create", "register", "get_updater", "sgd_multi"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "AdaGrad",
+           "AdaDelta", "RMSProp", "Ftrl", "SignSGD", "Signum", "LAMB", "Test",
+           "Updater", "DeviceScalars", "create", "register", "get_updater",
+           "sgd_multi"]
 
 
 class DeviceScalars:
@@ -120,13 +142,15 @@ class Optimizer:
     def create_optimizer(name, **kwargs):
         key = str(name).lower()
         if key not in Optimizer.opt_registry:
-            raise MXNetError(f"optimizer {name!r} is not ported; options "
+            raise MXNetError(f"Cannot find optimizer {name!r}; options "
                              f"{sorted(Optimizer.opt_registry)}")
         return Optimizer.opt_registry[key](**kwargs)
 
     def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=None, lr_scheduler=None, param_dict=None):
+                 learning_rate=None, lr_scheduler=None, param_dict=None,
+                 multi_precision=False):
         self.rescale_grad = rescale_grad
+        self.multi_precision = multi_precision
         self.lr = learning_rate if learning_rate is not None else 0.01
         self.lr_scheduler = lr_scheduler
         if lr_scheduler is not None and learning_rate is not None:
@@ -181,8 +205,62 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    def _mp(self, weight):
+        """Whether ``weight`` (an NDArray) takes the multi-precision
+        update: ``multi_precision`` on and a float16 weight."""
+        return self.multi_precision and weight.tensor.dtype == torch.float16
+
+    def create_state_multi_precision(self, index, weight):
+        """``(float32 master copy, create_state(master))`` for a float16
+        weight under ``multi_precision``, else ``create_state``."""
+        if self._mp(weight):
+            master = weight.astype("float32")
+            return (master, self.create_state(index, master))
+        return self.create_state(index, weight)
+
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """``update`` on the float32 master of a multi-precision weight
+        (the gradient cast to float32), the master then rounded into the
+        weight; ``update`` itself for any other weight."""
+        if self._mp(weight):
+            master, inner = state
+            self.update(index, master, grad.astype("float32"), inner)
+            with torch.no_grad():
+                weight.tensor.copy_(master.tensor)
+        else:
+            self.update(index, weight, grad, state)
+
+    def _masters(self, weights, grads, states):
+        """The update's operands with each multi-precision weight replaced
+        by its float32 master, its gradient by a float32 copy and its
+        state by the inner state; and the (weight, master) pairs to copy
+        back after the update (:func:`_copy_back`)."""
+        ws, gs, ss, back = [], [], [], []
+        for w, g, s in zip(weights, grads, states):
+            if self._mp(w):
+                master, inner = s
+                back.append((w, master))
+                w, g, s = master, g.astype("float32"), inner
+            ws.append(w)
+            gs.append(g)
+            ss.append(s)
+        return ws, gs, ss, back
+
+    #: the reference has a fused multi-precision plan (multi_mp_sgd_*)
+    _fused_mp = False
+
+    def _fused_supported(self, weights):
+        """Whether ``Updater.call_fused`` may update ``weights`` in one
+        multi-tensor pass: the reference's ``_fused_supported`` (no mix
+        of float16 and other weights under ``multi_precision``) and a
+        fused plan for multi-precision weights (SGD's alone)."""
+        mp = [self._mp(w) for w in weights]
+        if not any(mp):
+            return True
+        return all(mp) and self._fused_mp
 
     def update_multi(self, indices, weights, grads, states):
         """Update the parameters ``indices`` together; here one
@@ -224,6 +302,8 @@ class SGD(Optimizer):
     """SGD with momentum (parity: the reference's SGD):
     ``w -= lr * (clip(rescale_grad * g) + wd * w)``, or with momentum
     ``m = momentum * m - lr * (...)``, ``w += m``."""
+
+    _fused_mp = True
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
@@ -293,9 +373,16 @@ class SGD(Optimizer):
     def apply_multi(self, indices, weights, grads, states):
         """The device side of ``update_multi``: the parameters grouped by
         their (lr_mult, wd_mult), each group one :func:`sgd_multi`; a
-        parameter with a lazy update alone through :meth:`apply`."""
+        parameter with a lazy update alone through :meth:`apply`; a
+        multi-precision one on its float32 master (the reference's
+        ``multi_mp_sgd_update``/``multi_mp_sgd_mom_update``)."""
         if not indices:
             return
+        weights, grads, states, back = self._masters(weights, grads, states)
+        self._apply_multi(indices, weights, grads, states)
+        _copy_back(back)
+
+    def _apply_multi(self, indices, weights, grads, states):
         scalars = self.stage(weights[0].tensor.device)
         groups = {}
         for i, w, g, s in zip(indices, weights, grads, states):
@@ -346,6 +433,13 @@ def sgd_multi(weights, grads, moms, lr, wd, rescale, momentum, clip):
     torch._foreach_add_(weights, moms)
 
 
+def _copy_back(pairs):
+    """Round each float32 master into its weight, in place."""
+    with torch.no_grad():
+        for weight, master in pairs:
+            weight.tensor.copy_(master.tensor)
+
+
 class Updater:
     """Applies an optimizer's update per parameter index, holding the
     states (parity: ``mx.optimizer.Updater``)."""
@@ -354,14 +448,18 @@ class Updater:
         self.optimizer = optimizer
         self.states = {}
 
+    def _ensure_state(self, i, w):
+        if i not in self.states:
+            self.states[i] = self.optimizer.create_state_multi_precision(
+                i, w)
+
     def __call__(self, index, grad, weight):
         indices = index if isinstance(index, (list, tuple)) else [index]
         grads = grad if isinstance(grad, (list, tuple)) else [grad]
         weights = weight if isinstance(weight, (list, tuple)) else [weight]
         for i, g, w in zip(indices, grads, weights):
-            if i not in self.states:
-                self.states[i] = self.optimizer.create_state(i, w)
-            self.optimizer.update(i, w, g, self.states[i])
+            self._ensure_state(i, w)
+            self.optimizer.update_multi_precision(i, w, g, self.states[i])
 
     def get_states(self, dump_optimizer=False):
         """The states (and with ``dump_optimizer`` the optimizer, its
@@ -385,10 +483,16 @@ class Updater:
 
     def call_fused(self, indices, grads, weights):
         """Update the parameters ``indices`` together
-        (``Optimizer.update_multi``), making any missing state first."""
+        (``Optimizer.update_multi``), making any missing state first; one
+        at a time (``update_multi_precision``) where the reference has no
+        fused plan for them (``Optimizer._fused_supported``)."""
         for i, w in zip(indices, weights):
-            if i not in self.states:
-                self.states[i] = self.optimizer.create_state(i, w)
+            self._ensure_state(i, w)
+        if not self.optimizer._fused_supported(weights):
+            for i, g, w in zip(indices, grads, weights):
+                self.optimizer.update_multi_precision(i, w, g,
+                                                      self.states[i])
+            return
         self.optimizer.update_multi(indices, weights, grads,
                                     [self.states[i] for i in indices])
 
@@ -511,6 +615,7 @@ class Adam(Optimizer):
     def _apply_groups(self, indices, weights, grads, states, t):
         if not indices:
             return
+        weights, grads, states, back = self._masters(weights, grads, states)
         scalars = self.stage(weights[0].tensor.device, t)
         groups = {}
         for i, w, g, s in zip(indices, weights, grads, states):
@@ -525,6 +630,7 @@ class Adam(Optimizer):
             ws, gs, ss = zip(*members)
             self.apply_tensors(list(ws), list(gs), list(ss), scalars,
                                mults)
+        _copy_back(back)
 
     @torch.no_grad()
     def _apply_lazy(self, weight, grad, state, scalars, mults):
@@ -580,6 +686,386 @@ class Adam(Optimizer):
         torch._foreach_sub_(weights, step)
 
 
+class _PerTensor(Optimizer):
+    """An optimizer whose update is the reference's update op, one
+    parameter at a time, with its per-step scalars on the device.
+
+    ``_SCALARS`` names the scalars :meth:`host_scalars` computes for step
+    ``t``: first the learning rate and ``wd`` (each parameter's
+    ``lr_mult`` and ``wd_mult`` scale them), then ``rescale_grad``, then
+    any of the subclass's own.  ``_STATES`` is the number of state arrays
+    a parameter has, ``_STATIC`` the attributes baked into the update
+    (the capture's static key).  ``_rule(w, g, states, *scalars)``
+    returns the new weight and states; :meth:`apply_tensors` writes them
+    in place."""
+
+    _SCALARS = ("lr", "wd", "rescale_grad")
+    _STATES = 1
+    _STATIC = ()
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self._scalars = DeviceScalars(self._SCALARS)
+
+    def create_state(self, index, weight):
+        from .ndarray.ndarray import zeros
+        zs = tuple(zeros(weight.shape, ctx=weight.context,
+                         dtype=weight.dtype.name)
+                   for _ in range(self._STATES))
+        return None if not zs else zs[0] if len(zs) == 1 else zs
+
+    def create_tensor_state(self, weight):
+        """The states of a tensor ``weight``, as tensors
+        (``DataParallelTrainer``)."""
+        return tuple(torch.zeros_like(weight) for _ in range(self._STATES))
+
+    @property
+    def capturable(self):
+        return type(self).update is _PerTensor.update
+
+    def host_scalars(self, t):
+        """The values of ``_SCALARS`` at step ``t``."""
+        return (self.learning_rate, self.wd, self.rescale_grad)
+
+    def stage(self, device, t=None):
+        """Write step ``t``'s scalars (default: at ``num_update``) into
+        the device scalars of ``device``; returns their 0-d views."""
+        t = self.num_update if t is None else t
+        return self._scalars.write(device, self.host_scalars(t))
+
+    def static_key(self, indices=()):
+        return super().static_key(indices) + tuple(
+            getattr(self, n) for n in self._STATIC) + (bool(self.wd),)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        self._apply_groups([index], [weight], [grad], [state],
+                           self._index_update_count[index])
+
+    def update_multi(self, indices, weights, grads, states):
+        for i in indices:
+            self._update_count(i)
+        by_t = {}
+        for j, i in enumerate(indices):
+            by_t.setdefault(self._index_update_count[i], []).append(j)
+        for t, js in by_t.items():
+            self._apply_groups([indices[j] for j in js],
+                               [weights[j] for j in js],
+                               [grads[j] for j in js],
+                               [states[j] for j in js], t)
+
+    def apply_multi(self, indices, weights, grads, states):
+        """The device side of ``update_multi``, at step ``num_update``."""
+        self._apply_groups(indices, weights, grads, states, self.num_update)
+
+    def _apply_groups(self, indices, weights, grads, states, t):
+        if not indices:
+            return
+        weights, grads, states, back = self._masters(weights, grads, states)
+        scalars = self.stage(weights[0].tensor.device, t)
+        groups = {}
+        for i, w, g, s in zip(indices, weights, grads, states):
+            p = self.param_dict.get(i)
+            mults = (1.0, 1.0) if p is None else (p.lr_mult, p.wd_mult)
+            groups.setdefault(mults, []).append(
+                (w.tensor, g.tensor, _state_tensors(s)))
+        for mults, members in groups.items():
+            ws, gs, ss = zip(*members)
+            self.apply_tensors(list(ws), list(gs), list(ss), scalars,
+                               mults)
+        _copy_back(back)
+
+    @torch.no_grad()
+    def apply_tensors(self, weights, grads, states, scalars,
+                      mults=(1.0, 1.0)):
+        """The update of parallel lists of weight, gradient and state
+        tensors (a tuple a parameter), in place, with the staged
+        ``scalars`` times ``mults`` (lr_mult, wd_mult)."""
+        lr, wd, *rest = scalars
+        if mults[0] != 1.0:
+            lr = lr * mults[0]
+        if mults[1] != 1.0:
+            wd = wd * mults[1]
+        for w, g, st in zip(weights, grads, states):
+            new = self._rule(w, g, tuple(st), lr, wd, *rest)
+            for dst, src in zip((w, *st), new):
+                dst.copy_(src)
+
+    def _rule(self, weight, grad, states, lr, wd, rescale, *extra):
+        raise NotImplementedError
+
+
+def _state_tensors(state):
+    """A parameter's state as a tuple of tensors."""
+    from .ndarray.ndarray import NDArray
+    if state is None:
+        return ()
+    if isinstance(state, NDArray):
+        return (state.tensor,)
+    return tuple(s.tensor for s in state)
+
+
+def _adam_corrected_lr(o, t):
+    """Adam's learning rate with step ``t``'s bias correction."""
+    return (o.learning_rate * math.sqrt(1.0 - o.beta2 ** t)
+            / (1.0 - o.beta1 ** t))
+
+
+@register
+class NAG(_PerTensor):
+    """Nesterov accelerated SGD (``nag_mom_update``)."""
+
+    _STATIC = ("momentum",)
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def _rule(self, w, g, states, lr, wd, rescale):
+        from .ops.optimizer_ops import nag_mom_update
+        return nag_mom_update(w, g, states[0], lr, wd, rescale,
+                              momentum=self.momentum,
+                              clip_gradient=self._clip())
+
+
+@register
+class AdamW(_PerTensor):
+    """Adam with decoupled weight decay (``adamw_update``, ``eta`` 1), the
+    bias correction on the learning rate as Adam's."""
+
+    _SCALARS = ("lr_t", "wd", "rescale_grad")
+    _STATES = 2
+    _STATIC = ("beta1", "beta2", "epsilon")
+
+    def __init__(self, learning_rate=None, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=0.001 if learning_rate is None
+                         else learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def host_scalars(self, t):
+        return (_adam_corrected_lr(self, t), self.wd, self.rescale_grad)
+
+    def _rule(self, w, g, states, lr_t, wd, rescale):
+        from .ops.optimizer_ops import adamw_update
+        return adamw_update(w, g, *states, lr_t, 1.0, wd, rescale,
+                            beta1=self.beta1, beta2=self.beta2,
+                            epsilon=self.epsilon,
+                            clip_gradient=self._clip())
+
+
+@register
+class AdaGrad(_PerTensor):
+    """AdaGrad (``adagrad_update``)."""
+
+    _STATIC = ("float_stable_eps",)
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def _rule(self, w, g, states, lr, wd, rescale):
+        from .ops.optimizer_ops import adagrad_update
+        return adagrad_update(w, g, states[0], lr, wd, rescale,
+                              epsilon=self.float_stable_eps,
+                              clip_gradient=self._clip())
+
+
+@register
+class AdaDelta(_PerTensor):
+    """AdaDelta (``adadelta_update``); the learning rate is not used."""
+
+    _STATES = 2
+    _STATIC = ("rho", "epsilon")
+
+    def __init__(self, rho=0.9, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def _rule(self, w, g, states, lr, wd, rescale):
+        from .ops.optimizer_ops import adadelta_update
+        return adadelta_update(w, g, *states, wd, rescale, rho=self.rho,
+                               epsilon=self.epsilon,
+                               clip_gradient=self._clip())
+
+
+@register
+class RMSProp(_PerTensor):
+    """RMSProp (``rmsprop_update``); ``centered=True`` is Graves' variant
+    (``rmspropalex_update``, states n, g, delta)."""
+
+    _STATIC = ("gamma1", "gamma2", "epsilon", "centered", "clip_weights")
+
+    def __init__(self, learning_rate=None, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=0.001 if learning_rate is None
+                         else learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+        self._STATES = 3 if centered else 1
+
+    def _rule(self, w, g, states, lr, wd, rescale):
+        from .ops.optimizer_ops import rmsprop_update, rmspropalex_update
+        cw = -1.0 if self.clip_weights is None else float(self.clip_weights)
+        kw = dict(gamma1=self.gamma1, epsilon=self.epsilon,
+                  clip_gradient=self._clip(), clip_weights=cw)
+        if self.centered:
+            return rmspropalex_update(w, g, *states, lr, wd, rescale,
+                                      gamma2=self.gamma2, **kw)
+        return rmsprop_update(w, g, states[0], lr, wd, rescale, **kw)
+
+
+@register
+class Ftrl(_PerTensor):
+    """FTRL-proximal (``ftrl_update``, states z and n)."""
+
+    _STATES = 2
+    _STATIC = ("lamda1", "beta")
+
+    def __init__(self, lamda1=0.01, learning_rate=None, beta=1.0, **kwargs):
+        super().__init__(learning_rate=0.1 if learning_rate is None
+                         else learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def _rule(self, w, g, states, lr, wd, rescale):
+        from .ops.optimizer_ops import ftrl_update
+        return ftrl_update(w, g, *states, lr, wd, rescale,
+                           lamda1=self.lamda1, beta=self.beta,
+                           clip_gradient=self._clip())
+
+
+@register
+class SignSGD(_PerTensor):
+    """SGD on the gradient's sign (``signsgd_update``), no state."""
+
+    _STATES = 0
+
+    def __init__(self, learning_rate=None, **kwargs):
+        super().__init__(learning_rate=0.01 if learning_rate is None
+                         else learning_rate, **kwargs)
+
+    def _rule(self, w, g, states, lr, wd, rescale):
+        from .ops.optimizer_ops import signsgd_update
+        return (signsgd_update(w, g, lr, wd, rescale,
+                               clip_gradient=self._clip()),)
+
+
+@register
+class Signum(_PerTensor):
+    """Signum: the sign of a momentum (``signum_update``)."""
+
+    _STATIC = ("momentum", "wd_lh")
+
+    def __init__(self, learning_rate=None, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=0.01 if learning_rate is None
+                         else learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def _rule(self, w, g, states, lr, wd, rescale):
+        from .ops.optimizer_ops import signum_update
+        return signum_update(w, g, states[0], lr, wd, rescale,
+                             momentum=self.momentum,
+                             clip_gradient=self._clip(), wd_lh=self.wd_lh)
+
+
+@register
+class Test(_PerTensor):
+    """The reference's test optimizer: ``w -= lr (rescale g + wd w)``
+    (``sgd_update``), with a zero state it never reads."""
+
+    def _rule(self, w, g, states, lr, wd, rescale):
+        from .ops.optimizer_ops import sgd_update
+        return (sgd_update(w, g, lr, wd, rescale,
+                           clip_gradient=self._clip()),)
+
+
+@register
+class LAMB(_PerTensor):
+    """LAMB (You et al. 2019): Adam's moments, the direction
+    ``m^ / (sqrt(v^) + epsilon) + wd w`` (bias-corrected at the
+    parameter's step ``t`` when ``bias_correction``), and a step of
+    ``lr * trust`` along it, trust = ||w|| / ||direction|| where both are
+    positive (else 1), clamped to ``lower_bound``/``upper_bound``: the
+    reference's ``lamb_update_phase1``/``_phase2`` and
+    ``multi_lamb_update``.  A set of parameters is one multi-tensor pass
+    (``torch._foreach_*``, the norms by ``_foreach_norm``); the step's
+    ``1 - beta^t`` are device scalars beside ``lr``, ``wd`` and
+    ``rescale_grad``."""
+
+    _SCALARS = ("lr", "wd", "rescale_grad", "bias1", "bias2")
+    _STATES = 2
+    _STATIC = ("beta1", "beta2", "epsilon", "lower_bound", "upper_bound",
+               "bias_correction")
+
+    def __init__(self, learning_rate=None, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=0.001 if learning_rate is None
+                         else learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.lower_bound = lower_bound
+        self.upper_bound = upper_bound
+        self.bias_correction = bias_correction
+
+    def host_scalars(self, t):
+        from .ops.optimizer_ops import _bias_denominator
+        return (self.learning_rate, self.wd, self.rescale_grad,
+                _bias_denominator(self.beta1, t),
+                _bias_denominator(self.beta2, t))
+
+    @torch.no_grad()
+    def apply_tensors(self, weights, grads, states, scalars,
+                      mults=(1.0, 1.0)):
+        lr, wd, rescale, bias1, bias2 = scalars
+        if mults[0] != 1.0:
+            lr = lr * mults[0]
+        if mults[1] != 1.0:
+            wd = wd * mults[1]
+        for lo, hi in _spans(weights, _PASS_ELEMENTS):
+            self._lamb_pass(weights[lo:hi], grads[lo:hi], states[lo:hi], lr,
+                            wd, rescale, bias1, bias2)
+
+    def _lamb_pass(self, weights, grads, states, lr, wd, rescale, bias1,
+                   bias2):
+        from .ops.optimizer_ops import _trust_ratio
+        means = [s[0] for s in states]
+        variances = [s[1] for s in states]
+        g = torch._foreach_mul(grads, rescale)
+        clip = self._clip()
+        if clip > 0:
+            torch._foreach_clamp_min_(g, -clip)
+            torch._foreach_clamp_max_(g, clip)
+        torch._foreach_mul_(means, self.beta1)
+        torch._foreach_add_(means, g, alpha=1.0 - self.beta1)
+        torch._foreach_mul_(variances, self.beta2)
+        torch._foreach_addcmul_(variances, g, g, value=1.0 - self.beta2)
+        m, v = means, variances
+        if self.bias_correction:
+            m = torch._foreach_div(means, bias1)
+            v = torch._foreach_div(variances, bias2)
+        denom = torch._foreach_sqrt(v)
+        torch._foreach_add_(denom, self.epsilon)
+        direction = torch._foreach_div(m, denom)
+        if self.wd:
+            torch._foreach_add_(direction, torch._foreach_mul(weights, wd))
+        trust = _trust_ratio(torch.stack(torch._foreach_norm(weights)),
+                             torch.stack(torch._foreach_norm(direction)),
+                             self.lower_bound, self.upper_bound)
+        torch._foreach_mul_(direction, list((-lr * trust).unbind(0)))
+        torch._foreach_add_(weights, direction)
+
+
 #: elements of one multi-tensor pass of Adam (a tensor larger than this
 #: is a pass of its own): the pass's temporaries (the scaled gradient,
 #: the step) are at most twice this, not twice the model
@@ -601,5 +1087,5 @@ def _spans(tensors, limit):
 
 
 def create(name, **kwargs):
-    """An optimizer by name: ``"sgd"`` or ``"adam"``."""
+    """An optimizer by its registered name (``"sgd"``, ``"lamb"``, ...)."""
     return Optimizer.create_optimizer(name, **kwargs)

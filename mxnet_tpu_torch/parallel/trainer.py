@@ -5,9 +5,11 @@ package's ``parallel/trainer.py``.
 ``loss_fn(block(*data), label)``), the backward (``torch.autograd.grad``
 of the loss, never accumulated in ``.grad``) and the optimizer's update
 of every trainable parameter, and returns the loss.  The optimizer is
-``"adam"`` or ``"sgd"`` (with or without momentum), each one rule of the
-reference's ``_FUSED_RULES``: one multi-tensor update over every
-parameter.  A block with deferred parameter shapes gets them from one
+one of the reference's ``_FUSED_RULES``: ``"adam"`` or ``"sgd"`` (with
+or without momentum), each one multi-tensor update over every
+parameter; NAG, RMSProp, AdamW and AdaGrad are the reference's other
+fused rules, each the optimizer's own update over every parameter.  A
+block with deferred parameter shapes gets them from one
 predict-mode call on the first batch, without recording, as the
 reference's ``_setup`` does.  Updates the forward makes in place
 (BatchNorm's running statistics, in training mode) happen inside the
@@ -22,14 +24,15 @@ they see tensors and the loss is a 0-d tensor.
 eagerly, the next is captured, and every later one replays the graph;
 Adam's per-step scalars (the bias-corrected learning rate, ``wd``,
 ``rescale_grad``) go in through device tensors, so a replay computes
-exactly the step an eager call would; SGD's learning rate, ``wd`` and
-``rescale_grad`` likewise.  ``step_multi`` runs K such steps over
+exactly the step an eager call would; the other optimizers' learning
+rate, ``wd`` and ``rescale_grad`` likewise.  ``step_multi`` runs K such steps over
 (K, B, ...) batches, or over one batch with ``repeat=K``, and returns the
 K losses.  ``fuse_step=False`` runs every step eagerly.  On the CPU both
 run the same step body eagerly.  A hybridized block runs inline inside
 the step (``gluon/block.py``).  Not ported: meshes of more than one
-device, the optimizers other than Adam and SGD, gradient compression
-and sharding plans.
+device, gradient compression and sharding plans.  The reference's
+RMSProp rule runs the plain update whatever ``centered`` says; the
+port's runs the optimizer's own (ROADMAP queue 3, R2).
 """
 from __future__ import annotations
 
@@ -58,7 +61,18 @@ class _Rule(NamedTuple):
     static_key: Callable
 
 
-# the reference's _FUSED_RULES (parallel/trainer.py:90-135) that are ported
+def _per_tensor_rule():
+    """The rule of an optimizer whose update is one op a parameter
+    (``optimizer._PerTensor``)."""
+    return _Rule(
+        lambda o, params: [o.create_tensor_state(p) for p in params],
+        lambda o, device, t: o.stage(device, t),
+        lambda o, params, grads, states, scalars: o.apply_tensors(
+            params, list(grads), states, scalars),
+        lambda o: o.static_key(()))
+
+
+# the reference's _FUSED_RULES (parallel/trainer.py:90-135)
 _FUSED_RULES = {
     "Adam": _Rule(
         lambda o, params: [(torch.zeros_like(p), torch.zeros_like(p))
@@ -74,6 +88,10 @@ _FUSED_RULES = {
         lambda o, params, grads, states, scalars: o.apply_tensors(
             params, list(grads), states, scalars),
         lambda o: o.static_key(())),
+    "NAG": _per_tensor_rule(),
+    "RMSProp": _per_tensor_rule(),
+    "AdamW": _per_tensor_rule(),
+    "AdaGrad": _per_tensor_rule(),
 }
 
 
@@ -96,7 +114,8 @@ class DataParallelTrainer:
       block: the model, an ``nn.Module`` with its parameters on the
         mesh's device.
       loss_fn: ``(outputs, label) -> loss``; the step takes its mean.
-      optimizer: the optimizer's name, ``"adam"`` or ``"sgd"``.
+      optimizer: the optimizer's name: ``"adam"``, ``"sgd"``, ``"nag"``,
+        ``"rmsprop"``, ``"adamw"`` or ``"adagrad"``.
       optimizer_params: its keyword arguments.
       mesh: ``make_mesh({"dp": 1}, devices=[...])``; default: the mesh
         of the block's device.
@@ -111,8 +130,9 @@ class DataParallelTrainer:
         self.optimizer = opt.create(optimizer, **(optimizer_params or {}))
         self._rule = _FUSED_RULES.get(type(self.optimizer).__name__)
         if self._rule is None:
-            raise MXNetError(f"optimizer {optimizer!r} is not ported for "
-                             f"DataParallelTrainer, which has "
+            raise MXNetError(f"optimizer {optimizer!r} has no fused rule "
+                             "(the reference's two-phase step for it is "
+                             "not ported); DataParallelTrainer has "
                              f"{sorted(r.lower() for r in _FUSED_RULES)}")
         if mesh is None:
             mesh = make_mesh({"dp": 1}, devices=[_device_of(block)])

@@ -4,7 +4,10 @@ package.
 Inputs are made with numpy from a seed and fed to both packages.  The
 JAX flash kernel runs in Pallas interpret mode; on the CPU the port's
 wrapper runs its kernel's plain version.  Tolerances: f32 2e-5 (the
-JAX package's own interpret-vs-oracle tolerance), bf16 2e-2.
+JAX package's own interpret-vs-oracle tolerance), bf16 2e-2, float16
+1e-2 (``mxnet_tpu/test_utils.py``'s float16 rtol and atol: the port
+rounds P to float16 for the tensor cores where the JAX kernel keeps it
+in f32, at most 2^-11 relative).
 """
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from mxnet_tpu_torch.ops import flash_attention as tfa
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
+F16_TOL = 1e-2
 
 
 @pytest.fixture
@@ -115,6 +119,54 @@ def test_flash_bf16_cases_match_jax_kernel(interpret, case):
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_TOL,
                                atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(dict(s_q=128, s_k=256, causal=True), id="cross-causal"),
+    pytest.param(dict(causal=True, window=100, s_q=256, s_k=256),
+                 id="window100"),
+    pytest.param(dict(d=72, causal=True), id="d72-causal"),
+    pytest.param(dict(b=2, mask=True), id="key-padding"),
+])
+def test_flash_f16_matches_jax_kernel(interpret, case):
+    """float16 through the JAX kernel (f32 scores and P) and the port's
+    float16 route (P rounded to float16), output in float16."""
+    b, d = case.get("b", 1), case.get("d", 64)
+    s_q, s_k = case.get("s_q", 128), case.get("s_k", 128)
+    q, k, v = _qkv(b, s_q, s_k, 2, d, seed=41 + d)
+    mask_np = _key_padding(b, s_k)[:, None, None, :] if case.get("mask") \
+        else None
+    kw = dict(causal=case.get("causal", False), window=case.get("window"))
+    want = np.asarray(fa_mod.flash_attention(
+        *(jnp.asarray(x, jnp.float16) for x in (q, k, v)),
+        mask=None if mask_np is None else jnp.asarray(mask_np),
+        **kw).astype(jnp.float32))
+    got = tfa.flash_attention(
+        *(torch.from_numpy(x).half() for x in (q, k, v)),
+        mask=None if mask_np is None else torch.from_numpy(mask_np), **kw)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=F16_TOL,
+                               atol=F16_TOL)
+
+
+def test_float16_attention_takes_the_flash_kernels(monkeypatch):
+    """F6: float16 inputs pass ``_flash_viable``, so
+    ``dot_product_attention`` sends them to the flash route (the kernels
+    on the card, their plain versions here) and never to ``sdpa_plain``,
+    as the JAX package's dispatch does not look at the dtype."""
+    q, k, v = (torch.from_numpy(x).half() for x in _qkv(2, 128, 128, 4, 32,
+                                                         kv=2, seed=3))
+    assert tattn._flash_viable(q, k, v)
+
+    def refuse(*a, **kw):
+        raise AssertionError("float16 attention took sdpa_plain")
+    monkeypatch.setattr(tattn, "sdpa_plain", refuse)
+    calls = []
+    plain = tfa.flash_attention_plain
+    monkeypatch.setattr(tfa, "flash_attention_plain",
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    out = tattn.dot_product_attention(q, k, v, causal=True)
+    assert out.dtype == torch.float16 and calls == [1]
 
 
 def test_flash_lse_matches_jax_kernel(interpret):
@@ -256,8 +308,8 @@ def test_backward_not_ported_raises():
     assert k.grad is None
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
 def test_viable_shapes_pass_the_tile_checks(dtype):
     """Every shape ``_flash_viable`` sends to the kernels (lengths
     128-1024, head dims 8-256) passes both wrappers' tile checks, the

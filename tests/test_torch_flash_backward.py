@@ -4,7 +4,10 @@ The same numpy inputs and cotangent go through ``jax.vjp`` of the JAX
 ``flash_attention`` (its Pallas kernels ``_dq_kernel`` and
 ``_dkv_kernel`` in interpret mode) and through the port's ``_FlashFwd``
 and ``torch.autograd`` (on the CPU, ``flash_bwd_plain``).  Tolerances,
-as in the JAX package's own backward tests: f32 2e-5, bf16 2e-2.
+as in the JAX package's own backward tests: f32 2e-5, bf16 2e-2; float16
+1e-2 (``mxnet_tpu/test_utils.py``'s float16 rtol and atol: the port
+rounds P and dS to float16 for the tensor cores where the JAX kernels
+keep them in f32).
 Gradients the mask forces to zero (a query that sees no key, a key no
 query sees) are checked for exact equality with 0.
 """
@@ -22,6 +25,7 @@ from mxnet_tpu_torch.ops.attention import dot_product_attention
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
+F16_TOL = 1e-2
 
 
 @pytest.fixture
@@ -159,6 +163,32 @@ def test_flash_backward_bf16_cases_match_jax_kernels(interpret, case):
                        dtype=torch.bfloat16)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a, w, rtol=BF16_TOL, atol=BF16_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(dict(causal=False), id="full"),
+    pytest.param(dict(causal=True, s_q=128, s_k=256), id="cross-causal"),
+    pytest.param(dict(causal=True, window=100, s_q=256, s_k=256),
+                 id="window100"),
+    pytest.param(dict(causal=True, d=72), id="d72-causal"),
+    pytest.param(dict(b=2, lens=(77, 128)), id="key-padding"),
+])
+def test_flash_backward_f16_matches_jax_kernels(interpret, case):
+    """float16 gradients: the JAX kernels keep P and dS in f32, the
+    port's float16 route rounds them to float16."""
+    b, d = case.get("b", 1), case.get("d", 64)
+    s_q, s_k = case.get("s_q", 128), case.get("s_k", 128)
+    q, k, v, ct = _inputs(b, s_q, s_k, 2, d, seed=43 + d)
+    mask = None
+    if "lens" in case:
+        mask = _key_padding(b, s_k, case["lens"])[:, None, None, :]
+    kw = dict(causal=case.get("causal", False), window=case.get("window"))
+    want = _jax_grads(q, k, v, ct, mask, dtype=jnp.float16, **kw)
+    got = _torch_grads(q, k, v, ct, mask, dtype=torch.float16, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, w, rtol=F16_TOL, atol=F16_TOL,
                                    err_msg=name)
 
 

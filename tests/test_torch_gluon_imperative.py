@@ -260,8 +260,10 @@ def test_trainer_surface_and_checks():
         gluon.Trainer(params, "sgd", kvstore="dist_sync")
     assert isinstance(gluon.Trainer(params, "adam").optimizer,
                       mx.optimizer.Adam)
-    with pytest.raises(MXNetError, match="not ported"):
-        gluon.Trainer(params, "lamb")
+    assert isinstance(gluon.Trainer(params, "lamb").optimizer,
+                      mx.optimizer.LAMB)
+    with pytest.raises(MXNetError, match="Cannot find optimizer"):
+        gluon.Trainer(params, "nadam")
     with pytest.raises(ValueError):
         gluon.Trainer([1, 2], "sgd")
     o = mx.optimizer.SGD(learning_rate=0.1)

@@ -11,7 +11,8 @@ package's Pallas kernels.  This checks the tensor-core kernels' fragment
 layouts, masks, tile skips, head-dim padding and GQA sums, and the
 CUDA-core kernels, without a card.  Tolerances are ``chip_smoke.py``'s:
 bf16 2e-2 (the forward absolute, each gradient times max(1, max|ref|)),
-f32 1e-4; a gradient the mask forces to zero must be exactly 0.
+f16 1e-2 (``test_utils``' float16 tolerance), f32 1e-4; a gradient the
+mask forces to zero must be exactly 0.
 """
 import ctypes
 import re
@@ -28,7 +29,7 @@ from mxnet_tpu_torch.ops.attention import _causal_band
 REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "mxnet_tpu_torch" / "csrc"
 EMU = Path(__file__).resolve().parent / "torch_kernel_emu"
-TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+TOL = {torch.bfloat16: 2e-2, torch.float16: 1e-2, torch.float32: 1e-4}
 MISALIGNED = 716  # cudaErrorMisalignedAddress
 
 # the inline-PTX helpers of flash_tc.cuh that emu_tc.h stands in for
@@ -39,7 +40,8 @@ _ASM_FNS = ("smem_addr", "cp_async16", "cp_async_commit", "ldsm_x4",
 def _emulated_header():
     hdr = (CSRC / "flash_tc.cuh").read_text()
     for name in _ASM_FNS:
-        m = re.search(r"\n(__device__ __forceinline__ [^\n]*\b%s\([^)]*\)"
+        m = re.search(r"\n((?:template <typename T>\n)?__device__ "
+                      r"__forceinline__ [^\n]*\b%s\([^)]*\)"
                       r"[^{]*\{.*?\n\})\n" % name, hdr, re.S)
         assert m, name
         hdr = hdr.replace(m.group(1), "")
@@ -47,8 +49,8 @@ def _emulated_header():
                   r"cp_async_wait\(\) \{.*?\n\})\n", hdr, re.S)
     assert m
     hdr = hdr.replace(m.group(1), "")
-    return hdr.replace("typedef __nv_bfloat16 bf16;",
-                       "typedef __nv_bfloat16 bf16;\n"
+    return hdr.replace("typedef __half f16;",
+                       "typedef __half f16;\n"
                        + (EMU / "emu_tc.h").read_text())
 
 
@@ -73,7 +75,7 @@ def libs(tmp_path_factory):
         pytest.skip("no g++ to build the kernel sources for the CPU")
     out = tmp_path_factory.mktemp("kernel_emu")
     (out / "flash_tc.cuh").write_text(_emulated_header())
-    for h in ("cuda_bf16.h", "cuda_runtime.h"):
+    for h in ("cuda_bf16.h", "cuda_fp16.h", "cuda_runtime.h"):
         (out / h).write_text("")
     procs = {}
     for name in ("flash_fwd", "flash_bwd"):
@@ -128,6 +130,15 @@ FWD_CASES = [
     pytest.param(dict(causal=True, dtype=torch.float32), id="f32-causal"),
     pytest.param(dict(b=2, lens=(100, 128), window=50, causal=True,
                       dtype=torch.float32), id="f32-window-key-padding"),
+    # the f16 route: the same tensor-core kernel with f16 operands
+    pytest.param(dict(b=2, lens=(0, 77), dtype=torch.float16),
+                 id="f16-key-padding-empty-row"),
+    pytest.param(dict(s_k=192, causal=True, dtype=torch.float16),
+                 id="f16-odd-key-tiles"),
+    pytest.param(dict(h=4, kv=2, d=72, causal=True, dtype=torch.float16),
+                 id="f16-d72-causal"),
+    pytest.param(dict(s_q=64, d=128, causal=True, dtype=torch.float16),
+                 id="f16-d128-causal"),
 ]
 
 
@@ -147,7 +158,7 @@ def test_flash_fwd_source_matches_plain(libs, case):
         q, k, v, out, lse, kmask, scale, causal, window), None)
     assert rc == 0
     assert libs[0].mxtpu_flash_fwd_tc(tfa._DTYPE_CODES[dtype]) == \
-        (dtype == torch.bfloat16)
+        (dtype != torch.float32)
     ref, ref_lse = tfa.flash_attention_plain(
         q, k, v, scale, causal=causal, kmask=kmask, window=window,
         want_lse=True)
@@ -182,6 +193,15 @@ BWD_CASES = [
     # row that sees every key
     pytest.param(dict(b=2, s_q=64, h=1, lens=(70, 128)),
                  id="key-padding-two-key-tiles"),
+    # the f16 route
+    pytest.param(dict(b=2, h=1, lens=(100, 0), causal=True,
+                      dtype=torch.float16), id="f16-causal-key-padding"),
+    pytest.param(dict(h=4, kv=2, d=72, causal=True, dtype=torch.float16),
+                 id="f16-d72-gqa-causal"),
+    pytest.param(dict(s_q=64, h=4, kv=2, dtype=torch.float16),
+                 id="f16-d64-multihead"),
+    pytest.param(dict(s_q=64, h=1, d=128, causal=True, dtype=torch.float16),
+                 id="f16-d128-causal"),
 ]
 
 
@@ -212,8 +232,8 @@ def test_flash_bwd_sources_match_plain(libs, case):
                                       None) == 0
     assert libs[1].mxtpu_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
                                        code, *args, None) == 0
-    assert libs[1].mxtpu_flash_bwd_dq_tc(code) == (dtype == torch.bfloat16)
-    assert libs[1].mxtpu_flash_bwd_dkv_tc(code) == (dtype == torch.bfloat16)
+    assert libs[1].mxtpu_flash_bwd_dq_tc(code) == (dtype != torch.float32)
+    assert libs[1].mxtpu_flash_bwd_dkv_tc(code) == (dtype != torch.float32)
     ref = tfa.flash_bwd_plain(q, k, v, out, lse, do, scale, causal=causal,
                               kmask=kmask, window=window)
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):

@@ -435,13 +435,21 @@ def test_chunked_softmax_ce_checks():
 def test_every_op_has_a_case():
     """Each registered op is held against the JAX package here (the
     Llama blocks' ops in LLAMA_OPS), in test_torch_conv_ops.py
-    (CONV_OPS), test_torch_rnn.py (RNN_OPS) or test_torch_nn_layers.py
-    (NN_LAYER_OPS), or by its statistics in test_torch_autograd.py (the
-    samplers, Dropout)."""
+    (CONV_OPS), test_torch_rnn.py (RNN_OPS), test_torch_nn_layers.py
+    (NN_LAYER_OPS), test_torch_optimizer.py (the update ops) or
+    test_torch_amp.py (AMP's ops), or by its statistics in
+    test_torch_autograd.py (the samplers, Dropout)."""
+    from test_torch_optimizer import UPDATE_OPS
     covered = set(UNARY) | set(SCALAR) | set(BROADCAST) | set(CREATION) \
         | {n for n, _ in REDUCE} | set(SHAPE) | {"argmax", "argmin"} \
         | {"sgd_update", "sgd_mom_update", "adam_update",
            "clip_by_global_norm", "add_n", "ElementWiseSum"} \
+        | {u[0] for u in UPDATE_OPS} \
+        | {"lamb_update_phase1", "lamb_update_phase2", "multi_sgd_update",
+           "multi_sgd_mom_update", "multi_mp_sgd_update",
+           "multi_mp_sgd_mom_update", "multi_adam_update",
+           "multi_lamb_update", "multi_sum_sq", "multi_lars"} \
+        | {"amp_cast", "amp_multicast", "all_finite", "multi_all_finite"} \
         | RANDOM_OPS | CONV_OPS \
         | RNN_OPS | NN_LAYER_OPS | set(LLAMA_OPS)
     missing = sorted(set(list_ops()) - covered)

@@ -76,6 +76,46 @@ inline float __bfloat162float(__nv_bfloat16 b) {
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16(a), __float2bfloat16(b)};
 }
+// IEEE half by hand: f32 -> f16 to nearest even (subnormals kept, past
+// 65504 to infinity), f16 -> f32 exactly.
+struct __half {
+  uint16_t x;
+};
+struct __half2 {
+  __half x, y;
+};
+inline __half __float2half_rn(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  const uint16_t sign = uint16_t((u >> 16) & 0x8000u);
+  const uint32_t a = u & 0x7fffffffu;
+  if (a > 0x7f800000u) return {uint16_t(sign | 0x7e00u)};
+  if (a >= 0x477ff000u) return {uint16_t(sign | 0x7c00u)};  // >= 65520
+  if (a < 0x38800000u) {                                      // below 2^-14
+    float af;
+    memcpy(&af, &a, 4);
+    return {uint16_t(sign | uint32_t(std::nearbyint(af * 16777216.0f)))};
+  }
+  uint32_t h = ((((a >> 23) - 112u) << 10) | ((a & 0x7fffffu) >> 13));
+  const uint32_t rem = a & 0x1fffu;
+  if (rem > 0x1000u || (rem == 0x1000u && (h & 1u))) ++h;
+  return {uint16_t(sign | h)};
+}
+inline float __half2float(__half v) {
+  const uint32_t sign = uint32_t(v.x & 0x8000u) << 16;
+  const uint32_t e = (v.x >> 10) & 0x1fu, m = v.x & 0x3ffu;
+  if (e == 0) {
+    const float f = float(m) * 5.9604644775390625e-8f;  // m * 2^-24
+    return sign ? -f : f;
+  }
+  const uint32_t u = sign | (e == 31 ? 0x7f800000u | (m << 13) : ((e + 112u) << 23) | (m << 13));
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+inline __half2 __floats2half2_rn(float a, float b) {
+  return {__float2half_rn(a), __float2half_rn(b)};
+}
 struct uint4 {
   unsigned x, y, z, w;
 };

@@ -8,7 +8,8 @@
 //             2 (i % 4) + 1 of matrix j (transposed: rows 2 (i % 4) and
 //             2 (i % 4) + 1, column i / 4), matrix j's rows at the
 //             addresses of lanes 8 j .. 8 j + 7;
-//   mma.m16n8k16: A, B, C as in flash_tc.cuh's header.
+//   mma.m16n8k16: A, B, C as in flash_tc.cuh's header, for bf16 and f16
+//             operands alike (the products and sums in f32).
 // The copies are synchronous, so commit and wait do nothing.
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -18,26 +19,26 @@ __device__ __forceinline__ void cp_async_commit() {}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {}
 
-inline uint32_t emu_pair(const bf16* lo, const bf16* hi) {
-  return uint32_t(lo->x) | (uint32_t(hi->x) << 16);
+inline uint32_t emu_pair(const uint16_t* lo, const uint16_t* hi) {
+  return uint32_t(*lo) | (uint32_t(*hi) << 16);
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const bf16** rows = reinterpret_cast<const bf16**>(emu_exchange());
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint16_t** rows = reinterpret_cast<const uint16_t**>(emu_exchange());
   const int lane = emu_lane();
-  rows[lane] = p;
+  rows[lane] = static_cast<const uint16_t*>(p);
   emu_warp_barrier();
   for (int j = 0; j < 4; ++j) {
-    const bf16* row = rows[8 * j + lane / 4];
+    const uint16_t* row = rows[8 * j + lane / 4];
     r[j] = emu_pair(row + 2 * (lane % 4), row + 2 * (lane % 4) + 1);
   }
   emu_warp_barrier();
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const bf16** rows = reinterpret_cast<const bf16**>(emu_exchange());
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const uint16_t** rows = reinterpret_cast<const uint16_t**>(emu_exchange());
   const int lane = emu_lane();
-  rows[lane] = p;
+  rows[lane] = static_cast<const uint16_t*>(p);
   emu_warp_barrier();
   for (int j = 0; j < 4; ++j)
     r[j] = emu_pair(rows[8 * j + 2 * (lane % 4)] + lane / 4,
@@ -45,11 +46,19 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
   emu_warp_barrier();
 }
 
-inline float emu_lo(uint32_t v) { return __bfloat162float({uint16_t(v & 0xffffu)}); }
-inline float emu_hi(uint32_t v) { return __bfloat162float({uint16_t(v >> 16)}); }
+template <typename T>
+inline float emu_val(uint16_t bits) {
+  if constexpr (std::is_same<T, __half>::value)
+    return __half2float({bits});
+  else
+    return __bfloat162float({bits});
+}
 
+template <typename T>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                     uint32_t b1) {
+  auto emu_lo = [](uint32_t v) { return emu_val<T>(uint16_t(v & 0xffffu)); };
+  auto emu_hi = [](uint32_t v) { return emu_val<T>(uint16_t(v >> 16)); };
   struct Operands {
     uint32_t a[4], b[2];
   };
