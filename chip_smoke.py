@@ -269,9 +269,37 @@ Phases, each printing JSON lines:
             and the skipped steps; K1-K3 in float16, 12 launches each a
             step; no sdpa_plain call; losses finite and falling after the
             scaler settles.
+27. nmt_parity: nmt_tiny's widths (units 32, 2 heads, 2 + 2 layers) at
+            128-token buckets with seeded key lengths, dropout 0: 3 Adam
+            steps of the hybridized gluon loop on the card against the
+            CPU in f32 (K1-K3's CUDA-core route: losses within 1e-4, each
+            weight within the larger of 1e-5 and 4x the CPU's own
+            f32-vs-f64 distance in relative L2, a TF32 control that the
+            rule must reject) and under bf16 AMP (the tensor-core route);
+            K1-K3 6 launches each a step, no sdpa_plain call; decode_step
+            equal to teacher forcing to 1e-4 on the card; then
+            example/nmt_translate.py's reversal task trained on both: the
+            card's exact-match at least the CPU's, and its weights
+            translating to the same beams on both.
+28. nmt:     Transformer NMT at Vaswani et al. 2017's base widths
+            (GluonNLP transformer_en_de_512: 6 + 6 layers, units 512, FFN
+            2048, 8 heads, a shared 37,000-token vocabulary tied to the
+            output, dropout and label smoothing 0.1; NMT), trained with
+            Adam (0.9, 0.98, 1e-9) under bf16 AMP on 32 sentence pairs at
+            128-token buckets through the reference's gluon loop: the
+            two-window slope (5 and 20 steps after 3 warm-ups), target
+            tokens/s, MFU, the busy share, a profiled step split into
+            flash, GEMM, the head, Adam and other, peak memory, the
+            CachedOp's counts; K1-K3 18 launches each a step (every
+            attention key-padded), no sdpa_plain call in a step; then
+            beam translation of the 32 sources (beam 4, alpha 0.6,
+            max_len 178): ms a call, sentences/s, ms a decode step and
+            its busy share, K1 6 launches a call.
 
 The kernels phase also runs K1-K3 at Llama-3-8B's training shape (B=1,
-S=4096, H=32 over KV=8, D=128, causal, bf16).  Then one line of per-kernel numbers ({"kernels": [...]}), the card's name
+S=4096, H=32 over KV=8, D=128, causal, bf16), and at NMT's shapes (b32,
+H=8, D=64, key-padded: the decoder's causal self-attention, the
+cross-attention at 128 and a 256-token source bucket; bf16 and f32).  Then one line of per-kernel numbers ({"kernels": [...]}), the card's name
 and power limit as nvidia-smi gives them, and as the last line
 {"ok": true, "device": {...}}.  Any failed check exits nonzero.
 ``--phases`` runs a subset (for quick checks of a new kernel).
@@ -301,7 +329,7 @@ ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,"
               "imperative,rtc,resnet_parity,resnet,llama_train_parity,"
               "llama_train,forecast_parity,forecast,gan_parity,gan,"
               "wordlm_parity,wordlm,data,fp16_parity,optimizers_parity,"
-              "bert_fp16")
+              "bert_fp16,nmt_parity,nmt")
 SERVING_PHASES = {"device", "build", "parity", "serve"}
 
 
@@ -535,6 +563,34 @@ def read_counts():
 
 # -- phase 3: kernels ---------------------------------------------------------
 
+# Transformer NMT's batch of 32 sentence pairs at a 128-token bucket: key
+# lengths drawn with a seed, uniform in 64-128 (about 3,100 real tokens a
+# side); and a 256-token source bucket's, uniform in 129-256
+NMT_LENS = tuple(int(n) for n in
+                 np.random.RandomState(14).randint(64, 129, 32))
+NMT_SRC256_LENS = tuple(int(n) for n in
+                        np.random.RandomState(15).randint(129, 257, 32))
+
+
+def _nmt_cases(lse):
+    """The flash cases at NMT's shapes (Vaswani et al.'s base: H=KV=8,
+    D=64, b32), every attention key-padded: the decoder's causal
+    self-attention, the encoder's and the cross-attention at 128, and a
+    cross-attention whose source bucket (256) is longer than the
+    target's; in bf16 (the AMP route) and f32."""
+    base = dict(b=32, h=8, kv=8, d=64, want_lse=lse) if lse \
+        else dict(b=32, h=8, kv=8, d=64)
+    out = []
+    for name, s_k, causal, lens in (
+            ("nmt_self_causal_kpad_b32_s128", 128, True, NMT_LENS),
+            ("nmt_cross_kpad_b32_s128", 128, False, NMT_LENS),
+            ("nmt_cross_kpad_128x256", 256, False, NMT_SRC256_LENS)):
+        for dt, tag in (("bfloat16", "bf16"), ("float32", "f32")):
+            out.append(dict(base, name=f"{name}_{tag}", s_q=128, s_k=s_k,
+                            dtype=dt, causal=causal, kmask_lens=lens))
+    return out
+
+
 FLASH_CASES = [
     # the serving prefill's shapes (Llama-3-8B: H=32, KV=8, D=128)
     dict(name="prefill_s128_bf16", s_q=128, s_k=128, dtype="bfloat16",
@@ -589,7 +645,7 @@ FLASH_CASES = [
     # D=128, causal, with the LSE
     dict(name="llama_train_s4096_lse_bf16", s_q=4096, s_k=4096,
          dtype="bfloat16", causal=True, want_lse=True),
-]
+] + _nmt_cases(lse=True)
 HEADLINE_CASE = "bert_b64_s128_lse_bf16"
 LLAMA_TRAIN_CASE = "llama_train_s4096_lse_bf16"
 SERVE_CASE = "prefill_s512_bf16"
@@ -660,7 +716,7 @@ BWD_CASES = [
     # sums each group of 4 query heads)
     dict(name="llama_train_s4096_bf16", s_q=4096, s_k=4096,
          dtype="bfloat16", causal=True),
-]
+] + _nmt_cases(lse=False)
 BWD_HEADLINE_CASE = "bert_b64_s128_bf16"
 LLAMA_TRAIN_BWD_CASE = "llama_train_s4096_bf16"
 
@@ -5428,6 +5484,555 @@ def phase_bert_fp16(mx, dev, ctx, cfg=BERT_FP16):
     return dict(launches, steps=timed, per_step=layers)
 
 
+# -- phases 27-28: Transformer NMT -----------------------------------------------
+
+# Vaswani et al. 2017's base model as GluonNLP's transformer_en_de_512:
+# 6 + 6 layers, units 512, FFN 2048, 8 heads, dropout 0.1, label smoothing
+# 0.1 (sections 3, 5.4); a shared source-target vocabulary of 37,000 with the
+# embedding and the pre-softmax weight shared (3.4, 5.1); Adam with beta1
+# 0.9, beta2 0.98, eps 1e-9 (5.3) at a constant 1e-4 (the warm-up schedule
+# is not in the reference's lr_scheduler); bf16 AMP; 32 sentence pairs a
+# step, each side bucketed at 128 tokens (the per-GPU share of the paper's
+# 25,000 + 25,000 tokens over 8 GPUs, 5.1); beam 4, alpha 0.6, max_len the
+# input length + 50 (6.1)
+NMT = dict(vocab=37000, batch_size=32, bucket=128, lr=1e-4, beta1=0.9,
+           beta2=0.98, epsilon=1e-9, label_smoothing=0.1, warmup=3,
+           windows=(5, 20), beam=4, alpha=0.6, extra_len=50,
+           translate_calls=2, layers=6, seed=0)
+NMT_BOS, NMT_EOS = 1, 2
+# nmt_tiny's widths (units 32, 2 heads, D = 16, 2 + 2 layers) at 128-token
+# buckets so that K1-K3 run, dropout 0 (nmt_tiny's)
+NMT_PARITY = dict(vocab=64, batch_size=4, bucket=128, max_length=256,
+                  lr=1e-2, steps=3, seed=5)
+NMT_LOSS_TOL = 1e-4
+NMT_WEIGHT_TOL = 1e-5
+NMT_DECODE_TOL = 1e-4
+NMT_SCORE_TOL = 1e-4
+# example/nmt_translate.py's reversal task: vocabulary 13, 5 tokens, 150
+# Adam steps of 32 at 3e-3, 16 sentences translated with beam 4
+NMT_REVERSAL = dict(vocab=13, seq_len=5, steps=150, batch_size=32, lr=3e-3,
+                    beam=4, sentences=16)
+
+
+def _zipf_tokens(rng, vocab, shape):
+    """Tokens 3..vocab-1 (0 PAD, 1 BOS, 2 EOS) drawn from a Zipf law
+    over their rank."""
+    p = 1.0 / np.arange(1, vocab - 2)
+    return rng.choice(np.arange(3, vocab), size=shape, p=p / p.sum())
+
+
+def _nmt_batch(b, s, vocab, src_lens, tgt_lens, seed):
+    """numpy (src, tgt_in, tgt_out, src_valid, tgt_valid): Zipf tokens,
+    PAD past each length; the target ends in EOS at its length and its
+    input is BOS then the target shifted right."""
+    rng = np.random.RandomState(seed)
+    src = _zipf_tokens(rng, vocab, (b, s))
+    tgt = _zipf_tokens(rng, vocab, (b, s))
+    pos = np.arange(s)[None, :]
+    sl, tl = np.asarray(src_lens)[:, None], np.asarray(tgt_lens)[:, None]
+    src = np.where(pos < sl, src, 0)
+    tgt_out = np.where(pos < tl - 1, tgt, np.where(pos == tl - 1,
+                                                   NMT_EOS, 0))
+    tgt_in = np.concatenate([np.full((b, 1), NMT_BOS), tgt_out[:, :-1]], 1)
+    tgt_in = np.where(pos < tl, tgt_in, 0)
+    return tuple(np.asarray(a, "f4") for a in (src, tgt_in, tgt_out,
+                                               src_lens, tgt_lens))
+
+
+def _nmt_loop(mx, net, arrays, lr, **adam):
+    """The reference's gluon loop (example/nmt_translate.py): hybridize,
+    gluon.Trainer "adam", record -> net.loss(src, tgt_in, tgt_out,
+    src_valid, tgt_valid) -> backward -> step(B).  Returns the step
+    function (the loss of each call) and the trainer."""
+    from mxnet_tpu_torch import autograd, gluon
+    net.hybridize()
+    tr = gluon.Trainer(net.collect_params(), "adam",
+                       dict({"learning_rate": lr}, **adam))
+    b = arrays[0].shape[0]
+
+    def step():
+        with autograd.record():
+            loss = net.loss(*arrays)
+        loss.backward()
+        tr.step(b)
+        return loss
+    return step, tr
+
+
+def _nmt_tiny(mx, ctx, vocab, seed, max_length):
+    from mxnet_tpu_torch import models
+    net = models.nmt_tiny(vocab, max_length=max_length, prefix="nmt_")
+    net.initialize(mx.init.Xavier(), ctx=ctx, seed=seed)
+    return net
+
+
+def _reversal_batch(mx, ctx, n, length, vocab, seed):
+    rng = np.random.RandomState(seed)
+    payload = rng.randint(3, vocab, (n, length))
+    rev = payload[:, ::-1]
+    arrays = (payload, np.concatenate([np.full((n, 1), NMT_BOS), rev], 1),
+              np.concatenate([rev, np.full((n, 1), NMT_EOS)], 1))
+    return [mx.nd.array(a.astype("f4"), ctx=ctx) for a in arrays]
+
+
+def _exact_match(samples, src, length):
+    hyp = samples.asnumpy().astype(int)[:, 0]
+    want = src.asnumpy().astype(int)[:, ::-1]
+    return sum(int(h[0] == NMT_BOS and (h[1:1 + length] == w).all()
+                   and h[1 + length] == NMT_EOS)
+               for h, w in zip(hyp, want))
+
+
+def _nmt_reversal(mx, dev):
+    """nmt_translate's task: the tiny model trained on the card and on
+    the CPU from the same seed; the card's exact-match must reach the
+    CPU's; the card-trained weights carried to the CPU translate to the
+    same samples and lengths, the scores within 1e-4."""
+    from mxnet_tpu_torch import autograd, gluon
+    cfg = NMT_REVERSAL
+    v, n, length = cfg["vocab"], cfg["sentences"], cfg["seq_len"]
+    start = _nmt_tiny(mx, mx.cpu(), v, seed=1, max_length=64)
+    nets, exact, outs = {}, {}, {}
+    for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+        net = _nmt_tiny(mx, ctx, v, seed=1, max_length=64)
+        _copy_params(start, net)
+        net.hybridize()
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": cfg["lr"]})
+        for i in range(cfg["steps"]):
+            arrays = _reversal_batch(mx, ctx, cfg["batch_size"], length, v,
+                                     seed=i)
+            with autograd.record():
+                loss = net.loss(*arrays, label_smoothing=0.1)
+            loss.backward()
+            tr.step(cfg["batch_size"])
+        src = _reversal_batch(mx, ctx, n, length, v, seed=9999)[0]
+        outs[where] = net.translate(src, NMT_BOS, NMT_EOS,
+                                    beam_size=cfg["beam"],
+                                    max_len=length + 4)
+        exact[where] = _exact_match(outs[where][0], src, length)
+        nets[where] = net
+    # the card's weights on the CPU: the same beams
+    carried = _nmt_tiny(mx, mx.cpu(), v, seed=0, max_length=64)
+    _copy_params(nets["card"], carried)
+    src = _reversal_batch(mx, mx.cpu(), n, length, v, seed=9999)[0]
+    cpu_out = [a.asnumpy() for a in carried.translate(
+        src, NMT_BOS, NMT_EOS, beam_size=cfg["beam"], max_len=length + 4)]
+    card_out = [a.asnumpy() for a in outs["card"]]
+    row = {"exact_match_card": exact["card"], "exact_match_cpu":
+           exact["cpu"], "of": n,
+           "samples_equal": bool(np.array_equal(card_out[0], cpu_out[0])),
+           "lengths_equal": bool(np.array_equal(card_out[2], cpu_out[2])),
+           "score_max_abs_err": float(np.abs(card_out[1]
+                                             - cpu_out[1]).max()),
+           "context": str(outs["card"][0].context)}
+    check(exact["card"] >= exact["cpu"],
+          f"nmt_parity: the card's exact-match {exact['card']}/{n} is below "
+          f"the CPU's {exact['cpu']}/{n}")
+    check(row["samples_equal"] and row["lengths_equal"]
+          and row["score_max_abs_err"] <= NMT_SCORE_TOL,
+          f"nmt_parity: translate on the card against the CPU {row}")
+    return row
+
+
+def phase_nmt_parity(mx, dev, cfg=NMT_PARITY):
+    """nmt_tiny's widths at 128-token buckets with seeded key lengths
+    below 128, dropout 0: 3 Adam steps of the hybridized gluon loop on
+    the card against the CPU from the same weights, in f32 (K1-K3's
+    CUDA-core route: losses within 1e-4, each weight within the larger of
+    1e-5 and 4x the CPU's own f32-vs-f64 distance in relative L2, a key
+    bias within Adam's bound; a TF32 control run must break the weight
+    rule) and under bf16 AMP (the tensor-core route: losses within bf16's
+    tolerance, weights within the larger of it and 4x the CPU's own
+    bf16-vs-f32 distance, a tensor that starts at 0 within Adam's bound);
+    K1-K3 6 launches each a step, no sdpa_plain call; decode_step's
+    log-probs on the card equal teacher forcing's to 1e-4 in f32; and
+    nmt_translate's reversal task (_nmt_reversal)."""
+    import torch
+    from mxnet_tpu_torch.contrib import amp
+    free_earlier_phases()
+    b, s, v = cfg["batch_size"], cfg["bucket"], cfg["vocab"]
+    rng = np.random.RandomState(cfg["seed"])
+    batch = _nmt_batch(b, s, v, rng.randint(40, 128, b),
+                       rng.randint(40, 128, b), cfg["seed"])
+    start = _nmt_tiny(mx, mx.cpu(), v, cfg["seed"], cfg["max_length"])
+    runs = {"cpu": (mx.cpu(), "float32", None),
+            "cpu_f64": (mx.cpu(), "float64", None),
+            "card": (mx.gpu(0), "float32", None),
+            "card_tf32": (mx.gpu(0), "float32", "tf32"),
+            "cpu_bf16": (mx.cpu(), "float32", "bf16"),
+            "card_bf16": (mx.gpu(0), "float32", "bf16")}
+    losses, weights, launches, nets, plain_calls = {}, {}, {}, {}, {}
+    with sdpa_plain_calls() as plain:
+        for where, (ctx, dtype, mode) in runs.items():
+            before = len(plain)
+            net = _nmt_tiny(mx, ctx, v, cfg["seed"], cfg["max_length"])
+            _copy_params(start, net)
+            if dtype == "float64":
+                net.to(torch.float64)
+            arrays = [mx.nd.array(a, ctx=ctx, dtype=dtype) for a in batch]
+            step, _ = _nmt_loop(mx, net, arrays, cfg["lr"])
+            if mode == "bf16":
+                amp.init()
+            reset_counts()
+            try:
+                with _tf32_everywhere() if mode == "tf32" \
+                        else contextlib.nullcontext():
+                    losses[where] = [float(step().asnumpy())
+                                     for _ in range(cfg["steps"])]
+            finally:
+                if mode == "bf16":
+                    amp._deinit()
+            launches[where] = read_counts()
+            # float64 is not a flash type: the f64 twin attends plainly
+            plain_calls[where] = len(plain) - before
+            weights[where] = _weights(net)
+            nets[where] = net
+    f64 = {k: w.astype("f4") for k, w in weights["cpu_f64"].items()}
+    key_bias = [k for k in f64 if k.endswith(("_k_bias", "_key_bias"))]
+    limits = {k: max(NMT_WEIGHT_TOL, 4 * _rel_l2([w], [f64[k]]))
+              for k, w in weights["cpu"].items() if k not in key_bias}
+
+    def errs(where):
+        return {k: _rel_l2([weights[where][k]], [weights["cpu"][k]])
+                for k in limits}
+    card, control = errs("card"), errs("card_tf32")
+    over = {k: [e, limits[k]] for k, e in card.items() if e > limits[k]}
+    bias_max = max(float(np.abs(weights["card"][k]).max())
+                   for k in key_bias)
+    # bf16: a tensor that starts at 0 (the biases, LayerNorm's beta) is
+    # moved by Adam's first steps by the sign of a gradient that bf16
+    # rounding can flip, at most lr a step on each side: it is held to
+    # that bound; the rest, in relative L2, to the larger of bf16's
+    # tolerance and 4x the CPU's own bf16-vs-f32 distance (the f32
+    # rule's form: Adam turns a rounding's sign into a step of lr)
+    w0 = _weights(start)
+    zero = {k for k, w in w0.items() if not np.any(w)}
+    bf16 = {k: _rel_l2([weights["card_bf16"][k]], [weights["cpu_bf16"][k]])
+            for k in limits if k not in zero}
+    bf16_limits = {k: max(TOL["bfloat16"], 4 * _rel_l2(
+        [weights["cpu_bf16"][k]], [weights["cpu"][k]])) for k in bf16}
+    bf16_over = {k: [e, bf16_limits[k]] for k, e in bf16.items()
+                 if e > bf16_limits[k]}
+    bf16_zero = max(float(np.abs(weights["card_bf16"][k]
+                                 - weights["cpu_bf16"][k]).max())
+                    for k in zero)
+    bf16_worst = sorted(bf16.items(), key=lambda kv: -kv[1])[:5]
+    per_step = {"flash_fwd_launches": 6, "flash_bwd_dq_launches": 6,
+                "flash_bwd_dkv_launches": 6}
+    steps = cfg["steps"]
+    row = {"phase": "nmt_parity", "model": "nmt_tiny", "units": 32,
+           "heads": 2, "head_dim": 16, "layers": "2 + 2",
+           "batch_size": b, "bucket": s, "src_valid": batch[3].tolist(),
+           "tgt_valid": batch[4].tolist(), "lr": cfg["lr"],
+           "losses": losses["card"], "cpu_losses": losses["cpu"],
+           "loss_rel_err": _rel(losses["card"], losses["cpu"]),
+           "loss_tol": NMT_LOSS_TOL, "weight_rel_l2_max": max(card.values()),
+           "weight_tol": NMT_WEIGHT_TOL, "over_limit": over,
+           "key_bias_max_abs": bias_max,
+           "cpu_f32_vs_f64_loss_rel_err": _rel(losses["cpu"],
+                                               losses["cpu_f64"]),
+           "tf32_control": {
+               "loss_rel_err": _rel(losses["card_tf32"], losses["cpu"]),
+               "weight_rel_l2_max": max(control.values()),
+               "over_limit": sorted(k for k, e in control.items()
+                                    if e > limits[k])},
+           "bf16": {"losses": losses["card_bf16"],
+                    "cpu_losses": losses["cpu_bf16"],
+                    "loss_rel_err": _rel(losses["card_bf16"],
+                                         losses["cpu_bf16"]),
+                    "weight_rel_l2_max": max(bf16.values()),
+                    "worst": bf16_worst, "tol": TOL["bfloat16"],
+                    "worst_limits": [bf16_limits[k] for k, _ in bf16_worst],
+                    "over_limit": bf16_over,
+                    "zero_start_tensors": len(zero),
+                    "zero_start_max_abs_diff": bf16_zero,
+                    "zero_start_bound": 2 * steps * cfg["lr"]},
+           "launches_f32": launches["card"], "launches_bf16":
+           launches["card_bf16"], "sdpa_plain_calls": plain_calls,
+           "card": nvidia_smi()}
+    check(row["loss_rel_err"] <= NMT_LOSS_TOL and not over,
+          f"nmt_parity f32: losses {row['loss_rel_err']}, weights over "
+          f"their limits {over}")
+    check(bias_max <= steps * cfg["lr"] * 1.01,
+          f"nmt_parity: a key bias moved {bias_max}, past Adam's bound")
+    check(row["tf32_control"]["over_limit"],
+          f"nmt_parity: the TF32 control passed the weight rule "
+          f"{row['tf32_control']}: the rule cannot tell TF32 from float32")
+    check(row["bf16"]["loss_rel_err"] <= TOL["bfloat16"] and not bf16_over
+          and bf16_zero <= 2 * steps * cfg["lr"] * 1.01,
+          f"nmt_parity bf16: {row['bf16']}")
+    card_plain = {k: n for k, n in plain_calls.items()
+                  if k.startswith("card") and n}
+    check(not card_plain, f"nmt_parity: sdpa_plain calls in the card's "
+          f"training steps: {card_plain}")
+    for k, n in per_step.items():
+        check(launches["card"][k] == n * steps
+              and launches["card_bf16"][k] == n * steps
+              and launches["card_bf16"][k.replace("_launches",
+                                                  "_tc_launches")]
+              == n * steps
+              and launches["card"][k.replace("_launches",
+                                             "_tc_launches")] == 0,
+              f"nmt_parity: {k} f32 {launches['card']}, bf16 "
+              f"{launches['card_bf16']}, want {n} x {steps} each (f32 on "
+              "the CUDA cores, bf16 on the tensor cores)")
+
+    # decode_step on the card against teacher forcing, f32, each row's
+    # valid target positions
+    net = nets["card"]
+    ctx = mx.gpu(0)
+    src, tgt_in, _, sv, tv = (mx.nd.array(a, ctx=ctx) for a in batch)
+    with sdpa_plain_calls() as dec_plain:
+        reset_counts()
+        full = mx.nd.log_softmax(net(src, tgt_in, sv, tv),
+                                 axis=-1).asnumpy()
+        tf_launches = read_counts()
+        memory = net.encode(src, sv)
+        states, mem_kvs, mem_mask = net.init_decode(memory, s, sv)
+        err = 0.0
+        for t in range(int(batch[4].max())):
+            lp = net.decode_step(tgt_in[:, t:t + 1], states, mem_kvs, t,
+                                 mem_mask).asnumpy()
+            rows_ = batch[4] > t
+            err = max(err, float(np.abs(lp[rows_]
+                                        - full[rows_, t]).max()))
+    row["decode_vs_teacher_forcing_max_abs_err"] = err
+    row["decode_tol"] = NMT_DECODE_TOL
+    row["teacher_forcing_launches"] = tf_launches
+    row["decode_sdpa_plain_calls"] = len(dec_plain)
+    check(err <= NMT_DECODE_TOL, f"nmt_parity: decode_step against teacher "
+          f"forcing {err} > {NMT_DECODE_TOL}")
+    check(tf_launches["flash_fwd_launches"] == 6,
+          f"nmt_parity: the teacher-forcing call launched K1 "
+          f"{tf_launches['flash_fwd_launches']} times, want 6")
+    row["reversal"] = _nmt_reversal(mx, dev)
+    emit(row)
+    return row
+
+
+def _nmt_flops(b, s_src, s_tgt, u, f, layers, vocab):
+    """A training step's FLOPs from the model's shapes, every position of
+    the buckets counted (the GEMMs run over the padding too): the
+    forward's products times 3 (the backward's two), attention's
+    QK^T and PV at 2 S_q S_k U each (the causal self-attention over half
+    the pairs), and the tied head 2 U V a target position."""
+    t_src, t_tgt = b * s_src, b * s_tgt
+    enc = t_src * (4 * u * u + 2 * u * f) * 2 \
+        + 2 * 2.0 * b * s_src * s_src * u
+    dec = (t_tgt * (6 * u * u + 2 * u * f) + t_src * 2 * u * u) * 2 \
+        + 2.0 * b * s_tgt * s_tgt * u + 2 * 2.0 * b * s_tgt * s_src * u
+    head = 2.0 * t_tgt * u * vocab
+    return 3 * (layers * (enc + dec) + head)
+
+
+def phase_nmt(mx, dev, cfg=NMT):
+    """transformer_en_de_512 (NMT above) trained and beam-translated on
+    the card through the reference's gluon loop, hybridized, under bf16
+    AMP: the two-window slope a step, real target tokens a second, MFU,
+    the busy share, a profiled step's split, peak memory, the CachedOp's
+    counts, the loss falling; K1-K3 18 launches each a step (6 encoder
+    self, 6 decoder causal self, 6 cross; all key-padded) on the tensor
+    cores through the replays, no sdpa_plain call in a step; then
+    translate of the 32 sources (beam 4, alpha 0.6, max_len 178) timed
+    over 2 calls after a warm-up: ms a call, sentences a second, ms a
+    decode step and a decode step's busy share; K1 6 launches a call
+    (the encoder); the decode steps' attention is sdpa_plain by design
+    (one query)."""
+    import torch
+    from mxnet_tpu_torch import autograd, models
+    from mxnet_tpu_torch.contrib import amp
+    free_earlier_phases()
+    mx.random.seed(cfg["seed"])
+    ctx = mx.gpu(0)
+    b, s, v = cfg["batch_size"], cfg["bucket"], cfg["vocab"]
+    tgt_lens = np.random.RandomState(16).randint(64, 129, b)
+    batch_np = _nmt_batch(b, s, v, NMT_LENS, tgt_lens, cfg["seed"])
+    real_tokens = int(tgt_lens.sum())
+    amp.init()
+    try:
+        net = models.transformer_en_de_512(v, tgt_vocab_size=v,
+                                           share_embed=True)
+        t0 = time.perf_counter()
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in net.parameters()
+                       if p.requires_grad)
+        embed = net.src_embed.weight.numel()
+        batch = [mx.nd.array(a, ctx=ctx) for a in batch_np]
+        step, tr = _nmt_loop(mx, net, batch, cfg["lr"], beta1=cfg["beta1"],
+                             beta2=cfg["beta2"], epsilon=cfg["epsilon"])
+        with sdpa_plain_calls() as plain:
+            first = [float(step().asnumpy()) for _ in range(cfg["warmup"])]
+            op = net._cached_op
+            rep0, bwd0, cap0 = op.replays, op.backward_replays, op.captures
+            n1, n2 = cfg["windows"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            step_s, naive_s, windows, used, last = timed_windows(
+                step, n1, n2, "nmt")
+            launches = read_counts()
+            peak = torch.cuda.max_memory_allocated(dev)
+            reserved = torch.cuda.max_memory_reserved(dev)
+            replays = op.replays - rep0
+            bwd_replays = op.backward_replays - bwd0
+            captures = op.captures - cap0
+            train_plain = len(plain)
+            breakdown = profile_call(step)
+            us, counts = window_kernels(step, 3)
+            whole = all(n % 3 == 0 for n in counts.values())
+            per_kernel = {k: t / 3 / 1e3 for k, t in us.items()}
+        # the head alone: the tied product, log-softmax and the
+        # label-smoothed CE over the step's 4096 target rows, and its
+        # backward
+        w = net.src_embed._gluon_param("weight").data()
+        u = net._units
+        hid = mx.nd.array(np.random.RandomState(1).randn(b * s, u)
+                          .astype("f4") * 0.5, ctx=ctx)
+        hid.attach_grad()
+        lbl = batch[2].reshape((-1,))
+
+        def head():
+            with autograd.record():
+                logits = mx.nd.dot(hid, w, transpose_b=True)
+                logp = mx.nd.log_softmax(logits, axis=-1)
+                loss = (0.9 * -mx.nd.pick(logp, lbl, axis=-1)
+                        - 0.1 * mx.nd.mean(logp, axis=-1)).mean()
+            loss.backward()
+            return loss
+        head_ms, head_kernels = device_ms(head, reps=3, warmup=1,
+                                          by_kernel=True)
+        head_gemm_ms = sum(t for k, t in head_kernels.items()
+                           if _is_gemm(k))
+        del hid, head_kernels
+
+        # translation
+        src, sv = batch[0], batch[3]
+        max_len = s + cfg["extra_len"]
+        decode_calls = [0]
+        decode_step = net.decode_step
+
+        def counted(*args, **kwargs):
+            decode_calls[0] += 1
+            return decode_step(*args, **kwargs)
+        net.__dict__["decode_step"] = counted
+
+        def translate():
+            out = net.translate(src, NMT_BOS, NMT_EOS, src_valid=sv,
+                                beam_size=cfg["beam"], max_len=max_len,
+                                alpha=cfg["alpha"])
+            return out
+        with sdpa_plain_calls() as dec_plain:
+            translate()
+            torch.cuda.synchronize()
+            decode_calls[0] = 0
+            reset_counts()
+            plain_before = len(dec_plain)
+            t0 = time.perf_counter()
+            for _ in range(cfg["translate_calls"]):
+                samples, scores, lens = translate()
+            torch.cuda.synchronize()
+            tr_ms = (time.perf_counter() - t0) * 1e3 / cfg["translate_calls"]
+            tr_launches = read_counts()
+            tr_plain = len(dec_plain) - plain_before
+        del net.__dict__["decode_step"]
+        steps_a_call = decode_calls[0] / cfg["translate_calls"]
+        # one decode step alone (the beams' 128 rows at position 64)
+        memory = net.encode(src, sv)
+        mem_t = models.nmt._tile_rows(memory, cfg["beam"])
+        sv_t = models.nmt._tile_rows(sv, cfg["beam"])
+        states, mem_kvs, mem_mask = net.init_decode(mem_t, max_len, sv_t)
+        tok = mx.nd.full((b * cfg["beam"], 1), 5.0, ctx=ctx)
+        decode = profile_call(lambda: net.decode_step(
+            tok, states, mem_kvs, 64, mem_mask).wait_to_read())
+        del states, mem_kvs, memory, mem_t
+    finally:
+        amp._deinit()
+    flops = _nmt_flops(b, s, s, u, 4 * u, cfg["layers"], v)
+    timed = n1 + n2
+    samples_np, lens_np = samples.asnumpy(), lens.asnumpy()
+    row = {"phase": "nmt", "model": "transformer_en_de_512",
+           "source": "Vaswani et al. 2017 base (3, 5.1, 5.3-5.4, 6.1); "
+                     "GluonNLP transformer_en_de_512",
+           "units": u, "hidden_size": 4 * u, "heads": net._heads,
+           "head_dim": u // net._heads, "layers": f"{len(net.decoder_cells)}"
+           f" + {len(net.decoder_cells)}", "vocab": v, "share_embed": True,
+           "tie_output": True, "params": n_params,
+           "embedding_params": embed, "non_embedding_params":
+           n_params - embed, "dtype": "bfloat16 AMP", "optimizer":
+           {"adam": {"lr": cfg["lr"], "beta1": cfg["beta1"],
+                     "beta2": cfg["beta2"], "epsilon": cfg["epsilon"]}},
+           "batch_size": b, "bucket": s, "real_src_tokens":
+           int(sum(NMT_LENS)), "real_tgt_tokens": real_tokens,
+           "weights_init_s": init_s, "warmup_losses": first,
+           "last_loss": last, "windows": [n1, n2], "window_s": windows,
+           "step_ms": step_s * 1e3, "naive_step_ms": naive_s * 1e3,
+           "timing": used, "tgt_tokens_per_s": real_tokens / step_s,
+           "sentence_pairs_per_s": b / step_s,
+           "flops_per_step": flops,
+           "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+           "device_busy_share": breakdown.get("device_busy_share"),
+           "breakdown": breakdown,
+           "split": _llama_split(per_kernel, head_gemm_ms, head_ms) if whole
+           else "not measured (the profiler lost events)",
+           "peak_mem_allocated_bytes": peak,
+           "peak_mem_reserved_bytes": reserved,
+           "cachedop": {"entries": len(op), "captures": op.captures,
+                        "captures_in_windows": captures,
+                        "replays_in_windows": replays,
+                        "backward_replays_in_windows": bwd_replays,
+                        "pool_bytes": op.pool_bytes},
+           "timed_steps": timed, **launches,
+           "sdpa_plain_calls_in_steps": train_plain,
+           "translate": {"sentences": b, "beam": cfg["beam"],
+                         "alpha": cfg["alpha"], "max_len": max_len,
+                         "calls": cfg["translate_calls"], "ms_a_call": tr_ms,
+                         "sentences_per_s": b / tr_ms * 1e3,
+                         "decode_steps_a_call": steps_a_call,
+                         "ms_a_decode_step": tr_ms / max(steps_a_call, 1),
+                         "decode_step_alone": decode,
+                         "launches": tr_launches,
+                         "sdpa_plain_calls": tr_plain,
+                         "samples_shape": list(samples_np.shape),
+                         "longest": int(lens_np.max()),
+                         "scores_finite": bool(np.isfinite(
+                             scores.asnumpy()).all())},
+           "card": nvidia_smi()}
+    emit(row)
+    layers = cfg["layers"]
+    per_step = 3 * layers
+    check(all(math.isfinite(x) for x in first) and math.isfinite(last),
+          f"nmt: a loss is not finite: {first} -> {last}")
+    check(last < first[0], f"nmt: the loss did not fall: {first} -> {last}")
+    check(train_plain == 0, f"nmt: {train_plain} sdpa_plain calls inside "
+          "the training steps")
+    for k in ("flash_fwd_tc_launches", "flash_bwd_dq_tc_launches",
+              "flash_bwd_dkv_tc_launches", "flash_fwd_launches",
+              "flash_bwd_dq_launches", "flash_bwd_dkv_launches"):
+        check(launches[k] == per_step * timed,
+              f"nmt: {k} {launches[k]}, want {per_step} x {timed}")
+    check(captures == 0 and replays == timed and bwd_replays == timed,
+          f"nmt: in the windows {captures} captures, {replays} forward and "
+          f"{bwd_replays} backward replays, want 0, {timed}, {timed}")
+    calls = cfg["translate_calls"]
+    check(tr_launches["flash_fwd_launches"] == layers * calls
+          and tr_launches["flash_bwd_launches"] == 0,
+          f"nmt: translate launched {tr_launches}, want K1 {layers} a call "
+          "(the encoder) and no backward")
+    check(tr_plain == 2 * layers * steps_a_call * calls,
+          f"nmt: {tr_plain} sdpa_plain calls in translate, want "
+          f"{2 * layers} a decode step")
+    check(samples_np.shape[:2] == (b, cfg["beam"])
+          and row["translate"]["scores_finite"]
+          and (samples_np[:, :, 0] == NMT_BOS).all(),
+          f"nmt: translate returned {samples_np.shape}, scores finite "
+          f"{row['translate']['scores_finite']}")
+    return dict(launches, steps=timed, per_step=per_step,
+                translate=tr_launches, translate_calls=calls)
+
+
 # -- phase 2: build -------------------------------------------------------------
 
 def _kernel_name(mangled):
@@ -5545,14 +6150,16 @@ def _ratios(ms, library_ms, bound_ms):
 
 
 def kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows=(),
-                   f16_bwd_rows=(), bert16=None):
+                   f16_bwd_rows=(), bert16=None, nmt=None):
     """The flash kernels' entries of the {"kernels": [...]} line: each
     at BERT's training shape in bf16 (the main path's route), with its
     f32 route's numbers at the same shape, K1 also at the serving
     prefill, and each at Llama-3-8B's training shape (``llama_train``:
     its numbers and its launches on that path); then each at BERT's
     shape in float16 (``fp16_parity``'s readings, ``bert_fp16``'s
-    launches), with its key-padded and Llama-shaped readings."""
+    launches), with its key-padded and Llama-shaped readings.  The bf16
+    entries also carry each kernel's readings at NMT's shapes (``nmt``:
+    bf16 and f32) with its launches on the ``nmt`` path."""
     fwd = {r["case"]: r for r in rows}
     bwd = {r["case"]: r for r in bwd_rows}
     head, serve_row = fwd.get(HEADLINE_CASE), fwd.get(SERVE_CASE)
@@ -5631,7 +6238,7 @@ def kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows=(),
              "over it. library_share_est_ms is an estimate, not a "
              "reading: the library's backward split between K2 and K3 in "
              "proportion to their operations")
-    return [
+    main = [
         dict({"name": "flash_fwd", "route": "cuda",
               "design": DESIGN["tensor_cores"],
               "source": src + "flash_fwd.cu",
@@ -5672,7 +6279,29 @@ def kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows=(),
                                       "flash_bwd_dkv_tc_launches"),
               "f32": dict(bwd_nums(b32, "dkv"), design=DESIGN["cuda_cores"]),
               "plain_and_library": whole}, **bwd_nums(b16, "dkv")),
-    ] + entries
+    ]
+    nmt = nmt or {}
+    for e, part, counter in zip(main, (None, "dq", "dkv"),
+                                ("flash_fwd_tc_launches",
+                                 "flash_bwd_dq_tc_launches",
+                                 "flash_bwd_dkv_tc_launches")):
+        readings = {}
+        for key in ("self_causal_kpad_b32_s128", "cross_kpad_b32_s128",
+                    "cross_kpad_128x256"):
+            for tag in ("bf16", "f32"):
+                r = (fwd if part is None else bwd).get(f"nmt_{key}_{tag}")
+                if r is not None:
+                    readings[f"{key}_{tag}"] = fwd_nums(r) if part is None \
+                        else bwd_nums(r, part)
+        if readings:
+            e["nmt"] = dict(readings, launches=nmt.get(counter),
+                            launches_per_step=nmt.get("per_step"),
+                            steps=nmt.get("steps"))
+            if part is None:
+                e["nmt"]["translate_launches"] = nmt.get(
+                    "translate", {}).get("flash_fwd_launches")
+                e["nmt"]["translate_calls"] = nmt.get("translate_calls")
+    return main + entries
 
 
 def main():
@@ -5763,9 +6392,12 @@ def main():
         phase_optimizers_parity(mx, dev)
     bert16 = phase_bert_fp16(mx, dev, mx.gpu(0)) if "bert_fp16" in phases \
         else {}
+    if "nmt_parity" in phases:
+        phase_nmt_parity(mx, dev)
+    nmt = phase_nmt(mx, dev) if "nmt" in phases else {}
 
     kernels = kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows,
-                             f16_bwd_rows, bert16)
+                             f16_bwd_rows, bert16, nmt)
     if rtc is not None:
         kernels.append(
             {"name": "rtc_axpy", "route": "cuda",

@@ -6,8 +6,10 @@ arguments are the leading positional arguments (NDArrays); operator
 attributes follow positionally (scalar attrs first, then the rest in
 declaration order) or as keywords; every op takes ``out=``, and ops with
 no tensor input take ``ctx=``.  ``BatchNorm`` updates the moving
-statistics it is given, in place, when training.  ``nd.contrib`` holds
-the control-flow ops (``foreach``, ``while_loop``, ``cond``) and
+statistics it is given, in place, when training, and
+``_cache_update(..., out=cache)`` writes the cache in place.
+``nd.contrib`` holds the control-flow ops (``foreach``, ``while_loop``,
+``cond``) and every op, a ``_contrib_`` one without its prefix, and
 ``nd.sparse`` the row_sparse and csr arrays.  ``nd.save``/``nd.load``
 write and read the JAX package's files (and read the reference's dmlc
 ``.params`` files).  ``nd.RNN`` raises ``NotImplementedError`` as in the
@@ -123,8 +125,23 @@ def minimum(lhs, rhs, out=None):
     return min(lhs, rhs)
 
 
+def _cache_update(cache, new, offset=0, out=None, **kwargs):
+    """Parity: nd._cache_update.  ``out=cache`` (the decode step's call,
+    outside ``autograd.record()``) writes ``new`` into the cache's own
+    storage; anything else runs the op, which makes a new array."""
+    from .. import autograd
+    from ..ops.nn import cache_update
+    if out is not None and out._t is cache._t \
+            and not autograd.is_recording():
+        cache_update(cache._t, new._t,
+                     offset._t if isinstance(offset, NDArray) else offset)
+        return out
+    return invoke(get_op("_cache_update"), [cache, new], out=out,
+                  offset=offset)
+
+
 _CUSTOM = {"BatchNorm": BatchNorm, "Dropout": Dropout, "maximum": maximum,
-           "minimum": minimum}
+           "minimum": minimum, "_cache_update": _cache_update}
 
 _generate(_mod)
 

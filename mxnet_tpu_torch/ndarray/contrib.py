@@ -31,6 +31,19 @@ from .ndarray import NDArray, invoke
 __all__ = ["foreach", "while_loop", "cond"]
 
 
+def __getattr__(name):
+    """Every ``mx.nd`` op under ``nd.contrib`` too, and an op registered
+    only under a ``_contrib_`` name without the prefix
+    (``nd.contrib.arange_like``), as the reference's namespace."""
+    if name.startswith("__"):
+        raise AttributeError(name)
+    from .. import ndarray as _nd
+    for full in (name, f"_contrib_{name}"):
+        if full in _nd.__dict__:
+            return _nd.__dict__[full]
+    raise AttributeError(name)
+
+
 def _as_list(x):
     return list(x) if isinstance(x, (list, tuple)) else [x]
 

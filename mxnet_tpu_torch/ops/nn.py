@@ -92,23 +92,28 @@ alias("Embedding", "embedding")
 
 def cache_update(cache, new, offset=0):
     """Write ``new`` (B, S, ...) into ``cache`` (B, C, ...) IN PLACE at
-    position ``offset`` along axis 1, cast to the cache's type.
-
-    ``offset`` is a number or 0-d tensor (one position for every row),
-    or a (B,) tensor placing each row at its own position (S == 1, the
-    per-slot decode).  Like a dynamic-update-slice, the start clamps so
-    the update fits in the cache."""
+    ``offset`` along axis 1, cast to the cache's type, and return
+    ``cache``.  ``offset`` is a number or a 0-d tensor (one position for
+    every row), or a (B,) tensor (each row at its own position, the
+    per-slot decode).  As ``lax.dynamic_update_slice``: a negative offset
+    counts from the end, then the start is clamped into [0, C - S] so
+    that the update fits.  A tensor offset stays on the device (no host
+    read)."""
     c, s = cache.shape[1], new.shape[1]
     new = new.to(cache.dtype)
-    if torch.is_tensor(offset) and offset.dim():
-        if s != 1:
-            raise ValueError("per-row cache_update writes one position")
-        idx = offset.to(cache.device).long().clamp(0, c - 1)
-        rows = torch.arange(cache.shape[0], device=cache.device)
-        cache[rows, idx] = new[:, 0]
+    if not torch.is_tensor(offset):
+        off = int(offset)
+        start = min(max(off + c if off < 0 else off, 0), c - s)
+        cache[:, start:start + s] = new
         return cache
-    start = min(max(int(offset), 0), c - s)
-    cache[:, start:start + s] = new
+    off = offset.to(device=cache.device).long()
+    start = torch.where(off < 0, off + c, off).clamp(0, c - s)
+    steps = torch.arange(s, device=cache.device)
+    if off.dim():
+        rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+        cache[rows, start.reshape(-1, 1) + steps] = new
+    else:
+        cache.index_copy_(1, start + steps, new)
     return cache
 
 
@@ -534,6 +539,21 @@ def log_softmax(data, *, axis=-1, temperature=None):
     if temperature is not None and temperature != 1.0:
         data = data / temperature
     return F.log_softmax(data, dim=axis)
+
+
+@register("softmin")
+def softmin(data, *, axis=-1):
+    return F.softmax(-data, dim=axis)
+
+
+@register("SoftmaxActivation")
+def softmax_activation(data, *, mode="instance"):
+    """Softmax over the channels (axis 1) or over each instance's
+    features (all but axis 0)."""
+    if mode == "channel":
+        return F.softmax(data, dim=1)
+    return F.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(
+        data.shape)
 
 
 def pick(data, index, axis=-1, keepdims=False):

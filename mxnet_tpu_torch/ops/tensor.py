@@ -10,9 +10,16 @@ last axis of ``a`` with the first of ``b``.  Ops that return a view of an
 input are copied by ``invoke`` (MXNet's ops return new arrays); only
 ``NDArray.reshape`` and basic indexing keep the view.
 
-Not ported yet (ROADMAP queue 1 item 2.7): ``linalg_*``,
-sort/argsort/topk, ``SequenceLast``, ``scatter_nd``/``gather_nd``, the
-``_contrib_*`` ops and the rest of the JAX module.
+The ordering ops keep the JAX package's order among equal elements:
+``topk`` puts the lower index first (``lax.top_k``), a descending
+``sort``/``argsort`` is the flip of the stable ascending order (the higher
+index first).  ``_cache_update`` clamps its offset as
+``lax.dynamic_update_slice`` does, and ``nd._cache_update(..., out=cache)``
+writes in place.
+
+Not ported yet (ROADMAP queue 1 item 2.7): ``linalg_*``, the depth/space
+ops, ``khatri_rao``, the interleaved attention products, and the
+detection, sampling and quantization ``_contrib_*`` ops.
 """
 from __future__ import annotations
 
@@ -642,3 +649,309 @@ def pad(data, *, mode="constant", pad_width=(), constant_value=0.0):
 
 
 alias("Pad", "pad")
+
+
+# -- ordering (reference ``src/operator/tensor/ordering_op.cc``) --------------
+# torch.sort(stable=True) keeps equal elements in their input order, so
+# the first k of a descending stable sort are lax.top_k's (the lower index
+# first among ties); a descending sort or argsort is the flip of the stable
+# ascending one (the higher index first), as in the JAX package.
+
+@register("sort")
+def sort(data, *, axis=-1, is_ascend=True):
+    out = torch.sort(data, dim=axis, stable=True).values
+    return out if is_ascend else torch.flip(out, dims=(axis,))
+
+
+@register("argsort")
+def argsort(data, *, axis=-1, is_ascend=True, dtype="float32"):
+    idx = torch.argsort(data, dim=axis, stable=True)
+    if not is_ascend:
+        idx = torch.flip(idx, dims=(axis,))
+    return idx.to(torch_dtype(dtype))
+
+
+@register("topk", num_outputs=-1)
+def topk(data, *, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+         dtype="float32"):
+    """The ``k`` largest (``is_ascend``: smallest) along ``axis``, best
+    first: values, indices (as ``dtype``) or both."""
+    vals, idx = torch.sort(data, dim=axis, descending=not is_ascend,
+                           stable=True)
+    vals, idx = vals.narrow(axis, 0, k), idx.narrow(axis, 0, k)
+    if ret_typ == "value":
+        return vals
+    if ret_typ == "both":
+        return vals, idx.to(torch_dtype(dtype))
+    return idx.to(torch_dtype(dtype))
+
+
+@register("argmax_channel")
+def argmax_channel(data):
+    return torch.argmax(data, dim=1).to(torch.float32)
+
+
+# -- shape, sequence and triangle ops --------------------------------------------
+
+@register("slice_like", num_inputs=2)
+def slice_like(data, shape_like, *, axes=()):
+    axes = tuple(axes) if axes else tuple(range(shape_like.dim()))
+    idx = [builtins.slice(None)] * data.dim()
+    for a in axes:
+        idx[a] = builtins.slice(0, shape_like.shape[a])
+    return data[tuple(idx)]
+
+
+@register("SequenceLast", num_inputs=None)
+def sequence_last(data, *rest, use_sequence_length=False, axis=0):
+    """Each row's last valid step along ``axis``; a length of 0 reads
+    the last step and one past the end is clamped to it, as the JAX
+    package's gather."""
+    if not use_sequence_length:
+        return data.select(axis, -1)
+    data_t = torch.movedim(data, axis, 0)
+    n = data_t.shape[0]
+    last = _wrap_negative(rest[0].to(device=data.device).long() - 1, n)
+    return data_t[last.clamp(0, n - 1),
+                  torch.arange(data_t.shape[1], device=data.device)]
+
+
+@register("reverse")
+def reverse(data, *, axis=()):
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    return torch.flip(data, dims=axes)
+
+
+alias("flip", "reverse")
+
+
+@register("roll")
+def roll(data, *, shift=0, axis=None):
+    shift = tuple(shift) if isinstance(shift, (tuple, list)) else shift
+    axis = tuple(axis) if isinstance(axis, (tuple, list)) else axis
+    return torch.roll(data, shift, dims=axis)
+
+
+@register("tril")
+def tril(data, *, k=0):
+    return torch.tril(data, diagonal=k)
+
+
+@register("triu")
+def triu(data, *, k=0):
+    return torch.triu(data, diagonal=k)
+
+
+@register("diag")
+def diag(data, *, k=0):
+    if data.dim() == 1:
+        return torch.diag(data, k)
+    return torch.diagonal(data, offset=k, dim1=-2, dim2=-1)
+
+
+def _keep_int(x):
+    """The dtype that keeps an integer input's type through a sum (the
+    JAX package's, without x64); None for floating inputs."""
+    return None if x.is_floating_point() else x.dtype
+
+
+@register("trace")
+def trace(data, *, offset=0, axis1=0, axis2=1):
+    diag_ = torch.diagonal(data, offset=offset, dim1=axis1, dim2=axis2)
+    return torch.sum(diag_, dim=-1, dtype=_keep_int(data))
+
+
+def _cumulative(fn, a, axis, dtype):
+    x = a if axis is not None else a.reshape(-1)
+    out = fn(x, dim=axis if axis is not None else 0, dtype=_keep_int(a))
+    return out.to(torch_dtype(dtype)) if dtype else out
+
+
+@register("cumsum")
+def cumsum(a, *, axis=None, dtype=None):
+    return _cumulative(torch.cumsum, a, axis, dtype)
+
+
+@register("cumprod")
+def cumprod(a, *, axis=None, dtype=None):
+    return _cumulative(torch.cumprod, a, axis, dtype)
+
+
+@register("square_sum")
+def square_sum(data, *, axis=None, keepdims=False, exclude=False):
+    axes = _norm_axis(axis, data.dim(), exclude)
+    return torch.sum(torch.square(data), dim=axes, keepdim=keepdims)
+
+
+@register("log_sum_exp")
+def log_sum_exp(data, *, axis=None, keepdims=False):
+    axes = _norm_axis(axis, data.dim())
+    return torch.logsumexp(data, dim=axes, keepdim=keepdims)
+
+
+# -- gathers and scatters (reference ``indexing_op.cc``) -------------------------
+
+def _wrap_negative(idx, size):
+    return torch.where(idx < 0, idx + size, idx)
+
+
+@register("gather_nd", num_inputs=2)
+def gather_nd(data, indices):
+    """``data[indices[0], indices[1], ...]``: a negative index counts
+    from the end and one out of range is clamped, as JAX's gather."""
+    idx = indices.long()
+    return data[tuple(_wrap_negative(i, n).clamp(0, n - 1)
+                      for i, n in zip(idx, data.shape))]
+
+
+register("gather_nd_raw", num_inputs=2)(gather_nd)
+
+
+@register("scatter_nd", num_inputs=2)
+def scatter_nd(data, indices, *, shape=()):
+    """Zeros of ``shape`` with ``data``'s items at the coordinates
+    ``indices`` (M, N...) gives.  Where several items share a
+    coordinate the last one is written and only it takes the gradient,
+    and an item out of range is dropped, as JAX's scatter on the CPU."""
+    shape = tuple(shape)
+    idx = indices.long()
+    m = idx.shape[0]
+    dims = shape[:m]
+    coords = [_wrap_negative(i, n) for i, n in zip(idx, dims)]
+    ok = functools.reduce(torch.logical_and,
+                          [(c >= 0) & (c < n) for c, n in zip(coords, dims)])
+    cells = 1
+    lin = torch.zeros_like(coords[0])
+    for c, n in zip(coords, dims):
+        lin = lin * n + c.clamp(0, n - 1)
+        cells *= n
+    lin, ok = lin.reshape(-1), ok.reshape(-1)
+    order = torch.arange(lin.numel(), device=lin.device)
+    last = torch.full((cells,), -1, dtype=torch.long, device=lin.device)
+    last = last.scatter_reduce(0, lin[ok], order[ok], "amax")
+    win = ok & (last[lin] == order)
+    items = data.reshape((lin.numel(),) + shape[m:])
+    out = torch.zeros((cells,) + shape[m:], dtype=data.dtype,
+                      device=data.device)
+    return out.index_put((lin[win],), items[win]).reshape(shape)
+
+
+@register("batch_take", num_inputs=2)
+def batch_take(a, indices):
+    """``a[i, indices[i]]`` for each row of ``a`` (N, K): a negative
+    index counts from the end, one out of range reads NaN (JAX's
+    ``take_along_axis`` fill)."""
+    n = a.shape[1]
+    idx = _wrap_negative(indices.long(), n)
+    out = a.gather(1, idx.clamp(0, n - 1)[:, None])[:, 0]
+    if a.is_floating_point():
+        out = torch.where((idx >= 0) & (idx < n), out,
+                          torch.full((), float("nan"), dtype=a.dtype,
+                                     device=a.device))
+    return out
+
+
+@register("ravel_multi_index")
+def ravel_multi_index(data, *, shape=()):
+    """(N, M) coordinate rows -> (M,) flat indices, in ``data``'s type."""
+    idx = data.long()
+    strides = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        strides[i] = strides[i + 1] * int(shape[i + 1])
+    flat = sum(idx[i] * s for i, s in enumerate(strides))
+    return flat.to(data.dtype)
+
+
+@register("unravel_index")
+def unravel_index(data, *, shape=()):
+    """(M,) flat indices -> (N, M) coordinate rows, in ``data``'s type;
+    an index past the end reads the last coordinate and one below -1 the
+    first, as ``jnp.unravel_index``."""
+    rest = data.long()
+    coords = [None] * len(shape)
+    for i in range(len(shape) - 1, -1, -1):
+        rest, coords[i] = (torch.div(rest, int(shape[i]),
+                                     rounding_mode="floor"),
+                           torch.remainder(rest, int(shape[i])))
+    coords = [torch.where(rest > 0, int(s) - 1,
+                          torch.where(rest < -1, 0, c))
+              for s, c in zip(shape, coords)]
+    return torch.stack(coords).to(data.dtype)
+
+
+# -- _cache_update: the decode step's KV-cache write ----------------------------
+
+@register("_cache_update", num_inputs=2, scalar_attrs=("offset",),
+          scalar_ref_input=None)
+def _cache_update(cache, new, offset=0):
+    """``cache`` with ``new`` written at ``offset`` along axis 1 (see
+    ``ops.nn.cache_update``), as a new array; ``nd._cache_update(cache,
+    new, offset, out=cache)`` writes the cache in place."""
+    return _nn.cache_update(cache.clone(), new, offset)
+
+
+# -- creation and elementwise ------------------------------------------------------
+
+@register("linspace", num_inputs=0, wrap_ctx=True)
+def linspace(*, start=0.0, stop=1.0, num=50, endpoint=True,
+             dtype="float32", device=None):
+    n = int(num)
+    out = torch.linspace(start, stop, n if endpoint else n + 1,
+                         dtype=torch.float64, device=device)
+    return out[:n].to(torch_dtype(dtype))
+
+
+@register("logspace", num_inputs=0, wrap_ctx=True)
+def logspace(*, start=0.0, stop=1.0, num=50, endpoint=True, base=10.0,
+             dtype="float32", device=None):
+    exps = linspace(start=start, stop=stop, num=num, endpoint=endpoint,
+                    dtype="float64", device=device)
+    return torch.pow(float(base), exps).to(torch_dtype(dtype))
+
+
+@register("hard_sigmoid")
+def hard_sigmoid(data, *, alpha=0.2, beta=0.5):
+    return torch.clamp(alpha * data + beta, 0.0, 1.0)
+
+
+@register("digamma")
+def digamma(data):
+    return torch.special.digamma(data)
+
+
+@register("smooth_l1")
+def smooth_l1(data, *, scalar=1.0):
+    """The reference's smooth L1: quadratic below 1 / scalar**2."""
+    s2 = scalar * scalar
+    a = torch.abs(data)
+    return torch.where(a < 1.0 / s2, 0.5 * s2 * data * data, a - 0.5 / s2)
+
+
+# -- nd.contrib (reference ``src/operator/contrib/``) -----------------------------
+
+@register("_contrib_arange_like")
+def arange_like(data, *, start=0.0, step=1.0, repeat=1, axis=None):
+    """``start + step * (i // repeat)`` over ``data``'s elements (or the
+    length of ``axis``), in ``data``'s type."""
+    n = data.numel() if axis is None else data.shape[axis]
+    ramp = torch.div(torch.arange(n, device=data.device), repeat,
+                     rounding_mode="floor").to(torch.float32)
+    out = (start + step * ramp).to(data.dtype)
+    return out.reshape(data.shape) if axis is None else out
+
+
+@register("_contrib_index_array")
+def index_array(data, *, axes=None):
+    """Each element's index (int32), (*data.shape, len(axes))."""
+    grids = torch.meshgrid(*[torch.arange(s, device=data.device)
+                             for s in data.shape], indexing="ij")
+    sel = range(data.dim()) if axes is None else axes
+    return torch.stack([grids[a] for a in sel], dim=-1).to(torch.int32)
+
+
+@register("_contrib_index_copy", num_inputs=3)
+def index_copy(old, index, new):
+    """``old`` with the rows of ``new`` at ``index`` along axis 0, as a
+    new array."""
+    idx = _wrap_negative(index.long(), old.shape[0])
+    return old.index_put((idx,), new.to(old.dtype))

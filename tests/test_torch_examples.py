@@ -48,6 +48,8 @@ EXAMPLES = {
                     "validation accuracy="),
     "estimator_fit": (["--synthetic", "--epochs", "3"],
                       "final validation accuracy"),
+    "nmt_translate": (["--steps", "30", "--batch-size", "16"],
+                      "exact-match"),
 }
 
 

@@ -63,6 +63,12 @@ FLASH_CASES = [
                  id="window100"),
     pytest.param(dict(b=2, mask="4d"), id="key-padding-b11s"),
     pytest.param(dict(b=2, mask="2d", causal=True), id="key-padding-bs"),
+    # the NMT decoder's self-attention mask (B, 1, 1, S) with causal, and
+    # a key-padded cross-attention whose source is longer than the target
+    pytest.param(dict(b=2, mask="4d", causal=True),
+                 id="causal-key-padding-b11s"),
+    pytest.param(dict(b=2, s_q=128, s_k=256, mask="4d"),
+                 id="cross-key-padding"),
 ]
 
 

@@ -105,6 +105,12 @@ CASES = [
                  id="key-padding-b11s"),
     pytest.param(dict(b=3, lens=(100, 0, 128), mask="2d", causal=True,
                       zeros=True), id="key-padding-bs-empty-row"),
+    # the NMT decoder's self-attention mask (B, 1, 1, S) with causal, and
+    # a key-padded cross-attention whose source is longer than the target
+    pytest.param(dict(b=2, lens=(70, 128), mask="4d", causal=True,
+                      zeros=True), id="causal-key-padding-b11s"),
+    pytest.param(dict(b=2, s_q=128, s_k=256, lens=(150, 256), mask="4d",
+                      zeros=True), id="cross-key-padding"),
 ]
 
 

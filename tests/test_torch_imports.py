@@ -96,6 +96,32 @@ print("FOREIGN", bad)
 """
 
 
+_CHILD_NMT = r"""
+import sys
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import autograd, gluon, nd
+from mxnet_tpu_torch.models import nmt_tiny
+net = nmt_tiny(13, max_length=16, share_embed=True)
+net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+net.hybridize()
+tr = gluon.Trainer(net.collect_params(), "adam", {"learning_rate": 1e-2})
+src = nd.array(np.random.RandomState(0).randint(3, 13, (4, 5)), ctx=mx.cpu())
+tgt = nd.array(np.ones((4, 6)), ctx=mx.cpu())
+with autograd.record():
+    loss = net.loss(src, tgt, tgt, nd.array([5, 4, 3, 5], ctx=mx.cpu()))
+loss.backward()
+tr.step(4)
+top = nd.topk(nd.cumsum(src, axis=1), k=2, ret_typ="both")
+samples, scores, lens = net.translate(src, 1, 2, beam_size=2, max_len=6)
+assert samples.shape[:2] == (4, 2) and len(top) == 2
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "mxnet_tpu" or m.startswith("mxnet_tpu."))
+print("FOREIGN", bad)
+"""
+
+
 def _sources():
     pkg = os.path.join(REPO, "mxnet_tpu_torch")
     out = [os.path.join(REPO, "chip_smoke.py")]
@@ -128,6 +154,12 @@ def test_imperative_path_in_a_fresh_process_loads_no_jax():
     _run_child(_CHILD_IMPERATIVE)
 
 
+def test_nmt_and_the_new_ops_in_a_fresh_process_load_no_jax():
+    """TransformerNMT's training step and translation, nd.topk and
+    nd.cumsum import neither JAX nor the JAX package."""
+    _run_child(_CHILD_NMT)
+
+
 def test_no_source_imports_jax_or_the_jax_package():
     offenders = []
     for path in _sources():
@@ -143,7 +175,8 @@ def test_no_source_imports_jax_or_the_jax_package():
                                    "context", "BERT.initialize",
                                    "make_mesh", "nd.array", "nd.zeros",
                                    "nd.random.normal", "gluon.initialize",
-                                   "rtc.launch"])
+                                   "rtc.launch", "nmt.initialize",
+                                   "nd.linspace"])
 def test_entry_points_default_to_the_card(entry):
     """Without a card and without ctx=mx.cpu(), entry points raise
     instead of running on the CPU."""
@@ -171,6 +204,10 @@ def test_entry_points_default_to_the_card(entry):
             mx.nd.random.normal(shape=(2,))
         elif entry == "gluon.initialize":
             mx.gluon.nn.Dense(2, in_units=3).initialize()
+        elif entry == "nmt.initialize":
+            models.nmt_tiny(13).initialize(mx.init.Xavier())
+        elif entry == "nd.linspace":
+            mx.nd.linspace(0.0, 1.0, 5)
         elif entry == "rtc.launch":
             k = mx.rtc.CudaKernel(None, "k", "k", "float *y")
             k.launch([mx.nd.zeros((2,), ctx=mx.cpu())], mx.gpu(0),

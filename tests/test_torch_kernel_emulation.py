@@ -121,6 +121,12 @@ FWD_CASES = [
     pytest.param(dict(s_q=256, s_k=256, causal=True, window=100),
                  id="window100"),
     pytest.param(dict(b=2, lens=(0, 77)), id="key-padding-empty-row"),
+    # the NMT decoder's causal self-attention with key padding, and a
+    # key-padded cross-attention whose source is longer than the target
+    pytest.param(dict(b=2, lens=(70, 128), causal=True),
+                 id="causal-key-padding"),
+    pytest.param(dict(b=2, s_q=128, s_k=256, lens=(150, 256)),
+                 id="cross-key-padding"),
     pytest.param(dict(h=4, kv=2, d=72, causal=True), id="d72-causal"),
     pytest.param(dict(s_q=64, d=128, causal=True), id="d128-causal"),
     pytest.param(dict(s_q=64, h=1, kv=1, d=256), id="d256"),
@@ -178,6 +184,10 @@ BWD_CASES = [
     pytest.param(dict(b=2, h=1, lens=(0, 77)), id="key-padding-empty-row"),
     pytest.param(dict(b=2, h=1, lens=(100, 0), causal=True),
                  id="causal-key-padding"),
+    pytest.param(dict(b=2, s_q=128, s_k=256, h=2, kv=2, lens=(150, 256)),
+                 id="cross-key-padding"),
+    pytest.param(dict(b=2, s_q=128, s_k=256, h=2, kv=2, lens=(150, 256),
+                      dtype=torch.float32), id="f32-cross-key-padding"),
     # keys 0-319 lie below every query's window: a key tile that visits
     # no query tile writes exact zeros
     pytest.param(dict(s_q=128, s_k=512, h=1, causal=True, window=64),
