@@ -295,6 +295,49 @@ Phases, each printing JSON lines:
             beam translation of the 32 sources (beam 4, alpha 0.6,
             max_len 178): ms a call, sentences/s, ms a decode step and
             its busy share, K1 6 launches a call.
+29. vision_parity: every op of the vision group (BilinearResize2D up by
+            32 to 480 x 480 and down by 3, UpSampling, L2Normalization,
+            LRN, GridGenerator, BilinearSampler, SpatialTransformer,
+            Correlation, Crop, depth_to_space, space_to_depth,
+            AdaptiveAvgPooling2D) on the card against the CPU in f32,
+            forward and gradient, within 1e-5 of the largest magnitude;
+            fcn_tiny's and deeplab_tiny's widths (dropout 0) through 3
+            hybridized SGD-momentum steps card against CPU: losses
+            within 1e-4, each weight within the larger of 1e-5 and 4x the
+            CPU's own f32-vs-f64 distance in relative L2, a TF32 control
+            (the convolutions' and the resize's guards bypassed) past
+            that rule; an eager warm-up, a capture, then replays; no
+            flash kernel.
+30. seg:     FCN-32s and DeepLabV3 (ASPP 256, rates 6, 12, 18) over
+            resnet50_v1 at GluonCV's VOC widths (SEG: 21 classes, 480 x
+            480 seeded blobs with a -1 band around each object, batch
+            16, SGD lr 1e-3 momentum 0.9 wd 1e-4, aux weight 0.5), bf16
+            AMP, hybridized, through the gluon loop: the two-window slope
+            (5 and 20 steps after 3 warm-ups), images/s, MFU from the
+            convolutions' shapes, the busy share, a profiled step split
+            into cuDNN's fprop, dgrad and wgrad kernels, BatchNorm, the
+            resize and the loss (each measured alone), SGD and other,
+            peak memory, the CachedOp's counts (one forward and one
+            backward replay a step); predict, and SegmentationMetric on
+            the card's predictions equal to the host's; losses finite
+            and falling; no flash kernel.
+31. det_parity: every detection op (box_iou, box_nms, ROIAlign,
+            PSROIPooling, MultiBoxPrior, MultiBoxTarget, MultiBoxDetection,
+            box_encode, box_decode, bipartite_matching, MultiProposal,
+            Proposal) on the card against the CPU on seeded inputs whose
+            IoUs lie clear of the thresholds by 1e-4: the selections
+            (kept rows, matches, class targets, masks) equal, values and
+            gradients within 1e-5; ssd_tiny through
+            example/ssd_train.py's 3 Adam steps card against CPU under
+            the weight rule with a TF32 control; no flash kernel.
+32. det:     the ops at published sizes: SSD300's anchors (Liu et al.
+            2016: six maps, 8,732 anchors, asserted), MultiBoxTarget at
+            batch 32 and 21 classes with hard negatives, MultiBoxDetection
+            (threshold 0.01, NMS 0.45, nms_topk 400 and -1; with zero
+            offsets the first two images equal the CPU's) and
+            MultiProposal at Faster R-CNN's RPN (B 2, 38 x 63 x 9
+            anchors, 6000 / 300, NMS 0.7): ms a call, peak memory and
+            box_nms's fixed-point passes.
 
 The kernels phase also runs K1-K3 at Llama-3-8B's training shape (B=1,
 S=4096, H=32 over KV=8, D=128, causal, bf16), and at NMT's shapes (b32,
@@ -329,7 +372,7 @@ ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,"
               "imperative,rtc,resnet_parity,resnet,llama_train_parity,"
               "llama_train,forecast_parity,forecast,gan_parity,gan,"
               "wordlm_parity,wordlm,data,fp16_parity,optimizers_parity,"
-              "bert_fp16,nmt_parity,nmt")
+              "bert_fp16,nmt_parity,nmt,vision_parity,seg,det_parity,det")
 SERVING_PHASES = {"device", "build", "parity", "serve"}
 
 
@@ -3571,25 +3614,29 @@ def word_lm_loop(mx, net, cfg, corpus, ctx, optimizer, params, clip=None,
 
 
 @contextlib.contextmanager
-def _tf32_everywhere():
+def _tf32_everywhere(products=False):
     """TF32 in every float32 product: the matmul and cuDNN flags on and
-    the port's guards (convolutions, the recurrence) bypassed.
-    wordlm_parity's control run, which its weight rule must reject."""
+    the port's guards (convolutions, the recurrence) bypassed; with
+    ``products``, also the guard of the chunked cross-entropy's and the
+    resize's products (the vision and detection parity phases).  The
+    parity phases' control run, which their weight rule must reject."""
     import torch
     from mxnet_tpu_torch.ops import nn as ops_nn
     from mxnet_tpu_torch.ops import rnn as ops_rnn
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32, ops_nn._ieee_f32,
-             ops_rnn._ieee_f32)
+             ops_rnn._ieee_f32, ops_nn._ieee_f32_matmul)
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     ops_nn._ieee_f32 = ops_rnn._ieee_f32 = contextlib.nullcontext
+    if products:
+        ops_nn._ieee_f32_matmul = contextlib.nullcontext
     try:
         yield
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32, ops_nn._ieee_f32,
-         ops_rnn._ieee_f32) = saved
+         ops_rnn._ieee_f32, ops_nn._ieee_f32_matmul) = saved
 
 
 def _optimizer_states(tr):
@@ -6033,6 +6080,861 @@ def phase_nmt(mx, dev, cfg=NMT):
                 translate=tr_launches, translate_calls=calls)
 
 
+# -- phases 29-32: dense prediction and detection --------------------------------
+
+# GluonCV's fcn_resnet50_voc recipe (scripts/segmentation/train.py): VOC's
+# 21 classes, 480 x 480 crops, SGD lr 1e-3, momentum 0.9, wd 1e-4, the aux
+# head on stage 3 at weight 0.5; batch 16 on one card, bf16 AMP.  The JAX
+# package's backbone is not dilated: FCN-32s.  DeepLabV3's ASPP at 256
+# channels, rates (6, 12, 18) (Chen et al. 2017, section 3.3)
+SEG = dict(classes=21, size=480, batch_size=16, lr=1e-3, momentum=0.9,
+           wd=1e-4, aux_weight=0.5, aspp_channels=256, rates=(6, 12, 18),
+           warmup=3, windows=(5, 20), seed=15)
+# fcn_tiny's and deeplab_tiny's widths (thumbnail resnet18, 3 classes) at
+# batch 8 of 32 x 32, dropout 0 (the CPU's and the card's generators draw
+# different masks), 3 SGD-momentum steps at the recipe's lr 1e-3.  ASPP's
+# pooled branch normalizes over the batch alone: at batch 2, or at lr
+# 1e-2, the CPU's own float32 losses part from float64 by 7e-5 to 1e-3 in
+# 3 steps (at 1e-3 and batch 8: 7e-6)
+SEG_PARITY = dict(classes=3, size=32, batch_size=8, lr=1e-3, steps=3,
+                  seed=15)
+SEG_LOSS_TOL = 1e-4
+SEG_WEIGHT_TOL = 1e-5
+VISION_OP_TOL = 1e-5
+# SSD300 (Liu et al. 2016, sections 2.2-3; GluonCV ssd_300_vgg16_atrous_voc):
+# six maps, the sizes (s_k, sqrt(s_k s_k+1)) / 300 from s = 30 ... 315,
+# ratios (1, 2, 1/2), or with (3, 1/3) on maps 2-4, steps / 300
+SSD300 = dict(maps=(38, 19, 10, 5, 3, 1), s=(30, 60, 111, 162, 213, 264, 315),
+              steps=(8, 16, 32, 64, 100, 300), batch_size=32, classes=21,
+              max_objects=32, anchors=8732)
+# Faster R-CNN's RPN (Ren et al. 2015, section 3.1): a 600 x 1000 image at
+# stride 16, 3 scales x 3 ratios, 6000 boxes before NMS, 300 after, NMS 0.7
+RPN = dict(batch_size=2, height=38, width=63, im=(600.0, 1000.0),
+           scales=(8, 16, 32), ratios=(0.5, 1, 2), pre=6000, post=300,
+           nms=0.7, stride=16)
+DET_TOL = 1e-5
+
+
+def _ramp(shape):
+    n = int(np.prod(shape)) if shape else 1
+    return np.linspace(-1.0, 1.0, n, dtype="float32").reshape(shape)
+
+
+def _op_run(mx, ctx, fn, arrays, grad=True):
+    """(outputs, gradients of sum(out * ramp) for the floating inputs) of
+    ``fn(mx.nd, *arrays)`` on ``ctx``, as numpy arrays."""
+    from mxnet_tpu_torch import autograd
+    xs = [mx.nd.array(a, ctx=ctx, dtype=a.dtype) for a in arrays]
+    diff = [x for x, a in zip(xs, arrays) if a.dtype.kind == "f"] \
+        if grad else []
+    for x in diff:
+        x.attach_grad()
+    with autograd.record() if diff else contextlib.nullcontext():
+        out = fn(mx.nd, *xs)
+        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        if diff:
+            loss = None
+            for o in outs:
+                term = (o * mx.nd.array(_ramp(o.shape), ctx=ctx)).sum()
+                loss = term if loss is None else loss + term
+    if diff:
+        loss.backward()
+    return [o.asnumpy() for o in outs], [x.grad.asnumpy() for x in diff]
+
+
+def _op_parity(mx, cases, exact=None):
+    """Each case (name -> (fn, arrays, grad)) on the card against the
+    CPU: ({name: worst error over the outputs and gradients, each over
+    the largest magnitude of the CPU's}, [the cases whose selection
+    differs]); ``exact`` maps a name to a function of the outputs that
+    picks the part (a selection) that must be equal."""
+    errs, unequal = {}, []
+    for name, (fn, arrays, grad) in cases.items():
+        arrays = [np.asarray(a) for a in arrays]
+        c_out, c_grad = _op_run(mx, mx.cpu(), fn, arrays, grad)
+        g_out, g_grad = _op_run(mx, mx.gpu(0), fn, arrays, grad)
+        worst = 0.0
+        for g, c in zip(g_out + g_grad, c_out + c_grad):
+            check(g.shape == c.shape and g.dtype == c.dtype,
+                  f"{name}: card {g.shape} {g.dtype}, CPU {c.shape} "
+                  f"{c.dtype}")
+            worst = max(worst, _rel(g, c))
+        errs[name] = worst
+        pick = (exact or {}).get(name)
+        if pick is not None and not np.array_equal(pick(g_out),
+                                                   pick(c_out)):
+            unequal.append(name)
+    return errs, unequal
+
+
+def _vision_cases(rng):
+    n = lambda *s: rng.randn(*s).astype("f4")
+    theta = (np.array([[0.9, 0.1, 0.05, -0.1, 1.1, 0.02]] * 2)
+             + 0.05 * rng.randn(2, 6)).astype("f4")
+    return {
+        # the heads' upsampling by 32 (a stride-32 map to 480 x 480) and a
+        # shrink by 3 (antialiased)
+        "BilinearResize2D_up32": (lambda F, a: F.BilinearResize2D(
+            a, height=480, width=480), [n(2, 21, 15, 15)], True),
+        "BilinearResize2D_down3": (lambda F, a: F.BilinearResize2D(
+            a, height=32, width=32), [n(2, 3, 96, 96)], True),
+        "UpSampling_nearest": (lambda F, a: F.UpSampling(a, scale=2),
+                               [n(2, 3, 6, 5)], True),
+        "UpSampling_bilinear": (lambda F, a: F.UpSampling(
+            a, scale=3, sample_type="bilinear"), [n(2, 3, 6, 5)], True),
+        "L2Normalization": (lambda F, a: F.L2Normalization(
+            a, mode="channel"), [n(2, 8, 6, 5)], True),
+        "LRN": (lambda F, a: F.LRN(a, nsize=5), [n(2, 16, 6, 5)], True),
+        "GridGenerator": (lambda F, t: F.GridGenerator(
+            t, transform_type="affine", target_shape=(9, 11)), [theta],
+            True),
+        "GridGenerator_warp": (lambda F, t: F.GridGenerator(
+            t, transform_type="warp"), [n(2, 2, 6, 7)], True),
+        "BilinearSampler": (lambda F, a, g: F.BilinearSampler(a, g), [
+            n(2, 3, 12, 10), rng.uniform(-1.2, 1.2, (2, 2, 9, 11))
+            .astype("f4")], True),
+        "SpatialTransformer": (lambda F, a, t: F.SpatialTransformer(
+            a, t, target_shape=(9, 11)), [n(2, 3, 12, 10), theta], True),
+        "Correlation": (lambda F, a, b: F.Correlation(
+            a, b, kernel_size=3, max_displacement=4, stride2=2,
+            pad_size=4), [n(2, 8, 16, 16), n(2, 8, 16, 16)], True),
+        "Correlation_sad": (lambda F, a, b: F.Correlation(
+            a, b, max_displacement=2, pad_size=2, is_multiply=False),
+            [n(2, 8, 16, 16), n(2, 8, 16, 16)], True),
+        "Crop": (lambda F, a, b: F.Crop(a, b, num_args=2),
+                 [n(2, 3, 8, 8), n(2, 3, 5, 5)], True),
+        "depth_to_space": (lambda F, a: F.depth_to_space(a, block_size=2),
+                           [n(2, 8, 6, 5)], True),
+        "space_to_depth": (lambda F, a: F.space_to_depth(a, block_size=2),
+                           [n(2, 3, 8, 6)], True),
+        "_contrib_AdaptiveAvgPooling2D": (
+            lambda F, a: F.contrib.AdaptiveAvgPooling2D(
+                a, output_size=(3, 5)), [n(2, 3, 15, 17)], True),
+    }
+
+
+def _seg_net(mx, kind, cfg, ctx, backbone="resnet18_v1", dropout=0.0):
+    """FCN or DeepLabV3 over a zoo ResNet: fcn_tiny's and deeplab_tiny's
+    widths over the thumbnail resnet18 by default, else ``backbone`` at
+    its full width (1024 / 2048 channels for resnet50)."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.models import segmentation as seg
+    tiny = backbone == "resnet18_v1"
+    # explicit prefixes: the runs of a parity phase share parameter names
+    zoo = vision.get_model(backbone, classes=10, thumbnail=True,
+                           prefix="zoo_") if tiny \
+        else vision.get_model(backbone, prefix="zoo_")
+    c3, c4 = (256, 512) if tiny else (1024, 2048)
+    if kind == "fcn":
+        net = seg.FCN(cfg["classes"], zoo, c3, c4, dropout=dropout,
+                      prefix="fcn_")
+    else:
+        net = seg.DeepLabV3(cfg["classes"], zoo, c3, c4,
+                            aspp_channels=32 if tiny
+                            else cfg["aspp_channels"],
+                            rates=cfg.get("rates", (6, 12, 18)),
+                            dropout=dropout, prefix="deeplab_")
+    net.initialize(mx.init.Xavier(), ctx=ctx, seed=cfg["seed"])
+    return net
+
+
+def seg_blobs(n, size, classes, seed):
+    """Synthetic VOC-like images: 1-3 objects an image (rectangles and
+    discs of seeded classes 1 .. classes - 1, each tinting the image by
+    its class's colour) on noise, a 5-pixel -1 ("ignore") band around
+    each object (GluonCV maps VOC's 255 boundary pixels so)."""
+    rng = np.random.RandomState(seed)
+    colours = rng.rand(classes, 3).astype("f4")
+    x = rng.rand(n, 3, size, size).astype("f4") * 0.2
+    y = np.zeros((n, size, size), "f4")
+    yy, xx = np.mgrid[0:size, 0:size]
+    for i in range(n):
+        for _ in range(rng.randint(1, 4)):
+            c = rng.randint(1, classes)
+            cy, cx = rng.randint(size // 8, size - size // 8, 2)
+            r = rng.randint(size // 16, size // 5)
+            if rng.rand() < 0.5:
+                d = np.maximum(np.abs(yy - cy), np.abs(xx - cx))
+            else:
+                d = np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2)
+            obj = d < r
+            y[i][(d < r + 5) & ~obj & (y[i] == 0)] = -1
+            y[i][obj] = c
+            x[i][:, obj] += colours[c][:, None]
+    return x, y
+
+
+def _seg_loop(mx, net, cfg, batches, ctx, dtype="float32"):
+    """The gluon loop (record, net(x), SoftmaxSegLoss, backward,
+    Trainer.step SGD momentum) over ``batches``; returns the losses."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.models import SoftmaxSegLoss
+    tr = gluon.Trainer(net.collect_params(), "sgd",
+                       {"learning_rate": cfg["lr"], "momentum": 0.9,
+                        "wd": 1e-4}, kvstore=None)
+    loss_fn = SoftmaxSegLoss(aux_weight=0.5)
+    losses = []
+    for x, y in batches:
+        x = mx.nd.array(x, ctx=ctx, dtype=dtype)
+        y = mx.nd.array(y, ctx=ctx, dtype=dtype)
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        tr.step(x.shape[0])
+        losses.append(float(loss.asnumpy().ravel()[0]))
+    return losses
+
+
+def _trajectory_parity(name, runs, loss_tol, weight_tol):
+    """The weight rule of the parity phases over ``runs`` ({"cpu",
+    "cpu_f64", "card", "card_tf32"}: (losses, {name: weights})): the
+    card's losses within ``loss_tol`` of the CPU's, each weight within the
+    larger of ``weight_tol`` and 4x the CPU's own f32-vs-f64 distance in
+    relative L2, and the TF32 control past that limit somewhere."""
+    (cl, cw), (_, w64), (gl, gw), (tl, tw) = (
+        runs[k] for k in ("cpu", "cpu_f64", "card", "card_tf32"))
+    limits = {k: max(weight_tol, 4 * _rel_l2([w], [w64[k]]))
+              for k, w in cw.items()}
+    card = {k: _rel_l2([gw[k]], [cw[k]]) for k in limits}
+    control = {k: _rel_l2([tw[k]], [cw[k]]) for k in limits}
+    over = {k: [e, limits[k]] for k, e in card.items() if e > limits[k]}
+    row = {"losses": gl, "cpu_losses": cl, "loss_rel_err": _rel(gl, cl),
+           "loss_tol": loss_tol, "weight_rel_l2_max": max(card.values()),
+           "worst": sorted(card.items(), key=lambda kv: -kv[1])[:3],
+           "weight_tol": weight_tol, "over_limit": over,
+           "cpu_f32_vs_f64_loss_rel_err": _rel(cl, runs["cpu_f64"][0]),
+           "tf32_control": {
+               "loss_rel_err": _rel(tl, cl),
+               "weight_rel_l2_max": max(control.values()),
+               "over_limit": sorted(k for k, e in control.items()
+                                    if e > limits[k])[:5]}}
+    check(row["loss_rel_err"] <= loss_tol and not over,
+          f"{name}: losses {row['loss_rel_err']}, weights over their "
+          f"limits {over}")
+    check(row["tf32_control"]["over_limit"],
+          f"{name}: the TF32 control passed the weight rule "
+          f"{row['tf32_control']}: the rule cannot tell TF32 from float32")
+    return row
+
+
+def _seg_parity(mx, dev, kind, cfg=SEG_PARITY):
+    """One tiny segmentation net's 3 hybridized SGD-momentum steps on the
+    card against the CPU (f32, f64 and a TF32 control on the card)."""
+    import torch
+    batches = [seg_blobs(cfg["batch_size"], cfg["size"], cfg["classes"],
+                         cfg["seed"] + s) for s in range(cfg["steps"])]
+    start = _seg_net(mx, kind, cfg, mx.cpu())
+    start(mx.nd.array(batches[0][0], ctx=mx.cpu()))   # the deferred shapes
+    runs = {}
+    for where, ctx, dtype in (("cpu", mx.cpu(), "float32"),
+                              ("cpu_f64", mx.cpu(), "float64"),
+                              ("card", mx.gpu(0), "float32"),
+                              ("card_tf32", mx.gpu(0), "float32")):
+        net = _seg_net(mx, kind, cfg, ctx)
+        net(mx.nd.array(batches[0][0], ctx=ctx))
+        _copy_params(start, net)
+        if dtype == "float64":
+            net.to(torch.float64)
+        net.hybridize()
+        with _tf32_everywhere(products=True) if where == "card_tf32" \
+                else contextlib.nullcontext():
+            losses = _seg_loop(mx, net, cfg, batches, ctx, dtype)
+        runs[where] = (losses, _weights(net))
+        if where == "card":
+            op = net._cached_op
+            counts = {"captures": op.captures, "replays": op.replays,
+                      "backward_replays": op.backward_replays}
+    row = _trajectory_parity(f"vision_parity {kind}", runs, SEG_LOSS_TOL,
+                             SEG_WEIGHT_TOL)
+    row["cachedop"] = counts
+    check(counts == {"captures": 1, "replays": cfg["steps"] - 1,
+                     "backward_replays": cfg["steps"] - 1},
+          f"vision_parity {kind}: the CachedOp's counts {counts}, want an "
+          "eager warm-up, a capture, then replays")
+    return row
+
+
+def phase_vision_parity(mx, dev):
+    """The vision group on the card against the CPU in f32, forward and
+    gradient (BilinearResize2D up by 32 and down by 3); fcn_tiny's and
+    deeplab_tiny's widths (dropout 0) through 3 hybridized SGD-momentum
+    steps card against CPU under the weight rule, with a TF32 control;
+    no flash launch."""
+    free_earlier_phases()
+    reset_counts()
+    errs, _ = _op_parity(mx, _vision_cases(np.random.RandomState(15)))
+    over = {k: e for k, e in errs.items() if e > VISION_OP_TOL}
+    nets = {kind: _seg_parity(mx, dev, kind) for kind in ("fcn", "deeplab")}
+    launches = read_counts()
+    emit({"phase": "vision_parity", "op_rel_err": errs,
+          "op_tol": VISION_OP_TOL, "nets": nets, "flash_launches": launches,
+          "card": nvidia_smi()})
+    check(not over, f"vision_parity: ops past {VISION_OP_TOL}: {over}")
+    check(not any(launches.values()),
+          f"vision_parity: flash kernels launched {launches}")
+
+
+def _seg_split(per_kernel, resize_ms, loss_ms):
+    """A profiled step's device time by kind (ms): cuDNN's convolution
+    kernels by what they compute (fprop, dgrad, wgrad; their layout
+    transforms apart), BatchNorm, SGD (the multi-tensor kernels), the
+    resize and the loss (each measured alone, forward and backward, at
+    the step's shapes) and the rest."""
+    split = {"fprop": 0.0, "dgrad": 0.0, "wgrad": 0.0, "conv_other": 0.0,
+             "batchnorm": 0.0, "sgd": 0.0, "rest": 0.0}
+    for k, t in per_kernel.items():
+        name = k.lower()
+        if "batch_norm" in name or "batchnorm" in name or "bn_" in name:
+            split["batchnorm"] += t
+        elif "multi_tensor_apply" in name:
+            split["sgd"] += t
+        elif "dgrad" in name:
+            split["dgrad"] += t
+        elif "wgrad" in name:
+            split["wgrad"] += t
+        elif "fprop" in name:
+            split["fprop"] += t
+        elif any(c in name for c in CONV_KERNELS):
+            split["conv_other"] += t
+        else:
+            split["rest"] += t
+    total = sum(per_kernel.values())
+    out = {"device_ms": total, **{f"{k}_ms": v for k, v in split.items()
+                                  if k != "rest"},
+           "resize_ms": resize_ms, "loss_ms": loss_ms,
+           "other_ms": split["rest"] - resize_ms - loss_ms}
+    out["shares"] = {k[:-3]: v / total for k, v in out.items()
+                     if k.endswith("_ms") and k != "device_ms"}
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    out["top_kernels"] = [[k[:100], t] for k, t in top]
+    return out
+
+
+def _seg_head_alone(mx, cfg, nclass, c4_size, ctx):
+    """Device ms of the two heads' resizes (stride 32 to the input's size,
+    forward and backward) and of SoftmaxSegLoss (log-softmax, pick,
+    the masked mean, both heads, forward and backward) at the step's
+    shapes, bf16 as under AMP."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.models import SoftmaxSegLoss
+    b, size = cfg["batch_size"], cfg["size"]
+    rng = np.random.RandomState(1)
+    small = [mx.nd.array(rng.randn(b, nclass, c4_size, c4_size),
+                         ctx=ctx, dtype="bfloat16") for _ in range(2)]
+    for s in small:
+        s.attach_grad()
+    full = [mx.nd.array(rng.randn(b, nclass, size, size), ctx=ctx,
+                        dtype="bfloat16") for _ in range(2)]
+    for f in full:
+        f.attach_grad()
+    label = mx.nd.array(seg_blobs(b, size, nclass, 3)[1], ctx=ctx)
+    loss_fn = SoftmaxSegLoss(aux_weight=cfg["aux_weight"])
+
+    def resize():
+        with autograd.record():
+            outs = [mx.nd.BilinearResize2D(s, height=size, width=size)
+                    for s in small]
+            total = outs[0].sum() + outs[1].sum()
+        total.backward()
+
+    def loss():
+        with autograd.record():
+            val = loss_fn(tuple(full), label)
+        val.backward()
+    return device_ms(resize, reps=3, warmup=1), device_ms(loss, reps=3,
+                                                          warmup=1)
+
+
+def _seg_model(mx, dev, kind, cfg):
+    """One net at the full configuration: the timed gluon loop, the
+    split, memory, the CachedOp's counts, predict with the metric."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.models import SegmentationMetric, SoftmaxSegLoss
+    ctx = mx.gpu(0)
+    b, size = cfg["batch_size"], cfg["size"]
+    x_np, y_np = seg_blobs(b, size, cfg["classes"], cfg["seed"])
+    x = mx.nd.array(x_np, ctx=ctx)
+    y = mx.nd.array(y_np, ctx=ctx)
+    net = _seg_net(mx, kind, cfg, ctx, backbone="resnet50_v1", dropout=0.1)
+    # the first call makes the deferred parameters (inline) and counts
+    # the layers' FLOPs
+    fwd_flops = _resnet_flops(net, x)
+    n_params = sum(p.data().size for n, p in net.collect_params().items()
+                   if p.grad_req != "null")
+    net.hybridize()
+    tr = gluon.Trainer(net.collect_params(), "sgd",
+                       {"learning_rate": cfg["lr"],
+                        "momentum": cfg["momentum"], "wd": cfg["wd"]},
+                       kvstore=None)
+    loss_fn = SoftmaxSegLoss(aux_weight=cfg["aux_weight"])
+
+    def step():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        tr.step(b)
+        return loss
+    first = [last_loss(step()) for _ in range(cfg["warmup"])]
+    op = net._cached_op
+    rep0, bwd0, cap0 = op.replays, op.backward_replays, op.captures
+    n1, n2 = cfg["windows"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_s, naive_s, windows, used, last = timed_windows(
+        step, n1, n2, f"seg {kind}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    reserved = torch.cuda.max_memory_reserved(dev)
+    replays, bwd = op.replays - rep0, op.backward_replays - bwd0
+    captures = op.captures - cap0
+    breakdown = profile_call(step)
+    per_kernel, lost, taken = kernel_split_ms(step, 3)
+    c4 = -(-size // 32)
+    resize_ms, loss_ms = _seg_head_alone(mx, cfg, cfg["classes"], c4, ctx)
+    # predict on a fresh batch, and the metric on the card's predictions
+    # against the metric on the same predictions on the host
+    xv, yv = seg_blobs(b, size, cfg["classes"], cfg["seed"] + 1)
+    pred = net.predict(mx.nd.array(xv, ctx=ctx))
+    on_card, on_host = SegmentationMetric(cfg["classes"]), \
+        SegmentationMetric(cfg["classes"])
+    on_card.update(mx.nd.array(yv, ctx=ctx), pred)
+    on_host.update(yv, pred.asnumpy())
+    timed = n1 + n2
+    flops = 3 * fwd_flops
+    row = {"model": kind, "backbone": "resnet50_v1", "params": n_params,
+           "forward_flops_per_image": fwd_flops / b,
+           "flops_per_step": flops, "warmup_losses": first,
+           "last_loss": last, "windows": [n1, n2], "window_s": windows,
+           "step_ms": step_s * 1e3, "naive_step_ms": naive_s * 1e3,
+           "timing": used, "images_per_s": b / step_s,
+           "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+           "device_busy_share": breakdown.get("device_busy_share"),
+           "breakdown": breakdown,
+           "split": _seg_split(per_kernel, resize_ms, loss_ms),
+           "split_events_lost": lost, "split_windows": taken,
+           "peak_mem_allocated_bytes": peak,
+           "peak_mem_reserved_bytes": reserved,
+           "cachedop": {"entries": len(op), "captures": op.captures,
+                        "captures_in_windows": captures,
+                        "replays_in_windows": replays,
+                        "backward_replays_in_windows": bwd,
+                        "pool_bytes": op.pool_bytes},
+           "metric_card": on_card.get_name_value(),
+           "metric_host": on_host.get_name_value(),
+           "pred_shape": list(pred.shape)}
+    check(all(math.isfinite(v) for v in first) and last < first[0],
+          f"seg {kind}: losses {first} -> {last}, not finite and falling")
+    check(captures == 0 and replays == timed and bwd == timed,
+          f"seg {kind}: in the windows {captures} captures, {replays} "
+          f"forward and {bwd} backward replays, want 0, {timed}, {timed}")
+    check(on_card.get_name_value() == on_host.get_name_value()
+          and on_card.num_inst == on_host.num_inst > 0,
+          f"seg {kind}: the metric on the card {on_card.get_name_value()} "
+          f"differs from the host's {on_host.get_name_value()}")
+    check(row["pred_shape"] == [b, size, size], f"seg {kind}: predict "
+          f"gave {row['pred_shape']}")
+    del net, tr, x, y, pred
+    free_earlier_phases()
+    return row
+
+
+def phase_seg(mx, dev, cfg=SEG):
+    """FCN-32s and DeepLabV3 over resnet50_v1 at GluonCV's VOC widths
+    (SEG) trained through the hybridized gluon loop under bf16 AMP: the
+    two-window slope, images a second, MFU, the busy share, the split,
+    peak memory, the CachedOp's counts (one forward and one backward
+    replay a step), predict and SegmentationMetric on the card equal to
+    the host's, losses finite and falling, no flash launch."""
+    from mxnet_tpu_torch.contrib import amp
+    free_earlier_phases()
+    mx.random.seed(cfg["seed"])
+    reset_counts()
+    amp.init("bfloat16")
+    try:
+        rows = {kind: _seg_model(mx, dev, kind, cfg)
+                for kind in ("fcn", "deeplab")}
+    finally:
+        amp._deinit()
+    launches = read_counts()
+    emit({"phase": "seg", "source": "GluonCV fcn_resnet50_voc "
+          "(scripts/segmentation/train.py); DeepLabV3 ASPP 256, rates "
+          "(6, 12, 18) (Chen et al. 2017, 3.3)",
+          "classes": cfg["classes"], "crop": cfg["size"],
+          "batch_size": cfg["batch_size"], "dtype": "bfloat16 AMP",
+          "optimizer": {"sgd": {"lr": cfg["lr"], "momentum":
+                                cfg["momentum"], "wd": cfg["wd"]}},
+          "aux_weight": cfg["aux_weight"], "output_stride": 32,
+          **{k: {kk: vv for kk, vv in v.items() if kk != "breakdown"}
+             for k, v in rows.items()}, "flash_launches": launches,
+          "card": nvidia_smi()})
+    for kind, row in rows.items():
+        emit(dict({"phase": "seg_breakdown", "model": kind},
+                  **row["breakdown"]))
+    check(not any(launches.values()),
+          f"seg: the segmentation path launched flash kernels {launches}")
+
+
+def _iou64(a, b):
+    a, b = a.astype("f8"), b.astype("f8")
+    ix = np.clip(np.minimum(a[:, None, 2], b[None, :, 2])
+                 - np.maximum(a[:, None, 0], b[None, :, 0]), 0, None)
+    iy = np.clip(np.minimum(a[:, None, 3], b[None, :, 3])
+                 - np.maximum(a[:, None, 1], b[None, :, 1]), 0, None)
+    inter = ix * iy
+    area = lambda c: np.clip(c[:, 2] - c[:, 0], 0, None) \
+        * np.clip(c[:, 3] - c[:, 1], 0, None)
+    union = area(a)[:, None] + area(b)[None, :] - inter
+    return np.where(union > 0, inter / np.where(union > 0, union, 1), 0)
+
+
+def clear_boxes(seed, n, thresholds, lo=0.05, hi=0.4, other=None):
+    """``n`` seeded corner boxes in [0, 1] (the first clear seed from
+    ``seed`` on) with no IoU among them (or against ``other``) within
+    1e-4 of a threshold: a selection then cannot turn on a last bit."""
+    for s in range(seed, seed + 1000):
+        rng = np.random.RandomState(s)
+        xy = rng.uniform(0.0, 0.7, (n, 2))
+        b = np.concatenate([xy, xy + rng.uniform(lo, hi, (n, 2))],
+                           1).astype("f4")
+        iou = _iou64(b, b if other is None else other)
+        if all(np.abs(iou - t).min() > 1e-4 for t in thresholds):
+            return b
+    fail("clear_boxes: no clear draw")
+
+
+def _decode64(anchors, loc, v=(0.1, 0.1, 0.2, 0.2)):
+    a = anchors.astype("f8")
+    d = loc.reshape(-1, 4).astype("f8")
+    aw, ah = a[:, 2] - a[:, 0], a[:, 3] - a[:, 1]
+    ax, ay = (a[:, 0] + a[:, 2]) / 2, (a[:, 1] + a[:, 3]) / 2
+    cx, cy = d[:, 0] * v[0] * aw + ax, d[:, 1] * v[1] * ah + ay
+    w, h = np.exp(d[:, 2] * v[2]) * aw, np.exp(d[:, 3] * v[3]) * ah
+    return np.clip(np.stack([cx - w / 2, cy - h / 2, cx + w / 2,
+                             cy + h / 2], 1), 0, 1)
+
+
+def _det_cases(rng):
+    """The detection group at small sizes: (cases, exact outputs)."""
+    rows = np.zeros((2, 48, 6), "f4")
+    for i in range(2):
+        rows[i, :, 2:] = clear_boxes(100 + i, 48, (0.5,), lo=0.15, hi=0.45)
+        rows[i, :, 0] = rng.randint(0, 3, 48)
+        rows[i, :, 1] = rng.uniform(-0.2, 1.0, 48).round(2)     # ties
+    anchors = clear_boxes(7, 64, (0.5, 0.3))[None]
+    gt = np.full((4, 6, 5), -1.0, "f4")
+    for i, k in enumerate((3, 1, 6, 2)):
+        gt[i, :k, 1:] = clear_boxes(20 + i, k, (0.5, 0.3),
+                                    other=anchors[0])
+        gt[i, :k, 0] = rng.randint(0, 3, k)
+    gt[2, [1, 4]] = -1.0                       # padding rows in the middle
+    preds = rng.randn(4, 4, 64).astype("f4")
+    for s in range(50, 1050):                  # decoded boxes clear of 0.45
+        loc = (0.3 * np.random.RandomState(s).randn(4, 256)).astype("f4")
+        if all(np.abs(_iou64(b, b) - 0.45).min() > 1e-4
+               for b in (_decode64(anchors[0], l) for l in loc)):
+            break
+    probs = np.random.RandomState(5).dirichlet(np.ones(4), (4, 64)) \
+        .transpose(0, 2, 1).astype("f4")
+    feat = rng.randn(2, 3, 12, 12).astype("f4")
+    rois = np.array([[0, 1.0, 1.5, 9.2, 7.0], [1, 0.3, 2.0, 11.5, 10.9],
+                     [1, 2.0, 2.0, 2.5, 2.6]], "f4")
+    enc_a = clear_boxes(9, 12, ()).reshape(2, 6, 4)
+    cases = {
+        "box_iou": (lambda F, a, b: F.contrib.box_iou(a, b),
+                    [anchors[0][:8], gt[0, :3, 1:]], True),
+        "box_nms": (lambda F, d: F.contrib.box_nms(
+            d, overlap_thresh=0.5, coord_start=2, score_index=1,
+            id_index=0), [rows], True),
+        "box_nms_topk_force": (lambda F, d: F.contrib.box_nms(
+            d, overlap_thresh=0.5, topk=11, coord_start=2, score_index=1,
+            id_index=0, force_suppress=True, valid_thresh=0.1), [rows],
+            False),
+        "ROIAlign": (lambda F, x, r: F.contrib.ROIAlign(
+            x, r, pooled_size=(3, 2), spatial_scale=0.9), [feat, rois],
+            True),
+        "PSROIPooling": (lambda F, x, r: F.contrib.PSROIPooling(
+            x, r, output_dim=2, pooled_size=3, spatial_scale=0.8),
+            [rng.randn(2, 18, 12, 12).astype("f4"), rois], True),
+        "MultiBoxPrior": (lambda F, x: F.contrib.MultiBoxPrior(
+            x, sizes=(0.1, 0.141), ratios=(1, 2, 0.5, 3, 1 / 3),
+            steps=(8 / 300, 8 / 300), clip=True),
+            [np.zeros((1, 3, 5, 6), "f4")], False),
+        "MultiBoxTarget": (lambda F, a, l, c: F.contrib.MultiBoxTarget(
+            a, l, c), [anchors, gt, preds], True),
+        "MultiBoxTarget_mining": (
+            lambda F, a, l, c: F.contrib.MultiBoxTarget(
+                a, l, c, negative_mining_ratio=3.0,
+                negative_mining_thresh=0.3, minimum_negative_samples=2),
+            [anchors, gt, preds], False),
+        "MultiBoxDetection": (
+            lambda F, p, l, a: F.contrib.MultiBoxDetection(
+                p, l, a, nms_threshold=0.45, threshold=0.3),
+            [probs, loc, anchors], True),
+        "MultiBoxDetection_topk": (
+            lambda F, p, l, a: F.contrib.MultiBoxDetection(
+                p, l, a, nms_threshold=0.45, nms_topk=9), [probs, loc,
+                                                           anchors], False),
+        "box_encode": (lambda F, s, m, a, r: F.contrib.box_encode(
+            s, m, a, r), [np.array([[1, 1, 0, 1, -1, 1], [1, 0, 1, 1, 1, 0]],
+                                   "f4"),
+                          np.array([[0, 1, 2, 0, -1, 2], [2, 2, 1, 0, 1, -1]],
+                                   "f4"), enc_a, enc_a[:, :3] + 0.05],
+            True),
+        "box_decode": (lambda F, d, a: F.contrib.box_decode(d, a, clip=0.4),
+                       [loc[:2, :24].reshape(2, 6, 4), enc_a], True),
+        "bipartite_matching": (
+            lambda F, d: F.contrib.bipartite_matching(d, threshold=0.2),
+            [rng.uniform(0, 1, (3, 7, 5)).astype("f4")], False),
+        "MultiProposal": (lambda F, c, b, i: F.contrib.MultiProposal(
+            c, b, i, rpn_pre_nms_top_n=120, rpn_post_nms_top_n=40,
+            ratios=(0.5, 1, 2), scales=(1.0,), rpn_min_size=4,
+            threshold=0.6), [rng.uniform(0, 1, (2, 6, 8, 9)).astype("f4"),
+                             (0.2 * rng.randn(2, 12, 8, 9)).astype("f4"),
+                             np.array([[128, 144, 1], [112, 140, 1.5]],
+                                      "f4")], False),
+        "Proposal": (lambda F, c, b, i: F.contrib.Proposal(
+            c, b, i, rpn_post_nms_top_n=-1, rpn_pre_nms_top_n=-1,
+            ratios=(0.5, 1, 2), scales=(1.0,), rpn_min_size=1),
+            [rng.uniform(0, 1, (2, 6, 4, 5)).astype("f4"),
+             (0.2 * rng.randn(2, 12, 4, 5)).astype("f4"),
+             np.array([[64, 80, 1], [60, 72, 1]], "f4")], False),
+    }
+    def flat(*idx):
+        return lambda outs: np.concatenate([outs[i].ravel() for i in idx])
+    # the kept rows; the matches; the masks and class targets; the kept
+    # rows' ids and scores; the proposals' scores
+    ids_scores = lambda outs: outs[0][..., :2]
+    exact = {"box_nms": flat(0), "box_nms_topk_force": flat(0),
+             "bipartite_matching": flat(0, 1), "MultiBoxTarget": flat(1, 2),
+             "MultiBoxTarget_mining": flat(1, 2),
+             "MultiBoxDetection": ids_scores,
+             "MultiBoxDetection_topk": ids_scores,
+             "MultiProposal": flat(1)}
+    return cases, exact
+
+
+def _ssd_batch(rng, n, size=32):
+    imgs = np.zeros((n, 3, size, size), "f4")
+    labels = np.zeros((n, 1, 5), "f4")
+    for i in range(n):
+        x1, y1 = rng.randint(0, size // 2, 2)
+        w = rng.randint(size // 4, size // 2)
+        imgs[i, :, y1:y1 + w, x1:x1 + w] = 1.0
+        labels[i, 0] = [0.0, x1 / size, y1 / size, (x1 + w) / size,
+                        (y1 + w) / size]
+    return imgs, labels
+
+
+def _ssd_parity(mx, dev, steps=3):
+    """ssd_tiny (1 class) through example/ssd_train.py's eager loop (Adam
+    3e-3, MultiBoxTarget inside the record, MultiBoxLoss), card against
+    CPU under the weight rule with a TF32 control."""
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.models import MultiBoxLoss, ssd_tiny
+    rng = np.random.RandomState(0)
+    batches = [_ssd_batch(rng, 4) for _ in range(steps)]
+    nets = {}
+
+    def build(ctx):
+        net = ssd_tiny(num_classes=1, prefix="ssd_")
+        net.initialize(mx.init.Xavier(), ctx=ctx, seed=4)
+        net(mx.nd.array(batches[0][0], ctx=ctx))
+        return net
+    start = build(mx.cpu())
+    runs = {}
+    for where, ctx, dtype in (("cpu", mx.cpu(), "float32"),
+                              ("cpu_f64", mx.cpu(), "float64"),
+                              ("card", mx.gpu(0), "float32"),
+                              ("card_tf32", mx.gpu(0), "float32")):
+        net = build(ctx)
+        _copy_params(start, net)
+        if dtype == "float64":
+            net.to(torch.float64)
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": 3e-3})
+        loss_fn = MultiBoxLoss()
+        losses = []
+        with _tf32_everywhere(products=True) if where == "card_tf32" \
+                else contextlib.nullcontext():
+            for imgs, labels in batches:
+                x = mx.nd.array(imgs, ctx=ctx, dtype=dtype)
+                y = mx.nd.array(labels, ctx=ctx, dtype=dtype)
+                with autograd.record():
+                    anchors, cls_preds, loc_preds = net(x)
+                    loc_t, loc_m, cls_t = mx.nd.contrib.MultiBoxTarget(
+                        anchors, y, cls_preds)
+                    loss = loss_fn(cls_preds, cls_t, loc_preds, loc_t,
+                                   loc_m)
+                loss.backward()
+                tr.step(x.shape[0])
+                losses.append(float(loss.asnumpy().ravel()[0]))
+        runs[where] = (losses, _weights(net))
+        nets[where] = net
+    return _trajectory_parity("det_parity ssd_tiny", runs, SEG_LOSS_TOL,
+                              SEG_WEIGHT_TOL)
+
+
+def phase_det_parity(mx, dev):
+    """Every detection op on the card against the CPU on seeded inputs
+    whose IoUs lie clear of the thresholds: NMS keep-sets, matches and
+    the integer outputs equal, boxes and targets to DET_TOL (forward and
+    gradient); ssd_tiny's 3 Adam steps card against CPU under the weight
+    rule with a TF32 control; no flash launch."""
+    free_earlier_phases()
+    reset_counts()
+    cases, exact = _det_cases(np.random.RandomState(16))
+    errs, unequal = _op_parity(mx, cases, exact)
+    ssd = _ssd_parity(mx, dev)
+    launches = read_counts()
+    over = {k: e for k, e in errs.items() if e > DET_TOL}
+    emit({"phase": "det_parity", "op_rel_err": errs, "tol": DET_TOL,
+          "exact": sorted(exact),
+          "unequal": unequal, "ssd_tiny": ssd, "flash_launches": launches,
+          "card": nvidia_smi()})
+    check(not over and not unequal, f"det_parity: past {DET_TOL}: {over}; "
+          f"selections that differ: {unequal}")
+    check(not any(launches.values()),
+          f"det_parity: flash kernels launched {launches}")
+
+
+def ssd300_anchors(mx, ctx, cfg=SSD300):
+    """SSD300's anchors through MultiBoxPrior over its six maps."""
+    s, out = cfg["s"], []
+    for k, (fm, step) in enumerate(zip(cfg["maps"], cfg["steps"])):
+        ratios = (1, 2, 0.5, 3, 1 / 3) if 1 <= k <= 3 else (1, 2, 0.5)
+        out.append(mx.nd.contrib.MultiBoxPrior(
+            mx.nd.zeros((1, 1, fm, fm), ctx=ctx),
+            sizes=(s[k] / 300, math.sqrt(s[k] * s[k + 1]) / 300),
+            ratios=ratios, steps=(step / 300, step / 300)))
+    return mx.nd.concat(*out, dim=1)
+
+
+def _timed_call(dev, fn, reps=3):
+    """CUDA-event ms a call over ``reps`` calls after a warm-up, the
+    peak memory of a call above what was allocated before it, and the
+    last result."""
+    import torch
+    out = fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / reps,
+            torch.cuda.max_memory_allocated(dev) - base, out)
+
+
+def phase_det(mx, dev, cfg=SSD300, rpn=RPN):
+    """The detection ops at their published sizes: SSD300's 8,732
+    anchors (MultiBoxPrior over the six maps), MultiBoxTarget at batch 32
+    and 21 classes (1-8 seeded boxes an image padded to 32 rows; overlap
+    0.5, hard negatives 3:1), MultiBoxDetection (threshold 0.01, NMS
+    0.45, nms_topk 400 and -1; the first two images against the CPU, the
+    rows equal), and MultiProposal at Faster R-CNN's RPN (B 2, 38 x 63 x
+    9 anchors, 6000 before NMS, 300 after, NMS 0.7): ms a call (CUDA
+    events over 3 calls after a warm-up), the peak memory of a call and
+    box_nms's fixed-point passes."""
+    from mxnet_tpu_torch.ops import det
+    free_earlier_phases()
+    reset_counts()
+    ctx = mx.gpu(0)
+    anchors = ssd300_anchors(mx, ctx)
+    n = anchors.shape[1]
+    check(n == cfg["anchors"], f"det: SSD300's maps gave {n} anchors, want "
+          f"{cfg['anchors']}")
+    b, c = cfg["batch_size"], cfg["classes"]
+    rng = np.random.RandomState(17)
+    labels = np.full((b, cfg["max_objects"], 5), -1.0, "f4")
+    objects = rng.randint(1, 9, b)
+    for i, k in enumerate(objects):
+        xy = rng.uniform(0.0, 0.7, (k, 2))
+        wh = rng.uniform(0.05, 0.3, (k, 2))
+        labels[i, :k, 1:] = np.concatenate([xy, xy + wh], 1)
+        labels[i, :k, 0] = rng.randint(0, c - 1, k)
+    logits = rng.randn(b, c, n).astype("f4")
+    labels_nd = mx.nd.array(labels, ctx=ctx)
+    cls_preds = mx.nd.array(logits, ctx=ctx)
+    loc = mx.nd.array((0.5 * rng.randn(b, n * 4)).astype("f4"), ctx=ctx)
+    probs = mx.nd.softmax(cls_preds, axis=1)
+    row = {"phase": "det", "ssd300_anchors": n, "batch_size": b,
+           "classes": c, "objects_an_image": objects.tolist()}
+    target_ms, target_mem, (loc_t, loc_m, cls_t) = _timed_call(
+        dev, lambda: mx.nd.contrib.MultiBoxTarget(
+            anchors, labels_nd, cls_preds, overlap_threshold=0.5,
+            negative_mining_ratio=3.0))
+    ct = cls_t.asnumpy()
+    pos, neg = (ct > 0).sum(1), (ct == 0).sum(1)
+    row["multibox_target"] = {
+        "ms": target_ms, "peak_mem_bytes": target_mem,
+        "positives": int(pos.sum()), "negatives": int(neg.sum()),
+        "ignored": int((ct < 0).sum())}
+    check((pos >= 1).all() and (neg <= 3 * pos).all(),
+          f"det: MultiBoxTarget's positives {pos} and negatives {neg} "
+          "(hard negatives at most 3 a positive)")
+    zero = mx.nd.zeros((2, n * 4), ctx=ctx)
+    for topk in (400, -1):
+        ms, mem, out = _timed_call(dev, lambda: mx.nd.contrib
+                                   .MultiBoxDetection(
+                                       probs, loc, anchors, threshold=0.01,
+                                       nms_threshold=0.45, nms_topk=topk))
+        passes = list(det.nms_passes)
+        kept = (out.asnumpy()[..., 0] >= 0).sum(1)
+        # the first two images against the CPU, with zero offsets: the
+        # boxes are then the anchors on both (exp's last bit can differ
+        # between the two libraries), so every row must be equal
+        same = mx.nd.contrib.MultiBoxDetection(
+            probs[0:2], zero, anchors, threshold=0.01, nms_threshold=0.45,
+            nms_topk=topk).asnumpy()
+        cpu = mx.nd.contrib.MultiBoxDetection(
+            probs[0:2].as_in_context(mx.cpu()), zero.as_in_context(mx.cpu()),
+            anchors.as_in_context(mx.cpu()), threshold=0.01,
+            nms_threshold=0.45, nms_topk=topk).asnumpy()
+        equal = bool(np.array_equal(same, cpu))
+        row[f"multibox_detection_topk{topk}"] = {
+            "ms": ms, "peak_mem_bytes": mem, "nms_passes": passes,
+            "kept_an_image": [int(kept.min()), int(kept.max())],
+            "zero_offsets_two_images_equal_cpu": equal,
+            "zero_offsets_kept": int((same[..., 0] >= 0).sum())}
+        check(equal, f"det: MultiBoxDetection topk {topk} on the card "
+              "differs from the CPU on the first two images")
+    # the RPN
+    prng = np.random.RandomState(18)
+    a = len(rpn["scales"]) * len(rpn["ratios"])
+    h, w = rpn["height"], rpn["width"]
+    fg = prng.uniform(0, 1, (rpn["batch_size"], a, h, w)).astype("f4")
+    cls_prob = mx.nd.array(np.concatenate([1 - fg, fg], 1), ctx=ctx)
+    bbox = mx.nd.array((0.1 * prng.randn(rpn["batch_size"], 4 * a, h, w))
+                       .astype("f4"), ctx=ctx)
+    im_info = mx.nd.array([[rpn["im"][0], rpn["im"][1], 1.0]]
+                          * rpn["batch_size"], ctx=ctx)
+    ms, mem, (props, scores) = _timed_call(
+        dev, lambda: mx.nd.contrib.MultiProposal(
+            cls_prob, bbox, im_info, rpn_pre_nms_top_n=rpn["pre"],
+            rpn_post_nms_top_n=rpn["post"], threshold=rpn["nms"],
+            scales=rpn["scales"], ratios=rpn["ratios"],
+            feature_stride=rpn["stride"]))
+    passes = list(det.nms_passes)
+    p, s = props.asnumpy(), scores.asnumpy()
+    row["multi_proposal"] = {
+        "anchors": a * h * w, "ms": ms, "peak_mem_bytes": mem,
+        "nms_passes": passes, "proposals": list(p.shape),
+        "score_range": [float(s.min()), float(s.max())]}
+    check(p.shape == (rpn["batch_size"] * rpn["post"], 5)
+          and np.isfinite(p).all() and (s > 0).all(),
+          f"det: MultiProposal gave {p.shape}, scores {s.min()}..{s.max()}")
+    launches = read_counts()
+    row["flash_launches"] = launches
+    row["card"] = nvidia_smi()
+    emit(row)
+    check(not any(launches.values()),
+          f"det: flash kernels launched {launches}")
+
+
 # -- phase 2: build -------------------------------------------------------------
 
 def _kernel_name(mangled):
@@ -6395,6 +7297,14 @@ def main():
     if "nmt_parity" in phases:
         phase_nmt_parity(mx, dev)
     nmt = phase_nmt(mx, dev) if "nmt" in phases else {}
+    if "vision_parity" in phases:
+        phase_vision_parity(mx, dev)
+    if "seg" in phases:
+        phase_seg(mx, dev)
+    if "det_parity" in phases:
+        phase_det_parity(mx, dev)
+    if "det" in phases:
+        phase_det(mx, dev)
 
     kernels = kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows,
                              f16_bwd_rows, bert16, nmt)

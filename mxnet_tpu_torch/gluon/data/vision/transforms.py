@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ....ndarray.ndarray import NDArray
+from ....ops.nn import linear_resize_weights
 from ...block import Block
 from ...nn import Sequential
 
@@ -85,23 +86,6 @@ class Normalize(Block):
                     / self._std.reshape(-1, 1, 1))
 
 
-def _linear_weights(m, n):
-    """jax.image's (m, n) weights of a linear resize from ``m`` to ``n``
-    samples (``compute_weight_mat`` with the triangle kernel)."""
-    f32 = np.float32
-    inv_scale = f32(1.0 / (n / m))
-    kernel_scale = max(inv_scale, f32(1.0))
-    sample = (np.arange(n, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
-    x = np.abs(sample[None, :] - np.arange(m, dtype=f32)[:, None]) \
-        / kernel_scale
-    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
-    inside = (sample >= -0.5) & (sample <= m - 0.5)
-    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
-
-
 def _nearest_index(m, n):
     return np.floor((np.arange(n, dtype=np.float32) + np.float32(0.5))
                     * np.float32(m) / np.float32(n)).astype(np.int64)
@@ -118,7 +102,7 @@ def _resize_np(img, size, interp=1):
         if interp == 0:
             out = np.take(out, _nearest_index(m, n), axis=axis)
         else:
-            w = _linear_weights(m, n)
+            w = linear_resize_weights(m, n)
             out = np.moveaxis(np.tensordot(w, np.moveaxis(out, axis, 0),
                                            axes=([0], [0])), 0, axis)
     return out.astype("float32")

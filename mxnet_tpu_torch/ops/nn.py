@@ -21,7 +21,9 @@ NCHW (NCW, NCDHW), the reference's."""
 from __future__ import annotations
 
 import math
+import warnings
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -762,3 +764,279 @@ def all_finite(*arrays, init_output=True):
 
 
 alias("multi_all_finite", "all_finite")
+
+
+# -- the vision group (reference ops/nn.py:543-552, :577-610, :699-827) ------
+
+def linear_resize_weights(m, n):
+    """jax.image's (m, n) weights of a linear resize from ``m`` to ``n``
+    samples (``compute_weight_mat`` with the triangle kernel: half-pixel
+    centres, the kernel widened by the scale when shrinking, so that a
+    shrink is antialiased, and each output's weights normalised over the
+    taps inside the input), as a float32 numpy array."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n / m))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(m, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+#: (kind, m, n, dtype, device) -> the map's matrix on the device, made once
+_MAPS = {}
+
+
+def _axis_map(kind, m, n, dtype, device):
+    """The (n, m) matrix of a linear map from ``m`` samples to ``n``
+    along one axis: ``"resize"`` (jax.image's linear weights) or
+    ``"pool"`` (adaptive average pooling's floor/ceil windows), in
+    ``dtype`` on ``device``, made once a key (so a captured graph reads
+    the same tensor at every replay)."""
+    key = (kind, m, n, dtype, device)
+    mat = _MAPS.get(key)
+    if mat is None:
+        if kind == "resize":
+            w = linear_resize_weights(m, n).T
+        else:
+            w = np.zeros((n, m), np.float32)
+            for i in range(n):
+                lo, hi = (i * m) // n, -(-((i + 1) * m) // n)
+                w[i, lo:hi] = 1.0 / (hi - lo)
+        mat = _MAPS[key] = torch.from_numpy(np.ascontiguousarray(w)).to(
+            device=device, dtype=dtype)
+    return mat
+
+
+class _Separable(torch.autograd.Function):
+    """``a @ x @ b`` over the last two axes of ``x`` (``a`` (H', H) or
+    None for the identity, ``b`` (W, W') or None), the two products in
+    the cheaper order, forward and backward without TF32: a float32 input
+    gets float32 products."""
+
+    @staticmethod
+    def forward(ctx, x, a, b):
+        ctx.save_for_backward(a, b)
+        return _separable(x, a, b)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        return _separable(grad, None if a is None else a.t(),
+                          None if b is None else b.t()), None, None
+
+
+def _separable(x, a, b):
+    with _ieee_f32_matmul():
+        if a is None:
+            return torch.matmul(x, b)
+        if b is None:
+            return torch.matmul(a, x)
+        (h2, h), (w, w2) = a.shape, b.shape
+        if h2 * h * w + h2 * w * w2 <= h * w * w2 + h2 * h * w2:
+            return torch.matmul(torch.matmul(a, x), b)
+        return torch.matmul(a, torch.matmul(x, b))
+
+
+def _separable_map(data, kind, th, tw):
+    """``data`` (N, C, H, W) through ``kind``'s linear map to (th, tw).
+    An axis whose size stays is left alone, as ``jax.image.resize``
+    skips it: either map is the identity there."""
+    h, w = data.shape[-2:]
+    a = None if h == th else _axis_map(kind, h, th, data.dtype, data.device)
+    b = None if w == tw else \
+        _axis_map(kind, w, tw, data.dtype, data.device).t()
+    if a is None and b is None:
+        return data
+    return _Separable.apply(data, a, b)
+
+
+@register("BilinearResize2D")
+def bilinear_resize_2d(data, *, height=0, width=0, scale_height=None,
+                       scale_width=None, mode="size"):
+    """``jax.image.resize(..., "linear")`` of (N, C, H, W) to (height,
+    width), or to ``int(H * scale_height)`` etc.: two products with
+    jax.image's weight matrices (:func:`linear_resize_weights`), exact
+    in both directions and antialiased when it shrinks. ``mode`` is
+    accepted and, as in the reference, not read."""
+    h, w = data.shape[2], data.shape[3]
+    th = height if height else int(h * scale_height)
+    tw = width if width else int(w * scale_width)
+    return _separable_map(data, "resize", int(th), int(tw))
+
+
+@register("UpSampling", num_inputs=None)
+def upsampling(data, *rest, scale=1, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=0):
+    """``nearest`` repeats each pixel ``scale`` times along H and W;
+    ``bilinear`` is :func:`bilinear_resize_2d` to ``scale`` times the
+    size. The bilinear weight input, when given, is ignored with a
+    warning, as in the reference (its fixed ``init.Bilinear`` kernel)."""
+    if sample_type == "nearest":
+        return data.repeat_interleave(scale, dim=2).repeat_interleave(
+            scale, dim=3)
+    if sample_type != "bilinear":
+        raise NotImplementedError(
+            f"UpSampling sample_type {sample_type!r}: only 'nearest' "
+            "and 'bilinear' exist (reference upsampling.cc)")
+    if rest:
+        warnings.warn(
+            "UpSampling(bilinear): the weight input is ignored — this "
+            "op implements the FIXED bilinear kernel (init.Bilinear); "
+            "for a learned upsampling filter use Conv2DTranspose")
+    h, w = data.shape[2], data.shape[3]
+    return _separable_map(data, "resize", h * scale, w * scale)
+
+
+@register("L2Normalization")
+def l2_normalization(data, *, eps=1e-10, mode="instance"):
+    """``data / sqrt(sum(data^2) + eps)`` over every axis but the first
+    (``instance``), the channels (``channel``) or the spatial axes
+    (``spatial``)."""
+    if mode == "instance":
+        axes = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    else:
+        axes = tuple(range(2, data.dim()))
+    return data / torch.sqrt(
+        torch.sum(torch.square(data), dim=axes, keepdim=True) + eps)
+
+
+@register("LRN")
+def lrn(data, *, nsize=5, alpha=1e-4, beta=0.75, knorm=2.0):
+    """Local response normalization across channels:
+    ``x / (knorm + alpha / nsize * sum_window(x^2))^beta``, the window
+    ``nsize`` channels centred on each, zero outside."""
+    half = nsize // 2
+    sq = F.pad(torch.square(data).movedim(1, -1), (half, half)).movedim(
+        -1, 1)
+    c = data.shape[1]
+    ssum = sq[:, 0:c]
+    for i in range(1, nsize):
+        ssum = ssum + sq[:, i:i + c]
+    return data / torch.pow(knorm + alpha / nsize * ssum, beta)
+
+
+def _unit_grid(n, dtype, device):
+    """``n`` points evenly from -1 to 1, as ``jnp.linspace(-1, 1, n)``."""
+    return torch.linspace(-1.0, 1.0, n, dtype=dtype, device=device)
+
+
+@register("GridGenerator")
+def grid_generator(data, *, transform_type="affine", target_shape=(0, 0)):
+    """``affine``: ``data`` (N, 6) is θ, and the output (N, 2, H, W) is θ
+    applied to the [-1, 1] grid of ``target_shape`` (x then y rows).
+    ``warp``: ``data`` (N, 2, H, W) is a flow in pixels, added to the
+    identity grid of its own size in normalized units."""
+    if transform_type == "affine":
+        h, w = int(target_shape[0]), int(target_shape[1])
+        ys = _unit_grid(h, torch.float32, data.device)
+        xs = _unit_grid(w, torch.float32, data.device)
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        theta = data.reshape(-1, 2, 3, 1, 1)
+        return theta[:, :, 0] * gx + theta[:, :, 1] * gy + theta[:, :, 2]
+    fh, fw = data.shape[2], data.shape[3]
+    gy, gx = torch.meshgrid(_unit_grid(fh, data.dtype, data.device),
+                            _unit_grid(fw, data.dtype, data.device),
+                            indexing="ij")
+    ident = torch.stack([gx, gy], dim=0)[None]
+    flow = torch.stack([data[:, 0] * (2.0 / max(fw - 1, 1)),
+                        data[:, 1] * (2.0 / max(fh - 1, 1))], dim=1)
+    return ident + flow
+
+
+@register("BilinearSampler", num_inputs=2)
+def bilinear_sampler(data, grid):
+    """``data`` (N, C, H, W) sampled bilinearly at ``grid`` (N, 2, Ho, Wo)
+    in [-1, 1] (x then y; -1 and 1 the centres of the edge pixels), zero
+    outside the image."""
+    n, c, h, w = data.shape
+    gx = (grid[:, 0] + 1.0) * (w - 1) / 2.0
+    gy = (grid[:, 1] + 1.0) * (h - 1) / 2.0
+    x0 = torch.floor(gx)
+    y0 = torch.floor(gy)
+    wx = gx - x0
+    wy = gy - y0
+    rows = torch.arange(n, device=data.device).reshape(n, 1, 1)
+
+    def at(yi, xi):
+        inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        yc = yi.clamp(0, h - 1).long()
+        xc = xi.clamp(0, w - 1).long()
+        vals = data[rows, :, yc, xc].movedim(-1, 1)       # (N, C, Ho, Wo)
+        return torch.where(inb[:, None], vals, 0.0)
+
+    out = (at(y0, x0) * ((1 - wx) * (1 - wy))[:, None]
+           + at(y0, x0 + 1) * (wx * (1 - wy))[:, None]
+           + at(y0 + 1, x0) * ((1 - wx) * wy)[:, None]
+           + at(y0 + 1, x0 + 1) * (wx * wy)[:, None])
+    return out.to(data.dtype)
+
+
+@register("SpatialTransformer", num_inputs=2)
+def spatial_transformer(data, loc, *, target_shape=(0, 0),
+                        transform_type="affine", sampler_type="bilinear",
+                        cudnn_off=False):
+    """The affine spatial transformer: :func:`grid_generator` then
+    :func:`bilinear_sampler`."""
+    grid = grid_generator(loc, transform_type=transform_type,
+                          target_shape=target_shape)
+    return bilinear_sampler(data, grid.to(data.dtype))
+
+
+@register("Correlation", num_inputs=2)
+def correlation(data1, data2, *, kernel_size=1, max_displacement=1,
+                stride1=1, stride2=1, pad_size=0, is_multiply=True):
+    """FlowNet's correlation: for each displacement (dy, dx) in steps of
+    ``stride2`` up to ``max_displacement``, the channel mean of
+    ``data1 * shifted(data2)`` (or of ``|data1 - shifted(data2)|``
+    without ``is_multiply``), averaged over a ``kernel_size`` window;
+    reads past the padded image are zero, and the border where the
+    windows fall off is cropped (H + 2 pad - 2 (d + kernel_size // 2))."""
+    if stride1 != 1:
+        raise NotImplementedError("Correlation: stride1 != 1")
+    d, p = max_displacement, pad_size
+    radius = kernel_size // 2
+    x1 = F.pad(data1, (p, p, p, p))
+    x2 = F.pad(data2, (p + d,) * 4)
+    h, w = x1.shape[2], x1.shape[3]
+    outs = []
+    for dy in range(-d, d + 1, stride2):
+        for dx in range(-d, d + 1, stride2):
+            sh = x2[:, :, d + dy:d + dy + h, d + dx:d + dx + w]
+            prod = x1 * sh if is_multiply else torch.abs(x1 - sh)
+            m = torch.mean(prod, dim=1, keepdim=True)
+            if kernel_size > 1:
+                m = _window_sum(F.pad(m, (radius,) * 4),
+                                (kernel_size,) * 2, (1, 1)) \
+                    / float(kernel_size * kernel_size)
+            outs.append(m[:, 0])
+    out = torch.stack(outs, dim=1)
+    border = d + radius
+    if border:
+        out = out[:, :, border:h - border, border:w - border]
+    return out
+
+
+@register("Crop", num_inputs=None)
+def crop(data, *rest, offset=(0, 0), h_w=(0, 0), num_args=1,
+         center_crop=False):
+    """``data`` cut to ``h_w`` (or, with ``num_args=2``, to the second
+    input's H and W) at ``offset``, or centred."""
+    if rest and num_args == 2:
+        th, tw = rest[0].shape[2], rest[0].shape[3]
+    else:
+        th, tw = int(h_w[0]), int(h_w[1])
+    h, w = data.shape[2], data.shape[3]
+    if center_crop:
+        oy, ox = (h - th) // 2, (w - tw) // 2
+    else:
+        oy, ox = int(offset[0]), int(offset[1])
+    return data[:, :, oy:oy + th, ox:ox + tw]

@@ -17,9 +17,10 @@ index first).  ``_cache_update`` clamps its offset as
 ``lax.dynamic_update_slice`` does, and ``nd._cache_update(..., out=cache)``
 writes in place.
 
-Not ported yet (ROADMAP queue 1 item 2.7): ``linalg_*``, the depth/space
-ops, ``khatri_rao``, the interleaved attention products, and the
-detection, sampling and quantization ``_contrib_*`` ops.
+Not ported yet (ROADMAP queue 1 item 2.7): ``linalg_*``, ``khatri_rao``,
+the interleaved attention products, and the sampling, mixture-of-experts
+and quantization ``_contrib_*`` ops (the detection ops are in
+``ops/det.py``).
 """
 from __future__ import annotations
 
@@ -570,6 +571,28 @@ def swapaxes(data, *, dim1=0, dim2=0):
 alias("SwapAxis", "swapaxes")
 
 
+@register("depth_to_space")
+def depth_to_space(data, *, block_size=1):
+    """(N, C, H, W) to (N, C / b^2, H b, W b), the block taken from the
+    channels in the reference's DCR order: channel ``(i b + j) C / b^2 +
+    c`` goes to pixel offset (i, j) of channel c (``F.pixel_shuffle``'s
+    CRD order differs)."""
+    n, c, h, w = data.shape
+    b = block_size
+    x = data.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c // (b * b), h * b, w * b)
+
+
+@register("space_to_depth")
+def space_to_depth(data, *, block_size=1):
+    """The inverse of :func:`depth_to_space`: each b x b block of pixels
+    into b^2 channel groups, block offset first."""
+    n, c, h, w = data.shape
+    b = block_size
+    x = data.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
+
+
 # -- sequence ops (reference ``src/operator/sequence_*.cc``) ------------------
 
 def _valid_steps(data, seqlen, axis):
@@ -947,6 +970,23 @@ def index_array(data, *, axes=None):
                              for s in data.shape], indexing="ij")
     sel = range(data.dim()) if axes is None else axes
     return torch.stack([grids[a] for a in sel], dim=-1).to(torch.int32)
+
+
+@register("_contrib_AdaptiveAvgPooling2D", num_inputs=1)
+def adaptive_avg_pooling(data, *, output_size=()):
+    """(N, C, H, W) average-pooled to ``output_size`` (one int, a pair, or
+    () for 1 x 1), output i's window along an axis of n inputs being
+    ``floor(i n / o)`` to ``ceil((i + 1) n / o)``, the reference's
+    windows: one product with each axis's window-mean matrix."""
+    if not output_size:
+        oh = ow = 1
+    elif isinstance(output_size, int):
+        oh = ow = int(output_size)
+    elif len(output_size) == 1:
+        oh = ow = int(output_size[0])
+    else:
+        oh, ow = int(output_size[0]), int(output_size[1])
+    return _nn._separable_map(data, "pool", oh, ow)
 
 
 @register("_contrib_index_copy", num_inputs=3)

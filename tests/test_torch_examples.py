@@ -14,6 +14,8 @@ import sys
 
 import pytest
 
+import torch_threads
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 RUNNER = """\
@@ -50,6 +52,8 @@ EXAMPLES = {
                       "final validation accuracy"),
     "nmt_translate": (["--steps", "30", "--batch-size", "16"],
                       "exact-match"),
+    "segmentation_fcn": (["--steps", "8", "--batch-size", "4"], "pixAcc="),
+    "ssd_train": (["--steps", "12", "--batch-size", "4"], "top-det IoU"),
 }
 
 
@@ -62,8 +66,8 @@ def test_example_runs_through_the_port(name, tmp_path):
     script.write_text(src.replace("mxnet_tpu", "mxnet_tpu_torch"))
     runner = tmp_path / "run_example.py"
     runner.write_text(RUNNER)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env = torch_threads.child_env(
+        PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     res = subprocess.run([sys.executable, str(runner), str(script), *args],
                          capture_output=True, text=True, timeout=300,
                          cwd=str(tmp_path), env=env)

@@ -438,10 +438,13 @@ def test_every_op_has_a_case():
     (CONV_OPS), test_torch_rnn.py (RNN_OPS), test_torch_nn_layers.py
     (NN_LAYER_OPS), test_torch_optimizer.py (the update ops) or
     test_torch_amp.py (AMP's ops), test_torch_registry_ops.py
-    (REGISTRY_OPS), or by its statistics in test_torch_autograd.py (the
-    samplers, Dropout)."""
+    (REGISTRY_OPS), test_torch_vision_ops.py (VISION_OPS),
+    test_torch_detection.py (DETECTION_OPS), or by its statistics in
+    test_torch_autograd.py (the samplers, Dropout)."""
+    from test_torch_detection import DETECTION_OPS
     from test_torch_optimizer import UPDATE_OPS
     from test_torch_registry_ops import REGISTRY_OPS
+    from test_torch_vision_ops import VISION_OPS
     covered = set(UNARY) | set(SCALAR) | set(BROADCAST) | set(CREATION) \
         | {n for n, _ in REDUCE} | set(SHAPE) | {"argmax", "argmin"} \
         | {"sgd_update", "sgd_mom_update", "adam_update",
@@ -453,7 +456,8 @@ def test_every_op_has_a_case():
            "multi_lamb_update", "multi_sum_sq", "multi_lars"} \
         | {"amp_cast", "amp_multicast", "all_finite", "multi_all_finite"} \
         | RANDOM_OPS | CONV_OPS \
-        | RNN_OPS | NN_LAYER_OPS | set(LLAMA_OPS) | REGISTRY_OPS
+        | RNN_OPS | NN_LAYER_OPS | set(LLAMA_OPS) | REGISTRY_OPS \
+        | VISION_OPS | DETECTION_OPS
     missing = sorted(set(list_ops()) - covered)
     assert missing == []
 

@@ -6,11 +6,18 @@ packages on the same numpy inputs, value and gradient compared.
 and as ``fn(mxnet_tpu_torch.nd, ...)`` on the port's, both on the CPU.
 The gradient is that of ``sum(out * w)`` for a fixed ramp ``w``, with
 respect to every floating-point input.
+
+Imported by the port's tests, it also sets the torch threads of a
+pytest-xdist worker (``torch_threads``).
 """
 import numpy as np
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
+
+import torch_threads  # noqa: F401  (a worker's share of the cores)
+
+
 
 
 def _ramp(shape):
