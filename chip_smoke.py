@@ -258,7 +258,9 @@ Phases, each printing JSON lines:
             the card against the CPU through gluon.Trainer, compile_step
             (one capture) and, for the four fused rules (NAG, RMSProp,
             AdamW, AdaGrad), DataParallelTrainer(fuse_step=True): losses
-            and weights within 1e-4.
+            and weights within 1e-4; then SGD and Adam with
+            clip_global_norm 0.05 through gluon.Trainer and compile_step
+            the same way, the clip active.
 26. bert_fp16: BERT-base pretraining (bench_bert_pretrain's batch: b64
             s128, 20 masked, dropout 0.1) under amp.init("float16") with
             the dynamic loss scaler and LAMB (lr 1e-4, wd 0.01), the
@@ -338,6 +340,40 @@ Phases, each printing JSON lines:
             MultiProposal at Faster R-CNN's RPN (B 2, 38 x 63 x 9
             anchors, 6000 / 300, NMS 0.7): ms a call, peak memory and
             box_nms's fixed-point passes.
+33. int8_parity: the quantization ops' codes card vs CPU (>= 99.9 %
+            equal, none more than 1 apart) and ranges; int8 dot,
+            batch_dot and Convolution (K = 147, N = 4, M <= 16, and
+            ResNet-50's full-width 3 x 3 and 1 x 1 convolutions at batch
+            2) int32 and bit-equal, each through torch._int_mm; raw
+            torch._int_mm over a grid of unpadded shapes (INT_MM_PROBE:
+            which cuBLASLt refuses is read, none the padding gives may
+            be) and int8_mm bit-equal at each; QuantizedConv (a BatchNorm folded) and QuantizedDense within
+            1e-5 relative L2; example/int8_inference.py's flow on the
+            card (resnet18_v1, 24 Adam steps, entropy calibration):
+            top-1 agreement >= 0.95, its int8 call one int8 GEMM a
+            quantized layer and no float product.
+34. int8:    ResNet-50 v1 int8 inference at the resnet phase's shape (1000
+            classes, batch 64 of 224 x 224, seeded Xavier, BatchNorm
+            settled by 4 train-mode forwards): entropy calibration over 4
+            batches of 8 (host seconds), quantize_net, int8 ms a batch
+            (the median of 5 rounds of CUDA events over 3 calls after a
+            warm-up, interleaved with the f32 and bf16 paths, and the
+            rounds' range), images/s, a profiled
+            split (cuBLASLt int8 GEMM, im2col copies and padding,
+            quantize and rescale, other), busy share, peak memory, beside
+            the un-hybridized net's f32 and bf16-AMP predict; the bound
+            (2 x multiply-adds over the 1979 TOPS int8 peak; bytes over
+            3.35 TB/s); the card's int8 logits against the CPU's (same
+            weights and ranges) within 1e-2 relative L2; 53 convs, the
+            Dense and 53 folded BatchNorms.
+35. registry_parity: the deformable convolutions (v1, v2), the linalg
+            family, khatri_rao, the interleaved self-attention products,
+            SoftmaxOutput and MakeLoss card against CPU in f32, values
+            and gradients within 1e-5 of the largest magnitude;
+            _sample_unique_zipfian's range and chi-square; the modulated
+            deformable 3 x 3 at Deformable ConvNets' conv5 setting (512
+            -> 512, dilation 2, 38 x 63, batch 2) forward and backward ms
+            beside a plain Convolution.
 
 The kernels phase also runs K1-K3 at Llama-3-8B's training shape (B=1,
 S=4096, H=32 over KV=8, D=128, causal, bf16), and at NMT's shapes (b32,
@@ -372,7 +408,8 @@ ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,"
               "imperative,rtc,resnet_parity,resnet,llama_train_parity,"
               "llama_train,forecast_parity,forecast,gan_parity,gan,"
               "wordlm_parity,wordlm,data,fp16_parity,optimizers_parity,"
-              "bert_fp16,nmt_parity,nmt,vision_parity,seg,det_parity,det")
+              "bert_fp16,nmt_parity,nmt,vision_parity,seg,det_parity,det,"
+              "int8_parity,int8,registry_parity")
 SERVING_PHASES = {"device", "build", "parity", "serve"}
 
 
@@ -1762,11 +1799,11 @@ def _resnet_flops(net, x):
     total = [0]
 
     def conv_hook(mod, inputs, out):
-        w = mod.weight
+        w = mod._tensor("weight")
         total[0] += 2 * out.numel() * w[0].numel()
 
     def dense_hook(mod, inputs, out):
-        total[0] += 2 * out.numel() * mod.weight.shape[1]
+        total[0] += 2 * out.numel() * mod._tensor("weight").shape[1]
     hooks = []
     for m in net.modules():
         if isinstance(m, _Conv):
@@ -2203,7 +2240,7 @@ def phase_llama_train(mx, dev, cfg=LLAMA_TRAIN):
                                         by_kernel=True)
         hid = torch.randn(b * (s - 1), net.model._units, device=dev,
                           requires_grad=True)
-        head_w = net.lm_head.weight
+        head_w = net.lm_head._tensor("weight")
         lbl = tokens.tensor[:, 1:].reshape(-1)
 
         def head():
@@ -2225,7 +2262,7 @@ def phase_llama_train(mx, dev, cfg=LLAMA_TRAIN):
         split["device_busy_share"] = step_ms / split["wall_ms"]
         pool = op.pool_bytes
         n_params = sum(p.numel() for p in net.parameters())
-        embed = net.model.embed.weight.numel() + net.lm_head.weight.numel()
+        embed = net.model.embed._tensor("weight").numel() + net.lm_head._tensor("weight").numel()
     finally:
         amp._deinit()
     u, heads = net.model._units, net.model.layers[0].attn._h
@@ -2855,7 +2892,7 @@ def _gan_precision_probe(mx, dev, cfg, reals, noise):
             hooks = [last.register_forward_hook(keep),
                      list(gen.children())[-1].register_forward_hook(
                          keep_grad),
-                     last.weight.register_hook(lambda g, seen=seen: seen[
+                     last._tensor("weight").register_hook(lambda g, seen=seen: seen[
                          "wgrad"].append(g.detach().cpu().double()))]
             try:
                 _gan_loop(mx, gen, disc, cfg, ctx, reals, noise, dtype=dt)()
@@ -2867,14 +2904,14 @@ def _gan_precision_probe(mx, dev, cfg, reals, noise):
                 "logits_input": seen["logits"][2][0].numpy(),
                 "logits": seen["logits"][2][1].numpy(),
                 "grad_at_gen_output": seen["grad"][-1].numpy(),
-                "weight": last.weight.detach().cpu().double().numpy(),
+                "weight": last._tensor("weight").detach().cpu().double().numpy(),
                 # the first backward through the last weight: the D step's
                 "d_step_wgrad": seen["wgrad"][0].numpy().ravel(),
                 "grads": {k: p.grad().asnumpy().astype("f8") for k, p in
                           gen.collect_params().items()
                           if p.grad_req != "null"}}
     w0_norm = float(np.linalg.norm(
-        list(base[1].children())[-1].weight.detach().numpy()))
+        list(base[1].children())[-1]._tensor("weight").detach().numpy()))
 
     def first_step(g):
         """Adam's first step (the optimizer's defaults, Trainer.step's
@@ -3312,7 +3349,7 @@ def _gan_flops(gen, disc, z, real):
 
     def hook(kind):
         def fn(mod, inputs, out):
-            w = mod.weight
+            w = mod._tensor("weight")
             n = out.numel() * w[0].numel() if kind == "disc" else \
                 inputs[0].numel() * w[0].numel()
             total[kind] = total.get(kind, 0) + 2 * n
@@ -4957,9 +4994,9 @@ def phase_train(mx, dev, ctx, cfg=BERT_BASE):
     finally:
         amp._deinit()
 
-    embed = {id(inner.bert.word_embed.weight),
-             id(inner.bert.token_type_embed.weight),
-             id(inner.bert.position_embed)}
+    embed = {id(inner.bert.word_embed._tensor("weight")),
+             id(inner.bert.token_type_embed._tensor("weight")),
+             id(inner.bert._tensor("position_embed"))}
     n_params = sum(p.numel() for p in model.parameters()
                    if id(p) not in embed)
     flops_v1 = (6 * n_params * seq_len
@@ -5136,6 +5173,10 @@ NEW_OPTIMIZERS = [
     ("signum", {"momentum": 0.8, "wd_lh": 0.01}),
     ("lamb", {"lower_bound": 0.01, "upper_bound": 10.0}), ("test", {})]
 FUSED_RULES = ("nag", "rmsprop", "adamw", "adagrad")
+# Trainer's global-norm clip, eager and captured (the clip is active: the
+# weights part from an unclipped run's by more than 10 x OPT_TOL)
+GLOBAL_CLIP_CASES = [("sgd", {"momentum": 0.9, "clip_global_norm": 0.05}),
+                     ("adam", {"clip_global_norm": 0.05})]
 
 
 @contextlib.contextmanager
@@ -5391,12 +5432,13 @@ def phase_optimizers_parity(mx, dev):
     """Each optimizer this port added, 3 steps of an MLP on the card
     against the CPU, through gluon.Trainer, compile_step (one capture on
     the card) and, for the four fused rules, DataParallelTrainer(
-    fuse_step=True)."""
+    fuse_step=True); then SGD and Adam with Trainer's global-norm clip
+    the same way, the clip shown active on the CPU."""
     from mxnet_tpu_torch.gluon import compiled_step
     compiled_step.clear_fallback_reports()
     _, start = _opt_mlp(mx, mx.cpu())
     rows = []
-    for name, kw in NEW_OPTIMIZERS:
+    for name, kw in NEW_OPTIMIZERS + GLOBAL_CLIP_CASES:
         paths = ["trainer", "compile_step"] + (
             ["dpt"] if name in FUSED_RULES and not kw.get("centered")
             else [])
@@ -5412,6 +5454,13 @@ def phase_optimizers_parity(mx, dev):
                    "gpu_losses": card[0], "loss_max_rel_diff": loss_rel,
                    "weight_max_rel_l2": w_rel, "moved_rel_l2": moved,
                    "captures": card[2], "tol": OPT_TOL}
+            if "clip_global_norm" in kw:
+                unclipped = _opt_run(mx, mx.cpu(), name, dict(
+                    kw, clip_global_norm=None), path, start)
+                row["clip_effect_rel_l2"] = _rel_l2(cpu[1], unclipped[1])
+                check(row["clip_effect_rel_l2"] > 10 * OPT_TOL,
+                      f"optimizers_parity: {name} {kw}: the clip was not "
+                      f"active ({row['clip_effect_rel_l2']})")
             emit(row)
             rows.append(row)
             check(loss_rel <= OPT_TOL and w_rel <= OPT_TOL,
@@ -5906,7 +5955,7 @@ def phase_nmt(mx, dev, cfg=NMT):
         init_s = time.perf_counter() - t0
         n_params = sum(p.numel() for p in net.parameters()
                        if p.requires_grad)
-        embed = net.src_embed.weight.numel()
+        embed = net.src_embed._tensor("weight").numel()
         batch = [mx.nd.array(a, ctx=ctx) for a in batch_np]
         step, tr = _nmt_loop(mx, net, batch, cfg["lr"], beta1=cfg["beta1"],
                              beta2=cfg["beta2"], epsilon=cfg["epsilon"])
@@ -7206,6 +7255,608 @@ def kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows=(),
     return main + entries
 
 
+
+# -- phases 33-35: int8 inference and the registry's last names ----------------
+
+#: the H100 SXM's dense int8 tensor-core peak (operations a second)
+PEAK_INT8_OPS = 1979e12
+# ResNet-50 v1 at resnet phase's BASELINE #2 shape: 1000 classes, batch 64
+# of 224 x 224; BatchNorm settled by 4 train-mode forwards of 32 images,
+# entropy calibration over 4 batches of 8
+INT8 = dict(model="resnet50_v1", classes=1000, batch_size=64,
+            image_size=224, settle=4, settle_batch=32, calib_batches=4,
+            calib_batch=8, reps=3, rounds=5)
+INT8_CARD_CPU_TOL = 1e-2      # relative L2 of the logits, card vs CPU
+INT8_LAYER_TOL = 1e-5         # a quantized layer, card vs CPU
+# raw torch._int_mm shapes (M, K, N) tried on the card unpadded: which
+# cuBLASLt refuses is read, every shape padded to quantization_ops'
+# multiples (M to INT_MM_ROWS, K and N to INT_MM_COLS) must be taken, and
+# int8_mm must equal the CPU's product at each
+INT_MM_PROBE = dict(m=(17, 24, 32, 40, 64), k=(8, 16, 96, 152),
+                    n=(8, 16, 40, 64))
+# Deformable ConvNets' conv5 setting (Dai et al. 2017 section 4; Zhu et
+# al. 2019): 512 -> 512, 3 x 3, dilation 2, pad 2, on the stride-16 map of
+# a 600 x 1000 image (38 x 63), batch 2
+DEFORM = dict(batch=2, channels=512, filters=512, h=38, w=63, kernel=3,
+              dilate=2, pad=2)
+REGISTRY_TOL = 1e-5           # values and gradients, card vs CPU, f32
+
+
+def _int8_batch(rng, n, size=32):
+    """example/int8_inference.py's synthetic 4-class images."""
+    y = rng.randint(0, 4, n)
+    x = rng.randn(n, 3, size, size).astype("f4") * 0.2
+    for i, c in enumerate(y):
+        x[i, c % 3, :, :] += 2.0
+        x[i, :, : (8 * (c // 3 + 1)), :] += 0.7
+    return x, y.astype("f4")
+
+
+@contextlib.contextmanager
+def _count_float_products():
+    """{route: calls} of the float products (the port's convolution, the
+    dense layers' F.linear, matmul, mm, bmm, tensordot) made inside the
+    block."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    calls = {}
+    targets = [(ops_nn._Convolution, "apply"), (F, "linear"),
+               (torch, "matmul"), (torch, "mm"), (torch, "bmm"),
+               (torch, "tensordot")]
+    saved = [(obj, name, getattr(obj, name), name in vars(obj))
+             for obj, name in targets]
+
+    def wrap(name, fn):
+        def counted(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return counted
+    for obj, name, fn, _ in saved:
+        setattr(obj, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for obj, name, fn, own in saved:
+            if own:
+                setattr(obj, name, fn)
+            else:                       # inherited (Function.apply)
+                delattr(obj, name)
+
+
+def _int8_op_cases(rng):
+    """(name -> (fn, int8 arrays)) of the int8 products: the padded
+    shapes (K = 147, N = 4, M <= 16) and ResNet-50's full-width 3 x 3
+    and 1 x 1 convolutions at batch 2."""
+    i8 = lambda *s: rng.randint(-127, 128, s).astype("i1")
+    conv = lambda k, s, p: (lambda F, x, w: F.Convolution(
+        x, w, kernel=(k, k), stride=(s, s), pad=(p, p),
+        num_filter=w.shape[0], no_bias=True))
+    return {
+        "dot_m5_k147_n4": (lambda F, a, b: F.dot(a, b),
+                           [i8(5, 147), i8(147, 4)]),
+        "dot_transposed_m16": (lambda F, a, b: F.dot(
+            a, b, transpose_b=True), [i8(16, 96), i8(40, 96)]),
+        "batch_dot_3x7x20x9": (lambda F, a, b: F.batch_dot(a, b),
+                               [i8(3, 7, 20), i8(3, 20, 9)]),
+        "conv7x7_s2_k147": (conv(7, 2, 3), [i8(2, 3, 224, 224),
+                                            i8(64, 3, 7, 7)]),
+        "conv3x3_64_56": (conv(3, 1, 1), [i8(2, 64, 56, 56),
+                                          i8(64, 64, 3, 3)]),
+        "conv3x3_512_7": (conv(3, 1, 1), [i8(2, 512, 7, 7),
+                                          i8(512, 512, 3, 3)]),
+        "conv1x1_64_256_56": (conv(1, 1, 0), [i8(2, 64, 56, 56),
+                                              i8(256, 64, 1, 1)]),
+        "conv1x1_s2_1024_2048_14": (conv(1, 2, 0), [i8(2, 1024, 14, 14),
+                                                    i8(2048, 1024, 1, 1)]),
+    }
+
+
+def _int_mm_probe(rng, grid=INT_MM_PROBE):
+    """``torch._int_mm`` on the card at each unpadded (M, K, N) of
+    ``grid`` against the CPU's product, and ``int8_mm`` (padded) at the
+    same shapes.  Returns (refused shapes, failures): a failure is a
+    refused shape that the padding rule would give, or a product that
+    differs from the CPU's."""
+    import itertools
+    import torch
+    from mxnet_tpu_torch.ops import quantization_ops as qops
+    refused, failures = [], []
+    for m, k, n in itertools.product(grid["m"], grid["k"], grid["n"]):
+        a = torch.from_numpy(rng.randint(-127, 128, (m, k)).astype("i1"))
+        b = torch.from_numpy(rng.randint(-127, 128, (k, n)).astype("i1"))
+        want = torch._int_mm(a, b)
+        padded = (m % qops.INT_MM_ROWS == 0 and k % qops.INT_MM_COLS == 0
+                  and n % qops.INT_MM_COLS == 0)
+        try:
+            raw = torch._int_mm(a.cuda(), b.cuda()).cpu()
+            if not torch.equal(raw, want):
+                failures.append(f"raw {m}x{k}x{n} differs")
+        except RuntimeError:
+            refused.append([m, k, n])
+            if padded:
+                failures.append(f"raw {m}x{k}x{n} refused, a padded shape")
+        if not torch.equal(qops.int8_mm(a.cuda(), b.cuda()).cpu(), want):
+            failures.append(f"int8_mm {m}x{k}x{n} differs")
+    torch.cuda.synchronize()
+    return refused, failures
+
+
+def _int8_example_flow(mx, ctx, train_steps=24):
+    """example/int8_inference.py's flow on ``ctx``: resnet18_v1 (4
+    classes) trained 24 Adam steps on 32 x 32 batches of 16, BatchNorm
+    settled, entropy calibration over 8 batches, quantize_net; returns
+    (top-1 agreement with the float net over 64 images, layers
+    quantized, float products and int8 GEMMs in one int8 call)."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1
+    from mxnet_tpu_torch.ops import quantization_ops as qops
+    mx.random.seed(0)
+    rng = np.random.RandomState(0)
+    net = resnet18_v1(classes=4)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 2e-3})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    for _ in range(train_steps):
+        x, y = _int8_batch(rng, 16)
+        with autograd.record():
+            loss = loss_fn(net(nd.array(x, ctx=ctx)),
+                           nd.array(y, ctx=ctx)).mean()
+        loss.backward()
+        trainer.step(1)
+    for _ in range(12):
+        with autograd.train_mode():
+            net(nd.array(_int8_batch(rng, 32)[0], ctx=ctx))
+    calib = [nd.array(_int8_batch(rng, 16)[0], ctx=ctx) for _ in range(8)]
+    qnet = q.quantize_net(net, calib_data=iter(calib), calib_mode="entropy")
+    xh = nd.array(_int8_batch(rng, 64)[0], ctx=ctx)
+    fp = net(xh).asnumpy()
+    before = qops.int_mm_launches
+    with _count_float_products() as floats:
+        qo = qnet(xh).asnumpy()
+    gemms = qops.int_mm_launches - before
+    return (float((fp.argmax(1) == qo.argmax(1)).mean()),
+            len(qnet.layer_map), floats, gemms)
+
+
+def phase_int8_parity(mx, dev):
+    """The int8 route on the card against the CPU: the quantization ops'
+    codes and ranges; the int8 products (dot, batch_dot, Convolution at
+    shapes that need padding and at ResNet-50's full-width 3 x 3 and 1 x
+    1 convolutions) bit-equal, each through torch._int_mm; QuantizedDense
+    and QuantizedConv within 1e-5; then example/int8_inference.py's flow
+    on the card (top-1 agreement >= 0.95), its int8 call making no float
+    product and one int8 GEMM a quantized layer."""
+    import torch
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.ops import quantization_ops as qops
+    free_earlier_phases()
+    reset_counts()
+    rng = np.random.RandomState(33)
+    # the quantization ops
+    x = (rng.randn(256, 1000) * 3).astype("f4")
+    lo, hi = np.array([-2.5], "f4"), np.array([4.0], "f4")
+    outs = {}
+    for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+        a = [mx.nd.array(v, ctx=ctx) for v in (x, lo, hi)]
+        qv, qmin, qmax = mx.nd.contrib.quantize(*a)
+        dq = mx.nd.contrib.dequantize(qv, qmin, qmax)
+        acc = mx.nd.array(rng.randint(-2 ** 24, 2 ** 24, (64, 300))
+                          if where == "cpu" else outs["cpu"]["acc_in"],
+                          ctx=ctx, dtype="int32")
+        rq = mx.nd.contrib.requantize(acc, qmin, qmax)
+        rqc = mx.nd.contrib.requantize(acc, qmin, qmax,
+                                       min_calib_range=-3e-3,
+                                       max_calib_range=2e-3)
+        outs[where] = {"q": qv.asnumpy(), "range": (qmin.asnumpy(),
+                                                    qmax.asnumpy()),
+                       "dq": dq.asnumpy(), "acc_in": acc.asnumpy(),
+                       "rq": rq[0].asnumpy(), "rqc": rqc[0].asnumpy()}
+    code_diffs = {}
+    for key in ("q", "rq", "rqc"):
+        d = np.abs(outs["card"][key].astype("i4")
+                   - outs["cpu"][key].astype("i4"))
+        code_diffs[key] = int((d != 0).sum())
+        check(d.max() <= 1 and (d == 0).mean() >= 0.999,
+              f"int8_parity: {key} codes card vs CPU: {code_diffs[key]} "
+              f"differ, max {d.max()}")
+    check(all(np.array_equal(c, g) for c, g in
+              zip(outs["cpu"]["range"], outs["card"]["range"])),
+          "int8_parity: quantize's ranges differ")
+    dq_err = _rel(outs["card"]["dq"], outs["cpu"]["dq"])
+    # the int8 products: int32, bit-equal, through torch._int_mm
+    prods = {}
+    for name, (fn, arrays) in _int8_op_cases(rng).items():
+        c = fn(mx.nd, *[mx.nd.array(a, ctx=mx.cpu(), dtype="int8")
+                        for a in arrays]).asnumpy()
+        before = qops.int_mm_launches
+        g = fn(mx.nd, *[mx.nd.array(a, ctx=mx.gpu(0), dtype="int8")
+                        for a in arrays]).asnumpy()
+        launches = qops.int_mm_launches - before
+        prods[name] = {"shape": list(c.shape), "int_mm_launches": launches,
+                       "equal": bool(np.array_equal(g, c))}
+        check(g.dtype == np.int32 and c.dtype == np.int32,
+              f"int8_parity: {name} gives {g.dtype}/{c.dtype}, not int32")
+        check(np.array_equal(g, c),
+              f"int8_parity: {name} int32 accumulators differ card vs CPU")
+        check(launches >= 1, f"int8_parity: {name} launched no _int_mm")
+    # the padding rule: a grid of raw _int_mm shapes
+    refused, probe_failures = _int_mm_probe(rng)
+    check(not probe_failures, f"int8_parity: _int_mm probe {probe_failures}")
+    # the int8 layers, card against CPU from the same weights
+    layer_err = {}
+    for kind in ("conv", "dense"):
+        blocks, outs_ = {}, {}
+        for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+            if kind == "conv":
+                blk = nn.HybridSequential(prefix="qc_")
+                with blk.name_scope():
+                    blk.add(nn.Conv2D(64, 3, padding=1, in_channels=32),
+                            nn.BatchNorm(in_channels=64))
+            else:
+                blk = nn.Dense(1000, in_units=2048, prefix="qd_")
+            blk.initialize(mx.init.Xavier(), ctx=ctx, seed=5)
+            blocks[where] = blk
+        if kind == "conv":
+            bn = blocks["cpu"][1]
+            bn.running_mean.set_data(rng.randn(64).astype("f4") * 0.1)
+            bn.running_var.set_data(np.abs(rng.randn(64)).astype("f4")
+                                    + 0.5)
+            inp = rng.randn(2, 32, 28, 28).astype("f4")
+        else:
+            inp = rng.randn(16, 2048).astype("f4")
+        _copy_params(blocks["cpu"], blocks["card"])
+        for where, ctx in (("cpu", mx.cpu()), ("card", mx.gpu(0))):
+            blk = blocks[where]
+            layer = q.QuantizedConv(blk[0], (-2.0, 2.5), fold_bn=blk[1]) \
+                if kind == "conv" else q.QuantizedDense(blk, None)
+            outs_[where] = layer(torch.from_numpy(inp).to(
+                ctx.device)).cpu().numpy()
+        layer_err[kind] = _rel_l2([outs_["card"]], [outs_["cpu"]])
+        check(layer_err[kind] <= INT8_LAYER_TOL,
+              f"int8_parity: Quantized{kind} card vs CPU "
+              f"{layer_err[kind]} > {INT8_LAYER_TOL}")
+    # the example's flow on the card
+    t0 = time.perf_counter()
+    agree, n_layers, floats, gemms = _int8_example_flow(mx, mx.gpu(0))
+    flow_s = time.perf_counter() - t0
+    launches = read_counts()
+    emit({"phase": "int8_parity", "code_diffs": code_diffs,
+          "dequantize_rel_err": dq_err, "products": prods,
+          "int_mm_probe": {"grid": INT_MM_PROBE, "refused": refused},
+          "layer_rel_l2": layer_err, "layer_tol": INT8_LAYER_TOL,
+          "example_top1_agreement": agree,
+          "example_layers_quantized": n_layers,
+          "example_float_products": floats, "example_int_mm": gemms,
+          "example_s": flow_s, "flash_launches": launches,
+          "card": nvidia_smi()})
+    check(agree >= 0.95, f"int8_parity: example agreement {agree} < 0.95")
+    check(not floats, f"int8_parity: the int8 call made float products "
+          f"{floats}")
+    # resnet18_v1: 20 convs and the Dense
+    check(gemms == 21, f"int8_parity: {gemms} int8 GEMMs, want 21")
+    check(not any(launches.values()),
+          f"int8_parity: flash kernels launched {launches}")
+
+
+def _int8_split(per_kernel):
+    """A profiled int8 call's device time by kind (ms): cuBLASLt's int8
+    GEMM, the im2col copies and the padding, the quantize and rescale
+    element-wise work, and the rest."""
+    split = {"int8_gemm": 0.0, "im2col_copy_pad": 0.0,
+             "quantize_rescale": 0.0, "other": 0.0}
+    for k, t in per_kernel.items():
+        name = k.lower()
+        if any(s in name for s in ("gemm", "imma", "xmma", "cutlass",
+                                   "i8i8", "s8")):
+            split["int8_gemm"] += t
+        elif any(s in name for s in ("copy", "pad", "unfold", "cat")):
+            split["im2col_copy_pad"] += t
+        elif any(s in name for s in ("round", "clamp", "mul", "div",
+                                     "reduce", "max", "abs", "add",
+                                     "where", "fill")):
+            split["quantize_rescale"] += t
+        else:
+            split["other"] += t
+    total = sum(per_kernel.values())
+    out = {"device_ms": total, **{f"{k}_ms": v for k, v in split.items()}}
+    out["shares"] = {k: v / total for k, v in split.items()} if total \
+        else {}
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    out["top_kernels"] = [[k[:100], t] for k, t in top]
+    return out
+
+
+def _int8_bound(net, x, int8_layers):
+    """(ops, bytes, ops ms, bytes ms) of one int8 call: 2 x the
+    multiply-adds of the convolutions and the Dense over the int8 peak;
+    the bytes the call must move (the float32 images read, the int8
+    weights read, the logits written) over HBM's rate."""
+    ops = _resnet_flops(net, x)
+    w_bytes = sum(int(np.prod(lay.wq.shape)) for lay in int8_layers)
+    nbytes = x.size * 4 + w_bytes + x.shape[0] * INT8["classes"] * 4
+    t_ops = ops / PEAK_INT8_OPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return ops, nbytes, t_ops, t_bytes
+
+
+def phase_int8(mx, dev, cfg=INT8):
+    """ResNet-50 v1 int8 inference at full width (1000 classes, batch 64
+    of 224 x 224): seeded Xavier weights, BatchNorm settled by train-mode
+    forwards, entropy calibration (host seconds), quantize_net; the int8
+    call's ms, images/s, its profiled split, busy share and peak memory,
+    beside the same un-hybridized net's f32 and bf16-AMP predict (each
+    the median of 5 interleaved rounds of CUDA events over 3 calls after
+    a warm-up, with the rounds' range); the int8 bound.  Hard:
+    the card's int8 logits against the port's CPU int8 logits at batch 2
+    (the same weights and ranges) within 1e-2 relative L2, and 53 convs,
+    the Dense and 53 folded BatchNorms quantized."""
+    import torch
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.contrib import quantization as q
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import quantization_ops as qops
+    free_earlier_phases()
+    reset_counts()
+    b, size = cfg["batch_size"], cfg["image_size"]
+    mx.random.seed(0)
+    rng = np.random.RandomState(34)
+    img = lambda n: rng.rand(n, 3, size, size).astype("f4")
+    gpu = mx.gpu(0)
+    net = vision.get_model(cfg["model"], classes=cfg["classes"],
+                           prefix="r50_")
+    net.initialize(mx.init.Xavier(), ctx=gpu)
+    for _ in range(cfg["settle"]):
+        with autograd.train_mode():
+            net(nd.array(img(cfg["settle_batch"]), ctx=gpu))
+    calib = [nd.array(img(cfg["calib_batch"]), ctx=gpu)
+             for _ in range(cfg["calib_batches"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qnet = q.quantize_net(net, calib_data=iter(calib), calib_mode="entropy")
+    calib_s = time.perf_counter() - t0
+    del calib
+    convs = [v for v in qnet.layer_map.values()
+             if isinstance(v, q.QuantizedConv)]
+    denses = [v for v in qnet.layer_map.values()
+              if isinstance(v, q.QuantizedDense)]
+    folded = sum(1 for v in qnet.layer_map.values()
+                 if v is q._bn_identity)
+    x = nd.array(img(b), ctx=gpu)
+    call = lambda: qnet(x)
+    call().wait_to_read()
+    torch.cuda.reset_peak_memory_stats(dev)
+    qops.int_mm_launches = 0
+    call().wait_to_read()
+    peak = torch.cuda.max_memory_allocated(dev)
+    gemms_a_call = qops.int_mm_launches
+    dev_ms, per_kernel = device_ms(call, reps=cfg["reps"], warmup=0,
+                                   by_kernel=True)
+    split = _int8_split(per_kernel)
+    q_logits = qnet(x).asnumpy()
+    f32_logits = net(x).asnumpy()
+
+    def bf16_call():
+        amp.init("bfloat16")
+        try:
+            return cuda_time_ms(lambda: net(x), reps=cfg["reps"], warmup=1)
+        finally:
+            amp._deinit()
+    # the three paths in interleaved rounds, so a clock that drifts moves
+    # them alike
+    rounds = {"int8": [], "f32": [], "bf16_amp": []}
+    for _ in range(cfg["rounds"]):
+        rounds["int8"].append(cuda_time_ms(call, reps=cfg["reps"],
+                                           warmup=1))
+        rounds["f32"].append(cuda_time_ms(lambda: net(x), reps=cfg["reps"],
+                                          warmup=1))
+        rounds["bf16_amp"].append(bf16_call())
+    int8_ms, f32_ms, bf16_ms = (float(np.median(rounds[k]))
+                                for k in ("int8", "f32", "bf16_amp"))
+    int8_over_bf16 = [i / b_ for i, b_ in zip(rounds["int8"],
+                                               rounds["bf16_amp"])]
+    ops, nbytes, ops_ms, bytes_ms = _int8_bound(net, x, convs + denses)
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    # the same int8 net on the CPU: the card's weights and ranges
+    cpu_net = vision.get_model(cfg["model"], classes=cfg["classes"],
+                               prefix="r50_")
+    cpu_net.initialize(ctx=mx.cpu())
+    x2 = img(2)
+    cpu_net(nd.array(x2, ctx=mx.cpu()))
+    _copy_params(net, cpu_net)
+    cpu_map = q.quantize_model(cpu_net)
+    for (_, g), (_, c) in zip(qnet.layer_map.items(), cpu_map.items()):
+        if hasattr(g, "_calib"):
+            c._calib = g._calib
+    card2 = qnet(nd.array(x2, ctx=gpu)).asnumpy()
+    cpu2 = q.QuantizedNet(cpu_net, cpu_map)(
+        nd.array(x2, ctx=mx.cpu())).asnumpy()
+    card_cpu = _rel_l2([card2], [cpu2])
+    row = {"phase": "int8", "model": cfg["model"], "classes": cfg["classes"],
+           "batch_size": b, "image_size": size,
+           "calibration": "entropy, %d batches of %d" % (
+               cfg["calib_batches"], cfg["calib_batch"]),
+           "calibration_host_s": calib_s,
+           "int8_ms": int8_ms, "images_per_s": b / int8_ms * 1e3,
+           "int8_device_ms": dev_ms, "busy_share": dev_ms / int8_ms,
+           "split": split, "int8_gemms_a_call": gemms_a_call,
+           "peak_mem_bytes": peak, "f32_ms": f32_ms, "bf16_amp_ms": bf16_ms,
+           "f32_images_per_s": b / f32_ms * 1e3,
+           "bf16_images_per_s": b / bf16_ms * 1e3,
+           "ms_rounds": rounds,
+           "int8_over_bf16_range": [min(int8_over_bf16),
+                                    max(int8_over_bf16)],
+           "int8_ops": ops, "bytes": nbytes, "bound_ops_ms": ops_ms,
+           "bound_bytes_ms": bytes_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bound_over_int8_ms": bound_ms / int8_ms,
+           "int8_vs_f32_rel_l2": _rel_l2([q_logits], [f32_logits]),
+           "int8_vs_f32_argmax_agreement": float(
+               (q_logits.argmax(1) == f32_logits.argmax(1)).mean()),
+           "card_vs_cpu_rel_l2": card_cpu,
+           "card_vs_cpu_tol": INT8_CARD_CPU_TOL,
+           "quantized_convs": len(convs), "quantized_dense": len(denses),
+           "folded_batchnorms": folded, "flash_launches": read_counts(),
+           "card": nvidia_smi()}
+    emit(row)
+    check(np.isfinite(q_logits).all() and q_logits.shape == (b, 1000),
+          f"int8: logits {q_logits.shape}, finite {np.isfinite(q_logits)}")
+    check(card_cpu <= INT8_CARD_CPU_TOL,
+          f"int8: card vs CPU int8 logits {card_cpu} > {INT8_CARD_CPU_TOL}")
+    check((len(convs), len(denses), folded) == (53, 1, 53),
+          f"int8: quantized {len(convs)} convs, {len(denses)} Dense, "
+          f"{folded} folded BatchNorms; want 53, 1, 53")
+    check(gemms_a_call == 54,
+          f"int8: {gemms_a_call} int8 GEMMs a call, want 54")
+    return row
+
+
+def _registry_cases(rng):
+    n = lambda *s: rng.randn(*s).astype("f4")
+
+    def spd(k):
+        a = rng.randn(2, k, k)
+        return (a @ np.swapaxes(a, -1, -2) + k * np.eye(k)).astype("f4")
+
+    def lower(k):
+        a = np.tril(rng.randn(k, k)) * 0.3
+        a[np.arange(k), np.arange(k)] = 1 + np.abs(np.diag(a))
+        return a.astype("f4")
+
+    def deform(modulated, bias):
+        b, c, h, o, k, p, d, dg = 2, 8, 9, 6, 3, 2, 2, 2
+        arrays = [n(b, c, h, h), n(b, 2 * dg * k * k, h, h) * 1.5]
+        if modulated:
+            arrays.append(1 / (1 + np.exp(-n(b, dg * k * k, h, h))))
+        arrays.append(n(o, c // 2, k, k) * 0.3)
+        if bias:
+            arrays.append(n(o))
+        name = "_contrib_ModulatedDeformableConvolution" if modulated \
+            else "_contrib_DeformableConvolution"
+        kw = dict(kernel=(k, k), pad=(p, p), dilate=(d, d), num_filter=o,
+                  num_group=2, num_deformable_group=dg, no_bias=not bias)
+        return (lambda F, *xs: getattr(F, name)(*xs, **kw),
+                [a.astype("f4") for a in arrays], True)
+    return {
+        "DeformableConvolution": deform(False, True),
+        "ModulatedDeformableConvolution": deform(True, False),
+        "linalg_gemm2": (lambda F, a, b: F.linalg_gemm2(
+            a, b, transpose_b=True, alpha=0.5), [n(2, 64, 48), n(2, 32, 48)],
+            True),
+        "linalg_potrf": (lambda F, a: F.linalg_potrf(a), [spd(16)], True),
+        "linalg_potri": (lambda F, a: F.linalg_potri(a), [lower(16)], True),
+        "linalg_syrk": (lambda F, a: F.linalg_syrk(a, transpose=True),
+                        [n(24, 16)], True),
+        "linalg_trmm": (lambda F, a, b: F.linalg_trmm(a, b, lower=False),
+                        [n(16, 16), n(16, 8)], True),
+        "linalg_trsm": (lambda F, a, b: F.linalg_trsm(
+            a, b, rightside=True, transpose=True), [lower(16), n(8, 16)],
+            True),
+        "linalg_gelqf": (lambda F, a: F.linalg_gelqf(a), [n(8, 16)], True),
+        "linalg_sumlogdiag": (lambda F, a: F.linalg_sumlogdiag(a),
+                              [np.abs(n(2, 8, 8)) + 0.5], True),
+        "khatri_rao": (lambda F, a, b: F.khatri_rao(a, b),
+                       [n(6, 5), n(7, 5)], True),
+        "interleaved_qk": (lambda F, x: F.interleaved_matmul_selfatt_qk(
+            x, heads=4), [n(20, 2, 3 * 64)], True),
+        "interleaved_valatt": (
+            lambda F, x, a: F.interleaved_matmul_selfatt_valatt(x, a,
+                                                                heads=4),
+            [n(20, 2, 3 * 64), np.abs(n(8, 20, 20))], True),
+        "SoftmaxOutput": (lambda F, d, l: F.SoftmaxOutput(
+            d, l, use_ignore=True, normalization="valid", grad_scale=2.0),
+            [n(16, 10), rng.randint(-1, 10, 16).astype("f4")], True),
+        "MakeLoss": (lambda F, a: F.MakeLoss(a * a), [n(4, 5)], True),
+    }
+
+
+def _deform_timing(mx, dev, cfg=DEFORM):
+    """Forward and forward-plus-backward ms (CUDA events) of the
+    modulated deformable 3 x 3 at Deformable ConvNets' conv5 setting,
+    beside a plain Convolution of that shape (cuDNN, f32, no TF32)."""
+    import torch
+    from mxnet_tpu_torch import autograd, nd
+    rng = np.random.RandomState(35)
+    b, c, o, h, w = (cfg[k] for k in ("batch", "channels", "filters", "h",
+                                      "w"))
+    k, p, d = cfg["kernel"], cfg["pad"], cfg["dilate"]
+    gpu = mx.gpu(0)
+    arr = lambda a: nd.array(a.astype("f4"), ctx=gpu)
+    x = arr(rng.randn(b, c, h, w))
+    off = arr(rng.randn(b, 2 * k * k, h, w))
+    mask = arr(1 / (1 + np.exp(-rng.randn(b, k * k, h, w))))
+    wt = arr(rng.randn(o, c, k, k) * 0.02)
+    bias = arr(rng.randn(o))
+    kw = dict(kernel=(k, k), pad=(p, p), dilate=(d, d), num_filter=o)
+    for t in (x, off, mask, wt, bias):
+        t.attach_grad()
+
+    def deform():
+        return nd.contrib.ModulatedDeformableConvolution(x, off, mask, wt,
+                                                         bias, **kw)
+
+    def conv():
+        return nd.Convolution(x, wt, bias, **kw)
+
+    def fwd_bwd(fn):
+        def run():
+            with autograd.record():
+                s = fn().sum()
+            s.backward()
+        return run
+    row = {}
+    for name, fn in (("deformable", deform), ("conv", conv)):
+        row[f"{name}_fwd_ms"] = cuda_time_ms(fn, reps=5, warmup=2)
+        row[f"{name}_fwd_bwd_ms"] = cuda_time_ms(fwd_bwd(fn), reps=5,
+                                                 warmup=2)
+        row[f"{name}_bwd_ms"] = row[f"{name}_fwd_bwd_ms"] \
+            - row[f"{name}_fwd_ms"]
+    torch.cuda.synchronize()
+    return row
+
+
+def phase_registry_parity(mx, dev):
+    """The deformable convolutions, the linalg family, khatri_rao, the
+    interleaved self-attention products, SoftmaxOutput and MakeLoss on
+    the card against the CPU in f32 (no TF32), values and gradients
+    within 1e-5 of the largest magnitude (the deformable backward's
+    scatter-adds are atomic on the card, so not bit-deterministic);
+    _sample_unique_zipfian's range and log-uniform histogram within the
+    chi-square bound; the modulated deformable 3 x 3 at Deformable
+    ConvNets' conv5 setting timed beside a plain convolution."""
+    free_earlier_phases()
+    reset_counts()
+    errs, _ = _op_parity(mx, _registry_cases(np.random.RandomState(35)))
+    over = {k: e for k, e in errs.items() if e > REGISTRY_TOL}
+    range_max, n = 3000, 200000
+    mx.random.seed(35)
+    v = mx.nd._sample_unique_zipfian(range_max=range_max, shape=(n,),
+                                     ctx=mx.gpu(0)).asnumpy()
+    edges = np.array([math.ceil(math.exp(j) - 1) for j in range(9)]
+                     + [range_max - 1])
+    p = np.diff(np.log1p(edges)) / math.log(range_max)
+    counts = np.histogram(v, bins=edges)[0]
+    chi2 = float(((counts - n * p) ** 2 / (n * p)).sum())
+    timing = _deform_timing(mx, dev)
+    launches = read_counts()
+    emit({"phase": "registry_parity", "op_rel_err": errs,
+          "op_tol": REGISTRY_TOL, "zipfian_chi2": chi2,
+          "zipfian_chi2_bound": 26.12, "zipfian_dtype": str(v.dtype),
+          "deformable_conv5": {**DEFORM, **timing},
+          "flash_launches": launches, "card": nvidia_smi()})
+    check(not over, f"registry_parity: ops past {REGISTRY_TOL}: {over}")
+    check(v.dtype == np.int64 and v.min() >= 0 and v.max() < range_max,
+          f"registry_parity: zipfian draws {v.dtype} in "
+          f"[{v.min()}, {v.max()}]")
+    check(chi2 < 26.12, f"registry_parity: zipfian chi2 {chi2} >= 26.12")
+    check(not any(launches.values()),
+          f"registry_parity: flash kernels launched {launches}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -7305,6 +7956,12 @@ def main():
         phase_det_parity(mx, dev)
     if "det" in phases:
         phase_det(mx, dev)
+    if "int8_parity" in phases:
+        phase_int8_parity(mx, dev)
+    if "int8" in phases:
+        phase_int8(mx, dev)
+    if "registry_parity" in phases:
+        phase_registry_parity(mx, dev)
 
     kernels = kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows,
                              f16_bwd_rows, bert16, nmt)

@@ -2,8 +2,10 @@
 
 ``init(target_dtype)`` makes the matrix-product operators run their
 float32 inputs in ``target_dtype`` (bfloat16 or float16): exactly the
-reference's ``TARGET_DTYPE_OPS`` that the port has (``FullyConnected``,
-``Convolution``, ``Deconvolution``, ``dot``, ``dot_product_attention``).
+reference's ``TARGET_DTYPE_OPS`` (``FullyConnected``, ``Convolution``,
+``Deconvolution``, ``dot``, ``batch_dot``, ``linalg_gemm2``,
+``dot_product_attention``), and the operators ``target_precision_ops``
+adds.
 Every other operator keeps its input types, so a float32 residual plus a
 low-precision projection promotes to float32, and BatchNorm of a
 low-precision convolution with float32 gamma and beta returns float32, as
@@ -50,17 +52,24 @@ __all__ = ["init", "init_trainer", "scale_loss", "unscale", "convert_model",
            "target_dtype", "cast_inputs", "LossScaler", "TARGET_DTYPE_OPS"]
 
 TARGET_DTYPE_OPS = ("FullyConnected", "Convolution", "Deconvolution",
-                    "dot", "dot_product_attention")
+                    "dot", "batch_dot", "linalg_gemm2",
+                    "dot_product_attention")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float16": torch.float16}
 
-_state = {"target_dtype": None, "fp16_reduction": None}
+_state = {"target_dtype": None, "fp16_reduction": None,
+          "target_ops": frozenset()}
 
 
-def init(target_dtype="bfloat16"):
+def init(target_dtype="bfloat16", target_precision_ops=None,
+         conditional_fp32_ops=None, fp32_ops=None):
     """Enable AMP (parity: ``amp.init``) in bfloat16 or float16; a second
-    call is a no-op."""
+    call is a no-op.  ``target_precision_ops`` names more operators whose
+    float32 inputs run in the AMP type (``mx.nd.<op>`` and a
+    ``hybrid_forward``'s ``F.<op>`` cast them at the call), as the JAX
+    package's list does; ``conditional_fp32_ops`` and ``fp32_ops`` are
+    accepted and not applied, as there (R1)."""
     if _state["target_dtype"] is not None:
         return
     if target_dtype is np.float16:
@@ -75,6 +84,10 @@ def init(target_dtype="bfloat16"):
         _state["fp16_reduction"] = \
             matmul.allow_fp16_reduced_precision_reduction
         matmul.allow_fp16_reduced_precision_reduction = False
+    from ...ops.registry import get_op
+    _state["target_ops"] = frozenset(
+        get_op(name).name for name in target_precision_ops or ()
+        if get_op(name).name not in TARGET_DTYPE_OPS)
     _state["target_dtype"] = dt
 
 
@@ -85,6 +98,7 @@ def _deinit():
             _state["fp16_reduction"]
         _state["fp16_reduction"] = None
     _state["target_dtype"] = None
+    _state["target_ops"] = frozenset()
 
 
 def target_dtype():
@@ -92,12 +106,19 @@ def target_dtype():
     return _state["target_dtype"]
 
 
+def listed_op(op):
+    """Whether ``op`` (a canonical name) is one ``init``'s
+    ``target_precision_ops`` added: ``invoke`` casts its inputs."""
+    return op in _state["target_ops"]
+
+
 def cast_inputs(op, *tensors):
     """``tensors`` as operator ``op`` takes them: float32 ones cast to the
     AMP type when AMP is on and ``op`` is a target operator; None and
     every other type pass through."""
     dt = _state["target_dtype"]
-    if dt is None or op not in TARGET_DTYPE_OPS:
+    if dt is None or (op not in TARGET_DTYPE_OPS
+                      and op not in _state["target_ops"]):
         return tensors
     return tuple(t.to(dt) if t is not None and t.dtype == torch.float32
                  else t for t in tensors)

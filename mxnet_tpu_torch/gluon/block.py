@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 import re
 import threading
 
@@ -178,10 +179,32 @@ class Block(nn.Module):
         self._shared_attrs[attr] = param
 
     def __getattr__(self, name):
-        shared = self.__dict__.get("_shared_attrs")
+        """A parameter attribute is its gluon ``Parameter`` (``None`` for
+        a parameter the layer does not have, a bias without a bias), as
+        in the reference; :meth:`_tensor` is its tensor."""
+        d = self.__dict__
+        shared = d.get("_shared_attrs")
         if shared and name in shared:
-            return shared[name]._tensor
+            return shared[name]
+        params = d.get("_parameters")
+        if params is not None and name in params:
+            return None if params[name] is None else self._gluon_param(name)
         return super().__getattr__(name)
+
+    def _tensor(self, attr):
+        """The tensor of parameter ``attr`` (the one ``nn.Module`` holds,
+        or the sharing block's), or ``None`` where the layer has none:
+        what a ``forward`` computes with."""
+        params = self.__dict__["_parameters"]
+        if attr in params:
+            return params[attr]
+        shared = self._shared_attrs.get(attr)
+        if shared is not None:
+            return shared._tensor
+        if attr in self.__dict__ and self.__dict__[attr] is None:
+            return None                # ``self.bias = None``: no bias
+        raise AttributeError(f"{type(self).__name__} has no parameter "
+                             f"{attr!r}")
 
     def _param_attrs(self):
         """This block's parameter attributes: its own, then those it
@@ -251,7 +274,7 @@ class Block(nn.Module):
             return shared
         p = self._gluon_params.get(attr)
         if p is None:
-            p = self._gluon_params[attr] = Parameter(self, attr)
+            p = self._gluon_params[attr] = Parameter._of(self, attr)
         return p
 
     def register_child(self, block, name=None):
@@ -299,6 +322,53 @@ class Block(nn.Module):
 
     def zero_grad(self):
         self.collect_params().zero_grad()
+
+    def reset_ctx(self, ctx):
+        """Move every parameter to ``ctx`` (a deferred one is made there
+        at the first call)."""
+        self.collect_params().reset_ctx(ctx)
+
+    def register_forward_pre_hook(self, hook, **kwargs):
+        """``hook(block, inputs)`` before each call, the inputs as the
+        block's ``forward`` gets them (tensors); the handle's
+        ``detach()`` removes it, as the reference's."""
+        return _HookHandle(super().register_forward_pre_hook(hook, **kwargs))
+
+    def register_forward_hook(self, hook, **kwargs):
+        """``hook(block, inputs, output)`` after each call; the handle's
+        ``detach()`` removes it."""
+        return _HookHandle(super().register_forward_hook(hook, **kwargs))
+
+    def summary(self, *inputs):
+        """Print each block's output shapes and parameter count for a
+        call with ``inputs``, as the reference's ``summary``."""
+        rows, hooks = {}, []
+
+        def register(block):
+            if not isinstance(block, Block):
+                return
+
+            def hook(blk, _, outputs):
+                outs = outputs if isinstance(outputs, (list, tuple)) \
+                    else [outputs]
+                rows[f"{blk.__class__.__name__}-{len(rows) + 1}"] = (
+                    tuple(tuple(getattr(o, "shape", ())) for o in outs),
+                    sum(math.prod(p.shape) for p in blk.params.values()
+                        if p.shape))
+            hooks.append(block.register_forward_hook(hook))
+
+        self.apply(register)
+        try:
+            self(*inputs)
+            print(f"{'Layer':<30}{'Output Shape':<30}{'Params':<15}")
+            print("-" * 75)
+            for key, (shapes, nparams) in rows.items():
+                print(f"{key:<30}{str(shapes):<30}{nparams:<15}")
+            print("-" * 75)
+            print(f"Total params: {sum(n for _, n in rows.values())}")
+        finally:
+            for h in hooks:
+                h.detach()
 
     # -- saving and loading --------------------------------------------------
     def _collect_params_with_prefix(self, prefix=""):
@@ -475,6 +545,19 @@ class Block(nn.Module):
             child.hybridize(active, **kwargs)
 
 
+class _HookHandle:
+    """A hook's handle: ``detach()`` (the reference's name) or
+    ``remove()`` takes the hook off."""
+
+    def __init__(self, handle):
+        self._handle = handle
+
+    def detach(self):
+        self._handle.remove()
+
+    remove = detach
+
+
 class HybridBlock(Block):
     """A block that may be hybridized: after ``hybridize()`` its
     outermost calls go through a :class:`CachedOp`."""
@@ -504,6 +587,10 @@ class HybridBlock(Block):
         if self._cached_op is None:
             self._cached_op = CachedOp(self)
         return self._cached_op(training, grad, args, kwargs)
+
+    def infer_type(self, *args):
+        """Types need no inference here: a parameter has its type from
+        construction or ``cast`` (the reference's is a no-op too)."""
 
     def forward(self, *args):
         """Runs ``hybrid_forward(mx.nd, *inputs, **params)`` on NDArrays

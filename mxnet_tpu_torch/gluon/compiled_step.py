@@ -201,7 +201,7 @@ class CompiledStep:
     def _body(self, n_args, *tensors):
         """One step on ``tensors`` (the inputs, then the label): what a
         graph captures.  The optimizer reads the scalars staged in
-        ``_compiled``."""
+        ``_compiled``, the global-norm clip its staged ``rescale_grad``."""
         ctx = self._params[0].list_ctx()[0]
         args = [NDArray(t.detach(), ctx=ctx) for t in tensors[:n_args]]
         label = NDArray(tensors[n_args].detach(), ctx=ctx)
@@ -209,10 +209,13 @@ class CompiledStep:
             loss = self.loss_fn(self.net(*args), label)
         autograd.backward([loss])
         states = self.trainer._updater.states
-        self.trainer._optimizer.apply_multi(
+        opt = self.trainer._optimizer
+        grads = [self._params[i].grad() for i in self._tr_idx]
+        opt.clip_global_grads(grads, opt._scalars.view(
+            label.tensor.device, "rescale_grad"))
+        opt.apply_multi(
             self._tr_idx, [self._params[i].data() for i in self._tr_idx],
-            [self._params[i].grad() for i in self._tr_idx],
-            [states[i] for i in self._tr_idx])
+            grads, [states[i] for i in self._tr_idx])
         return (loss.tensor.detach(),)
 
     def _compiled(self, args, label, batch_size):

@@ -1,4 +1,5 @@
-"""Contrib blocks: the transformer encoder, and the Estimator."""
-from . import estimator, nn
+"""Contrib blocks: the transformer encoder, the Estimator and the
+deformable convolution."""
+from . import cnn, estimator, nn
 
-__all__ = ["estimator", "nn"]
+__all__ = ["cnn", "estimator", "nn"]

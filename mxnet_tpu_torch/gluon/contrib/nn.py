@@ -118,8 +118,8 @@ class TransformerEncoderCell(HybridBlock):
                                                 dropout=dropout)
             self.ffn = PositionwiseFFN(units, hidden_size, dropout=dropout,
                                        activation=activation)
-            self.layer_norm_att = LayerNorm(units)
-            self.layer_norm_ffn = LayerNorm(units)
+            self.layer_norm_att = LayerNorm(in_channels=units)
+            self.layer_norm_ffn = LayerNorm(in_channels=units)
             self.drop = Dropout(dropout) if dropout else None
 
     def forward(self, x, mask=None):

@@ -1,5 +1,5 @@
 """``gluon.model_zoo``: the vision models (ResNets so far)."""
-from . import vision
+from . import model_store, vision
 from .vision import get_model
 
-__all__ = ["get_model", "vision"]
+__all__ = ["get_model", "model_store", "vision"]

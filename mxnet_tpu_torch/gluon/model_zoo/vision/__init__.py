@@ -1,8 +1,8 @@
 """``gluon.model_zoo.vision``, as the JAX package's: ``get_model`` over the
 ResNets (v1 and v2, 18 to 152 layers).  The other families (VGG,
 AlexNet, DenseNet, SqueezeNet, Inception, MobileNet) are not ported yet
-(ROADMAP), and ``pretrained=True`` raises: the repository holds no
-weights and the port has no network access."""
+(ROADMAP).  ``pretrained=True`` loads ``<root>/<name>.params`` from the
+local store (``model_zoo.model_store``); nothing is downloaded."""
 from ....base import MXNetError
 from .resnet import (BasicBlockV1, BasicBlockV2, BottleneckV1, BottleneckV2,
                      ResNetV1, ResNetV2, get_resnet, resnet18_v1,

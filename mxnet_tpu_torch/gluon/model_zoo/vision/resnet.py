@@ -232,20 +232,20 @@ resnet_block_versions = [
 def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
                **kwargs):
     """ResNet ``version`` (1 or 2) of ``num_layers`` layers; ``kwargs``
-    go to the net (``classes``, ``thumbnail``)."""
+    go to the net (``classes``, ``thumbnail``).  ``pretrained=True`` loads
+    ``<root>/resnet<N>_v<version>.params`` (``model_store``) on ``ctx``."""
     if num_layers not in resnet_spec:
         raise MXNetError(f"invalid resnet depth {num_layers}; options are "
                          f"{sorted(resnet_spec)}")
-    if pretrained:
-        raise MXNetError(
-            f"pretrained weights for 'resnet{num_layers}_v{version}' are "
-            "not in this repository, and this build has no network "
-            "access: initialize the net and load weights by name "
-            "(models.load_jax_gluon_params)")
     block_type, layers, channels = resnet_spec[num_layers]
     net_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]
-    return net_class(block_class, layers, channels, **kwargs)
+    net = net_class(block_class, layers, channels, **kwargs)
+    if pretrained:
+        from ..model_store import load_pretrained
+        load_pretrained(net, f"resnet{num_layers}_v{version}", root=root,
+                        ctx=ctx)
+    return net
 
 
 def resnet18_v1(**kwargs):

@@ -54,7 +54,7 @@ class PReLU(HybridBlock):
                            else Constant(0.25))
 
     def forward(self, x):
-        return ops.leaky_relu(x, self.alpha, act_type="prelu")
+        return ops.leaky_relu(x, self._tensor("alpha"), act_type="prelu")
 
 
 class ELU(HybridBlock):

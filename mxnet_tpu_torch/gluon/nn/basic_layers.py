@@ -89,12 +89,11 @@ class Dense(HybridBlock):
 
     def infer_shape(self, x):
         in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
-        self._gluon_param("weight").shape = (self.weight.mx_shape[0],
-                                             in_units)
+        self.weight.shape = (self.weight.shape[0], in_units)
 
     def forward(self, x):
-        out = ops.fully_connected(x, self.weight, self.bias,
-                                  flatten=self._flatten)
+        out = ops.fully_connected(x, self._tensor("weight"),
+                                  self._tensor("bias"), flatten=self._flatten)
         if self._act is not None:
             out = ops.activation(out, self._act)
         return out
@@ -116,20 +115,38 @@ class Embedding(HybridBlock):
             self._gluon_param("weight").grad_stype = "row_sparse"
 
     def forward(self, x):
-        return ops.embedding(x, self.weight)
+        return ops.embedding(x, self._tensor("weight"))
 
 
 class LayerNorm(HybridBlock):
-    """Layer normalisation over the last axis with gamma and beta."""
+    """Layer normalisation over ``axis`` (the last by default), then
+    ``* gamma + beta``; ``scale=False`` and ``center=False`` keep gamma
+    and beta at their initial values with ``grad_req="null"``, and
+    ``in_channels=0`` (the default) defers the size to the first call,
+    as in the reference."""
 
-    def __init__(self, in_channels, epsilon=1e-5, prefix=None, params=None):
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
+        self._axis = axis
         self._eps = epsilon
-        self.gamma = param(in_channels, init="ones")
-        self.beta = param(in_channels, init="zeros")
+        self.gamma = param(in_channels, init=gamma_initializer,
+                           requires_grad=scale)
+        self.beta = param(in_channels, init=beta_initializer,
+                          requires_grad=center)
+
+    def infer_shape(self, x):
+        for attr in ("gamma", "beta"):
+            self._gluon_param(attr).shape = (x.shape[self._axis],)
 
     def forward(self, x):
-        return ops.layer_norm(x, self.gamma, self.beta, eps=self._eps)
+        gamma, beta = self._tensor("gamma"), self._tensor("beta")
+        ax = self._axis % x.dim()
+        if ax == x.dim() - 1:
+            return ops.layer_norm(x, gamma, beta, eps=self._eps)
+        return ops.layer_norm(x.movedim(ax, -1), gamma, beta,
+                              eps=self._eps).movedim(-1, ax)
 
 
 class Dropout(HybridBlock):
@@ -192,10 +209,12 @@ class BatchNorm(HybridBlock):
         training = self._training_mode() and \
             not self._kwargs["use_global_stats"]
         out, mean, var = ops.batch_norm(
-            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            x, self._tensor("gamma"), self._tensor("beta"),
+            self._tensor("running_mean"), self._tensor("running_var"),
             training=training, **self._kwargs)
         if training:
-            ops.update_moving_stats(self.running_mean, self.running_var,
+            ops.update_moving_stats(self._tensor("running_mean"),
+                                    self._tensor("running_var"),
                                     mean, var, self._kwargs["momentum"])
         return out
 
@@ -229,7 +248,8 @@ class InstanceNorm(HybridBlock):
             self._gluon_param(attr).shape = (x.shape[self._axis],)
 
     def forward(self, x):
-        return ops.instance_norm(x, self.gamma, self.beta, eps=self._eps)
+        return ops.instance_norm(x, self._tensor("gamma"),
+                                 self._tensor("beta"), eps=self._eps)
 
 
 class GroupNorm(HybridBlock):
@@ -248,7 +268,7 @@ class GroupNorm(HybridBlock):
                           requires_grad=center)
 
     def forward(self, x):
-        return ops.group_norm(x, self.gamma, self.beta,
+        return ops.group_norm(x, self._tensor("gamma"), self._tensor("beta"),
                               num_groups=self._num_groups, eps=self._eps)
 
 

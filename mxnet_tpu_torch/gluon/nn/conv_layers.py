@@ -71,7 +71,8 @@ class _Conv(HybridBlock):
 
     def forward(self, x):
         op = ops.deconvolution if self._transposed else ops.convolution
-        out = op(x, self.weight, self.bias, **self._conv)
+        out = op(x, self._tensor("weight"), self._tensor("bias"),
+                 **self._conv)
         return out if self.act is None else self.act(out)
 
 

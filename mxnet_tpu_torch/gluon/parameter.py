@@ -1,15 +1,19 @@
 """Gluon ``Parameter`` and ``ParameterDict``, as the JAX package's
 ``gluon/parameter.py``.
 
-A port Block keeps its weights as ``nn.Parameter`` attributes (so the
-PyTorch module, its ``state_dict`` and the tensor-level paths are
-unchanged).  A ``Parameter`` is the gluon view of one of them: it is
-named ``block.prefix + attribute`` (the reference's name for the same
-construction, e.g. ``hybridsequential0_dense0_weight``), and its
-``data()`` is an NDArray over that very tensor, so an update through
-either is seen by both.  ``grad()`` is the gradient buffer ``backward``
-writes (``grad_req`` ``"write"``) or adds to (``"add"``); ``"null"``
-turns the tensor's gradient off.
+A port Block keeps its weights as ``nn.Parameter``s in ``nn.Module``'s
+own storage (so the PyTorch module, its ``state_dict`` and the
+tensor-level paths are unchanged).  A ``Parameter`` is the gluon view of
+one of them, and the block's attribute of that name
+(``dense.weight``): it is named ``block.prefix + attribute`` (the
+reference's name for the same construction, e.g.
+``hybridsequential0_dense0_weight``), and its ``data()`` is an NDArray
+over that very tensor, so an update through either is seen by both; a
+layer's ``forward`` reads the tensor with ``block._tensor(attribute)``.
+``Parameter(name, shape=...)`` stands alone, as in the reference: a
+small holder module keeps its tensor.  ``grad()`` is the gradient buffer
+``backward`` writes (``grad_req`` ``"write"``) or adds to (``"add"``);
+``"null"`` turns the tensor's gradient off.
 
 A shape with a 0 in it is deferred, as in the reference
 (``allow_deferred_init``; the port's layers defer ``in_units`` and
@@ -30,10 +34,10 @@ the rows its gradient touches; a parameter asked for twice through
 gradient, on its own (``Constant(name, value)``, placed by its
 ``initialize``) or as a block's (``block.params.get_constant``).
 
-Not ported: several contexts per parameter, ``save``/``load`` of a
-``ParameterDict`` and a parameter-by-parameter ``initialize`` of a
-block's parameters (``Block.initialize`` places and fills the whole
-block).
+``Parameter.initialize`` and ``ParameterDict.initialize`` place and fill
+parameter by parameter, as the reference (``Block.initialize`` places
+and fills the whole block at once).  Not ported: several contexts per
+parameter, and ``Parameter.var`` (it needs ``mx.symbol``).
 """
 from __future__ import annotations
 
@@ -61,17 +65,49 @@ class DeferredInitializationError(MXNetError):
 
 
 class Parameter:
-    """The gluon view of the ``nn.Parameter`` ``attr`` of ``block``.
-    ``grad_req`` defaults to ``"write"`` for a tensor that requires a
-    gradient and ``"null"`` for one that does not (running statistics)."""
+    """A gluon parameter: ``Parameter(name, shape=..., ...)`` stands alone
+    (the reference's constructor; ``initialize`` places and fills it), and
+    a block's parameter attribute is the view of that block's
+    ``nn.Parameter`` (:meth:`_of`).  ``grad_req`` defaults to
+    ``"write"``; a view's to ``"write"`` for a tensor that requires a
+    gradient and ``"null"`` for one that does not (running statistics).
+    ``differentiable=False`` fixes it at ``"null"``."""
 
-    def __init__(self, block, attr: str, grad_req=None, lr_mult=1.0,
-                 wd_mult=1.0, grad_stype="default"):
+    def __init__(self, name, grad_req="write", shape=None, dtype="float32",
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
+        if shape is None:
+            t = UninitializedParameter(dtype=torch_dtype(dtype))
+            t.mx_shape, t.mx_init = None, init
+        else:
+            if isinstance(shape, int):
+                shape = (shape,)
+            t = initializer.param(*shape, init=init, dtype=torch_dtype(dtype))
+        self._holder = _Holder()           # a Parameter holds its block weakly
+        self._holder.register_parameter("value", t)
+        self.allow_deferred_init = allow_deferred_init
+        self._setup(self._holder, "value", name, grad_req, lr_mult, wd_mult,
+                    grad_stype, differentiable, stype)
+
+    @classmethod
+    def _of(cls, block, attr, grad_req=None):
+        """The view of ``block``'s parameter attribute ``attr``, named
+        ``block.prefix + attr``."""
+        self = cls.__new__(cls)
+        self.allow_deferred_init = True
+        self._setup(block, attr, block._param_prefix + attr, grad_req)
+        return self
+
+    def _setup(self, block, attr, name, grad_req, lr_mult=1.0, wd_mult=1.0,
+               grad_stype="default", differentiable=True, stype="default"):
         self._block = weakref.ref(block)
         self._attr = attr
-        self.name = block._param_prefix + attr
+        self.name = name
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
+        self._differentiable = differentiable
+        self._stype = stype
         self._grad_req = "null"
         self._grad_stype = grad_stype
         self._nd = None
@@ -108,6 +144,9 @@ class Parameter:
         size given at construction must stay."""
         new_shape = tuple(int(s) for s in new_shape)
         old = self.shape
+        if old is None:
+            self._tensor.mx_shape = new_shape
+            return
         if len(old) != len(new_shape) or any(
                 o not in (0, n) for o, n in zip(old, new_shape)):
             raise MXNetError(f"Parameter {self.name!r}: shape {new_shape} "
@@ -123,6 +162,18 @@ class Parameter:
     def init(self):
         return getattr(self._tensor, "mx_init", None)
 
+    @init.setter
+    def init(self, init):
+        self._tensor.mx_init = init
+
+    @property
+    def stype(self):
+        return self._stype
+
+    @property
+    def differentiable(self):
+        return self._differentiable
+
     # -- grad_req ------------------------------------------------------------
     @property
     def grad_req(self):
@@ -133,6 +184,8 @@ class Parameter:
         if req not in ("write", "add", "null"):
             raise MXNetError(f"grad_req must be write, add or null, got "
                              f"{req!r}")
+        if not self._differentiable:
+            req = "null"
         self._grad_req = req
         t = self._tensor
         if t.is_floating_point():
@@ -228,7 +281,7 @@ class Parameter:
         t = self._tensor
         if not isinstance(t, UninitializedParameter):
             return
-        if 0 in t.mx_shape:
+        if t.mx_shape is None or 0 in t.mx_shape:
             raise MXNetError(
                 f"Cannot initialize Parameter {self.name!r} because it "
                 f"has invalid shape: {t.mx_shape}. Please specify "
@@ -242,8 +295,83 @@ class Parameter:
         init, device, generator = deferred
         t.materialize(t.mx_shape, device=device)
         del t.mx_deferred
-        initializer.fill_one(self.name, t, init, generator)
+        _fill(self.name, t, init, generator)
         self._bind(t)          # a leaf that backward writes gradients for
+
+    def _replace(self, new):
+        """Put the tensor ``new`` in the parameter's place (its
+        initializer kept) and bind it."""
+        t = self._tensor
+        if getattr(t, "mx_init", None) is not None:
+            new.mx_init = t.mx_init
+        self._block()._parameters[self._attr] = new
+        if self._nd is not None:
+            self._nd._grad = None
+        self._bind(new)
+
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False):
+        """Place the parameter on ``ctx`` (default: the current context)
+        and fill it, as the reference: ``init`` if given, else its own
+        initializer, else ``default_init`` (``Uniform()``) by name.  A
+        placed parameter stays as it is unless ``force_reinit``; one whose
+        shape is not known yet is made at the first call (or raises
+        without ``allow_deferred_init``)."""
+        from .. import random as _random
+        from ..context import current_context
+        t = self._tensor
+        placed = not t.is_meta and not isinstance(t, UninitializedParameter)
+        if (placed or getattr(t, "mx_deferred", None) is not None) \
+                and not force_reinit:
+            return
+        if isinstance(ctx, (list, tuple)):
+            if len(ctx) != 1:
+                raise MXNetError(f"Parameter {self.name!r}: one context a "
+                                 f"parameter, not {len(ctx)}")
+            ctx = ctx[0]
+        dev = (ctx or current_context()).device
+        if default_init is None:
+            default_init = initializer.Uniform()
+        chosen = default_init if init is None else _Explicit(init)
+        gen = _random.generator(dev)
+        shape = self.shape
+        if shape is None or 0 in shape:      # made at the first call
+            if not self.allow_deferred_init:
+                raise MXNetError(f"Cannot initialize Parameter {self.name!r} "
+                                 f"because it has invalid shape: {shape}.")
+            t.mx_deferred = (chosen, dev, gen)
+            return
+        new = nn.Parameter(torch.empty(shape, dtype=t.dtype, device=dev),
+                           requires_grad=t.requires_grad)
+        new.mx_init = getattr(t, "mx_init", None)
+        _fill(self.name, new, chosen, gen)
+        self._replace(new)
+
+    def reset_ctx(self, ctx):
+        """Move the parameter to ``ctx`` (its values kept); a deferred
+        one is made there at the first call."""
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0]
+        t = self._tensor
+        deferred = getattr(t, "mx_deferred", None)
+        if deferred is not None:
+            t.mx_deferred = (deferred[0], ctx.device, deferred[2])
+            return
+        if t.is_meta or isinstance(t, UninitializedParameter):
+            raise MXNetError(f"Cannot reset context for Parameter "
+                             f"{self.name!r} because it has not been "
+                             "initialized.")
+        if t.device == torch.device(ctx.device):
+            return
+        self._replace(nn.Parameter(t.detach().to(ctx.device),
+                                   requires_grad=t.requires_grad))
+
+    def var(self):
+        """The symbol variable of the parameter: ``mx.symbol`` is not
+        ported yet (ROADMAP queue 1 item 8)."""
+        raise NotImplementedError(
+            f"Parameter.var ({self.name!r}) needs mx.symbol, which the "
+            "port does not have yet (ROADMAP queue 1 item 8)")
 
     def zero_grad(self):
         """Zero the gradient buffer in place."""
@@ -318,8 +446,27 @@ class Parameter:
             dst.copy_(src)
 
 
+class _Explicit:
+    """An initializer given to ``Parameter.initialize`` itself: it wins
+    over the parameter's own, without the dispatch by name."""
+
+    def __init__(self, init):
+        self.init = initializer.create(init)
+
+
+def _fill(name, t, init, generator):
+    """Fill ``t`` in place: an explicit initializer, else the tensor's
+    own, else ``init`` by name."""
+    if isinstance(init, _Explicit):
+        with torch.no_grad():
+            init.init.init_weight(name, t, generator)
+    else:
+        initializer.fill_one(name, t, init, generator)
+
+
 class _Holder(nn.Module):
-    """The module that holds a standalone Constant's tensor."""
+    """The module that holds a standalone Parameter's or Constant's
+    tensor."""
 
     prefix = _param_prefix = ""
 
@@ -338,8 +485,8 @@ class Constant(Parameter):
             _block.register_parameter("value", _constant_tensor(value))
             self._holder = _block          # a Parameter holds its block weakly
         self.value = value
-        super().__init__(_block, _attr, grad_req="null")
-        self.name = name
+        self.allow_deferred_init = False
+        self._setup(_block, _attr, name, "null", differentiable=False)
 
     @property
     def grad_req(self):
@@ -354,21 +501,9 @@ class Constant(Parameter):
 
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit=False):
-        """Place a standalone constant on ``ctx`` (default: the current
-        context) with its value."""
-        from ..context import current_context
-        holder = getattr(self, "_holder", None)
-        if holder is None:
-            raise MXNetError(f"Constant {self.name!r} belongs to a block: "
-                             "the block's initialize places it")
-        t = self._tensor
-        if not t.is_meta and not force_reinit:
-            return
-        dev = (ctx or current_context()).device
-        new = nn.Parameter(torch.as_tensor(self.value, device=dev),
-                           requires_grad=False)
-        holder._parameters["value"] = new
-        self._bind(new)
+        """Place the constant on ``ctx`` (default: the current context)
+        with its value; ``init`` and ``default_init`` are ignored."""
+        Parameter.initialize(self, None, ctx, None, force_reinit)
 
 
 def _constant_value(value):
@@ -394,9 +529,10 @@ class ParameterDict:
     """Ordered, prefix-scoped dict of Parameters (parity: ParameterDict).
     ``block.params`` can also make new parameters with ``get``."""
 
-    def __init__(self, prefix="", owner=None):
+    def __init__(self, prefix="", shared=None, *, owner=None):
         self._prefix = prefix
         self._params = OrderedDict()
+        self._shared = shared
         self._owner = weakref.ref(owner) if owner is not None else None
 
     @property
@@ -436,47 +572,68 @@ class ParameterDict:
                                  f"same name {k!r}")
             self._params[k] = v
 
+    def _get_impl(self, full):
+        if full in self._params:
+            return self._params[full]
+        if self._shared is not None and full in self._shared._params:
+            self._params[full] = self._shared._params[full]
+            return self._params[full]
+        return None
+
     def get(self, name, shape=None, dtype="float32", init=None,
             grad_req="write", allow_deferred_init=False,
-            grad_stype="default", **kwargs):
-        """The parameter ``prefix + name``; on a block's own ``params`` it
-        is made (on the ``meta`` device, until ``initialize``) when it
-        does not exist yet.  A ``grad_stype="row_sparse"`` asked of an
-        existing parameter types its gradient row-sparse."""
+            grad_stype="default", lr_mult=1.0, wd_mult=1.0,
+            differentiable=True, stype="default"):
+        """The parameter ``prefix + name`` (here or in ``shared``), made
+        when it does not exist yet: on a block's own ``params`` as the
+        block's (on the ``meta`` device until ``initialize``), else as a
+        standalone ``Parameter``.  A ``grad_stype="row_sparse"`` asked of
+        an existing parameter types its gradient row-sparse."""
         full = self._prefix + name
-        if full in self._params:
-            param = self._params[full]
+        param = self._get_impl(full)
+        if param is not None:
             if grad_stype == "row_sparse":
                 param.grad_stype = grad_stype
             return param
         owner = self._owner() if self._owner is not None else None
         if owner is None:
-            raise MXNetError(f"no Parameter {full!r}, and this dict belongs "
-                             "to no block that could make it")
+            param = self._params[full] = Parameter(
+                full, grad_req=grad_req, shape=shape, dtype=dtype,
+                lr_mult=lr_mult, wd_mult=wd_mult, init=init,
+                allow_deferred_init=allow_deferred_init,
+                differentiable=differentiable, stype=stype,
+                grad_stype=grad_stype)
+            return param
         if shape is None or any(int(s) < 0 for s in shape) or (
                 0 in tuple(shape) and not allow_deferred_init):
             raise MXNetError(f"Parameter {full!r}: shape {shape} is not "
                              "fully known and allow_deferred_init is off")
         p = initializer.param(*shape, init=init, dtype=torch_dtype(dtype),
-                              requires_grad=grad_req != "null")
+                              requires_grad=grad_req != "null"
+                              and differentiable)
         owner.register_parameter(name, p)
         param = owner._gluon_param(name)
+        param._differentiable = differentiable
+        param._stype = stype
         param.grad_req = grad_req
         param.grad_stype = grad_stype
+        param.lr_mult, param.wd_mult = lr_mult, wd_mult
         return param
 
     def get_constant(self, name, value=None):
         """The constant ``prefix + name``; on a block's own ``params`` it
         is made from ``value`` when it does not exist yet."""
         full = self._prefix + name
-        if full in self._params:
-            return self._params[full]
+        param = self._get_impl(full)
+        if param is not None:
+            return param
+        if value is None:
+            raise MXNetError(f"no Constant {full!r}, and no value to make "
+                             "it from")
         owner = self._owner() if self._owner is not None else None
-        if owner is None or value is None:
-            raise MXNetError(f"no Constant {full!r}, and "
-                             + ("no value to make it from" if value is None
-                                else "this dict belongs to no block that "
-                                "could make it"))
+        if owner is None:
+            param = self._params[full] = Constant(full, value)
+            return param
         value = _constant_value(value)
         owner.register_parameter(name, _constant_tensor(value))
         const = owner._gluon_params[name] = Constant(full, value,
@@ -484,9 +641,59 @@ class ParameterDict:
                                                      _attr=name)
         return const
 
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        """Place and fill every parameter not placed yet (all of them
+        with ``force_reinit``): its own initializer, else ``init``
+        (default ``Uniform()``) by name."""
+        if init is None:
+            init = initializer.Uniform()
+        for p in self.values():
+            p.initialize(None, ctx, init, force_reinit=force_reinit)
+
     def zero_grad(self):
         for p in self.values():
             p.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for p in self.values():
+            p.reset_ctx(ctx)
+
+    def save(self, filename, strip_prefix=""):
+        """``nd.save`` of the parameters by name, ``strip_prefix`` taken
+        off each."""
+        from .. import ndarray as nd
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise MXNetError(
+                    f"Prefix {strip_prefix!r} is to be striped before "
+                    f"saving, but Parameter {param.name!r} does not start "
+                    "with it.")
+            arg_dict[param.name[len(strip_prefix):]] = param.data()
+        nd.save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix="", cast_dtype=False):
+        """Load a :meth:`save` file, ``restore_prefix`` put before each
+        name."""
+        from ..ndarray.ndarray import _load_numpy
+        with open(filename, "rb") as f:
+            arg_dict = _load_numpy(f, filename)
+        arg_dict = {restore_prefix + k: v for k, v in arg_dict.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise MXNetError(f"Parameter {name!r} is missing in "
+                                     f"file {filename!r}")
+        for name, data in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise MXNetError(
+                        f"Parameter {name!r} loaded from file {filename!r} "
+                        "is not present in this ParameterDict")
+                continue
+            self._params[name]._load_init(data, ctx, cast_dtype=cast_dtype)
 
     def setattr(self, name, value):
         for p in self.values():

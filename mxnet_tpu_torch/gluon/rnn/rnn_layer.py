@@ -99,7 +99,7 @@ class _RNNLayer(HybridBlock):
         finals = [[] for _ in states]
         for i in range(self._num_layers):
             lo, hi = i * self._dir, (i + 1) * self._dir
-            weights = [getattr(self, f"{j}{i}_{w}")
+            weights = [self._tensor(f"{j}{i}_{w}")
                        for j in self._directions() for w in _WEIGHTS]
             x, fin = recurrent_layer(self._mode, x,
                                      [s[lo:hi] for s in states], weights,

@@ -16,6 +16,9 @@ loss_fn)`` makes the whole training step one captured graph
 its own; the dense ones keep the one multi-tensor pass.
 ``save_states``/``load_states`` pickle the optimizer's states and the
 optimizer, update counts included, as the reference does.
+``clip_global_norm`` scales the gradients before each update, eager or
+compiled, so that the global 2-norm of the rescaled gradients is at most
+that value (``Optimizer.clip_global_grads``).
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ class Trainer:
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
-                 update_on_kvstore=None):
+                 update_on_kvstore=None, clip_global_norm=None):
         if isinstance(params, (dict, ParameterDict)):
             params = list(params.values())
         if not isinstance(params, (list, tuple)) or not all(
@@ -60,6 +63,11 @@ class Trainer:
         else:
             self._optimizer = opt.create(optimizer, param_dict=param_dict,
                                          **(optimizer_params or {}))
+        if clip_global_norm is not None:
+            if not float(clip_global_norm) > 0:
+                raise ValueError(f"clip_global_norm must be positive, got "
+                                 f"{clip_global_norm}")
+            self._optimizer.clip_global_norm = float(clip_global_norm)
         self._scale = self._optimizer.rescale_grad
         self._updater = opt.get_updater(self._optimizer)
 

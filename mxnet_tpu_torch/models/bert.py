@@ -36,7 +36,7 @@ class BERTModel(Block):
         self.word_embed = Embedding(vocab_size, units)
         self.token_type_embed = Embedding(type_vocab_size, units)
         self.position_embed = param(max_length, units, init="normal")
-        self.embed_layer_norm = LayerNorm(units)
+        self.embed_layer_norm = LayerNorm(in_channels=units)
         self.embed_dropout = Dropout(dropout) if dropout else None
         self.encoder = TransformerEncoder(
             units, hidden_size, num_layers, num_heads, dropout=dropout,
@@ -49,7 +49,7 @@ class BERTModel(Block):
         ``valid_length`` (B,) masks the padded keys of each row."""
         b, s = inputs.shape[0], inputs.shape[1]
         x = self.word_embed(inputs) + self.token_type_embed(token_types)
-        x = x + self.position_embed[:s].unsqueeze(0)
+        x = x + self._tensor("position_embed")[:s].unsqueeze(0)
         x = self.embed_layer_norm(x)
         if self.embed_dropout is not None:
             x = self.embed_dropout(x)
@@ -78,7 +78,7 @@ class BERTForPretrain(Block):
         self._decode_mlm = bool(decode_mlm)
         self.bert = bert
         self.mlm_dense = Dense(units, in_units=units, flatten=False)
-        self.mlm_norm = LayerNorm(units)
+        self.mlm_norm = LayerNorm(in_channels=units)
         self.mlm_bias = param(bert.vocab_size, init="zeros")
         self.nsp_classifier = Dense(2, in_units=units)
 
@@ -86,12 +86,13 @@ class BERTForPretrain(Block):
         seq, pooled = self.bert(inputs, token_types, valid_length)
         h = self.mlm_dense(_gather_positions(seq, masked_positions))
         h = self.mlm_norm(ops.gelu(h))
-        word_w = self.bert.word_embed.weight
+        word_w = self.bert.word_embed._tensor("weight")
         nsp_scores = self.nsp_classifier(pooled)
         h2 = h.reshape(-1, h.shape[-1])
         if not self._decode_mlm:
-            return h2, nsp_scores, word_w, self.mlm_bias
-        mlm_scores = ops.dot(h2, word_w, transpose_b=True) + self.mlm_bias
+            return h2, nsp_scores, word_w, self._tensor("mlm_bias")
+        mlm_scores = ops.dot(h2, word_w, transpose_b=True) + \
+            self._tensor("mlm_bias")
         return mlm_scores, nsp_scores
 
 

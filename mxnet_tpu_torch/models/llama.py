@@ -259,7 +259,7 @@ class LlamaForCausalLM(HybridBlock):
 
     @property
     def device(self) -> torch.device:
-        return self.model.embed.weight.device
+        return self.model.embed._tensor("weight").device
 
     def initialize(self, init=None, ctx=None, seed=None, std=None):
         """Gluon's ``initialize``: every weight placed on ``ctx`` and
@@ -406,7 +406,7 @@ class LlamaForCausalLM(HybridBlock):
         """LM-head projection to (N, vocab)."""
         if self._tied:
             return dot(h.reshape(-1, self.model._units),
-                       self.model.embed.weight, transpose_b=True)
+                       self.model.embed._tensor("weight"), transpose_b=True)
         return self.lm_head(h).reshape(-1, self.model.vocab_size)
 
     @_inline

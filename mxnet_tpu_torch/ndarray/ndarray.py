@@ -31,6 +31,7 @@ import torch
 from ..base import MXNetError, dtype_name, numeric_types, numpy_dtype, \
     torch_dtype
 from ..context import Context, cpu, current_context, gpu
+from ..contrib import amp as _amp
 from ..ops.registry import OpDef, get_op
 
 __all__ = ["NDArray", "invoke", "array", "empty", "zeros", "ones", "full",
@@ -546,6 +547,8 @@ def invoke(op: OpDef, inputs: Sequence[NDArray], out=None,
         autograd = _autograd = _ag
 
     tensors = [i._t for i in inputs]
+    if _amp.listed_op(op.name):
+        tensors = list(_amp.cast_inputs(op.name, *tensors))
     if inputs:
         ctx = inputs[0]._ctx
     else:

@@ -196,3 +196,42 @@ def rope(x, offset=0, base=10000.0):
     r1 = x1 * cos - x2 * sin
     r2 = x1 * sin + x2 * cos
     return torch.stack([r1, r2], dim=-1).reshape(x.shape)
+
+
+# -- the interleaved self-attention products (reference transformer.cc) --------
+
+def _heads(qkv, heads):
+    s, b, e3 = qkv.shape
+    return qkv.reshape(s, b, heads, 3, e3 // 3 // heads)
+
+
+@register("interleaved_matmul_selfatt_qk", num_inputs=1)
+def interleaved_matmul_selfatt_qk(queries_keys_values, *, heads=1):
+    """(S, B, 3 E) with Q, K and V interleaved a head -> the scaled scores
+    (B * heads, S, S), float32 products without TF32 on the card."""
+    from .nn import ieee_f32
+    s, b, e3 = queries_keys_values.shape
+    d = e3 // 3 // heads
+
+    def f(x):
+        qkv = _heads(x, heads)
+        scores = torch.einsum("sbhd,tbhd->bhst", qkv[:, :, :, 0],
+                              qkv[:, :, :, 1])
+        return (scores * (1.0 / math.sqrt(d))).reshape(b * heads, s, s)
+    return ieee_f32(f, queries_keys_values)
+
+
+@register("interleaved_matmul_selfatt_valatt", num_inputs=2)
+def interleaved_matmul_selfatt_valatt(queries_keys_values, attention, *,
+                                      heads=1):
+    """The attention (B * heads, S, S) applied to the interleaved V ->
+    (S, B, E)."""
+    from .nn import ieee_f32
+    s, b, e3 = queries_keys_values.shape
+
+    def f(x, att):
+        v = _heads(x, heads)[:, :, :, 2]
+        out = torch.einsum("bhst,tbhd->sbhd", att.reshape(b, heads, s, s),
+                           v)
+        return out.reshape(s, b, e3 // 3)
+    return ieee_f32(f, queries_keys_values, attention)

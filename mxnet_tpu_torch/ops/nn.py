@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from ..contrib import amp
+from . import quantization_ops as _q
 from .registry import alias, register
 
 __all__ = ["silu", "rms_norm", "dot", "take", "embedding",
@@ -61,12 +62,15 @@ def _rms_norm_op(data, gamma, *, axis=-1, eps=1e-6):
 
 def dot(a, b, *, transpose_a=False, transpose_b=False):
     """Contract the last axis of a with the first axis of b; a transpose
-    reverses every axis."""
+    reverses every axis.  Two int8 operands give the int32 product
+    (``quantization_ops.int8_mm``)."""
     a, b = amp.cast_inputs("dot", a, b)
     if transpose_a:
         a = a.permute(*range(a.dim() - 1, -1, -1))
     if transpose_b:
         b = b.permute(*range(b.dim() - 1, -1, -1))
+    if _q.both_int8(a, b):
+        return _q.int8_tensordot(a, b)
     return torch.tensordot(a, b, dims=1)
 
 
@@ -197,9 +201,17 @@ def convolution(data, weight, bias=None, *, stride=(), pad=(), dilate=(),
     """Cross-correlation of ``data`` (N, C, *spatial) with ``weight``
     (num_filter, C / num_group, *kernel), 1-, 2- or 3-D, with symmetric
     zero padding ``pad``, plus ``bias``.  A library call (cuDNN on the
-    card), as XLA generated it in the reference."""
+    card), as XLA generated it in the reference.  int8 ``data`` and
+    ``weight`` give the exact int32 result (im2col and the int8 GEMM,
+    ``quantization_ops.int8_convolution``), as the reference's int8 rule."""
     n = weight.dim() - 2
     data, weight, bias = amp.cast_inputs("Convolution", data, weight, bias)
+    if _q.both_int8(data, weight):
+        out = _q.int8_convolution(data, weight, _ntuple(stride, n, 1),
+                                  _ntuple(pad, n, 0), _ntuple(dilate, n, 1),
+                                  int(num_group))
+        return out if bias is None else out + bias.reshape(
+            (1, -1) + (1,) * n)
     return _Convolution.apply(data, weight, bias, _ntuple(stride, n, 1),
                               _ntuple(pad, n, 0), _ntuple(dilate, n, 1),
                               int(num_group), False, None)
@@ -589,6 +601,51 @@ class _ieee_f32_matmul:
         torch.backends.cuda.matmul.allow_tf32 = self._prev
 
 
+class _IeeeFn(torch.autograd.Function):
+    """``fn(*tensors)`` as one node whose forward and backward both run
+    with TF32 off in cuBLAS and cuDNN, whatever the caller set (the
+    backward of a plain op would read the caller's flags again)."""
+
+    @staticmethod
+    def forward(ctx, fn, *tensors):
+        ctx.set_materialize_grads(False)
+        with torch.enable_grad(), _ieee_f32_matmul(), _ieee_f32():
+            leaves = [t.detach().requires_grad_(t.requires_grad)
+                      for t in tensors]
+            out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        ctx.leaves, ctx.outs = leaves, outs
+        detached = tuple(o.detach() for o in outs)
+        return detached if isinstance(out, tuple) else detached[0]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        leaves, outs = ctx.leaves, ctx.outs
+        ctx.leaves = ctx.outs = None
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        wrt = [t for t in leaves if t.requires_grad]
+        if not pairs or not wrt:
+            return (None,) * (1 + len(leaves))
+        with _ieee_f32_matmul(), _ieee_f32():
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wrt, [g for _, g in pairs],
+                allow_unused=True))
+        return (None,) + tuple(next(got) if t.requires_grad else None
+                               for t in leaves)
+
+
+def ieee_f32(fn, *tensors):
+    """``fn(*tensors)`` with float32 products in float32 on the card
+    (TF32 off in cuBLAS and cuDNN), in the forward and, when a gradient
+    is recorded, in the backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _IeeeFn.apply(fn, *tensors)
+    with _ieee_f32_matmul(), _ieee_f32():
+        return fn(*tensors)
+
+
 def _slabs(v, chunk):
     """(start, stop) of each vocabulary slab: ``ceil(v / chunk)`` slabs
     re-balanced to ``ceil(v / n)`` rows each, as the reference splits
@@ -722,6 +779,75 @@ def chunked_softmax_ce_bias(hidden, weight, bias, label, *, chunk=8192,
 @register("identity")
 def identity(data):
     return data
+
+
+@register("MakeLoss")
+def make_loss(data, *, grad_scale=1.0, valid_thresh=0.0,
+              normalization="null"):
+    """The identity, as in the JAX package: its gradient is the head's,
+    and ``grad_scale`` is not applied (upstream's gradient is
+    ``grad_scale`` whatever the head's; ROADMAP queue 3, R9)."""
+    return data
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; the backward is the implicit cross-entropy
+    gradient ``(prob - one_hot(label)) * grad_scale`` (not the softmax
+    Jacobian), as the reference's ``softmax_output.cc``."""
+
+    @staticmethod
+    def forward(ctx, data, label, axis, conf):
+        prob = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(prob, label)
+        ctx.axis, ctx.conf = axis, conf
+        return prob
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        prob, label = ctx.saved_tensors
+        axis = ctx.axis
+        grad_scale, ignore_label, use_ignore, normalization, out_grad, \
+            smooth_alpha = ctx.conf
+        k = prob.shape[axis]
+        li = label.to(torch.int32)
+        shape = [1] * prob.dim()
+        shape[axis] = k
+        classes = torch.arange(k, device=prob.device).reshape(shape)
+        onehot = (li.unsqueeze(axis) == classes).to(prob.dtype)
+        if smooth_alpha:
+            onehot = onehot * (1.0 - smooth_alpha) + smooth_alpha / k
+        g = prob - onehot
+        keep = li != int(ignore_label)
+        if use_ignore:
+            g = g * keep.unsqueeze(axis).to(prob.dtype)
+        if normalization == "batch":
+            g = g / prob.shape[0]
+        elif normalization == "valid":
+            if use_ignore:
+                g = g / torch.clamp(keep.sum().to(prob.dtype), min=1.0)
+            else:
+                g = g / float(math.prod(label.shape))
+        g = g * grad_scale
+        if out_grad:
+            g = g * grad
+        return g, None, None, None
+
+
+@register("SoftmaxOutput", num_inputs=2)
+def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0,
+                   use_ignore=False, multi_output=False,
+                   preserve_shape=False, normalization="null",
+                   out_grad=False, smooth_alpha=0.0):
+    """The legacy fused softmax with the cross-entropy gradient: softmax
+    over the last axis (axis 1 with ``multi_output``) forward, ``(prob -
+    one_hot(label)) * grad_scale`` backward, ``ignore_label`` rows zeroed
+    with ``use_ignore``, divided by the batch (``"batch"``) or the valid
+    labels (``"valid"``), the one-hot smoothed by ``smooth_alpha``."""
+    axis = 1 if multi_output else data.dim() - 1
+    return _SoftmaxOutput.apply(
+        data, label, axis, (grad_scale, ignore_label, use_ignore,
+                            normalization, out_grad, smooth_alpha))
 
 
 @register("BlockGrad")
@@ -1040,3 +1166,106 @@ def crop(data, *rest, offset=(0, 0), h_w=(0, 0), num_args=1,
     else:
         oy, ox = int(offset[0]), int(offset[1])
     return data[:, :, oy:oy + th, ox:ox + tw]
+
+
+# -- the deformable convolutions (reference ops/nn.py:840-960) -----------------
+
+def _deform_bilinear(data_g, y, x):
+    """``data_g`` (B, dg, Cg, H, W) sampled at the pixel coordinates ``y``
+    and ``x`` (B, dg, K, Ho, Wo), zero outside -> (B, dg, Cg, K, Ho, Wo):
+    four corner gathers (their backward is a scatter-add, atomic on the
+    card) weighted bilinearly."""
+    b, dg, cg, h, w = data_g.shape
+    flat = data_g.reshape(b, dg, cg, h * w)
+
+    def corner(yi, xi):
+        inb = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        yc = yi.clamp(0, h - 1).long()
+        xc = xi.clamp(0, w - 1).long()
+        idx = (yc * w + xc).reshape(b, dg, 1, -1).expand(b, dg, cg, -1)
+        vals = torch.gather(flat, 3, idx).reshape((b, dg, cg)
+                                                  + tuple(yi.shape[2:]))
+        return torch.where(inb[:, :, None], vals, 0.0)
+
+    y0 = torch.floor(y)
+    x0 = torch.floor(x)
+    wy = (y - y0)[:, :, None]
+    wx = (x - x0)[:, :, None]
+    return (corner(y0, x0) * (1 - wy) * (1 - wx)
+            + corner(y0, x0 + 1) * (1 - wy) * wx
+            + corner(y0 + 1, x0) * wy * (1 - wx)
+            + corner(y0 + 1, x0 + 1) * wy * wx)
+
+
+def _deform_conv(data, offset, weight, rest, mask, kernel, stride, dilate,
+                 pad, num_group, num_deformable_group, no_bias):
+    """The deformable convolution, v1 (``mask`` None) or v2: the sampled
+    patches (B, C, K, Ho, Wo) from the corner gathers (times the mask),
+    then one product over (C, K) a group."""
+    kh, kw = kernel
+    sh, sw = tuple(stride) if stride else (1, 1)
+    dh, dw = tuple(dilate) if dilate else (1, 1)
+    ph, pw = tuple(pad) if pad else (0, 0)
+    b, c, h, w = data.shape
+    dg = num_deformable_group
+    k = kh * kw
+    ho = (h + 2 * ph - ((kh - 1) * dh + 1)) // sh + 1
+    wo = (w + 2 * pw - ((kw - 1) * dw + 1)) // sw + 1
+    dev = data.device
+    ys = torch.arange(ho, device=dev) * sh - ph
+    xs = torch.arange(wo, device=dev) * sw - pw
+    ry = torch.repeat_interleave(torch.arange(kh, device=dev) * dh, kw)
+    rx = (torch.arange(kw, device=dev) * dw).repeat(kh)
+    base_y = (ry[:, None, None] + ys[None, :, None]).float()
+    base_x = (rx[:, None, None] + xs[None, None, :]).float()
+    off = offset.reshape(b, dg, k, 2, ho, wo).float()
+    y = base_y[None, None] + off[:, :, :, 0]
+    x = base_x[None, None] + off[:, :, :, 1]
+    patches = _deform_bilinear(data.reshape(b, dg, c // dg, h, w).float(),
+                               y, x)
+    if mask is not None:
+        patches = patches * mask.reshape(b, dg, 1, k, ho, wo).float()
+    patches = patches.reshape(b, c, k, ho, wo).to(data.dtype)
+    ng = num_group
+    o = weight.shape[0]
+    cg, og = c // ng, o // ng
+    # (g, og, cg * K) by (g, cg * K, B * Ho * Wo)
+    pg = patches.reshape(b, ng, cg * k, ho * wo).permute(1, 2, 0, 3) \
+        .reshape(ng, cg * k, b * ho * wo)
+    wt = weight.reshape(ng, og, cg * k)
+    out = ieee_f32(torch.bmm, wt, pg).reshape(ng, og, b, ho, wo) \
+        .permute(2, 0, 1, 3, 4).reshape(b, o, ho, wo)
+    if not no_bias:
+        out = out + rest[0].reshape(1, -1, 1, 1)
+    return out
+
+
+@register("_contrib_DeformableConvolution", num_inputs=None)
+def deformable_convolution(data, offset, weight, *rest, kernel=(),
+                           stride=(), dilate=(), pad=(), num_filter=0,
+                           num_group=1, num_deformable_group=1,
+                           no_bias=False, workspace=0, layout=None):
+    """Deformable convolution v1 (reference
+    ``src/operator/contrib/deformable_convolution.cc``): each kernel tap
+    samples the input at its place plus a learned offset, bilinearly,
+    zero outside.  ``offset`` is (B, 2 * dg * kh * kw, Ho, Wo), (y, x)
+    pairs a tap, taps row-major, a deformable group after another."""
+    return _deform_conv(data, offset, weight, rest, None, kernel, stride,
+                        dilate, pad, num_group, num_deformable_group,
+                        no_bias)
+
+
+@register("_contrib_ModulatedDeformableConvolution", num_inputs=None)
+def modulated_deformable_convolution(data, offset, mask, weight, *rest,
+                                     kernel=(), stride=(), dilate=(),
+                                     pad=(), num_filter=0, num_group=1,
+                                     num_deformable_group=1,
+                                     no_bias=False, workspace=0,
+                                     layout=None):
+    """Deformable convolution v2 (reference
+    ``modulated_deformable_convolution.cc``): v1's offsets and a per-tap
+    modulation ``mask`` (B, dg * kh * kw, Ho, Wo), already through its
+    sigmoid, scaling every sampled value."""
+    return _deform_conv(data, offset, weight, rest, mask, kernel, stride,
+                        dilate, pad, num_group, num_deformable_group,
+                        no_bias)

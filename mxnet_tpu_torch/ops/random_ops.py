@@ -118,3 +118,17 @@ def pick_tokens(logits, temps, top_k=0, generator=None):
     u = torch.rand(lg.shape, generator=generator, device=lg.device)
     sampled = torch.argmax(lg - torch.log(-torch.log(u)), dim=-1)
     return torch.where(temps > 0, sampled, greedy).float()
+
+
+@register("_sample_unique_zipfian", num_inputs=0, wrap_ctx=True)
+def _sample_unique_zipfian(*, range_max=1, shape=(), device=None,
+                           generator=None):
+    """Log-uniform draws in [0, range_max) as int64: ``exp(u log
+    range_max) - 1`` truncated, u uniform.  As the JAX package (ROADMAP
+    queue 3, R8): no dedup and no counts, unlike upstream's sampler."""
+    if generator is None:
+        from ..random import generator as _generator
+        generator = _generator(device)
+    u = torch.rand(tuple(shape), generator=generator, device=device)
+    vals = torch.exp(u * math.log(float(range_max))) - 1.0
+    return torch.clamp(vals, 0.0, float(range_max - 1)).to(torch.int64)

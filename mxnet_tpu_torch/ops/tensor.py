@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError, torch_dtype
+from ..contrib import amp
 from . import nn as _nn
 from .registry import alias, register
 
@@ -318,10 +319,15 @@ register("dot", num_inputs=2)(_nn.dot)
 
 @register("batch_dot", num_inputs=2)
 def batch_dot(a, b, *, transpose_a=False, transpose_b=False):
+    """``matmul`` over the last two axes; int8 operands give the exact
+    int32 product."""
+    a, b = amp.cast_inputs("batch_dot", a, b)
     if transpose_a:
         a = torch.swapaxes(a, -1, -2)
     if transpose_b:
         b = torch.swapaxes(b, -1, -2)
+    if _nn._q.both_int8(a, b):
+        return _nn._q.int8_batch_matmul(a, b)
     return torch.matmul(a, b)
 
 
@@ -995,3 +1001,109 @@ def index_copy(old, index, new):
     new array."""
     idx = _wrap_negative(index.long(), old.shape[0])
     return old.index_put((idx,), new.to(old.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the linalg family and khatri_rao (reference la_op.cc, krprod.cc): float32
+# products in float32 on the card (no TF32), forward and backward
+# ---------------------------------------------------------------------------
+
+def _t(a):
+    return torch.swapaxes(a, -1, -2)
+
+
+@register("linalg_gemm2", num_inputs=2)
+def linalg_gemm2(a, b, *, transpose_a=False, transpose_b=False, alpha=1.0):
+    """``alpha * op(a) @ op(b)`` over the last two axes."""
+    a, b = amp.cast_inputs("linalg_gemm2", a, b)
+    if transpose_a:
+        a = _t(a)
+    if transpose_b:
+        b = _t(b)
+    return alpha * _nn.ieee_f32(torch.matmul, a, b)
+
+
+@register("linalg_potrf")
+def linalg_potrf(a):
+    """The lower Cholesky factor, batched (the input symmetrized, as
+    ``jnp.linalg.cholesky``)."""
+    return _nn.ieee_f32(lambda x: torch.linalg.cholesky((x + _t(x)) / 2), a)
+
+
+@register("linalg_potri")
+def linalg_potri(a):
+    """``inv(L @ L.T)`` from the lower Cholesky factor ``L`` (its lower
+    triangle read)."""
+    def f(x):
+        eye = torch.eye(x.shape[-1], dtype=x.dtype,
+                        device=x.device).expand(x.shape)
+        linv = torch.linalg.solve_triangular(x, eye, upper=False)
+        return torch.matmul(_t(linv), linv)
+    return _nn.ieee_f32(f, a)
+
+
+@register("linalg_syrk")
+def linalg_syrk(a, *, transpose=False, alpha=1.0):
+    """``alpha * a.T @ a`` (``transpose``) or ``alpha * a @ a.T``."""
+    def f(x):
+        return torch.matmul(_t(x), x) if transpose \
+            else torch.matmul(x, _t(x))
+    return alpha * _nn.ieee_f32(f, a)
+
+
+@register("linalg_trmm", num_inputs=2)
+def linalg_trmm(a, b, *, transpose=False, rightside=False, lower=True,
+                alpha=1.0):
+    """``alpha * op(tri(a)) @ b`` (or ``b @ op(tri(a))`` with
+    ``rightside``), ``tri`` the lower or upper triangle."""
+    def f(x, y):
+        tri = torch.tril(x) if lower else torch.triu(x)
+        if transpose:
+            tri = _t(tri)
+        return torch.matmul(y, tri) if rightside else torch.matmul(tri, y)
+    return alpha * _nn.ieee_f32(f, a, b)
+
+
+@register("linalg_trsm", num_inputs=2)
+def linalg_trsm(a, b, *, transpose=False, rightside=False, lower=True,
+                alpha=1.0):
+    """Solve ``op(A) X = alpha B`` (or ``X op(A) = alpha B`` with
+    ``rightside``) for triangular ``A``; ``op(A)`` is ``A.T`` with
+    ``transpose``."""
+    def f(x, y):
+        if rightside:
+            # X op(A) = alpha B  ->  op(A).T X.T = alpha B.T
+            opat = x if transpose else _t(x)
+            low = lower if transpose else not lower
+            return _t(torch.linalg.solve_triangular(opat, _t(alpha * y),
+                                                    upper=not low))
+        opa = _t(x) if transpose else x
+        low = (not lower) if transpose else lower
+        return torch.linalg.solve_triangular(opa, alpha * y, upper=not low)
+    return _nn.ieee_f32(f, a, b)
+
+
+@register("linalg_gelqf", num_outputs=2)
+def linalg_gelqf(a):
+    """The LQ factorization ``A = L Q``, Q with orthonormal rows: returns
+    (L, Q), the JAX package's order."""
+    def f(x):
+        q, r = torch.linalg.qr(_t(x), mode="reduced")
+        return _t(r), _t(q)
+    return _nn.ieee_f32(f, a)
+
+
+@register("linalg_sumlogdiag")
+def linalg_sumlogdiag(a):
+    """The sum of the logs of the diagonal, batched."""
+    return torch.sum(torch.log(torch.diagonal(a, dim1=-2, dim2=-1)), dim=-1)
+
+
+@register("khatri_rao", num_inputs=None)
+def khatri_rao(*mats):
+    """The column-wise Kronecker product: (r_i, k) inputs to
+    (prod r_i, k)."""
+    out = mats[0]
+    for m in mats[1:]:
+        out = (out[:, None, :] * m[None, :, :]).reshape(-1, out.shape[-1])
+    return out

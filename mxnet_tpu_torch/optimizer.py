@@ -126,6 +126,11 @@ class DeviceScalars:
         entry[1] = values
         return views
 
+    def view(self, device, name):
+        """The 0-d view of ``name`` last written on ``device``."""
+        return self._by_device[torch.device(device)][2][
+            self.names.index(name)]
+
 
 class Optimizer:
     """Base optimizer (parity: ``mx.optimizer.Optimizer``)."""
@@ -146,18 +151,32 @@ class Optimizer:
                              f"{sorted(Optimizer.opt_registry)}")
         return Optimizer.opt_registry[key](**kwargs)
 
-    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=None, lr_scheduler=None, param_dict=None,
-                 multi_precision=False):
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=None, lr_scheduler=None,
+                 sym=None, begin_num_update=0, multi_precision=False,
+                 param_dict=None, aggregate_num=0, clip_global_norm=None):
         self.rescale_grad = rescale_grad
         self.multi_precision = multi_precision
+        # the largest global 2-norm of the rescaled gradients
+        # (clip_global_grads; None: no clip)
+        self.clip_global_norm = clip_global_norm
+        self.begin_num_update = begin_num_update
+        self.aggregate_num = aggregate_num
+        if param_idx2name is None:
+            param_idx2name = {}
+        if not isinstance(param_idx2name, dict):
+            raise MXNetError("param_idx2name should be a dict of param "
+                             "indexes to names.")
+        self.idx2name = param_idx2name.copy()
+        self.lr_mult = {}
+        self.wd_mult = {}
         self.lr = learning_rate if learning_rate is not None else 0.01
         self.lr_scheduler = lr_scheduler
         if lr_scheduler is not None and learning_rate is not None:
             self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
-        self.num_update = 0
+        self.num_update = begin_num_update
         self._index_update_count = {}
         self.param_dict = param_dict if param_dict else {}
         self._scalars = DeviceScalars(("lr", "wd", "rescale_grad",
@@ -181,6 +200,30 @@ class Optimizer:
                              "defined.")
         self.lr = lr
 
+    def set_lr_mult(self, args_lr_mult):
+        """Learning-rate factors by parameter index or name (a parameter
+        in ``param_dict`` uses its own ``lr_mult``)."""
+        self.lr_mult = args_lr_mult.copy()
+
+    def set_wd_mult(self, args_wd_mult):
+        """Weight-decay factors by index or name; every named parameter
+        but a ``_weight`` or ``_gamma`` gets 0 first, as the reference."""
+        self.wd_mult = {n: 0.0 for n in self.idx2name.values()
+                        if not n.endswith(("_weight", "_gamma"))}
+        self.wd_mult.update(args_wd_mult)
+
+    def _mults(self, index):
+        """(lr_mult, wd_mult) of parameter ``index``: its ``Parameter``'s,
+        else :meth:`set_lr_mult`'s and :meth:`set_wd_mult`'s by index, then
+        by name (``param_idx2name``)."""
+        p = self.param_dict.get(index)
+        if p is not None:
+            return p.lr_mult, p.wd_mult
+        name = self.idx2name.get(index)
+        return tuple(
+            table[index] if index in table else table.get(name, 1.0)
+            for table in (self.lr_mult, self.wd_mult))
+
     def __getstate__(self):
         # the parameters and the device scalars stay behind: Trainer binds
         # the parameters again after a load, and the scalars are made anew
@@ -194,13 +237,40 @@ class Optimizer:
         return self.lazy_update and grad.stype == "row_sparse"
 
     def _update_count(self, index):
-        count = self._index_update_count.get(index, 0) + 1
+        count = self._index_update_count.get(index,
+                                             self.begin_num_update) + 1
         self._index_update_count[index] = count
         self.num_update = max(count, self.num_update)
 
     def _clip(self):
         return -1.0 if self.clip_gradient is None else float(
             self.clip_gradient)
+
+    def _clip_gnorm(self):
+        # getattr: an optimizer pickled before the attribute lacks it
+        v = getattr(self, "clip_global_norm", None)
+        return -1.0 if v is None else float(v)
+
+    def clip_global_grads(self, grads, rescale=None):
+        """Scale ``grads`` (NDArrays) in place so that the global 2-norm
+        of ``rescale * grads`` is at most ``clip_global_norm``
+        (:func:`~.ops.optimizer_ops.global_norm_scale`), as the
+        reference's fused update clips before its per-element clip; a
+        no-op without ``clip_global_norm``.  ``rescale`` defaults to
+        ``rescale_grad``; a captured step passes its staged device scalar.
+        ``Updater.call_fused`` and the compiled step's body call it, on
+        the device, with no host read."""
+        max_norm = self._clip_gnorm()
+        if max_norm <= 0 or not grads:
+            return
+        from .ops.optimizer_ops import global_norm_scale
+        rescale = self.rescale_grad if rescale is None else rescale
+        ts = [g.tensor for g in grads]
+        _, scale = global_norm_scale((t.float() * rescale for t in ts),
+                                     max_norm)
+        with torch.no_grad():
+            for t in ts:
+                t.mul_(scale.to(t.dtype))
 
     def create_state(self, index, weight):
         return None
@@ -288,10 +358,9 @@ class Optimizer:
         """The attributes baked into the update's kernels, for the
         parameters ``indices``: a captured step whose key changed is
         captured again."""
-        mults = tuple((getattr(self.param_dict.get(i), "lr_mult", 1.0),
-                       getattr(self.param_dict.get(i), "wd_mult", 1.0))
-                      for i in indices)
-        return (type(self).__name__, self._clip(), mults)
+        mults = tuple(self._mults(i) for i in indices)
+        return (type(self).__name__, self._clip(), self._clip_gnorm(),
+                mults)
 
 
 register = Optimizer.register
@@ -338,9 +407,7 @@ class SGD(Optimizer):
         from . import ndarray as nd
         from .ndarray.ndarray import NDArray
         lr, wd, rescale, neg_lr_rescale = self.stage(weight.tensor.device)
-        p = self.param_dict.get(index)
-        lr_mult, wd_mult = (1.0, 1.0) if p is None else (p.lr_mult,
-                                                          p.wd_mult)
+        lr_mult, wd_mult = self._mults(index)
         lazy = self._lazy(grad)
         if state is None and self._clip() <= 0 and self.wd == 0 \
                 and lr_mult == 1.0 and not lazy:
@@ -389,8 +456,7 @@ class SGD(Optimizer):
             if self._lazy(g):
                 self.apply(i, w, g, s)
                 continue
-            p = self.param_dict.get(i)
-            mults = (1.0, 1.0) if p is None else (p.lr_mult, p.wd_mult)
+            mults = self._mults(i)
             groups.setdefault(mults, []).append(
                 (w.tensor, g.tensor, None if s is None else s.tensor))
         for mults, members in groups.items():
@@ -485,9 +551,12 @@ class Updater:
         """Update the parameters ``indices`` together
         (``Optimizer.update_multi``), making any missing state first; one
         at a time (``update_multi_precision``) where the reference has no
-        fused plan for them (``Optimizer._fused_supported``)."""
+        fused plan for them (``Optimizer._fused_supported``).  Either way
+        the gradients are first clipped to ``clip_global_norm``
+        (``Optimizer.clip_global_grads``)."""
         for i, w in zip(indices, weights):
             self._ensure_state(i, w)
+        self.optimizer.clip_global_grads(grads)
         if not self.optimizer._fused_supported(weights):
             for i, g, w in zip(indices, grads, weights):
                 self.optimizer.update_multi_precision(i, w, g,
@@ -619,8 +688,7 @@ class Adam(Optimizer):
         scalars = self.stage(weights[0].tensor.device, t)
         groups = {}
         for i, w, g, s in zip(indices, weights, grads, states):
-            p = self.param_dict.get(i)
-            mults = (1.0, 1.0) if p is None else (p.lr_mult, p.wd_mult)
+            mults = self._mults(i)
             tensors = (w.tensor, g.tensor, (s[0].tensor, s[1].tensor))
             if self._lazy(g):
                 self._apply_lazy(*tensors, scalars, mults)
@@ -765,8 +833,7 @@ class _PerTensor(Optimizer):
         scalars = self.stage(weights[0].tensor.device, t)
         groups = {}
         for i, w, g, s in zip(indices, weights, grads, states):
-            p = self.param_dict.get(i)
-            mults = (1.0, 1.0) if p is None else (p.lr_mult, p.wd_mult)
+            mults = self._mults(i)
             groups.setdefault(mults, []).append(
                 (w.tensor, g.tensor, _state_tensors(s)))
         for mults, members in groups.items():

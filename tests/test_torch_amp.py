@@ -260,3 +260,37 @@ def test_bert_amp_loop_with_lamb_matches_jax(flash_kernels, amp_off):
         assert rel <= F16_TOL, (name, rel)
     assert np.sqrt(diff / norm) <= F16_TOL
     assert moved > 0
+
+
+def test_init_takes_the_reference_op_lists(amp_off):
+    """F11: ``amp.init(target_dtype, target_precision_ops,
+    conditional_fp32_ops, fp32_ops)``: a listed op (``broadcast_add``,
+    also inside a ``hybrid_forward``) runs its float32 inputs in the AMP
+    type, as the JAX package's; an op not listed keeps float32, and
+    ``fp32_ops`` is accepted and not applied (R1)."""
+    a = np.random.RandomState(0).rand(3, 4).astype("f4")
+    kw = dict(target_precision_ops=["broadcast_add"],
+              conditional_fp32_ops=[("Activation", "act_type", ["relu"])],
+              fp32_ops=["softmax"])
+    jamp.init("bfloat16", **kw)
+    amp.init("bfloat16", **kw)
+    got = {}
+    for name, F, ctx in (("jax", jnd, {}), ("port", nd, {"ctx": CPU})):
+        x, y = F.array(a, **ctx), F.array(a * 2, **ctx)
+        got[name] = (F.broadcast_add(x, y), F.broadcast_sub(x, y),
+                     F.dot(x, F.transpose(y)))
+    for j, t in zip(got["jax"], got["port"]):
+        assert str(t.dtype) == str(j.dtype), (t.dtype, j.dtype)
+        np.testing.assert_allclose(t.astype("float32").asnumpy(),
+                                   j.astype("float32").asnumpy(),
+                                   rtol=1e-2, atol=1e-2)
+    assert str(got["port"][0].dtype) == "bfloat16"
+    assert str(got["port"][1].dtype) == "float32"
+
+    class Add(gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return F.broadcast_add(x, x)
+    assert str(Add()(nd.array(a, ctx=CPU)).dtype) == "bfloat16"
+    amp._deinit()
+    assert str(nd.broadcast_add(nd.array(a, ctx=CPU),
+                                nd.array(a, ctx=CPU)).dtype) == "float32"

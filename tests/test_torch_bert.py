@@ -144,7 +144,7 @@ def test_bert_for_pretrain_undecoded_mlm():
                   torch.from_numpy(x["types"]), None,
                   torch.from_numpy(x["positions"]))
     assert len(got) == len(want) == 4
-    assert got[2] is net.bert.word_embed.weight
+    assert got[2] is net.bert.word_embed._tensor("weight")
     for name, a, w in zip(("hidden", "nsp", "word_w", "bias"), got, want):
         _close(a.detach().numpy(), w.asnumpy(), name)
 
@@ -197,10 +197,10 @@ def test_initialize_draws_on_the_context():
     for (n, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
         assert p.device.type == "cpu" and torch.equal(p, q), n
     bert = a.bert
-    w = bert.encoder.layers[0].ffn.ffn_1.weight
+    w = bert.encoder.layers[0].ffn.ffn_1._tensor("weight")
     bound = np.sqrt(3.0 / ((256 + 1024) / 2.0))
     assert w.abs().max() <= bound and w.abs().max() > 0.9 * bound
-    assert 0.005 < bert.position_embed.std().item() < 0.015
-    assert torch.all(a.mlm_bias == 0)
-    assert torch.all(bert.embed_layer_norm.gamma == 1)
-    assert torch.all(bert.pooler.bias == 0)
+    assert 0.005 < bert._tensor("position_embed").std().item() < 0.015
+    assert torch.all(a._tensor("mlm_bias") == 0)
+    assert torch.all(bert.embed_layer_norm._tensor("gamma") == 1)
+    assert torch.all(bert.pooler._tensor("bias") == 0)

@@ -497,6 +497,55 @@ def test_compile_step_adam_matches_jax_eager_loop():
     assert got[2].mean() < got[0].mean()
 
 
+@pytest.mark.parametrize("opt_name,opt", [
+    ("sgd", {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-3}),
+    ("adam", {"learning_rate": 0.01, "wd": 1e-3}),
+])
+def test_compile_step_clip_global_norm_matches_jax_compiled_step(opt_name,
+                                                                 opt):
+    """``Trainer(..., clip_global_norm=0.05)``: 3 steps of the port's
+    compile_step against the JAX package's compile_step (whose fused
+    update clips), from the same weights, with the clip active at every
+    step (the rescaled gradients' norm is above 0.05).  The clip is part
+    of the step's static key."""
+    widths = (20, 16, 16, 10)
+    clip = 0.05
+    x, y = _mlp_batch(32, widths, seed=0)
+    jnet, tnet = _mlp(jmx, widths), _mlp(mx, widths)
+    models.load_jax_gluon_params(
+        tnet, {k: v.data().asnumpy()
+               for k, v in jnet.collect_params().items()}, jnet.prefix)
+    jtr = jmx.gluon.Trainer(jnet.collect_params(), opt_name, opt,
+                            kvstore=None, clip_global_norm=clip)
+    jcs = jtr.compile_step(jnet, jmx.gluon.loss.SoftmaxCrossEntropyLoss())
+    jx, jy = jmx.nd.array(x), jmx.nd.array(y)
+    want = [jcs.step(jx, jy).asnumpy() for _ in range(3)]
+    assert jcs.last_path == "compiled"
+    ttr = gluon.Trainer(tnet.collect_params(), opt_name, opt, kvstore=None,
+                        clip_global_norm=clip)
+    cs = ttr.compile_step(tnet, gluon.loss.SoftmaxCrossEntropyLoss())
+    tx, ty = nd.array(x, ctx=CPU), nd.array(y, ctx=CPU)
+    got, norms = [], []
+    for _ in range(3):
+        # the rescaled gradients' norm at this step's weights, unclipped
+        with autograd.record():
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(tnet(tx), ty)
+        loss.backward()
+        norms.append(np.sqrt(sum(
+            float(((p.grad().asnumpy() / 32.0) ** 2).sum())
+            for p in tnet.collect_params().values())))
+        got.append(cs.step(tx, ty).asnumpy())
+    assert cs.last_path == "compiled" and cs.fallback_reason is None
+    assert min(norms) > 2 * clip, norms
+    for g, w in zip(got, want):
+        assert_almost_equal(g, w)
+    for g, w in zip(_weights(tnet), _weights(jnet)):
+        assert_almost_equal(g, w)
+    key = ttr._optimizer.static_key(cs._tr_idx)
+    ttr._optimizer.clip_global_norm = 2 * clip
+    assert ttr._optimizer.static_key(cs._tr_idx) != key
+
+
 # -- CompiledStep ------------------------------------------------------------------
 
 def _compiled_run(steps, change=None, env=None, monkeypatch=None,

@@ -54,6 +54,7 @@ EXAMPLES = {
                       "exact-match"),
     "segmentation_fcn": (["--steps", "8", "--batch-size", "4"], "pixAcc="),
     "ssd_train": (["--steps", "12", "--batch-size", "4"], "top-det IoU"),
+    "int8_inference": (["--train-steps", "24"], "INT8 INFERENCE OK"),
 }
 
 

@@ -58,11 +58,11 @@ def test_parameter_surface():
     assert p.shape == (4, 3) and p.dtype == "float32"
     d = p.data()
     assert isinstance(d, nd.NDArray) and d is p.data()
-    assert d.tensor is net[0].weight        # the module's own tensor
+    assert d.tensor is net[0]._tensor("weight")   # the module's own tensor
     g = p.grad()
     assert g.shape == (4, 3) and g.asnumpy().sum() == 0
     p.set_data(np.ones((4, 3), "f4"))
-    assert net[0].weight.detach().sum().item() == 12
+    assert net[0]._tensor("weight").detach().sum().item() == 12
     with pytest.raises(MXNetError, match="shape"):
         p.set_data(np.ones((3, 4), "f4"))
     with pytest.raises(MXNetError, match="context"):
@@ -75,7 +75,7 @@ def test_parameter_surface():
     net.collect_params().zero_grad()
     assert g.asnumpy().sum() == 0
     p.grad_req = "null"
-    assert not net[0].weight.requires_grad
+    assert not net[0]._tensor("weight").requires_grad
     with pytest.raises(MXNetError, match="null"):
         p.grad()
     with autograd.record():
@@ -151,8 +151,8 @@ def test_hybrid_block_called_with_tensors_passes_its_modes_on():
         assert bare(x).requires_grad
     assert y.requires_grad and not x.requires_grad
     y.sum().backward()
-    assert net.dense.weight.grad is not None
-    assert float(net.dense.weight.grad.abs().sum()) > 0
+    assert net.dense._tensor("weight").grad is not None
+    assert float(net.dense._tensor("weight").grad.abs().sum()) > 0
     mx.random.seed(0)
     big = torch.ones(4096, 4)
     kept = (net(big) != 0).float().mean().item()
@@ -290,3 +290,25 @@ def test_load_jax_gluon_params_checks():
     with pytest.raises(MXNetError, match="does not have"):
         models.load_jax_gluon_params(
             tnet, dict(params, mlp_extra=np.zeros(1, "f4")), "mlp_")
+
+
+def test_forward_hook_handles_detach():
+    """F15: the handles of ``register_forward_pre_hook`` and
+    ``register_forward_hook`` have ``detach()``, as the reference's:
+    after it the hook is not called again, in both packages."""
+    for pkg in (jmx, mx):
+        net = pkg.gluon.nn.Dense(2, in_units=3)
+        net.initialize(**({"ctx": CPU} if pkg is mx else {}))
+        seen = []
+        pre = net.register_forward_pre_hook(
+            lambda blk, inputs: seen.append(("pre", len(inputs))))
+        post = net.register_forward_hook(
+            lambda blk, inputs, out: seen.append(("post", out.shape)))
+        x = pkg.nd.ones((4, 3), **({"ctx": CPU} if pkg is mx else {}))
+        net(x)
+        assert [s[0] for s in seen] == ["pre", "post"]
+        assert tuple(seen[1][1]) == (4, 2)
+        pre.detach()
+        post.detach()
+        net(x)
+        assert len(seen) == 2

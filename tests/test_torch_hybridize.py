@@ -125,8 +125,8 @@ def test_deferred_init_uses_initialize_generator_and_device():
         net.initialize(mx.init.Xavier(), ctx=CPU, seed=3)
         net(x)
         nets.append(net)
-    assert nets[0].weight.device.type == "cpu"
-    assert torch.equal(nets[0].weight, nets[1].weight)
+    assert nets[0]._tensor("weight").device.type == "cpu"
+    assert torch.equal(nets[0]._tensor("weight"), nets[1]._tensor("weight"))
     with pytest.raises(MXNetError, match="initialize"):
         nn.Dense(4)(x)
 

@@ -239,7 +239,8 @@ def test_load_untied_head():
                           tie_embeddings=False, ctx=mx.cpu())
     load_jax_params(lm, params)
     head = next(v for k, v in params.items() if k.endswith("head_weight"))
-    np.testing.assert_array_equal(lm.lm_head.weight.detach().numpy(), head)
+    np.testing.assert_array_equal(
+        lm.lm_head._tensor("weight").detach().numpy(), head)
 
 
 # -- F4: the generate family returns NDArrays for NDArrays -------------------
@@ -304,7 +305,7 @@ def test_initialize_std_places_a_meta_model_on_the_current_context():
         lm = LlamaForCausalLM(get_llama("llama_tiny", vocab_size=V))
         lm.initialize(std=0.02, seed=1)
     assert lm.device == torch.device("cpu")
-    w = lm.model.embed.weight.detach()
+    w = lm.model.embed._tensor("weight").detach()
     assert abs(float(w.std()) - 0.02) < 0.002
 
 
@@ -312,4 +313,4 @@ def test_ctx_at_construction_still_places_and_fills():
     lm = LlamaForCausalLM(get_llama("llama_tiny", vocab_size=V),
                           ctx=mx.cpu())
     assert lm.device == torch.device("cpu")
-    assert float(lm.model.embed.weight.detach().abs().max()) > 0
+    assert float(lm.model.embed._tensor("weight").detach().abs().max()) > 0

@@ -322,8 +322,8 @@ def test_training_converges_hybridized():
 
 def test_initialize_forms():
     lm = LlamaForCausalLM(get_llama("llama_tiny", vocab_size=V), ctx=CPU)
-    gamma = lm.model.final_norm.gamma
-    q = lm.model.layers[0].attn.q_proj.weight
+    gamma = lm.model.final_norm._tensor("gamma")
+    q = lm.model.layers[0].attn.q_proj._tensor("weight")
     assert q.std().item() == pytest.approx(0.02, rel=0.2)
     lm.initialize(mx.init.Xavier(), seed=3)
     # Xavier's uniform bound over the average fan (64 in, 64 out)

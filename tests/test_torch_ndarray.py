@@ -439,11 +439,16 @@ def test_every_op_has_a_case():
     (NN_LAYER_OPS), test_torch_optimizer.py (the update ops) or
     test_torch_amp.py (AMP's ops), test_torch_registry_ops.py
     (REGISTRY_OPS), test_torch_vision_ops.py (VISION_OPS),
-    test_torch_detection.py (DETECTION_OPS), or by its statistics in
+    test_torch_detection.py (DETECTION_OPS), test_torch_quantization.py
+    (QUANT_OPS), test_torch_deformable.py (DEFORMABLE_OPS),
+    test_torch_registry_tail.py (TAIL_OPS), or by its statistics in
     test_torch_autograd.py (the samplers, Dropout)."""
+    from test_torch_deformable import DEFORMABLE_OPS
     from test_torch_detection import DETECTION_OPS
     from test_torch_optimizer import UPDATE_OPS
+    from test_torch_quantization import QUANT_OPS
     from test_torch_registry_ops import REGISTRY_OPS
+    from test_torch_registry_tail import TAIL_OPS
     from test_torch_vision_ops import VISION_OPS
     covered = set(UNARY) | set(SCALAR) | set(BROADCAST) | set(CREATION) \
         | {n for n, _ in REDUCE} | set(SHAPE) | {"argmax", "argmin"} \
@@ -457,9 +462,51 @@ def test_every_op_has_a_case():
         | {"amp_cast", "amp_multicast", "all_finite", "multi_all_finite"} \
         | RANDOM_OPS | CONV_OPS \
         | RNN_OPS | NN_LAYER_OPS | set(LLAMA_OPS) | REGISTRY_OPS \
-        | VISION_OPS | DETECTION_OPS
+        | VISION_OPS | DETECTION_OPS | QUANT_OPS | DEFORMABLE_OPS \
+        | TAIL_OPS
     missing = sorted(set(list_ops()) - covered)
     assert missing == []
+
+
+# -- int8 operands accumulate in int32 (ROADMAP queue 3, F14) ---------------------
+
+def _i8(*shape, seed=0):
+    return np.random.RandomState(seed).randint(-127, 128, shape).astype("i1")
+
+
+INT8_CASES = {
+    # ROADMAP's case: 8 products of 100 * 100 wrap in int8, not in int32
+    "dot_f14": (lambda F, a, b: F.dot(a, b),
+                [np.full((4, 8), 100, "i1"), np.full((8, 3), 100, "i1")]),
+    "dot_transposed": (lambda F, a, b: F.dot(a, b, transpose_a=True,
+                                             transpose_b=True),
+                       [_i8(147, 5), _i8(4, 147, seed=1)]),
+    "dot_nd": (lambda F, a, b: F.dot(a, b),
+               [_i8(2, 3, 6), _i8(6, 2, 5, seed=1)]),
+    "batch_dot": (lambda F, a, b: F.batch_dot(a, b, transpose_b=True),
+                  [_i8(3, 5, 9), _i8(3, 4, 9, seed=1)]),
+    "conv_k147_stride2": (lambda F, x, w: F.Convolution(
+        x, w, kernel=(7, 7), stride=(2, 2), pad=(3, 3), num_filter=4,
+        no_bias=True), [_i8(2, 3, 12, 12), _i8(4, 3, 7, 7, seed=1)]),
+    "conv_groups_dilate": (lambda F, x, w: F.Convolution(
+        x, w, kernel=(3, 3), dilate=(2, 2), pad=(1, 1), num_filter=6,
+        num_group=2, no_bias=True), [_i8(1, 4, 9, 9), _i8(6, 2, 3, 3,
+                                                         seed=1)]),
+    "conv_1x1": (lambda F, x, w: F.Convolution(
+        x, w, kernel=(1, 1), num_filter=8, no_bias=True),
+        [_i8(2, 16, 5, 5), _i8(8, 16, 1, 1, seed=1)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INT8_CASES))
+def test_int8_products_accumulate_in_int32(case):
+    """F14: int8 x int8 ``dot``, ``batch_dot`` and ``Convolution`` give
+    int32, bit-equal to the JAX package's (``_int8_acc``)."""
+    fn, arrays = INT8_CASES[case]
+    got = torch_parity.check(fn, arrays, rtol=0, atol=0, grad=False)[0]
+    assert got.dtype == np.int32
+    if case == "dot_f14":
+        assert (got == 80000).all()
 
 
 def test_registry_contracts():

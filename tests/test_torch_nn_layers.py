@@ -53,6 +53,11 @@ def _concat(pkg_nn, hybrid):
 
 # name -> (make(pkg_nn) -> layer, input shape); every layer's prefix "l_"
 LAYERS = {
+    # the reference's signature, deferred by default (ROADMAP F9)
+    "LayerNorm_deferred": (lambda n: n.LayerNorm(prefix="l_"), (2, 3, 5)),
+    "LayerNorm_axis1": (lambda n: n.LayerNorm(
+        axis=1, epsilon=1e-3, center=False, gamma_initializer="uniform",
+        prefix="l_"), (2, 4, 3, 2)),
     "Conv1DTranspose": (lambda n: n.Conv1DTranspose(
         4, 3, strides=2, padding=1, output_padding=1, prefix="l_"),
         (2, 3, 7)),

@@ -502,3 +502,72 @@ def test_data_parallel_fused_rules_match_jax(name, kw):
         np.testing.assert_allclose(a.data().asnumpy(), b.data().asnumpy(),
                                    rtol=1e-4, atol=1e-5)
     assert td.num_update == 3
+
+
+# -- clipping and update counts (ROADMAP queue 3, F10) -----------------------------
+
+@pytest.mark.parametrize("opt_name", ["sgd", "adam"])
+def test_trainer_clip_global_norm_matches_jax(opt_name):
+    """``Trainer(..., clip_global_norm=)``: three steps with the clip
+    active (the rescaled gradients' norm is far above 0.5), against the
+    JAX Trainer."""
+    from mxnet_tpu import gluon as jgluon
+    from mxnet_tpu_torch import gluon as tgluon
+    rng = np.random.RandomState(10)
+    w0 = rng.randn(4, 3).astype("f4")
+    b0 = rng.randn(4).astype("f4")
+    x = rng.randn(6, 3).astype("f4") * 3
+
+    def run(pkg, gl, ctx):
+        net = gl.nn.Dense(4, in_units=3, prefix="clip_")
+        net.initialize(ctx=ctx) if ctx is not None else net.initialize()
+        params = net.collect_params()
+        params["clip_weight"].set_data(pkg.nd.array(w0, ctx=ctx))
+        params["clip_bias"].set_data(pkg.nd.array(b0, ctx=ctx))
+        tr = gl.Trainer(params, opt_name, {"learning_rate": 0.1},
+                        clip_global_norm=0.5)
+        out = []
+        for _ in range(3):
+            with pkg.autograd.record():
+                loss = (net(pkg.nd.array(x, ctx=ctx)) ** 2).sum()
+            loss.backward()
+            tr.step(2)
+            out.append([p.data().asnumpy() for p in params.values()])
+        return out
+    want = run(jmx, jgluon, None)
+    got = run(mx, tgluon, CPU)
+    for gs, ws in zip(got, want):
+        for g, w in zip(gs, ws):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="positive"):
+        tgluon.Trainer(tgluon.nn.Dense(2, in_units=2).initialize(
+            ctx=CPU).collect_params(), "sgd", clip_global_norm=0.0)
+
+
+def test_optimizer_counts_and_multipliers_match_jax():
+    """``begin_num_update``, ``param_idx2name``, ``aggregate_num`` and
+    ``clip_global_norm`` are taken; ``set_lr_mult``/``set_wd_mult`` by
+    index and by name (a non-weight name's wd_mult 0), as the JAX
+    package's SGD updates show."""
+    rng = np.random.RandomState(11)
+    ws = [rng.randn(3).astype("f4") for _ in range(3)]
+    gs = [rng.randn(3).astype("f4") for _ in range(3)]
+    kw = dict(learning_rate=0.1, wd=0.2, begin_num_update=5,
+              param_idx2name={0: "fc_weight", 1: "fc_bias", 2: "x_gamma"},
+              aggregate_num=4, clip_global_norm=None)
+    jo, to = jopt.SGD(**kw), topt.SGD(**kw)
+    for o in (jo, to):
+        assert o.num_update == 5 and o.aggregate_num == 4
+        o.set_lr_mult({"fc_bias": 3.0, 2: 0.5})
+        o.set_wd_mult({"x_gamma": 2.0})
+    assert to.wd_mult == jo.wd_mult == {"fc_bias": 0.0, "x_gamma": 2.0}
+    jw = [nd.array(w) for w in ws]
+    tw = [mx.nd.array(w, ctx=CPU) for w in ws]
+    for i in range(3):
+        jo.update(i, jw[i], nd.array(gs[i]), None)
+        to.update(i, tw[i], mx.nd.array(gs[i], ctx=CPU), None)
+        np.testing.assert_allclose(tw[i].asnumpy(), jw[i].asnumpy(),
+                                   rtol=1e-6, atol=1e-7)
+    assert to.num_update == jo.num_update == 6
+    with pytest.raises(MXNetError, match="dict"):
+        topt.SGD(param_idx2name=[1])

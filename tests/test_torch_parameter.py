@@ -186,3 +186,156 @@ def test_cast_matches_jax():
     net.cast("float32")
     assert [p.dtype for p in dp] == ["float32", "float32"]
     assert net(x).dtype == np.float32
+
+
+# -- the reference's parameter surface (ROADMAP queue 3, F7, F8, F13) --------------
+
+def _dense_pair(prefix="fd_"):
+    """A JAX Dense and the port's, with the JAX weights."""
+    jmx.random.seed(1)
+    jd = jgluon.nn.Dense(3, in_units=4, prefix=prefix)
+    jd.initialize()
+    td = nn.Dense(3, in_units=4, prefix=prefix)
+    td.initialize(ctx=CPU)
+    td.weight.set_data(jd.weight.data().asnumpy())
+    td.bias.set_data(jd.bias.data().asnumpy())
+    return jd, td
+
+
+def test_block_parameter_attribute_is_the_parameter():
+    """F7: ``net.weight`` is the gluon Parameter in both packages: data(),
+    grad(), set_data(), lr_mult; a layer without a bias has ``bias`` None;
+    the sharing block's attribute is the owner's Parameter."""
+    jd, td = _dense_pair()
+    for d in (jd, td):
+        assert d.weight.name == "fd_weight" and d.weight.shape == (3, 4)
+    assert isinstance(td.weight, gluon.Parameter)
+    assert td.weight is td.collect_params()["fd_weight"]
+    np.testing.assert_array_equal(td.weight.data().asnumpy(),
+                                  jd.weight.data().asnumpy())
+    x = np.random.RandomState(2).rand(5, 4).astype("f4")
+    for pkg, d in ((jmx, jd), (mx, td)):
+        kw = {"ctx": CPU} if pkg is mx else {}
+        xa = pkg.nd.array(x, **kw)
+        with pkg.autograd.record():
+            y = d(xa).sum()
+        y.backward()
+    np.testing.assert_allclose(td.weight.grad().asnumpy(),
+                               jd.weight.grad().asnumpy(), **TOL)
+    td.weight.lr_mult = 0.5
+    assert td.collect_params()["fd_weight"].lr_mult == 0.5
+    td.weight.set_data(np.ones((3, 4), "f4"))
+    assert td._tensor("weight").detach().sum().item() == 12
+    assert nn.Dense(2, use_bias=False).bias is None
+    assert jgluon.nn.Dense(2, use_bias=False).bias is None
+    shared = nn.Dense(3, in_units=4, params=td.collect_params())
+    assert shared.weight is td.weight
+
+
+def test_params_get_keeps_the_multipliers():
+    """F8: ROADMAP's case: one SGD step (lr 1, wd 0.5, gradient 1) on
+    ``params.get("w", lr_mult=2.0, wd_mult=0.0)`` gives w = -1.0 in both
+    packages."""
+    got = {}
+    for pkg, gl, lib in (("jax", jgluon, jmx), ("port", gluon, mx)):
+        class Net(gl.HybridBlock):
+            def __init__(self):
+                super().__init__(prefix="f8_")
+                with self.name_scope():
+                    self.w = self.params.get(
+                        "w", shape=(2, 3), init=lib.init.One(),
+                        lr_mult=2.0, wd_mult=0.0)
+
+            def hybrid_forward(self, F, x, w):
+                return x * w
+
+        net = Net()
+        kw = {"ctx": CPU} if pkg == "port" else {}
+        net.initialize(**kw)
+        p = net.collect_params()["f8_w"]
+        assert (p.lr_mult, p.wd_mult) == (2.0, 0.0)
+        trainer = gl.Trainer(net.collect_params(), "sgd",
+                             {"learning_rate": 1.0, "wd": 0.5})
+        x = lib.nd.ones((2, 3), **kw)
+        with lib.autograd.record():
+            y = net(x).sum()
+        y.backward()
+        trainer.step(1)
+        got[pkg] = p.data().asnumpy()
+    np.testing.assert_allclose(got["port"], got["jax"])
+    np.testing.assert_allclose(got["port"], np.full((2, 3), -1.0))
+
+
+def test_standalone_parameter_and_parameter_dict():
+    """F8 and F13: ``Parameter(name, shape=...)`` stands alone
+    (initialize, data, grad, reset_ctx); ``ParameterDict(prefix,
+    shared=)`` makes and shares parameters; its initialize, save, load
+    and reset_ctx; ``Parameter.var`` names what it waits for."""
+    p = gluon.Parameter("w", shape=(3,), init=mx.init.One(), lr_mult=3.0)
+    jp = jgluon.Parameter("w", shape=(3,), init=jmx.init.One(), lr_mult=3.0)
+    p.initialize(ctx=CPU)
+    jp.initialize()
+    np.testing.assert_array_equal(p.data().asnumpy(), jp.data().asnumpy())
+    assert p.grad().shape == (3,) and p.lr_mult == 3.0 and \
+        p.grad_req == "write"
+    p.initialize(init=mx.init.Zero(), ctx=CPU)       # placed: unchanged
+    assert p.data().asnumpy().sum() == 3
+    p.initialize(init=mx.init.Constant(2.0), ctx=CPU, force_reinit=True)
+    assert p.data().asnumpy().tolist() == [2.0, 2.0, 2.0]
+    p.reset_ctx(CPU)
+    assert p.list_ctx() == [CPU]
+    nd_ = gluon.Parameter("n", shape=(2,), differentiable=False)
+    assert nd_.grad_req == "null"
+    with pytest.raises(NotImplementedError, match="item 8"):
+        p.var()
+    base = gluon.ParameterDict("b_")
+    a = base.get("a", shape=(2, 2), init=mx.init.One())
+    child = gluon.ParameterDict("b_", shared=base)
+    assert child.get("a") is a
+    jbase = jgluon.ParameterDict("b_")
+    jbase.get("a", shape=(2, 2), init=jmx.init.One())
+    for d, kw in ((base, {"ctx": CPU}), (jbase, {})):
+        d.get("c", shape=(3,))
+        d.initialize(mx.init.Zero() if d is base else jmx.init.Zero(), **kw)
+    assert sorted(base.keys()) == sorted(jbase.keys()) == ["b_a", "b_c"]
+    for name in base.keys():
+        np.testing.assert_array_equal(base[name].data().asnumpy(),
+                                      jbase[name].data().asnumpy())
+    base.reset_ctx(CPU)
+
+
+def test_collect_params_initialize_save_load(tmp_path):
+    """F13: ``net.collect_params().initialize(...)``, ``save`` and
+    ``load`` (the JAX package's file read by the port), ``Block.reset_ctx``,
+    ``Block.summary`` and ``HybridBlock.infer_type``."""
+    def make(g):
+        net = g.nn.HybridSequential(prefix="f13_")
+        with net.name_scope():
+            net.add(g.nn.Dense(4, in_units=3), g.nn.Dense(2, in_units=4))
+        return net
+
+    jnet, tnet = make(jgluon), make(gluon)
+    jmx.random.seed(4)
+    jnet.collect_params().initialize(jmx.init.Xavier())
+    tnet.collect_params().initialize(mx.init.Xavier(), ctx=CPU)
+    for p in tnet.collect_params().values():
+        assert p.data().context == CPU
+    assert float(np.abs(tnet[1].bias.data().asnumpy()).sum()) == 0
+    path = str(tmp_path / "f13.params")
+    jnet.collect_params().save(path, strip_prefix="f13_")
+    tnet.collect_params().load(path, ctx=CPU, restore_prefix="f13_")
+    for k, p in jnet.collect_params().items():
+        np.testing.assert_array_equal(
+            tnet.collect_params()[k].data().asnumpy(), p.data().asnumpy())
+    tpath = str(tmp_path / "port.params")
+    tnet.collect_params().save(tpath)
+    jnet2 = make(jgluon)
+    jnet2.collect_params().load(tpath)
+    x = np.random.RandomState(0).rand(2, 3).astype("f4")
+    np.testing.assert_allclose(tnet(nd.array(x, ctx=CPU)).asnumpy(),
+                               jnet2(jnd.array(x)).asnumpy(), **TOL)
+    tnet.reset_ctx(CPU)
+    tnet.infer_type(nd.array(x, ctx=CPU))
+    tnet.summary(nd.array(x, ctx=CPU))
+    with pytest.raises(MXNetError, match="missing"):
+        make(gluon).collect_params().load(path, ctx=CPU)

@@ -95,6 +95,31 @@ def test_pretrained_raises():
         vision.get_model("resnet18_v1", pretrained=True)
 
 
+def test_pretrained_loads_the_local_store(tmp_path, monkeypatch):
+    """F12: the JAX package writes ``resnet18_v1.params`` into a root
+    with ``save_parameters``; the port's ``resnet18_v1(pretrained=True,
+    root=)`` (and ``MXNET_HOME``'s ``models/``) loads it and gives the
+    JAX net's outputs.  A root without the file raises."""
+    jmx.random.seed(12)
+    jnet = jvision.resnet18_v1(classes=10, thumbnail=True)
+    jnet.initialize(jmx.init.Xavier())
+    x = np.random.RandomState(12).rand(2, 3, 16, 16).astype("f4")
+    want = jnet(jmx.nd.array(x)).asnumpy()
+    jnet.save_parameters(str(tmp_path / "resnet18_v1.params"))
+    tnet = vision.resnet18_v1(pretrained=True, root=str(tmp_path),
+                              ctx=CPU, classes=10, thumbnail=True)
+    _close(tnet(nd.array(x, ctx=CPU)).asnumpy(), want, "pretrained")
+    (tmp_path / "models").mkdir()
+    (tmp_path / "resnet18_v1.params").rename(
+        tmp_path / "models" / "resnet18_v1.params")
+    monkeypatch.setenv("MXNET_HOME", str(tmp_path))
+    tnet = vision.get_model("resnet18_v1", pretrained=True, ctx=CPU,
+                            classes=10, thumbnail=True)
+    _close(tnet(nd.array(x, ctx=CPU)).asnumpy(), want, "MXNET_HOME")
+    with pytest.raises(MXNetError, match="not found"):
+        vision.resnet18_v1(pretrained=True, root=str(tmp_path / "none"))
+
+
 # -- the forward against the JAX models ---------------------------------------------
 
 def _forward_checks(jnet, tnet, x, hybridize):
