@@ -7,9 +7,11 @@ gluon Blocks with named Parameters and ``gluon.Trainer``.  Attention runs
 flash-attention kernels written by hand in CUDA C++ for Hopper: the
 forward (``csrc/flash_fwd.cu``) and the backward (``csrc/flash_bwd.cu``),
 built with nvcc at first use; ``mx.rtc.CudaModule`` compiles user CUDA
-kernels with NVRTC.  Entry points run on ``gpu(0)`` unless the caller
-passes ``ctx=mx.cpu()``; without a card and without that, they raise
-``MXNetError``.
+kernels with NVRTC.  Data parallel across cards is one process a card
+(``python -m mxnet_tpu_torch.launch``, ``mx.kv``, ``parallel``).  Entry
+points run on ``gpu(0)`` (``gpu(LOCAL_RANK)`` under the launcher) unless
+the caller passes ``ctx=mx.cpu()``; without a card and without that,
+they raise ``MXNetError``.
 
     from mxnet_tpu_torch import nd, autograd, gluon
     net = gluon.nn.HybridSequential()
@@ -28,19 +30,20 @@ passes ``ctx=mx.cpu()``; without a card and without that, they raise
     net.initialize(mx.initializer.Xavier(), ctx=mx.gpu(0))
 """
 from . import (autograd, base, context, contrib, envs, gluon, initializer,
-               lr_scheduler, metric, models, ndarray, ops, optimizer,
-               parallel, random, rtc, serving, test_utils)
+               kvstore, lr_scheduler, metric, models, ndarray, ops, optimizer,
+               parallel, random, rtc, runtime, serving, test_utils)
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu, num_gpus
+from .context import Context, cpu, cpu_pinned, current_context, gpu, num_gpus
 
 init = initializer
+kv = kvstore
 nd = ndarray
 
 __version__ = "0.1.0"
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus",
-           "autograd", "base", "context", "contrib", "envs", "gluon", "init",
-           "initializer", "lr_scheduler", "metric", "models", "nd", "ndarray",
-           "ops", "optimizer", "parallel", "random", "rtc", "serving",
-           "test_utils"]
+__all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
+           "current_context", "num_gpus", "autograd", "base", "context",
+           "contrib", "envs", "gluon", "init", "initializer", "kv",
+           "kvstore", "lr_scheduler", "metric", "models", "nd", "ndarray",
+           "ops", "optimizer", "parallel", "random", "rtc", "runtime",
+           "serving", "test_utils"]

@@ -38,7 +38,9 @@ programs run one XLA program a call:
 * **Launch counts stay true.**  A kernel wrapper counts its launches in
   Python, which a replay does not run.  The counts a capture added are
   taken back and added again at each replay, so every count reads the
-  launches the card ran: the captured ones times the replays.
+  launches the card ran: the captured ones times the replays.  The
+  collectives' call and byte counts (``parallel.collectives``) are
+  credited the same way.
 * **A failed capture raises** ``MXNetError``; nothing falls back to the
   eager step quietly.  The garbage collector is off during a capture:
   a dead owner's graph collected then would be destroyed inside the
@@ -87,13 +89,17 @@ _COUNTERS = {
                         "flash_fwd_tc_launches", "flash_bwd_dq_tc_launches",
                         "flash_bwd_dkv_tc_launches"),
     "rtc": ("rtc_launches",),
+    "collectives": ("collective_calls", "collective_payload_bytes",
+                    "collective_wire_bytes"),
 }
 
 
 def _counter_modules():
     from . import rtc
     from .ops import flash_attention
-    return {"flash_attention": flash_attention, "rtc": rtc}
+    from .parallel import collectives
+    return {"flash_attention": flash_attention, "rtc": rtc,
+            "collectives": collectives}
 
 
 def _launch_counts() -> Dict[Tuple[str, str], int]:

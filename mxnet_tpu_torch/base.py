@@ -6,9 +6,12 @@ import numbers
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "torch_dtype", "numpy_dtype", "numeric_types"]
+__all__ = ["MXNetError", "torch_dtype", "numpy_dtype", "numeric_types",
+           "integer_types", "string_types"]
 
 numeric_types = (numbers.Number, np.generic)
+integer_types = (int, np.integer)
+string_types = (str,)
 
 
 class MXNetError(RuntimeError):

@@ -3,17 +3,21 @@
 The default context is ``gpu(0)``: entry points run on the card unless
 the caller asks for the CPU with ``ctx=mx.cpu()``.  A GPU context on a
 machine without CUDA raises ``MXNetError`` when it is resolved; there
-is no silent CPU path.
+is no silent CPU path.  ``cpu_pinned()`` is host memory that arrays made
+on it take page-locked when a card is present (``pin_memory``), so a
+copy to the card can overlap; without a card it is plain host memory.
 """
 from __future__ import annotations
 
+import os
 import threading
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus"]
+__all__ = ["Context", "cpu", "cpu_pinned", "gpu", "current_context",
+           "num_gpus"]
 
 
 class Context:
@@ -22,7 +26,7 @@ class Context:
     _default_ctx = threading.local()
 
     def __init__(self, device_type: str, device_id: int = 0):
-        if device_type not in ("cpu", "gpu"):
+        if device_type not in ("cpu", "gpu", "cpu_pinned"):
             raise MXNetError(f"unknown device type {device_type!r}")
         self.device_type = device_type
         self.device_id = int(device_id)
@@ -43,7 +47,7 @@ class Context:
     @property
     def device(self) -> torch.device:
         """The ``torch.device``; raises when a GPU context has no card."""
-        if self.device_type == "cpu":
+        if self.device_type != "gpu":
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError(
@@ -69,6 +73,20 @@ def cpu(device_id: int = 0) -> Context:
     return Context("cpu", device_id)
 
 
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Page-locked host memory (parity: ``mx.cpu_pinned``)."""
+    return Context("cpu_pinned", device_id)
+
+
+def pinned(t: torch.Tensor, ctx: Context) -> torch.Tensor:
+    """``t`` page-locked when ``ctx`` is ``cpu_pinned`` and a card is
+    present, else ``t``."""
+    if ctx.device_type == "cpu_pinned" and torch.cuda.is_available() \
+            and not t.is_pinned():
+        return t.pin_memory()
+    return t
+
+
 def gpu(device_id: int = 0) -> Context:
     return Context("gpu", device_id)
 
@@ -81,9 +99,11 @@ def num_gpus() -> int:
 
 
 def current_context() -> Context:
-    """The innermost ``with ctx:`` scope, else ``gpu(0)``."""
+    """The innermost ``with ctx:`` scope, else ``gpu(LOCAL_RANK)``: the
+    card of this rank under ``python -m mxnet_tpu_torch.launch``,
+    ``gpu(0)`` otherwise."""
     stack = getattr(Context._default_ctx, "stack", None)
     if stack:
         return stack[-1]
-    return Context("gpu", 0)
+    return Context("gpu", int(os.environ.get("LOCAL_RANK") or 0))
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, NamedTuple
 
-__all__ = ["get"]
+__all__ = ["get", "registry"]
 
 
 class EnvVar(NamedTuple):
@@ -42,6 +42,17 @@ _reg("MXTPU_COMPILED_STEP", int, 1,
      "Trainer.step loop instead of its captured step body.")
 _reg("MXTPU_SERVING_MAX_QUEUE", int, 128,
      "Bound on the serving wait queue; submissions past it raise.")
+_reg("MXTPU_ZERO_STAGE", int, 0,
+     "ZeRO sharding of a dp>1 DataParallelTrainer's update (read at "
+     "construction): 0 replicates the optimizer states on every rank; "
+     "1 all-reduces the gradients and updates each rank's 1/dp flat "
+     "slice with 1/dp of the states; 2 reduce-scatters the gradients "
+     "instead. The updated slices are all-gathered into the weights.")
+
+
+def registry():
+    """Every declared variable (name -> EnvVar)."""
+    return dict(_REGISTRY)
 
 
 def get(name: str):

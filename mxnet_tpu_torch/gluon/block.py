@@ -59,7 +59,7 @@ from .. import _capture, autograd, initializer
 from ..base import MXNetError
 from ..context import current_context
 from ..ndarray.ndarray import NDArray, _ctx_of
-from .parameter import Parameter, ParameterDict
+from .parameter import _REPLICATED, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "CachedOp", "inline_calls"]
 
@@ -197,10 +197,17 @@ class Block(nn.Module):
         what a ``forward`` computes with."""
         params = self.__dict__["_parameters"]
         if attr in params:
+            reps = self.__dict__.get("_mx_replicas")
+            if reps and attr in reps:
+                # a parameter on several contexts: this call's copy
+                ctx = getattr(_mode, "ctx", None)
+                copy = reps[attr][1].get(ctx) if ctx is not None else None
+                if copy is not None:
+                    return copy
             return params[attr]
         shared = self._shared_attrs.get(attr)
         if shared is not None:
-            return shared._tensor
+            return shared._block()._tensor(shared._attr)
         if attr in self.__dict__ and self.__dict__[attr] is None:
             return None                # ``self.bias = None``: no bias
         raise AttributeError(f"{type(self).__name__} has no parameter "
@@ -444,8 +451,13 @@ class Block(nn.Module):
         parameter's own initializer, else ``init`` (default ``Uniform()``)
         by name.  Draws come from ``seed``, or from the device's
         ``mx.random`` generator when None.  A deferred parameter is made
-        and filled at the first call.  Returns ``self``."""
+        and filled at the first call.  With a list of contexts every
+        parameter keeps a copy on each (``Parameter.list_ctx``).  Returns
+        ``self``."""
         from .. import random as _random
+        ctxs = list(ctx) if isinstance(ctx, (list, tuple)) else None
+        if ctxs is not None:
+            ctx = ctxs[0]
         dev = (ctx or current_context()).device
         # this tree's own tensors: a shared one is its owner's to place
         own = {n: p.mx_init for n, p in nn.Module.named_parameters(self)
@@ -475,9 +487,11 @@ class Block(nn.Module):
         initializer.fill(self, init, gen, names)
         for _, _, p in deferred:
             p.mx_deferred = (init, dev, gen)
+            p.mx_ctxs = ctxs if ctxs and len(ctxs) > 1 else None
         for p in self.collect_params().values():
             if not p._deferred:
                 p.data()
+                p._place_replicas(ctxs or [])
         return self
 
     def infer_shape(self, *args):
@@ -523,8 +537,12 @@ class Block(nn.Module):
         if recording:
             autograd._mark_inputs([t for t in (*tensors, *kwargs.values())
                                    if isinstance(t, torch.Tensor)])
-        return _wrap(self._outermost(autograd.is_training(), recording,
-                                     tensors, kwargs), ctx)
+        _mode.ctx = ctx
+        try:
+            return _wrap(self._outermost(autograd.is_training(), recording,
+                                         tensors, kwargs), ctx)
+        finally:
+            _mode.ctx = None
 
     def _outermost(self, training, grad, args, kwargs):
         """The outermost block call: ``training`` and ``grad`` are the
@@ -582,7 +600,10 @@ class HybridBlock(Block):
         super().cast(dtype)
 
     def _outermost(self, training, grad, args, kwargs):
-        if not self._active or _capture.in_body():
+        if not self._active or _capture.in_body() or (_REPLICATED and any(
+                m in _REPLICATED for m in self.modules())):
+            # a graph holds one copy of each parameter: a block on
+            # several contexts runs inline
             return super()._outermost(training, grad, args, kwargs)
         if self._cached_op is None:
             self._cached_op = CachedOp(self)
@@ -600,7 +621,9 @@ class HybridBlock(Block):
         from .. import ndarray as nd
         t = next((a for a in args if isinstance(a, torch.Tensor)), None)
         ctx = _ctx_of(t.device) if t is not None else None
-        params = {attr: self._gluon_param(attr).data()
+        call_ctx = getattr(_mode, "ctx", None)
+        params = {attr: self._gluon_param(attr).data(
+            call_ctx if self._gluon_param(attr)._replicas() else None)
                   for attr in self._param_attrs()}
         inputs = [a.detach() if isinstance(a, torch.Tensor)
                   and not a.requires_grad else a for a in args]

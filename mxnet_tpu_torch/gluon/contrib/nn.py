@@ -17,6 +17,12 @@ recomputation replays the dropout draws of the device's ``mx.random``
 generator.
 ``scan_layers=True`` is accepted and runs the layers unrolled: eager
 PyTorch has no compiled program whose size a scan would cut.
+
+``SyncBatchNorm`` is the reference's cross-device BatchNorm: in training
+mode its statistics are those of the batch of every rank of the process
+group (``python -m mxnet_tpu_torch.launch``), under a ``dist_sync``
+``gluon.Trainer`` as under a dp>1 ``DataParallelTrainer`` (where every
+BatchNorm does so).
 """
 from __future__ import annotations
 
@@ -31,10 +37,10 @@ from ...base import MXNetError
 from ...ops import nn as ops
 from ...ops.attention import dot_product_attention
 from ..block import HybridBlock
-from ..nn import Dense, Dropout, LayerNorm
+from ..nn import BatchNorm, Dense, Dropout, LayerNorm
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN",
-           "TransformerEncoderCell", "TransformerEncoder"]
+           "TransformerEncoderCell", "TransformerEncoder", "SyncBatchNorm"]
 
 
 class MultiHeadAttention(HybridBlock):
@@ -184,3 +190,19 @@ def _replay_rng(device):
                 gen.set_state(now)
         return contextlib.nullcontext(), replay()
     return context_fn
+
+
+class SyncBatchNorm(BatchNorm):
+    """BatchNorm whose training statistics are reduced over every rank
+    of the process group (the reference's signature: ``in_channels``,
+    ``num_devices``, ``momentum``, ``epsilon``; ``num_devices``, ``ndev``
+    and ``key`` are accepted: the group decides who takes part)."""
+
+    _sync = True
+
+    def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
+                 epsilon=1e-5, **kwargs):
+        kwargs.pop("ndev", None)
+        kwargs.pop("key", None)
+        super().__init__(in_channels=in_channels, momentum=momentum,
+                         epsilon=epsilon, **kwargs)

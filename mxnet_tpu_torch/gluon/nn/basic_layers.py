@@ -171,7 +171,10 @@ class BatchNorm(HybridBlock):
     ``use_global_stats``, the running statistics normalise.
     ``scale=False`` fixes gamma at 1 and ``center=False`` beta at 0 (no
     gradient for either).  The running statistics stay float32, with
-    ``grad_req="null"``.  ``in_channels=0`` defers the size."""
+    ``grad_req="null"``.  ``in_channels=0`` defers the size.  Inside a
+    dp>1 ``DataParallelTrainer`` step the statistics are the global
+    batch's (``parallel.mesh.sync_batch_stats``), as the JAX package's
+    one program over the mesh computes them."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False,
@@ -205,13 +208,20 @@ class BatchNorm(HybridBlock):
             dtype = "float32"
         super().cast(dtype)
 
+    #: reduce the statistics over the process group whenever it has
+    #: more than one rank (``gluon.contrib.nn.SyncBatchNorm``); a plain
+    #: BatchNorm does so inside a dp>1 trainer's step only
+    _sync = False
+
     def forward(self, x):
+        from ...parallel.mesh import batch_stats_group
         training = self._training_mode() and \
             not self._kwargs["use_global_stats"]
         out, mean, var = ops.batch_norm(
             x, self._tensor("gamma"), self._tensor("beta"),
             self._tensor("running_mean"), self._tensor("running_var"),
-            training=training, **self._kwargs)
+            training=training, group=batch_stats_group(self._sync)
+            if training else None, **self._kwargs)
         if training:
             ops.update_moving_stats(self._tensor("running_mean"),
                                     self._tensor("running_var"),

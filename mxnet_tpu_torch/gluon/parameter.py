@@ -36,8 +36,16 @@ gradient, on its own (``Constant(name, value)``, placed by its
 
 ``Parameter.initialize`` and ``ParameterDict.initialize`` place and fill
 parameter by parameter, as the reference (``Block.initialize`` places
-and fills the whole block at once).  Not ported: several contexts per
-parameter, and ``Parameter.var`` (it needs ``mx.symbol``).
+and fills the whole block at once).
+
+``initialize(ctx=[c0, c1, ...])`` keeps one copy a context: the block's
+tensor on ``c0`` and a replica (an ``nn.Parameter`` the block keeps in
+``_mx_replicas``) on each other context, equal at the start.
+``data(ctx)``/``grad(ctx)`` choose a copy, ``list_data``, ``list_grad``
+and ``list_ctx`` list them, and a block called with NDArrays on context
+``c`` computes with the copies on ``c`` (``Block._tensor``), so each
+context's ``backward`` fills its own copy's gradient (the kvstore sums
+them).  Not ported: ``Parameter.var`` (it needs ``mx.symbol``).
 """
 from __future__ import annotations
 
@@ -57,6 +65,10 @@ from ..ndarray.ndarray import NDArray, _ctx_of, _grad_buffer
 
 __all__ = ["Parameter", "ParameterDict", "Constant",
            "DeferredInitializationError"]
+
+# the blocks that hold copies of a parameter on several contexts (a
+# hybridized call checks its tree only while this is not empty)
+_REPLICATED = weakref.WeakSet()
 
 
 class DeferredInitializationError(MXNetError):
@@ -246,6 +258,14 @@ class Parameter:
                 "before use.")
         nd_ = self._nd if self._nd is not None and self._nd._t is t \
             else self._bind(t)
+        reps = self._replicas()
+        if reps is not None and ctx is not None and ctx != reps[0][0]:
+            copy = reps[1].get(ctx)
+            if copy is None:
+                raise MXNetError(f"Parameter {self.name!r} was not "
+                                 f"initialized on context {ctx}. It was "
+                                 f"only initialized on {reps[0]}.")
+            return self._replica_nd(ctx, copy)
         if ctx is not None and ctx.device != t.device:
             raise MXNetError(f"Parameter {self.name!r} was not initialized "
                              f"on context {ctx}; it lives on "
@@ -253,7 +273,51 @@ class Parameter:
         return nd_
 
     def list_data(self):
-        return [self.data()]
+        return [self.data(c) for c in self.list_ctx()]
+
+    # -- copies on several contexts -------------------------------------------
+    def _replicas(self):
+        """(contexts, {context: tensor}) of a parameter placed on several
+        contexts (the first context's tensor is the block's), else
+        None."""
+        block = self._block()
+        table = block.__dict__.get("_mx_replicas") if block is not None \
+            else None
+        return table.get(self._attr) if table else None
+
+    def _replica_nd(self, ctx, t):
+        """The NDArray over the replica ``t`` on ``ctx``, a leaf of the
+        autograd graph with its own gradient buffer."""
+        cache = self.__dict__.setdefault("_rep_nds", {})
+        nd_ = cache.get(ctx)
+        if nd_ is None or nd_._t is not t:
+            nd_ = cache[ctx] = NDArray(t, ctx=ctx)
+        nd_.grad_req = self._grad_req
+        if self._grad_req == "null":
+            nd_._grad = None
+        autograd._leaves[id(nd_)] = nd_
+        return nd_
+
+    def _place_replicas(self, ctxs):
+        """Copies of the placed tensor on ``ctxs[1:]`` (none for one
+        context)."""
+        block = self._block()
+        table = block.__dict__.setdefault("_mx_replicas", {})
+        self.__dict__.pop("_rep_nds", None)
+        if len(ctxs) <= 1:
+            table.pop(self._attr, None)
+            if not table:
+                _REPLICATED.discard(block)
+            return
+        _REPLICATED.add(block)
+        t = self._tensor
+        copies = OrderedDict(
+            (c, nn.Parameter(t.detach().to(c.device, copy=True),
+                             requires_grad=t.requires_grad))
+            for c in ctxs[1:])
+        table[self._attr] = (list(ctxs), copies)
+        for c, copy in copies.items():
+            self._replica_nd(c, copy)
 
     def grad(self, ctx: Optional[Context] = None):
         """The gradient buffer (``backward`` writes into it in place)."""
@@ -266,12 +330,16 @@ class Parameter:
         return nd_._grad
 
     def list_grad(self):
-        return [self.grad()]
+        return [self.grad(c) for c in self.list_ctx()]
 
     def list_ctx(self):
+        reps = self._replicas()
+        if reps is not None:
+            return list(reps[0])
         deferred = getattr(self._tensor, "mx_deferred", None)
         if deferred is not None:
-            return [_ctx_of(deferred[1])]
+            ctxs = getattr(self._tensor, "mx_ctxs", None)
+            return list(ctxs) if ctxs else [_ctx_of(deferred[1])]
         return [self.data().context]
 
     def _finish_deferred_init(self):
@@ -293,10 +361,13 @@ class Parameter:
                 "should initialize parameters with Block.initialize() "
                 "before use.")
         init, device, generator = deferred
+        ctxs = getattr(t, "mx_ctxs", None)
         t.materialize(t.mx_shape, device=device)
         del t.mx_deferred
         _fill(self.name, t, init, generator)
         self._bind(t)          # a leaf that backward writes gradients for
+        if ctxs:
+            self._place_replicas(ctxs)
 
     def _replace(self, new):
         """Put the tensor ``new`` in the parameter's place (its
@@ -324,11 +395,11 @@ class Parameter:
         if (placed or getattr(t, "mx_deferred", None) is not None) \
                 and not force_reinit:
             return
-        if isinstance(ctx, (list, tuple)):
-            if len(ctx) != 1:
-                raise MXNetError(f"Parameter {self.name!r}: one context a "
-                                 f"parameter, not {len(ctx)}")
-            ctx = ctx[0]
+        ctxs = list(ctx) if isinstance(ctx, (list, tuple)) else None
+        if ctxs is not None:
+            if not ctxs:
+                raise MXNetError(f"Parameter {self.name!r}: no context")
+            ctx = ctxs[0]
         dev = (ctx or current_context()).device
         if default_init is None:
             default_init = initializer.Uniform()
@@ -340,31 +411,35 @@ class Parameter:
                 raise MXNetError(f"Cannot initialize Parameter {self.name!r} "
                                  f"because it has invalid shape: {shape}.")
             t.mx_deferred = (chosen, dev, gen)
+            t.mx_ctxs = ctxs if ctxs and len(ctxs) > 1 else None
             return
         new = nn.Parameter(torch.empty(shape, dtype=t.dtype, device=dev),
                            requires_grad=t.requires_grad)
         new.mx_init = getattr(t, "mx_init", None)
         _fill(self.name, new, chosen, gen)
         self._replace(new)
+        self._place_replicas(ctxs or [])
 
     def reset_ctx(self, ctx):
         """Move the parameter to ``ctx`` (its values kept); a deferred
-        one is made there at the first call."""
-        if isinstance(ctx, (list, tuple)):
-            ctx = ctx[0]
+        one is made there at the first call.  A list of contexts keeps a
+        copy on each."""
+        ctxs = list(ctx) if isinstance(ctx, (list, tuple)) else [ctx]
+        ctx = ctxs[0]
         t = self._tensor
         deferred = getattr(t, "mx_deferred", None)
         if deferred is not None:
             t.mx_deferred = (deferred[0], ctx.device, deferred[2])
+            t.mx_ctxs = ctxs if len(ctxs) > 1 else None
             return
         if t.is_meta or isinstance(t, UninitializedParameter):
             raise MXNetError(f"Cannot reset context for Parameter "
                              f"{self.name!r} because it has not been "
                              "initialized.")
-        if t.device == torch.device(ctx.device):
-            return
-        self._replace(nn.Parameter(t.detach().to(ctx.device),
-                                   requires_grad=t.requires_grad))
+        if t.device != torch.device(ctx.device):
+            self._replace(nn.Parameter(t.detach().to(ctx.device),
+                                       requires_grad=t.requires_grad))
+        self._place_replicas(ctxs)
 
     def var(self):
         """The symbol variable of the parameter: ``mx.symbol`` is not
@@ -374,10 +449,12 @@ class Parameter:
             "port does not have yet (ROADMAP queue 1 item 8)")
 
     def zero_grad(self):
-        """Zero the gradient buffer in place."""
-        if self._grad_req != "null" and self._nd is not None \
-                and self._nd._grad is not None:
-            self._nd._grad._t.zero_()
+        """Zero the gradient buffers in place (one a context)."""
+        if self._grad_req == "null":
+            return
+        for nd_ in (self._nd, *self.__dict__.get("_rep_nds", {}).values()):
+            if nd_ is not None and nd_._grad is not None:
+                nd_._grad._t.zero_()
 
     def _load_init(self, data, ctx=None, cast_dtype=False):
         """Take the loaded numpy ``data``: in place when the parameter is
@@ -444,6 +521,9 @@ class Parameter:
                              f"{tuple(dst.shape)}")
         with torch.no_grad():
             dst.copy_(src)
+            reps = self._replicas()
+            for copy in (reps[1].values() if reps else ()):
+                copy.copy_(src)
 
 
 class _Explicit:

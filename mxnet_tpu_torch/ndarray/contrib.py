@@ -135,3 +135,53 @@ def cond(pred, then_func, else_func):
     outs = [_select(pred_nd, a, b) for a, b in
             zip(_as_list(then_out), _as_list(else_out))]
     return outs if isinstance(then_out, (list, tuple)) else outs[0]
+
+
+def boolean_mask(data, index, axis=0):
+    """The slices of ``data`` along ``axis`` where ``index`` is nonzero
+    (parity: ``mx.nd.contrib.boolean_mask``).  The output's shape depends
+    on the data, so the kept rows are found on the host (a sync point, as
+    in the reference); the gather records like any op."""
+    mask = index._t.detach().reshape(-1).to("cpu") != 0
+    if mask.shape[0] != data.shape[axis]:
+        raise MXNetError(
+            f"boolean_mask: mask length {mask.shape[0]} != data dim "
+            f"{data.shape[axis]} along axis {axis}")
+    keep = torch.nonzero(mask).reshape(-1).to(torch.int32)
+    idx = NDArray(keep.to(data._t.device), ctx=data.context)
+    return invoke(get_op("take"), [data, idx], axis=axis, mode="clip")
+
+
+def _fft(x):
+    f = torch.fft.fft(x.to(torch.float32), dim=-1)
+    out = torch.stack([f.real, f.imag], dim=-1)
+    return out.reshape(x.shape[:-1] + (2 * x.shape[-1],)).to(x.dtype)
+
+
+def _ifft(x):
+    n = x.shape[-1] // 2
+    pairs = x.reshape(x.shape[:-1] + (n, 2)).to(torch.float32)
+    z = torch.complex(pairs[..., 0], pairs[..., 1])
+    # the reference's ifft does not divide by n (fft then ifft gains n)
+    return (torch.fft.ifft(z, dim=-1).real * n).to(x.dtype)
+
+
+# unregistered, as in the JAX package
+_FFT = OpDef("_contrib_fft_impl", _fft, 1, 1, (), False)
+_IFFT = OpDef("_contrib_ifft_impl", _ifft, 1, 1, (), False)
+
+
+def fft(data, *, compute_size=128):
+    """Batched 1-D FFT over the last axis in the reference's interleaved
+    layout: (..., n) -> (..., 2n) as [re0, im0, re1, im1, ...] (parity:
+    ``mx.nd.contrib.fft``)."""
+    return invoke(_FFT, [data])
+
+
+def ifft(data, *, compute_size=128):
+    """The inverse of :func:`fft`, unnormalised as the reference's:
+    interleaved (..., 2n) -> real (..., n), times n."""
+    return invoke(_IFFT, [data])
+
+
+__all__ += ["boolean_mask", "fft", "ifft"]

@@ -30,7 +30,7 @@ import torch
 
 from ..base import MXNetError, dtype_name, numeric_types, numpy_dtype, \
     torch_dtype
-from ..context import Context, cpu, current_context, gpu
+from ..context import Context, cpu, current_context, gpu, pinned
 from ..contrib import amp as _amp
 from ..ops.registry import OpDef, get_op
 
@@ -178,8 +178,8 @@ class NDArray:
         if not isinstance(other, Context):
             raise MXNetError(f"copyto: expected an NDArray or a Context, "
                              f"got {type(other).__name__}")
-        return NDArray(self._t.detach().to(other.device, copy=True),
-                       ctx=other)
+        return NDArray(pinned(self._t.detach().to(other.device, copy=True),
+                                  other), ctx=other)
 
     def as_in_context(self, context: Context) -> "NDArray":
         if context == self._ctx:
@@ -600,6 +600,8 @@ def invoke(op: OpDef, inputs: Sequence[NDArray], out=None,
             for o, d in zip(targets, outs):
                 o._t.copy_(d)
         return out
+    if op.wrap_ctx:
+        outs = [pinned(o, ctx) for o in outs]
     wrapped = [NDArray(o, ctx=ctx) for o in outs]
     if multi and op.num_outputs != 1:
         return wrapped
@@ -622,7 +624,8 @@ def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
         if dtype is None and t.dtype == torch.float64:
             dtype = "float32"
         dt = torch_dtype(dtype) if dtype is not None else t.dtype
-        return NDArray(t.to(device=dev, dtype=dt, copy=True), ctx=ctx)
+        return NDArray(pinned(t.to(device=dev, dtype=dt, copy=True), ctx),
+                       ctx=ctx)
     was_array = isinstance(source, np.ndarray)
     src = np.asarray(source)
     if dtype is None:
@@ -633,7 +636,7 @@ def array(source, ctx: Optional[Context] = None, dtype=None) -> NDArray:
         t = torch.from_numpy(np.array(src, dtype="float32")).to(dt)
     else:
         t = torch.from_numpy(np.array(src, dtype=dtype_name(dt)))
-    return NDArray(t.to(dev), ctx=ctx)
+    return NDArray(pinned(t.to(dev), ctx), ctx=ctx)
 
 
 def _shape(shape):

@@ -365,23 +365,29 @@ def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
 def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-5,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
                output_mean_var=False, axis=1, cudnn_off=False,
-               training=False):
+               training=False, group=None):
     """Returns (out, mean, var): the batch's mean and **biased** variance
     over every axis but ``axis`` when ``training`` (and not
     ``use_global_stats``), else the moving ones, and
     ``out = (data - mean) / sqrt(var + eps) * gamma + beta`` (gamma taken
     as 1 with ``fix_gamma``, and then it gets no gradient).  Data of
     another type than gamma (bf16 under AMP, with f32 gamma) is promoted,
-    as the reference's arithmetic promotes it.  No gradient flows into the
-    moving statistics.  They are the caller's to update (:func:`update_moving_stats`): the op stays
-    pure, and PyTorch's own update (unbiased, momentum ``1 - m``) is
-    never used."""
+    as the reference's arithmetic promotes it.  With a process ``group``
+    (a dp>1 trainer's step, ``SyncBatchNorm`` across ranks) the training
+    statistics are the global batch's: the sum and the count, then the
+    sum of squared deviations, are summed over the group (differentiably)
+    before normalising.  No gradient flows into the moving statistics.
+    They are the caller's to update (:func:`update_moving_stats`): the op
+    stays pure, and PyTorch's own update (unbiased, momentum ``1 - m``)
+    is never used."""
     x = data.to(torch.promote_types(data.dtype, gamma.dtype))
     ax = axis % x.dim()
     if ax != 1:
         x = x.movedim(ax, 1)
     weight = None if fix_gamma else gamma
-    if training and not use_global_stats:
+    if training and not use_global_stats and group is not None:
+        out, mean, var = _group_batch_norm(x, weight, beta, eps, group)
+    elif training and not use_global_stats:
         out, mean, invstd = torch.native_batch_norm(
             x, weight, beta, None, None, True, 0.0, eps)
         var = (invstd.detach().pow(-2) - eps).clamp_min_(0.0)
@@ -394,6 +400,30 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-5,
     if ax != 1:
         out = out.movedim(1, ax)
     return out, mean, var
+
+
+def _group_batch_norm(x, weight, beta, eps, group):
+    """Batch normalisation of channel-first ``x`` over the batch of every
+    rank of ``group`` (``jnp.mean``/``jnp.var`` of the global batch):
+    returns (out, mean, biased var), the statistics detached."""
+    from ..parallel.collectives import _Axis, _PSum
+    ax = _Axis.of_group(group)
+    dims = [0] + list(range(2, x.dim()))
+    c = x.shape[1]
+    count = torch.full((1,), float(x.numel() // c), dtype=x.dtype,
+                       device=x.device)
+    tot = _PSum.apply(torch.cat([x.sum(dims), count]), ax)
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    n = tot[c]
+    mean = tot[:c] / n
+    centred = x - mean.reshape(shape)
+    var = _PSum.apply(centred.square().sum(dims), ax) / n
+    out = centred * torch.rsqrt(var + eps).reshape(shape)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if beta is not None:
+        out = out + beta.reshape(shape)
+    return out, mean.detach(), var.detach()
 
 
 @torch.no_grad()

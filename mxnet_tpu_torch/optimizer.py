@@ -178,6 +178,7 @@ class Optimizer:
         self.clip_gradient = clip_gradient
         self.num_update = begin_num_update
         self._index_update_count = {}
+        self._all_index_update_counts = {0: self._index_update_count}
         self.param_dict = param_dict if param_dict else {}
         self._scalars = DeviceScalars(("lr", "wd", "rescale_grad",
                                        "neg_lr_rescale"))
@@ -235,6 +236,14 @@ class Optimizer:
     def _lazy(self, grad):
         """Whether ``grad`` takes the lazy (touched rows only) update."""
         return self.lazy_update and grad.stype == "row_sparse"
+
+    def _set_current_context(self, device_id):
+        """Count updates for the copies on context ``device_id`` (the
+        reference's one table a context, so that a step updating every
+        copy advances each parameter's count once)."""
+        counts = self.__dict__.setdefault(
+            "_all_index_update_counts", {0: self._index_update_count})
+        self._index_update_count = counts.setdefault(device_id, {})
 
     def _update_count(self, index):
         count = self._index_update_count.get(index,

@@ -1,42 +1,71 @@
-"""``DataParallelTrainer``: the one-device dense path of the JAX
-package's ``parallel/trainer.py``.
+"""``DataParallelTrainer``: the dense, compressed and ZeRO steps of the
+JAX package's ``parallel/trainer.py``, one process a rank.
 
-``step(data, label)`` runs the forward, the loss (the mean of
-``loss_fn(block(*data), label)``), the backward (``torch.autograd.grad``
-of the loss, never accumulated in ``.grad``) and the optimizer's update
-of every trainable parameter, and returns the loss.  The optimizer is
-one of the reference's ``_FUSED_RULES``: ``"adam"`` or ``"sgd"`` (with
-or without momentum), each one multi-tensor update over every
-parameter; NAG, RMSProp, AdamW and AdaGrad are the reference's other
-fused rules, each the optimizer's own update over every parameter.  A
-block with deferred parameter shapes gets them from one
-predict-mode call on the first batch, without recording, as the
-reference's ``_setup`` does.  Updates the forward makes in place
-(BatchNorm's running statistics, in training mode) happen inside the
-step, so the next step and a later call of the block read them.  Given
-NDArrays (as ``bench.py`` feeds it), the block and ``loss_fn`` see
-NDArrays, recorded as inside ``autograd.record()``, and the loss comes
-back as an NDArray on the mesh's context; given tensors or numpy arrays,
-they see tensors and the loss is a 0-d tensor.
+``step(data, label)`` takes the **global** batch on every rank, as the
+reference's does.  Rank r of the mesh's ``dp`` axis (W ranks, one card
+each, ``python -m mxnet_tpu_torch.launch -n W``) keeps its block of rows,
+``[r B/W, (r+1) B/W)``, as ``P("dp")`` gives device r; it runs the
+forward, the loss (the mean of ``loss_fn(block(*data), label)`` over its
+rows), the backward (``torch.autograd.grad``, never accumulated in
+``.grad``) and an exchange of the gradients over the dp group, then the
+optimizer's update; the loss returned is the mean over the global batch,
+so the W ranks compute what the JAX package computes with ``dp=W``.
+BatchNorm's training statistics inside the step are the global batch's
+(``parallel.mesh.sync_batch_stats``), as XLA computes them over the
+mesh.  The exchange:
+
+* **dense**: the gradients, in flat buckets of up to ``BUCKET_BYTES``
+  (one all-reduce a bucket, not one a parameter), summed and divided by
+  W;
+* ``compression={"type": "int8"}``: every gradient through
+  ``collectives.quantized_psum`` (one int8 all-to-all and one int8
+  all-gather a step for all of them), divided by W;
+* ``compression={"type": "2bit", "threshold": t}``: through
+  ``collectives.twobit_psum``, each rank keeping its residuals across
+  steps;
+* ``MXTPU_ZERO_STAGE=1`` or ``2`` (``fuse_step=True``; W > 1, or a
+  launched job of one rank): ZeRO.
+  Stage 1 all-reduces the gradients (int8 with ``compression``) and
+  cuts this rank's slice, stage 2 reduce-scatters them (int8: the
+  quantized reduce-scatter); the rule updates only the rank's flat
+  slice of every parameter (each flat zero-padded to a multiple of W,
+  slice r of it), against states of 1/W the size, and the new slices are
+  all-gathered into the weights.  An ineligible trainer (no
+  ``fuse_step``, 2bit compression, multi-precision) warns and runs stage
+  0, as the reference does.
+
+The optimizer is one of the reference's ``_FUSED_RULES``: ``"adam"`` or
+``"sgd"`` (with or without momentum), each one multi-tensor update over
+every parameter; NAG, RMSProp, AdamW and AdaGrad, each the optimizer's
+own update.  A block with deferred parameter shapes gets them from one
+predict-mode call on the first batch, without recording.  Updates the
+forward makes in place (BatchNorm's running statistics) happen inside
+the step.  Given NDArrays, the block and ``loss_fn`` see NDArrays,
+recorded as inside ``autograd.record()``, and the loss comes back as an
+NDArray on the mesh's context; given tensors or numpy arrays, they see
+tensors and the loss is a 0-d tensor.
 
 ``fuse_step=True`` makes the step one CUDA-graph replay on the card
-(``_capture.StepCapture``): the first step of each input signature runs
-eagerly, the next is captured, and every later one replays the graph;
-Adam's per-step scalars (the bias-corrected learning rate, ``wd``,
-``rescale_grad``) go in through device tensors, so a replay computes
-exactly the step an eager call would; the other optimizers' learning
-rate, ``wd`` and ``rescale_grad`` likewise.  ``step_multi`` runs K such steps over
-(K, B, ...) batches, or over one batch with ``repeat=K``, and returns the
-K losses.  ``fuse_step=False`` runs every step eagerly.  On the CPU both
-run the same step body eagerly.  A hybridized block runs inline inside
-the step (``gluon/block.py``).  Not ported: meshes of more than one
-device, gradient compression and sharding plans.  The reference's
-RMSProp rule runs the plain update whatever ``centered`` says; the
-port's runs the optimizer's own (ROADMAP queue 3, R2).
+(``_capture.StepCapture``), the collectives inside the graph: the first
+step of each input signature runs eagerly (which also sets the NCCL
+communicator up), the next is captured, and every later one replays;
+the per-step scalars go in through device tensors.  A capture that fails
+raises (with NCCL, a torch that cannot capture a collective raises
+here).  ``step_multi`` runs K such steps over (K, B, ...) batches, or
+over one batch with ``repeat=K``, and returns the K losses.  On the CPU
+the same step body runs eagerly, over gloo.  ``state_bytes`` is this
+rank's optimizer-state memory.  ``param_sharding=`` and ``plan=``
+(tensor- and pipeline-parallel layouts) are ROADMAP queue 1 item 4 and
+raise.  The reference's RMSProp rule runs the plain update whatever
+``centered`` says; the port's runs the optimizer's own (ROADMAP queue
+3, R2).  The reference's compressed and ZeRO steps normalise BatchNorm
+over each device's rows; the port's over the global batch in every
+variant (R10).
 """
 from __future__ import annotations
 
 import functools
+import warnings
 from typing import Callable, NamedTuple
 
 import torch
@@ -47,7 +76,9 @@ from .. import optimizer as opt
 from .._capture import StepCapture
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, _ctx_of
-from .mesh import make_mesh
+from . import collectives as col
+from . import zero
+from .mesh import make_mesh, sync_batch_stats
 
 __all__ = ["DataParallelTrainer"]
 
@@ -107,50 +138,146 @@ def _device_of(block):
     raise MXNetError("the block has no initialized parameters")
 
 
+#: the largest flat bucket of the dense all-reduce (PyTorch DDP's default)
+BUCKET_BYTES = 25 << 20
+
+
+def _default_mesh(block):
+    """``{"dp": W}`` over the process group (W its size, 1 without one),
+    on the block's device."""
+    import torch.distributed as dist
+    w = dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 1
+    return make_mesh({"dp": w}, devices=[_device_of(block)])
+
+
+def _buckets(params, limit):
+    """Index lists of consecutive parameters of one dtype, each list at
+    most ``limit`` bytes (or one parameter past it)."""
+    out, cur, size, dtype = [], [], 0, None
+    for i, p in enumerate(params):
+        nbytes = p.numel() * p.element_size()
+        if cur and (p.dtype != dtype or size + nbytes > limit):
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(i)
+        size += nbytes
+        dtype = p.dtype
+    if cur:
+        out.append(cur)
+    return out
+
+
 class DataParallelTrainer:
-    """Trains ``block`` (initialized) on a one-device mesh.
+    """Trains ``block`` (initialized) over the mesh's ``dp`` axis.
 
     Args:
-      block: the model, an ``nn.Module`` with its parameters on the
-        mesh's device.
+      block: the model, an ``nn.Module`` with its parameters on this
+        rank's device.
       loss_fn: ``(outputs, label) -> loss``; the step takes its mean.
-      optimizer: the optimizer's name: ``"adam"``, ``"sgd"``, ``"nag"``,
-        ``"rmsprop"``, ``"adamw"`` or ``"adagrad"``.
+      optimizer: a name (``"adam"``, ``"sgd"``, ``"nag"``, ``"rmsprop"``,
+        ``"adamw"``, ``"adagrad"``) or an ``Optimizer``.
       optimizer_params: its keyword arguments.
-      mesh: ``make_mesh({"dp": 1}, devices=[...])``; default: the mesh
-        of the block's device.
+      mesh: ``make_mesh({"dp": W})``; default: the process group's
+        ranks (one without a group) on the block's device.
+      dp_axis: the mesh axis the batch is split over.
       fuse_step: the step as one captured graph (see the module
-        docstring); required by ``step_multi``.
+        docstring); required by ``step_multi``, compression and ZeRO.
+      compression: ``{"type": "int8"}`` or ``{"type": "2bit",
+        "threshold": t}`` for the gradient exchange.
+      param_sharding, plan: not ported (ROADMAP queue 1 item 4).
     """
 
-    def __init__(self, block, loss_fn: Callable, optimizer: str,
-                 optimizer_params=None, mesh=None, fuse_step: bool = False):
+    def __init__(self, block, loss_fn: Callable, optimizer,
+                 optimizer_params=None, mesh=None, dp_axis: str = "dp",
+                 param_sharding=None, fuse_step: bool = False,
+                 compression=None, plan=None):
+        if param_sharding is not None or plan is not None:
+            raise MXNetError(
+                "DataParallelTrainer(param_sharding=, plan=) are tensor- "
+                "and pipeline-parallel layouts, which are not ported "
+                "(ROADMAP queue 1 item 4)")
         self.block = block
         self.loss_fn = loss_fn
-        self.optimizer = opt.create(optimizer, **(optimizer_params or {}))
+        if isinstance(optimizer, opt.Optimizer):
+            if optimizer_params:
+                raise MXNetError("optimizer_params must be None if "
+                                 "optimizer is an Optimizer instance")
+            self.optimizer = optimizer
+        else:
+            self.optimizer = opt.create(optimizer,
+                                        **(optimizer_params or {}))
         self._rule = _FUSED_RULES.get(type(self.optimizer).__name__)
         if self._rule is None:
-            raise MXNetError(f"optimizer {optimizer!r} has no fused rule "
-                             "(the reference's two-phase step for it is "
-                             "not ported); DataParallelTrainer has "
+            raise MXNetError(f"optimizer {type(self.optimizer).__name__} "
+                             "has no fused rule (the reference's "
+                             "two-phase step for it is not ported); "
+                             "DataParallelTrainer has "
                              f"{sorted(r.lower() for r in _FUSED_RULES)}")
         if mesh is None:
-            mesh = make_mesh({"dp": 1}, devices=[_device_of(block)])
-        if "dp" not in mesh.shape:
-            raise MXNetError(f"the mesh {mesh} has no 'dp' axis")
+            mesh = _default_mesh(block)
+        if dp_axis not in mesh.shape:
+            raise MXNetError(f"the mesh {mesh} has no {dp_axis!r} axis")
         self.mesh = mesh
+        self.dp_axis = dp_axis
+        self._axis = col._axis(dp_axis, mesh)
+        self._n = self._axis.n
         self._params = None
         self.num_update = 0
         self._fuse = bool(fuse_step)
         self._capture = StepCapture("DataParallelTrainer.step")
         self._scalars = None
+        self._compression = self._check_compression(compression)
+        self._zero_stage = self._choose_zero_stage()
         if not any(isinstance(p, UninitializedParameter)
                    for p in block.parameters()):
             self._setup()
 
+    def _check_compression(self, compression):
+        if compression is None:
+            return None
+        cfg = dict(compression)
+        ctype = cfg.get("type")
+        if ctype not in ("int8", "2bit"):
+            raise MXNetError(f"compression type must be 'int8' or '2bit', "
+                             f"got {ctype!r}")
+        allowed = {"type", "threshold"} if ctype == "2bit" else {"type"}
+        unknown = set(cfg) - allowed
+        if unknown:
+            raise MXNetError(
+                f"unknown compression option(s) {sorted(unknown)} for type "
+                f"{ctype!r} (allowed: {sorted(allowed)})")
+        if ctype == "2bit":
+            cfg["threshold"] = float(cfg.get("threshold", 0.5))
+            if not cfg["threshold"] > 0:
+                raise MXNetError("compression threshold must be positive")
+        if not self._fuse:
+            raise MXNetError("gradient compression requires fuse_step=True "
+                             "(the compressed exchange lives inside the "
+                             "step)")
+        return cfg
+
+    def _choose_zero_stage(self):
+        """``MXTPU_ZERO_STAGE`` when this trainer can shard its update,
+        else 0 (with a warning, as the reference).  A dp axis of one rank
+        shards only in a launched job (a process group of one), where
+        the slice is the whole parameter and the collectives still run."""
+        stage = zero.stage_from_env()
+        if not stage or (self._n == 1 and self._axis.group is None):
+            return 0
+        reason = zero.eligibility(self._fuse, self._compression,
+                                  self.optimizer)
+        if reason is not None:
+            warnings.warn(f"MXTPU_ZERO_STAGE={stage} requested but this "
+                          f"trainer cannot shard its update ({reason}); "
+                          "running stage 0", stacklevel=3)
+            return 0
+        return stage
+
     def _setup(self):
-        """The trainable parameters and the optimizer's states, once
-        every parameter shape is known."""
+        """The trainable parameters, the optimizer's states (this rank's
+        slices under ZeRO) and the exchange's buffers, once every
+        parameter shape is known."""
         self._params = [p for p in self.block.parameters()
                         if p.requires_grad]
         if not self._params:
@@ -161,7 +288,21 @@ class DataParallelTrainer:
                 raise MXNetError(f"a parameter is on {p.device}, the mesh "
                                  f"on {dev}: initialize the block on the "
                                  "mesh's device")
-        self._states = self._rule.states(self.optimizer, self._params)
+        self._buckets = _buckets(self._params, BUCKET_BYTES)
+        if self._zero_stage:
+            self._layout = col._layout([p.numel() for p in self._params],
+                                       self._n)
+            chunks = self._layout[0]
+            self._states = self._rule.states(
+                self.optimizer,
+                [torch.zeros(c, dtype=torch.float32, device=dev)
+                 for c in chunks])
+        else:
+            self._states = self._rule.states(self.optimizer, self._params)
+        self._residuals = None
+        if self._compression and self._compression["type"] == "2bit":
+            self._residuals = [torch.zeros_like(p, dtype=torch.float32)
+                               for p in self._params]
 
     def _resolve_shapes(self, data):
         """One predict-mode call without recording, so that every
@@ -187,6 +328,21 @@ class DataParallelTrainer:
         """Device memory the live graphs reserved."""
         return self._capture.pool_bytes
 
+    @property
+    def zero_stage(self):
+        return self._zero_stage
+
+    @property
+    def state_bytes(self):
+        """This rank's optimizer-state bytes (its slices under ZeRO)."""
+        def size(s):
+            if isinstance(s, torch.Tensor):
+                return s.numel() * s.element_size()
+            if isinstance(s, (list, tuple)):
+                return sum(size(x) for x in s)
+            return 0
+        return size(self._states) if self._params is not None else 0
+
     def _put(self, x):
         if x is None:
             return None
@@ -200,41 +356,138 @@ class DataParallelTrainer:
         nd_in = any(isinstance(x, NDArray) for x in (*data, label))
         return [self._put(x) for x in data], self._put(label), nd_in
 
+    def _shard(self, x):
+        """This rank's block of rows of the global batch ``x``."""
+        if x is None or self._n == 1:
+            return x
+        b = x.shape[0]
+        if b % self._n:
+            raise MXNetError(f"the global batch {b} does not divide over "
+                             f"{self._n} dp ranks")
+        r = self._axis.index
+        return x[r * (b // self._n):(r + 1) * (b // self._n)]
+
     def _out(self, loss, nd_in):
         return NDArray(loss, ctx=_ctx_of(loss.device)) if nd_in else loss
 
+    # -- the step body -----------------------------------------------------
     def _body(self, nd_in, given, *tensors):
-        """One step on ``tensors`` (the data inputs that are not None, as
-        ``given`` marks them, then the label): what a graph captures.
-        The update reads the scalars staged in ``_run``."""
+        """One step on this rank's rows (the data inputs that are not
+        None, as ``given`` marks them, then the label): what a graph
+        captures.  The update reads the scalars staged in ``_run``."""
         it = iter(tensors)
         data = [next(it) if g else None for g in given]
         label = next(it)
-        if nd_in:
-            ctx = _ctx_of(label.device)
-            with autograd.record():
-                loss = self.loss_fn(
-                    self.block(*[None if t is None else
-                                 NDArray(t.detach(), ctx=ctx)
-                                 for t in data]),
-                    NDArray(label.detach(), ctx=ctx))
-        else:
+        group = self._axis.group if self._n > 1 else None
+        with sync_batch_stats(group):
+            if nd_in:
+                ctx = _ctx_of(label.device)
+                with autograd.record():
+                    loss = self.loss_fn(
+                        self.block(*[None if t is None else
+                                     NDArray(t.detach(), ctx=ctx)
+                                     for t in data]),
+                        NDArray(label.detach(), ctx=ctx))
+            else:
+                with torch.enable_grad():
+                    loss = self.loss_fn(self.block(*data), label)
             with torch.enable_grad():
-                loss = self.loss_fn(self.block(*data), label)
-        with torch.enable_grad():
-            loss = (loss.tensor if isinstance(loss, NDArray)
-                    else loss).mean()
-            grads = torch.autograd.grad(loss, self._params,
-                                        allow_unused=True,
-                                        materialize_grads=True)
-        self._rule.apply(self.optimizer, self._params, grads, self._states,
+                loss = (loss.tensor if isinstance(loss, NDArray)
+                        else loss).mean()
+                grads = torch.autograd.grad(loss, self._params,
+                                            allow_unused=True,
+                                            materialize_grads=True)
+        loss = loss.detach()
+        if self._axis.group is not None:
+            loss = col._all_reduce(loss, self._axis) / self._n
+        if self._zero_stage:
+            self._zero_update(grads)
+        else:
+            self._rule.apply(self.optimizer, self._params,
+                             self._exchange(grads), self._states,
+                             self._scalars)
+        return (loss,)
+
+    def _exchange(self, grads):
+        """The gradients of the global mean loss: this rank's, summed
+        over the dp group (dense buckets, int8 or 2bit) and divided by
+        W."""
+        ax, n = self._axis, self._n
+        if self._compression is None:
+            if ax.group is None:
+                return grads
+            out = [None] * len(grads)
+            for bucket in self._buckets:
+                flat = torch.cat([grads[i].reshape(-1) for i in bucket])
+                col._all_reduce_(flat, ax).div_(n)
+                pieces = flat.split([grads[i].numel() for i in bucket])
+                for i, piece in zip(bucket, pieces):
+                    out[i] = piece.view_as(grads[i])
+            return out
+        if self._compression["type"] == "int8":
+            return [g / n for g in col.quantized_psum_many(grads, ax)]
+        sums, res = col.twobit_psum_many(
+            grads, ax, threshold=self._compression["threshold"],
+            residuals=self._residuals)
+        with torch.no_grad():
+            for r, new in zip(self._residuals, res):
+                r.copy_(new)
+        return [s / n for s in sums]
+
+    def _zero_update(self, grads):
+        """ZeRO: this rank's slice of every gradient (stage 1: cut from
+        the all-reduced gradients; stage 2: reduce-scattered), the rule
+        on the slices of the flat parameters, the slices all-gathered."""
+        ax, n, r = self._axis, self._n, self._axis.index
+        chunks, offs, total = self._layout
+        int8 = self._compression is not None
+        if self._zero_stage == 1:
+            full = col.quantized_psum_many(grads, ax) if int8 else [
+                g.reshape(-1).to(torch.float32) for g in grads]
+            if not int8:
+                flat = torch.cat(full)
+                col._all_reduce_(flat, ax)
+                full = flat.split([g.numel() for g in grads])
+            g_local = self._local_slices(full)
+        elif int8:
+            g_local = torch.cat(col.quantized_reduce_scatter_many(grads, ax))
+        else:
+            g_local = col._scatter_rows(col._rows(
+                [g.reshape(-1).to(torch.float32) for g in grads], n, chunks,
+                offs, total, torch.float32), ax)
+        g_local = g_local / n
+        p_local = self._local_slices([p.detach() for p in self._params])
+        p_sl = [p_local[o:o + c] for c, o in zip(chunks, offs)]
+        g_sl = [g_local[o:o + c] for c, o in zip(chunks, offs)]
+        self._rule.apply(self.optimizer, p_sl, g_sl, self._states,
                          self._scalars)
-        return (loss.detach(),)
+        rows = col._gather_rows(p_local, ax)
+        with torch.no_grad():
+            for p, c, o in zip(self._params, chunks, offs):
+                p.copy_(rows[:, o:o + c].reshape(-1)[:p.numel()]
+                        .view(p.shape))
+
+    def _local_slices(self, tensors):
+        """(C,) f32: slice r of each tensor's zero-padded flat, side by
+        side (the ZeRO layout)."""
+        r = self._axis.index
+        chunks, offs, total = self._layout
+        out = torch.zeros(total, dtype=torch.float32,
+                          device=self.mesh.device)
+        for t, c, o in zip(tensors, chunks, offs):
+            flat = t.reshape(-1)
+            lo, hi = r * c, min((r + 1) * c, flat.numel())
+            if hi > lo:
+                out[o:o + hi - lo] = flat[lo:hi]
+        return out
 
     def _run(self, data, label, nd_in):
-        """Stage step ``num_update + 1``'s scalars and run the step
-        (captured or replayed with ``fuse_step``); returns the loss."""
+        """Stage step ``num_update + 1``'s scalars and run the step on
+        this rank's rows (captured or replayed with ``fuse_step``);
+        returns the loss."""
         from ..contrib import amp
+        data = [self._shard(x) for x in data]
+        label = self._shard(label)
         if self._params is None:
             self._resolve_shapes(data)
         t = self.num_update + 1
@@ -246,10 +499,11 @@ class DataParallelTrainer:
         self.block.train()
         try:
             if self._fuse:
-                (loss,) = self._capture.run(
-                    body, tensors, (nd_in, given,
-                                    self._rule.static_key(self.optimizer),
-                                    amp.target_dtype()))
+                key = (nd_in, given, self._rule.static_key(self.optimizer),
+                       amp.target_dtype(), self._zero_stage,
+                       None if self._compression is None
+                       else tuple(sorted(self._compression.items())))
+                (loss,) = self._capture.run(body, tensors, key)
             else:
                 (loss,) = body(*tensors)
         finally:
@@ -258,8 +512,9 @@ class DataParallelTrainer:
         return loss
 
     def step(self, data, label):
-        """One training step on the batch; returns the loss (0-d, on the
-        device, not synchronised): an NDArray when NDArrays came in."""
+        """One training step on the global batch; returns the loss (0-d,
+        on the device, not synchronised): an NDArray when NDArrays came
+        in."""
         data, label, nd_in = self._inputs(data, label)
         loss = self._run(data, label, nd_in)
         # a replay's output is the graph's buffer, which the next

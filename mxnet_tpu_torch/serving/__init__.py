@@ -10,7 +10,7 @@ in-place KV-cache pages.
 """
 from .kvcache import KVCachePool
 from .scheduler import Bucket, BucketScheduler, Request
-from .server import Server
+from .server import Server, servers
 
 __all__ = ["KVCachePool", "Bucket", "BucketScheduler", "Request",
-           "Server"]
+           "Server", "servers"]

@@ -41,7 +41,9 @@ capture again).
 """
 from __future__ import annotations
 
+import itertools
 import time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -54,7 +56,17 @@ from ..ops.random_ops import pick_tokens
 from .kvcache import KVCachePool
 from .scheduler import ACTIVE, BucketScheduler, Request
 
-__all__ = ["Server"]
+__all__ = ["Server", "servers"]
+
+# every live Server, in the order they were made
+_servers: "weakref.WeakValueDictionary[int, Server]" = \
+    weakref.WeakValueDictionary()
+_uid = itertools.count(1)
+
+
+def servers() -> List["Server"]:
+    """The live servers of this process (parity: ``serving.servers``)."""
+    return list(_servers.values())
 
 
 def _default_buckets():
@@ -92,6 +104,7 @@ class Server:
         from .. import envs
         self.ctx = ctx or current_context()
         self.device = self.ctx.device      # raises without a card
+        _servers[next(_uid)] = self
         if lm.device != self.device:
             raise MXNetError(f"the model is on {lm.device} but the "
                              f"server's context is {self.ctx}")

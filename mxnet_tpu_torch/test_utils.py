@@ -11,7 +11,8 @@ import numpy as np
 from .context import Context, current_context
 
 __all__ = ["default_context", "set_default_context", "assert_almost_equal",
-           "rand_ndarray", "check_numeric_gradient"]
+           "almost_equal", "rand_ndarray", "rand_shape_nd",
+           "check_numeric_gradient", "check_consistency", "same"]
 
 _default = [None]
 
@@ -47,6 +48,19 @@ def _np(x):
     return x.asnumpy() if isinstance(x, NDArray) else np.asarray(x)
 
 
+def same(a, b):
+    """Whether ``a`` and ``b`` are equal element by element."""
+    return np.array_equal(_np(a), _np(b))
+
+
+def almost_equal(a, b, rtol=None, atol=None):
+    """Whether ``a`` and ``b`` agree within the dtype table's (or the
+    given) tolerances."""
+    a, b = _np(a), _np(b)
+    r, t = _tol(a.dtype, b.dtype)
+    return np.allclose(a, b, rtol=rtol or r, atol=atol or t)
+
+
 def assert_almost_equal(a, b, rtol=None, atol=None, names=("a", "b")):
     a_np, b_np = _np(a), _np(b)
     r, t = _tol(a_np.dtype, b_np.dtype)
@@ -55,6 +69,11 @@ def assert_almost_equal(a, b, rtol=None, atol=None, names=("a", "b")):
         rtol=rtol if rtol is not None else r,
         atol=atol if atol is not None else t,
         err_msg=f"{names[0]} != {names[1]}")
+
+
+def rand_shape_nd(ndim, dim=10):
+    """A random shape of ``ndim`` dims, each in [1, dim]."""
+    return tuple(np.random.randint(1, dim + 1, size=ndim))
 
 
 def rand_ndarray(shape, ctx=None, dtype="float32", scale=1.0):
@@ -96,3 +115,30 @@ def check_numeric_gradient(f: Callable, inputs, eps=1e-3, rtol=1e-2,
         np.testing.assert_allclose(analytic[xi], num, rtol=rtol, atol=atol,
                                    err_msg=f"gradient mismatch on input "
                                            f"{xi}")
+
+
+def check_consistency(f: Callable, inputs_np, ctx_list=None, rtol=None,
+                      atol=None):
+    """Run ``f`` (NDArrays in, NDArray or list out) on the numpy
+    ``inputs_np`` placed on each context of ``ctx_list`` (default:
+    ``[cpu(0)]``) and require every context's outputs to agree with the
+    first's within the dtype table's tolerances.  Returns every
+    context's outputs as numpy arrays."""
+    from .context import cpu
+    from .ndarray.ndarray import array
+    ctx_list = ctx_list or [cpu(0)]
+    results = []
+    for ctx in ctx_list:
+        out = f(*[array(a, ctx=ctx) for a in inputs_np])
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        results.append([o.asnumpy() for o in outs])
+    ref = results[0]
+    for got, ctx in zip(results[1:], ctx_list[1:]):
+        for r, g in zip(ref, got):
+            rt, at = _tol(r.dtype, g.dtype)
+            np.testing.assert_allclose(
+                g.astype("f8"), r.astype("f8"),
+                rtol=rtol if rtol is not None else rt,
+                atol=atol if atol is not None else at,
+                err_msg=f"inconsistent result on {ctx}")
+    return results

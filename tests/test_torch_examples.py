@@ -14,6 +14,7 @@ import sys
 
 import pytest
 
+import torch_dist
 import torch_threads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -74,3 +75,24 @@ def test_example_runs_through_the_port(name, tmp_path):
                          cwd=str(tmp_path), env=env)
     assert res.returncode == 0, res.stdout[-1500:] + res.stderr[-1500:]
     assert expect in res.stdout
+
+
+def test_distributed_training_through_the_launcher(tmp_path):
+    """``example/distributed_training.py`` in two workers: each trains on
+    its half of the data over the ``dist_tpu_sync`` kvstore and prints a
+    final loss under 1e-3 (``tests/test_examples.py``'s assertion)."""
+    with open(os.path.join(REPO, "example", "distributed_training.py")) as f:
+        src = f.read()
+    script = tmp_path / "distributed_training.py"
+    script.write_text(src.replace("mxnet_tpu", "mxnet_tpu_torch"))
+    runner = tmp_path / "run_example.py"
+    runner.write_text(RUNNER)
+    env = torch_threads.child_env(
+        PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env["OMP_NUM_THREADS"] = "1"
+    res = torch_dist.run_group(
+        [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", "2",
+         sys.executable, str(runner), str(script)], timeout=120,
+        cwd=str(tmp_path), env=env)
+    assert res.returncode == 0, res.stdout[-1500:] + res.stderr[-1500:]
+    assert res.stdout.count("final loss") == 2

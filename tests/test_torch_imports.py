@@ -240,6 +240,65 @@ def test_int8_and_the_registry_tail_in_a_fresh_process_load_no_jax():
     _run_child(_CHILD_INT8)
 
 
+_CHILD_DP = r"""
+import sys
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import gluon, kvstore, launch, nd, parallel, runtime
+from mxnet_tpu_torch.gluon.contrib.nn import SyncBatchNorm
+from mxnet_tpu_torch.parallel import collectives, zero
+with mx.cpu():
+    kv = mx.kv.create("device")
+    kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    kv.init("w", nd.zeros((4,)))
+    kv.push("w", [nd.ones((4,), ctx=mx.cpu(i)) for i in range(2)])
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(4, in_units=3), SyncBatchNorm(in_channels=4))
+    net.initialize(ctx=[mx.cpu(0), mx.cpu(1)])
+    dense = gluon.nn.Dense(2, in_units=3)
+    dense.initialize(ctx=mx.cpu())
+    dpt = parallel.DataParallelTrainer(
+        dense, lambda o, y: (o - y).square(), "sgd", fuse_step=True,
+        compression={"type": "int8"},
+        mesh=parallel.make_mesh({"dp": 1}, devices=[mx.cpu()]))
+    dpt.step(np.ones((2, 3), "f4"), np.zeros((2, 2), "f4"))
+assert runtime.Features().is_enabled("DIST_KVSTORE")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "mxnet_tpu" or m.startswith("mxnet_tpu."))
+print("FOREIGN", bad)
+"""
+
+
+def test_data_parallel_modules_in_a_fresh_process_load_no_jax():
+    """mx.kv, the launcher, parallel's collectives, ZeRO and trainer,
+    SyncBatchNorm and mx.runtime import neither JAX nor the JAX
+    package."""
+    _run_child(_CHILD_DP)
+
+
+#: queue 1 item 1.4: names of ported modules that the port lacked
+ITEM_1_4 = ("ndarray.contrib.boolean_mask", "ndarray.contrib.fft",
+            "ndarray.contrib.ifft", "context.cpu_pinned", "cpu_pinned",
+            "runtime.Feature", "runtime.Features", "runtime.feature_list",
+            "test_utils.same", "test_utils.almost_equal",
+            "test_utils.rand_shape_nd", "test_utils.check_consistency",
+            "base.integer_types", "base.string_types", "envs.registry",
+            "serving.servers", "kv.create", "kvstore.KVStore",
+            "parallel.set_mesh", "parallel.current_mesh",
+            "parallel.mesh_shape")
+
+
+@pytest.mark.parametrize("path", ITEM_1_4)
+def test_item_1_4_names_exist_in_both_packages(path):
+    import mxnet_tpu as jmx
+    for pkg in (jmx, mx):
+        obj = pkg
+        for part in path.split("."):
+            obj = getattr(obj, part)
+        assert obj is not None
+
+
 #: what the port's registry still lacks of the JAX package's: the MoE
 #: layer's op, which comes with ROADMAP queue 1 item 4
 STILL_MISSING = ("_contrib_MoEFFN",)
