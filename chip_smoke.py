@@ -402,12 +402,42 @@ Phases, each printing JSON lines:
             the collectives' calls, payload and ring wire bytes a step
             beside the expected ones, K1-K3 12 each a step through the
             replays, the predict-mode loss before and after (falling,
-            but for 2bit, which is held to a finite loss: its rise under
-            dropout's noise is unexplained, PERF.md), and the dense and
+            but for 2bit, which is held to a finite loss: under dropout it
+            does not reliably fall, in the JAX package either, ROADMAP
+            R12), and the dense and
             2bit losses over 20 steps at dropout 0 (falling); the dense
             replay
             profiled; at W = 1 the train phase's step beside the dense
-            one.
+            one; and the dense and 2bit steps at dropout 0.1 in float32
+            (no AMP) for 20 steps from the same weights, with their
+            predict-mode losses (ROADMAP R12).
+38. spmd_parity: in a launched job of W = 1 rank (a process group of
+            one, over NCCL) against the same code in one CPU rank over
+            gloo, each at test_utils' tolerance of its dtype:
+            llama_spmd.train_step's 3 SGD steps (llama_tiny's shape at
+            D = 64, f32) from a checkpoint export_hf_llama wrote; the 1F1B
+            pipeline against a sequential run of the same decoder stage;
+            ring_attention at sp=1 against dot_product_attention (bf16,
+            K1 forward, K2/K3 backward); _contrib_MoEFFN forward and
+            backward; bert_small's 3 Adam steps through
+            DataParallelTrainer(plan=ShardingPlan(..., megatron_rules()))
+            (data parallel on a one-rank mesh, as the reference) and with
+            the same rules as param_sharding (the DTensor step, the
+            kernels on each rank's heads).  K1-K3's launches a case.
+39. spmd:    Llama-3-8B's widths (units 4096, 32 heads over 8 KV heads,
+            hidden 14336, vocab 128256, untied) cut to 2 layers:
+            export_hf_llama writes a bf16 checkpoint (~3 GB) and
+            load_llama_stacked reads it onto a (tp=1, pp=1) mesh (write
+            and read s); 10 llama_spmd.train_steps at B=1, S=4096 with a
+            streamed head (step ms median and range, K1-K3 launches a
+            step, peak memory, the first and last losses, which must
+            fall); save_llama_stacked's save read back by load_hf_llama.
+40. moe:     one MoEFFN at Mixtral-8x7B's expert widths (4096, 14336, 8
+            experts, top-2, SiLU, capacity 1.25) with a Dense head, b8 x
+            s512, bf16 AMP, Adam, 10 steps through DataParallelTrainer(
+            param_sharding=moe_param_rule("ep")) on {"dp": 1, "ep": 1}:
+            step ms, peak memory, the aux loss, each expert's tokens, the
+            first loss against the CPU port's from the same weights.
 
 The kernels phase also runs K1-K3 at Llama-3-8B's training shape (B=1,
 S=4096, H=32 over KV=8, D=128, causal, bf16), and at NMT's shapes (b32,
@@ -444,7 +474,8 @@ ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,"
               "llama_train,forecast_parity,forecast,gan_parity,gan,"
               "wordlm_parity,wordlm,data,fp16_parity,optimizers_parity,"
               "bert_fp16,nmt_parity,nmt,vision_parity,seg,det_parity,det,"
-              "int8_parity,int8,registry_parity,dp_parity,dp")
+              "int8_parity,int8,registry_parity,dp_parity,dp,spmd_parity,"
+              "spmd,moe")
 SERVING_PHASES = {"device", "build", "parity", "serve"}
 
 
@@ -7136,7 +7167,7 @@ def _ratios(ms, library_ms, bound_ms):
 
 
 def kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows=(),
-                   f16_bwd_rows=(), bert16=None, nmt=None):
+                   f16_bwd_rows=(), bert16=None, nmt=None, spmd=None):
     """The flash kernels' entries of the {"kernels": [...]} line: each
     at BERT's training shape in bf16 (the main path's route), with its
     f32 route's numbers at the same shape, K1 also at the serving
@@ -7145,7 +7176,9 @@ def kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows=(),
     shape in float16 (``fp16_parity``'s readings, ``bert_fp16``'s
     launches), with its key-padded and Llama-shaped readings.  The bf16
     entries also carry each kernel's readings at NMT's shapes (``nmt``:
-    bf16 and f32) with its launches on the ``nmt`` path."""
+    bf16 and f32) with its launches on the ``nmt`` path, and each its
+    launches on the ``spmd`` path (Llama-3-8B's widths through
+    llama_spmd's 1F1B step) and in ``spmd_parity``'s cases."""
     fwd = {r["case"]: r for r in rows}
     bwd = {r["case"]: r for r in bwd_rows}
     head, serve_row = fwd.get(HEADLINE_CASE), fwd.get(SERVE_CASE)
@@ -7287,6 +7320,21 @@ def kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows=(),
                 e["nmt"]["translate_launches"] = nmt.get(
                     "translate", {}).get("flash_fwd_launches")
                 e["nmt"]["translate_calls"] = nmt.get("translate_calls")
+    spmd = spmd or {}
+    for e, counter, f32 in zip(main, ("flash_fwd_tc_launches",
+                                      "flash_bwd_dq_tc_launches",
+                                      "flash_bwd_dkv_tc_launches"),
+                               ("flash_fwd_launches",
+                                "flash_bwd_dq_launches",
+                                "flash_bwd_dkv_launches")):
+        if "spmd" in spmd:
+            e["spmd"] = {"launches": spmd["spmd"]["launches"][counter],
+                         "launches_per_step":
+                         spmd["spmd"]["per_step"][counter]}
+        if "parity" in spmd:
+            e["spmd_parity_launches"] = {
+                case: got[counter if case == "sdpa" else f32]
+                for case, got in spmd["parity"]["launches"].items()}
     return main + entries
 
 
@@ -8280,8 +8328,30 @@ def _dp_bench_worker(mx, ctx, rank, world, mesh, cfg=DP_BENCH):
             del dpt
     finally:
         amp._deinit()
+    # R12: the 2bit and the dense step under dropout 0.1 in float32 (no
+    # AMP), from the same weights, beside the bf16 AMP rows above
+    noisy = _full_len_pretrain(models.BERTForPretrain(models.bert_base(
+        vocab_size=vocab, max_length=cfg["max_length"], dropout=0.1))
+    ).initialize(mx.init.Xavier(), ctx=ctx, seed=0)
+    f32_rows = {}
+    for name in ("dense", "2bit"):
+        comp, stage = DP_VARIANTS[name]
+        if name == "2bit":
+            comp = dict(comp, threshold=cfg["twobit"])
+        noisy.load_state_dict(start)
+        free_earlier_phases()
+        before32 = _scalar(loss_fn(noisy(*data), label))
+        dpt = _dp_trainer(mx, noisy, loss_fn, mesh, "adam", comp, stage,
+                          learning_rate=1e-4)
+        losses = [_scalar(dpt.step(data, label))
+                  for _ in range(cfg["quiet_steps"])]
+        f32_rows[name] = {
+            "losses": losses, "predict_loss_before": before32,
+            "predict_loss_after": _scalar(loss_fn(noisy(*data), label))}
+        del dpt
     return {"world": world, "params": p_all, "variants": rows,
-            "dropout0": quiet_rows, "flops_v1_a_sample": flops_v1}
+            "dropout0": quiet_rows, "f32_dropout": f32_rows,
+            "flops_v1_a_sample": flops_v1}
 
 
 def dp_worker(mode, out_dir):
@@ -8577,6 +8647,7 @@ def phase_dp(mx, dev, train=None):
           if train else "not run",
           "dense_step_ms": dense["step_ms"],
           "dropout0": res["dropout0"],
+          "f32_dropout_0.1": res["f32_dropout"],
           "seconds": time.perf_counter() - t0, "card": nvidia_smi()})
     layers = DP_BENCH["layers"]
     for name, quiet in res["dropout0"].items():
@@ -8585,9 +8656,9 @@ def phase_dp(mx, dev, train=None):
               f"{quiet['predict_loss_before']} -> "
               f"{quiet['predict_loss_after']}")
     for name, row in res["variants"].items():
-        # the 2bit step under dropout raised the loss at every threshold
-        # tried, for a cause not shown yet (PERF.md, F16): it is held to a
-        # finite loss there, and to a falling one at dropout 0 above
+        # the 2bit step under dropout does not reliably lower the loss at
+        # this size, in the JAX package either (ROADMAP R12): it is held
+        # to a finite loss there, and to a falling one at dropout 0 above
         check(math.isfinite(row["last_loss"]) and (
             name == "2bit" or
             row["predict_loss_after"] < row["predict_loss_before"]),
@@ -8608,18 +8679,592 @@ def phase_dp(mx, dev, train=None):
               f"dp {name}: a replayed step holds no collective")
 
 
+# -- phases 38-40: parallel breadth (tensor, pipeline, sequence, expert) -------
+
+#: spmd_parity's small widths: llama_tiny's shape with D = 64 (the flash
+#: kernels' route), 2 layers, f32; a batch of 4 x 128 tokens
+SPMD_PARITY = dict(units=256, hidden=512, heads=4, kv_heads=2, layers=2,
+                   vocab=256, batch=4, seq=128, lr=0.05, steps=3,
+                   ring=dict(b=2, s=256, h=8, kv=2, d=64),
+                   moe=dict(t=256, d=64, h=128, e=4, k=2))
+#: Llama-3-8B's widths (llama3_8b: units 4096, 32 heads over 8 KV heads,
+#: hidden 14336, vocab 128256, untied head, RoPE base 5e5), its 32 layers
+#: cut to 2; a checkpoint in bf16; B=1, S=4096, the head streamed in
+#: slabs of vocab_chunk rows; SGD on the layers (the embedding and the
+#: head frozen, as the reference's train_step)
+SPMD = dict(model="llama3_8b", heads=32, kv_heads=8, rope_base=500000.0,
+            layers=2, vocab=128256, batch=1, seq=4096, vocab_chunk=16384,
+            steps=10, lr=0.5, shard_bytes=2 << 30)
+#: Mixtral-8x7B's expert widths as the JAX op defines an expert (two
+#: matrices and an activation): units 4096, hidden 14336, 8 experts, top-2,
+#: SiLU, capacity 1.25; a Dense head to 1024 classes; T = 4096 tokens (b8 x
+#: s512), bf16 AMP, Adam 1e-4, 10 steps over {"dp": 1, "ep": 1}
+MOE = dict(units=4096, hidden=14336, experts=8, k=2, capacity=1.25,
+           classes=1024, batch=8, seq=512, steps=10, lr=1e-4)
+SPMD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}
+
+
+def _spmd_llama_config(mx, cfg=SPMD_PARITY):
+    from mxnet_tpu_torch.models.llama import get_llama
+    return get_llama("llama_tiny", vocab_size=cfg["vocab"],
+                     units=cfg["units"], hidden=cfg["hidden"],
+                     num_heads=cfg["heads"], num_kv_heads=cfg["kv_heads"],
+                     num_layers=cfg["layers"])
+
+
+def _spmd_parity_worker(mx, ctx, ckpt, cfg=SPMD_PARITY):
+    """spmd_parity's cases on ``ctx`` in a launched job (a process group
+    of one rank on the one-card machine, over NCCL, or gloo on the CPU):
+    each returns its numbers and, on the card, K1-K3's launches."""
+    import torch
+    from mxnet_tpu_torch import models, parallel
+    from mxnet_tpu_torch.models import llama_spmd
+    from mxnet_tpu_torch.ops.attention import dot_product_attention
+    from mxnet_tpu_torch.ops.moe import moe_ffn
+    dev = ctx.device
+    out = {}
+    mesh = parallel.make_mesh({"tp": 1, "pp": 1}, devices=[ctx])
+    toks = np.random.RandomState(1).randint(0, cfg["vocab"],
+                                            (cfg["batch"], cfg["seq"]))
+
+    # 1. llama_spmd.train_step from the checkpoint export_hf_llama wrote
+    reset_counts()
+    params, specs, lcfg = llama_spmd.load_llama_stacked(
+        ckpt, mesh, cfg["heads"], cfg["kv_heads"])
+    losses = []
+    for _ in range(cfg["steps"]):
+        loss, params = llama_spmd.train_step(
+            params, toks, lcfg, mesh, specs, lr=cfg["lr"], vocab_chunk=64)
+        losses.append(float(loss))
+    out["train_step"] = {"losses": losses, "launches": read_counts(),
+                         "layers": {k: v.float().cpu().numpy()
+                                    for k, v in params["layers"].items()}}
+
+    # 2. the 1F1B pipeline against a sequential run of the same stage
+    params, specs, lcfg = llama_spmd.load_llama_stacked(
+        ckpt, mesh, cfg["heads"], cfg["kv_heads"])
+    stage = llama_spmd.make_stage_fn(lcfg, mesh=mesh)
+    rng = np.random.RandomState(2)
+    x = torch.tensor(rng.randn(cfg["batch"], cfg["seq"], cfg["units"])
+                     .astype("f4"), device=dev)
+    y = torch.tensor(rng.randn(cfg["batch"], cfg["seq"], cfg["units"])
+                     .astype("f4"), device=dev)
+
+    def mse(o, t):
+        return ((o - t) ** 2).mean()
+    reset_counts()
+    loss, grads = parallel.pipeline_value_and_grad(
+        stage, params["layers"], x, y, mse, 2, mesh=mesh, axis="pp",
+        param_specs=specs)
+    pipe_launch = read_counts()
+    leaves = {k: v.detach().requires_grad_()
+              for k, v in params["layers"].items()}
+    seq_loss = sum(mse(stage({k: v[0] for k, v in leaves.items()}, xm), ym)
+                   for xm, ym in zip(x.chunk(2), y.chunk(2))) / 2
+    seq_grads = torch.autograd.grad(seq_loss, list(leaves.values()))
+    out["pipeline"] = {
+        "loss": float(loss), "seq_loss": float(seq_loss.detach()),
+        "grads": {k: g.cpu().numpy() for k, g in grads.items()},
+        "seq_grads": {k: g.cpu().numpy()
+                      for k, g in zip(leaves, seq_grads)},
+        "launches": pipe_launch}
+
+    # 3. ring attention at sp=1 against dot_product_attention (K1 forward,
+    #    K2/K3 backward), bf16 on the card
+    r = cfg["ring"]
+    rng = np.random.RandomState(3)
+    # bf16 values on both sides: the card computes in bf16 (f32 inside
+    # the ring), the CPU in f32 on the same values
+    dt = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    q, k, v = (torch.tensor(rng.randn(r["b"], r["s"], heads, r["d"])
+                            .astype("f4")).bfloat16().to(dev, dt)
+               for heads in (r["h"], r["kv"], r["kv"]))
+    cot = torch.tensor(rng.randn(r["b"], r["s"], r["h"], r["d"])
+                       .astype("f4")).bfloat16().to(dev, dt)
+    ring_mesh = parallel.make_mesh({"sp": 1}, devices=[ctx])
+    res = {}
+    for name in ("ring", "sdpa"):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        reset_counts()
+        if name == "ring":
+            o = parallel.ring_attention(qq, kk, vv, mesh=ring_mesh,
+                                        causal=True)
+        else:
+            o = dot_product_attention(qq, kk, vv, causal=True)
+        (o.float() * cot.float()).sum().backward()
+        res[name] = [t.detach().float().cpu().numpy()
+                     for t in (o, qq.grad, kk.grad, vv.grad)]
+        res[name + "_launches"] = read_counts()
+    out["ring"] = res
+
+    # 4. _contrib_MoEFFN forward and backward
+    mo = cfg["moe"]
+    rng = np.random.RandomState(4)
+    arrays = [rng.randn(mo["t"], mo["d"]), rng.randn(mo["d"], mo["e"]),
+              rng.randn(mo["e"], mo["d"], mo["h"]) * 0.1,
+              rng.randn(mo["e"], mo["h"]) * 0.1,
+              rng.randn(mo["e"], mo["h"], mo["d"]) * 0.1,
+              rng.randn(mo["e"], mo["d"]) * 0.1]
+    ts = [torch.tensor(a.astype("f4"), device=dev, requires_grad=True)
+          for a in arrays]
+    o, aux = moe_ffn(*ts, num_experts=mo["e"], k=mo["k"],
+                     capacity_factor=1.25, activation="silu")
+    ((o * o).sum() + aux).backward()
+    out["moe"] = {"out": o.detach().cpu().numpy(), "aux": float(aux),
+                  "grads": [t.grad.cpu().numpy() for t in ts]}
+
+    # 5. DataParallelTrainer(plan=) on bert_small: the plan's megatron
+    #    rules (data parallel on a one-rank mesh, as the reference's
+    #    param_rule() says), and the same rules given as param_sharding
+    #    (the DTensor step, the kernels on each rank's heads)
+    plan = parallel.ShardingPlan({"dp": 1, "tp": 1},
+                                 parallel.megatron_rules())
+    bert = {}
+    for name in ("plan", "dtensor"):
+        inner = models.BERTForPretrain(models.bert_small(
+            vocab_size=200, max_length=128, dropout=0.0, num_layers=2))
+        model = _full_len_pretrain(inner).initialize(
+            mx.init.Xavier(), ctx=mx.cpu(), seed=5)
+        if dev.type == "cuda":
+            weights = model.state_dict()
+            model = _full_len_pretrain(models.BERTForPretrain(
+                models.bert_small(vocab_size=200, max_length=128,
+                                  dropout=0.0, num_layers=2))
+            ).initialize(mx.init.Xavier(), ctx=ctx, seed=5)
+            model.load_state_dict(weights)
+        kw = {"plan": plan} if name == "plan" else {
+            "param_sharding": plan.partition_spec,
+            "mesh": parallel.make_mesh({"dp": 1, "tp": 1}, devices=[ctx])}
+        dpt = parallel.DataParallelTrainer(
+            model, _pretrain_loss(4), "adam", {"learning_rate": 1e-3}, **kw)
+        data, label = _pretrain_batch(mx, 200, 2, 128, 4, ctx)
+        reset_counts()
+        losses = [_scalar(dpt.step(data, label)) for _ in range(3)]
+        bert[name] = {"losses": losses, "launches": read_counts(),
+                      "sharded_step": dpt._dmesh is not None}
+    out["bert_plan"] = bert
+    return out
+
+
+def _spmd_worker(mx, ctx, cfg=SPMD):
+    """spmd: Llama-3-8B's widths at 2 layers from a bf16 checkpoint the
+    port writes: the write and the read onto a (tp=1, pp=1) mesh, 10
+    train_steps at B=1, S=4096 (K1-K3's bf16 causal GQA route), the
+    resharded save read back by load_hf_llama."""
+    import shutil
+    import tempfile
+    import torch
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.models import llama_spmd
+    from mxnet_tpu_torch.models.hf_loader import (export_hf_llama,
+                                                  load_hf_llama)
+    from mxnet_tpu_torch.models.llama import LlamaForCausalLM, get_llama
+    dev = ctx.device
+    tmp = tempfile.mkdtemp(prefix="spmd_")
+    try:
+        mx.random.seed(0)
+        net = LlamaForCausalLM(get_llama(cfg["model"],
+                                         vocab_size=cfg["vocab"],
+                                         num_layers=cfg["layers"]),
+                               tie_embeddings=False, ctx=ctx,
+                               dtype="bfloat16")
+        n_params = sum(p.numel() for p in net.parameters())
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        export_hf_llama(net, os.path.join(tmp, "ckpt"), dtype="bfloat16",
+                        max_shard_bytes=cfg["shard_bytes"])
+        write_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(tmp, "ckpt", f))
+                         for f in os.listdir(os.path.join(tmp, "ckpt")))
+        del net
+        free_earlier_phases()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh = parallel.make_mesh({"tp": 1, "pp": 1}, devices=[ctx])
+        t0 = time.perf_counter()
+        params, specs, lcfg = llama_spmd.load_llama_stacked(
+            os.path.join(tmp, "ckpt"), mesh, cfg["heads"], cfg["kv_heads"],
+            rope_base=cfg["rope_base"], dtype="bfloat16")
+        torch.cuda.synchronize(dev)
+        read_s = time.perf_counter() - t0
+        toks = torch.tensor(np.random.RandomState(0).randint(
+            0, cfg["vocab"], (cfg["batch"], cfg["seq"])), device=dev)
+        losses, step_ms = [], []
+        reset_counts()
+        for i in range(cfg["steps"]):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            loss, params = llama_spmd.train_step(
+                params, toks, lcfg, mesh, specs, lr=cfg["lr"],
+                vocab_chunk=cfg["vocab_chunk"])
+            losses.append(float(loss))       # a host read ends the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        t0 = time.perf_counter()
+        llama_spmd.save_llama_stacked(params, os.path.join(tmp, "out"), lcfg,
+                                      cfg["shard_bytes"], dtype="bfloat16",
+                                      mesh=mesh)
+        save_s = time.perf_counter() - t0
+        back = LlamaForCausalLM(get_llama(cfg["model"],
+                                          vocab_size=cfg["vocab"],
+                                          num_layers=cfg["layers"]),
+                                tie_embeddings=False, ctx=ctx,
+                                dtype="bfloat16")
+        load_hf_llama(back, os.path.join(tmp, "out"), dtype="bfloat16")
+        layer = back.model.layers[cfg["layers"] - 1]
+        equal = {
+            "q": bool(torch.equal(layer.attn.q_proj._tensor("weight"),
+                                  params["layers"]["q"][0, -1])),
+            "down": bool(torch.equal(layer.mlp.down_proj._tensor("weight"),
+                                     params["layers"]["down"][0, -1])),
+            "innorm": bool(torch.equal(layer.input_norm._tensor("gamma"),
+                                       params["layers"]["innorm"][0, -1]))}
+        del back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"params": n_params, "checkpoint_bytes": ckpt_bytes,
+            "write_s": write_s, "read_s": read_s, "save_s": save_s,
+            "losses": losses, "step_ms": step_ms, "launches": launches,
+            "peak_allocated_bytes": peak, "reloaded_equal": equal}
+
+
+def _moe_net(mx, ctx, cfg=MOE):
+    from mxnet_tpu_torch.gluon import HybridBlock, nn
+    from mxnet_tpu_torch.gluon.contrib.nn import MoEFFN
+
+    class MoENet(HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.moe = MoEFFN(cfg["units"], cfg["hidden"],
+                                  cfg["experts"], k=cfg["k"],
+                                  capacity_factor=cfg["capacity"],
+                                  activation="silu")
+                self.head = nn.Dense(cfg["classes"], flatten=False,
+                                     in_units=cfg["units"])
+
+        def hybrid_forward(self, F, x):
+            out, aux = self.moe(x)
+            self.aux = aux
+            return self.head(out)
+    return MoENet(prefix="moenet_").initialize(mx.init.Xavier(), ctx=ctx,
+                                                seed=7)
+
+
+def _moe_worker(mx, ctx, cfg=MOE):
+    """moe: one MoEFFN at Mixtral-8x7B's expert widths with a Dense head,
+    bf16 AMP, Adam, 10 steps through DataParallelTrainer(param_sharding=
+    moe_param_rule("ep")) on {"dp": 1, "ep": 1} (the DTensor step)."""
+    import torch
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops.moe import moe_route
+    dev = ctx.device
+    rng = np.random.RandomState(8)
+    x = rng.randn(cfg["batch"], cfg["seq"], cfg["units"]).astype("f4")
+    y = rng.randint(0, cfg["classes"], (cfg["batch"], cfg["seq"])) \
+        .astype("f4")
+    net = _moe_net(mx, ctx, cfg)
+    n_expert = sum(p.numel() for n, p in net.named_parameters()
+                   if "expert" in n)
+    start = {k: t.detach().cpu() for k, t in net.state_dict().items()}
+    sce = SoftmaxCrossEntropyLoss()
+    amp.init(target_dtype="bfloat16")
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        dpt = parallel.DataParallelTrainer(
+            net, lambda o, t: sce(o.reshape(-1, cfg["classes"]).float(),
+                                  t.reshape(-1)),
+            "adam", {"learning_rate": cfg["lr"]},
+            mesh=parallel.make_mesh({"dp": 1, "ep": 1}, devices=[ctx]),
+            param_sharding=parallel.moe_param_rule("ep"))
+        xs, ys = torch.tensor(x, device=dev), torch.tensor(y, device=dev)
+        losses, step_ms = [], []
+        for _ in range(cfg["steps"]):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            losses.append(float(dpt.step(xs, ys)))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        shard = tuple(dpt._dparams["moe.expert_w1"].to_local().shape)
+        with torch.no_grad():
+            flat = xs.reshape(-1, cfg["units"])
+            probs = torch.softmax(flat @ net.moe._tensor("gate_weight"), -1)
+            cap = max(int(math.ceil(cfg["k"] * flat.shape[0] /
+                                    cfg["experts"] * cfg["capacity"])), 1)
+            counts = (moe_route(probs, cfg["k"], cap) > 0).sum(dim=(0, 2))
+            _, aux = net.moe(flat)
+    finally:
+        amp._deinit()
+    return {"expert_params": n_expert, "losses": losses, "step_ms": step_ms,
+            "peak_allocated_bytes": peak, "expert_shard": shard,
+            "aux_loss": float(aux), "capacity": cap,
+            "expert_tokens": counts.cpu().tolist(), "start": start,
+            "x": x, "y": y}
+
+
+def spmd_worker(mode, out_dir):
+    """One rank of a parallel-breadth phase, started by the launcher:
+    ``spmd_parity_cpu``/``spmd_parity_gpu`` (spmd_parity on the CPU over
+    gloo or on the rank's card over NCCL), ``spmd`` or ``moe``.  Rank 0
+    writes the result to ``out_dir/<mode>.pkl``."""
+    import torch
+    sys.path.insert(0, HERE)
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = mx.cpu() if mode == "spmd_parity_cpu" else \
+        mx.gpu(int(os.environ["LOCAL_RANK"]))
+    with ctx:
+        check(mx.kvstore.init_distributed(), "the launcher's rendezvous "
+              "is missing")
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        if mode.startswith("spmd_parity"):
+            res = _spmd_parity_worker(mx, ctx,
+                                      os.path.join(out_dir, "ckpt"))
+        elif mode == "spmd":
+            res = _spmd_worker(mx, ctx)
+        else:
+            res = _moe_worker(mx, ctx)
+        dist.barrier()
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(os.path.join(out_dir, f"{mode}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+
+
+def _close_tol(got, want, dtype, what):
+    """``got`` within the tolerance of ``dtype`` (test_utils' table) of
+    ``want``, element by element; returns the largest error over the
+    tolerance's own scale."""
+    rtol, atol = SPMD_TOL[dtype]
+    got, want = np.asarray(got, "f8"), np.asarray(want, "f8")
+    err = np.abs(got - want)
+    worst = float((err / (atol + rtol * np.abs(want))).max()) \
+        if err.size else 0.0
+    check(worst <= 1.0, f"{what}: {float(err.max())} off (rtol {rtol}, "
+          f"atol {atol})")
+    return worst
+
+
+def phase_spmd_parity(mx, dev):
+    """spmd_parity: the parallel breadth's code paths at small widths on
+    the card (a launched job of W = 1 rank over NCCL) against the same
+    code on the CPU (one rank over gloo), each at test_utils' tolerance
+    of its dtype: llama_spmd.train_step's 3 steps from a checkpoint
+    export_hf_llama wrote, the 1F1B pipeline against a sequential run,
+    ring attention at sp=1 against dot_product_attention (K1, K2/K3),
+    _contrib_MoEFFN forward and backward, and a DataParallelTrainer step
+    under a megatron_rules plan on bert_small (and under the same rules as
+    param_sharding, the DTensor step); K1-K3's launches a case."""
+    import tempfile
+    import threading
+    from mxnet_tpu_torch.models.hf_loader import export_hf_llama
+    from mxnet_tpu_torch.models.llama import LlamaForCausalLM
+    world = dp_world()
+    cfg = SPMD_PARITY
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="spmd_parity_")
+    with mx.cpu():
+        net = LlamaForCausalLM(_spmd_llama_config(mx), ctx=mx.cpu())
+        net.initialize(std=0.05, seed=11)
+        export_hf_llama(net, os.path.join(tmp, "ckpt"),
+                        max_shard_bytes=1 << 20)
+    outs = {}
+
+    def launch(mode):
+        outs[mode] = _dp_launch(mode, world if mode.endswith("gpu") else 1,
+                                tmp, timeout=600)
+    threads = [threading.Thread(target=launch, args=(m,))
+               for m in ("spmd_parity_cpu", "spmd_parity_gpu")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for mode, (rc, log) in outs.items():
+        check(rc == 0, f"spmd_parity: the {mode} workers exited {rc}:\n"
+              f"{log[-4000:]}")
+    cpu, gpu = (_dp_result(tmp, m) for m in ("spmd_parity_cpu",
+                                             "spmd_parity_gpu"))
+    worst = {}
+    ts_c, ts_g = cpu["train_step"], gpu["train_step"]
+    worst["train_step_losses"] = _close_tol(ts_g["losses"], ts_c["losses"],
+                                            "float32", "train_step losses")
+    worst["train_step_layers"] = max(
+        _close_tol(ts_g["layers"][k], v, "float32", f"train_step {k}")
+        for k, v in ts_c["layers"].items())
+    check(ts_c["losses"][-1] < ts_c["losses"][0],
+          f"spmd_parity: train_step losses {ts_c['losses']} do not fall")
+    pc, pg = cpu["pipeline"], gpu["pipeline"]
+    worst["pipeline_vs_cpu"] = max(
+        [_close_tol(pg["loss"], pc["loss"], "float32", "pipeline loss")] +
+        [_close_tol(pg["grads"][k], v, "float32", f"pipeline d{k}")
+         for k, v in pc["grads"].items()])
+    worst["pipeline_vs_sequential"] = max(
+        [_close_tol(pg["loss"], pg["seq_loss"], "float32",
+                    "pipeline loss vs sequential")] +
+        [_close_tol(pg["grads"][k], v, "float32",
+                    f"pipeline d{k} vs sequential")
+         for k, v in pg["seq_grads"].items()])
+    rg = gpu["ring"]
+    worst["ring_vs_sdpa_bf16"] = max(
+        _close_tol(a, b, "bfloat16", f"ring vs sdpa {n}")
+        for n, a, b in zip(("out", "dq", "dk", "dv"), rg["ring"],
+                           rg["sdpa"]))
+    worst["ring_card_vs_cpu"] = max(
+        _close_tol(a, b, "bfloat16", f"ring card vs cpu {n}")
+        for n, a, b in zip(("out", "dq", "dk", "dv"), rg["ring"],
+                           cpu["ring"]["ring"]))
+    # the experts' sums run over T x capacity on one side and in another
+    # order on the other: each tensor in relative L2 (test_utils' f32
+    # rtol), the routing (which slot a token takes) exactly as the CPU's
+    mc, mg = cpu["moe"], gpu["moe"]
+    worst["moe_rel_l2"] = max(
+        [_rel_l2([mg["out"]], [mc["out"]]),
+         _rel_l2([mg["aux"]], [mc["aux"]])] +
+        [_rel_l2([g], [c]) for g, c in zip(mg["grads"], mc["grads"])])
+    check(worst["moe_rel_l2"] <= SPMD_TOL["float32"][0],
+          f"spmd_parity moe: relative L2 {worst['moe_rel_l2']}")
+    for name in ("plan", "dtensor"):
+        worst[f"bert_{name}"] = _close_tol(
+            gpu["bert_plan"][name]["losses"], cpu["bert_plan"][name]["losses"],
+            "float32", f"bert {name} losses")
+    check(gpu["bert_plan"]["dtensor"]["sharded_step"] and
+          not gpu["bert_plan"]["plan"]["sharded_step"],
+          "spmd_parity: the plan step should be data parallel and the "
+          "param_sharding step the DTensor one")
+    launches = {
+        "train_step": ts_g["launches"], "pipeline": pg["launches"],
+        "ring": rg["ring_launches"], "sdpa": rg["sdpa_launches"],
+        "bert_plan": gpu["bert_plan"]["plan"]["launches"],
+        "bert_dtensor": gpu["bert_plan"]["dtensor"]["launches"]}
+    for case in ("train_step", "pipeline", "bert_plan", "bert_dtensor"):
+        got = launches[case]
+        check(all(got[c] > 0 for c in F32_ROUTE[:1] + F32_ROUTE[2:]),
+              f"spmd_parity {case}: K1-K3 launches {got}")
+    check(sum(launches["ring"].values()) == 0 and
+          launches["sdpa"]["flash_fwd_tc_launches"] > 0 and
+          launches["sdpa"]["flash_bwd_dq_tc_launches"] > 0,
+          f"spmd_parity ring: launches ring {launches['ring']}, "
+          f"sdpa {launches['sdpa']}")
+    emit({"phase": "spmd_parity", "W": world,
+          "worst_over_tolerance": worst,
+          "train_step_losses": {"card": ts_g["losses"],
+                                "cpu": ts_c["losses"]},
+          "bert_losses": {n: gpu["bert_plan"][n]["losses"]
+                          for n in ("plan", "dtensor")},
+          "launches": launches, "seconds": time.perf_counter() - t0,
+          "card": nvidia_smi()})
+    return {"launches": launches}
+
+
+def phase_spmd(mx, dev):
+    """spmd: Llama-3-8B's widths at 2 layers in a launched job of W = 1
+    rank: the bf16 checkpoint's write and read, 10 train_steps (B=1,
+    S=4096), the step's median and range, K1-K3's launches a step, the
+    peak memory, the first and last losses (falling on the fixed batch),
+    and the resharded save read back by load_hf_llama."""
+    import tempfile
+    free_earlier_phases()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="spmd_")
+    rc, log = _dp_launch("spmd", 1, tmp, timeout=900)
+    check(rc == 0, f"spmd: the worker exited {rc}:\n{log[-4000:]}")
+    res = _dp_result(tmp, "spmd")
+    steps = SPMD["steps"]
+    per_step = {k: v / steps for k, v in res["launches"].items()}
+    ms = res["step_ms"][1:]
+    row = {"phase": "spmd", "model": "llama3_8b widths, 2 of 32 layers",
+           "dtype": "bfloat16", "batch": SPMD["batch"], "seq": SPMD["seq"],
+           "vocab_chunk": SPMD["vocab_chunk"], "lr": SPMD["lr"],
+           "params": res["params"],
+           "checkpoint_bytes": res["checkpoint_bytes"],
+           "checkpoint_write_s": res["write_s"],
+           "checkpoint_read_s": res["read_s"], "save_s": res["save_s"],
+           "step_ms_median": statistics.median(ms),
+           "step_ms_range": [min(ms), max(ms)],
+           "first_step_ms": res["step_ms"][0],
+           "launches_a_step": per_step,
+           "peak_allocated_bytes": res["peak_allocated_bytes"],
+           "first_loss": res["losses"][0], "last_loss": res["losses"][-1],
+           "losses": res["losses"], "reloaded_equal": res["reloaded_equal"],
+           "seconds": time.perf_counter() - t0, "card": nvidia_smi()}
+    emit(row)
+    check(all(math.isfinite(v) for v in res["losses"]) and
+          res["losses"][-1] < res["losses"][0],
+          f"spmd: losses {res['losses']} do not fall")
+    layers = SPMD["layers"]
+    check(per_step["flash_fwd_tc_launches"] == 2 * layers and
+          per_step["flash_bwd_dq_tc_launches"] == layers and
+          per_step["flash_bwd_dkv_tc_launches"] == layers,
+          f"spmd: K1-K3 launches a step {per_step}")
+    check(all(res["reloaded_equal"].values()),
+          f"spmd: load_hf_llama read back {res['reloaded_equal']}")
+    return {"launches": res["launches"], "per_step": per_step}
+
+
+def phase_moe(mx, dev):
+    """moe: Mixtral-8x7B's expert widths (one MoEFFN, 8 experts, top-2,
+    SiLU) with a Dense head, b8 x s512, bf16 AMP, Adam, 10 steps through
+    DataParallelTrainer(param_sharding=moe_param_rule("ep")) on {"dp": 1,
+    "ep": 1} in a launched job of one rank; the first step's loss against
+    the CPU port's forward from the same weights (bf16 tolerance)."""
+    import tempfile
+    import torch
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    free_earlier_phases()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="moe_")
+    rc, log = _dp_launch("moe", 1, tmp, timeout=900)
+    check(rc == 0, f"moe: the worker exited {rc}:\n{log[-4000:]}")
+    res = _dp_result(tmp, "moe")
+    with mx.cpu():
+        net = _moe_net(mx, mx.cpu())
+        net.load_state_dict(res.pop("start"))
+        sce = SoftmaxCrossEntropyLoss()
+        with torch.no_grad():
+            logits = net(torch.tensor(res.pop("x")))
+            cpu_first = float(sce(logits.reshape(-1, MOE["classes"]),
+                                  torch.tensor(res.pop("y")).reshape(-1))
+                              .mean())
+        del net, logits
+    ms = res["step_ms"][1:]
+    emit({"phase": "moe", "config": MOE, "expert_params":
+          res["expert_params"], "expert_shard": res["expert_shard"],
+          "step_ms_median": statistics.median(ms),
+          "step_ms_range": [min(ms), max(ms)],
+          "first_step_ms": res["step_ms"][0],
+          "peak_allocated_bytes": res["peak_allocated_bytes"],
+          "aux_loss": res["aux_loss"], "capacity": res["capacity"],
+          "expert_tokens": res["expert_tokens"], "losses": res["losses"],
+          "cpu_first_loss": cpu_first,
+          "seconds": time.perf_counter() - t0, "card": nvidia_smi()})
+    _close_tol(res["losses"][0], cpu_first, "bfloat16", "moe first loss")
+    check(all(math.isfinite(v) for v in res["losses"]) and
+          res["losses"][-1] < res["losses"][0],
+          f"moe: losses {res['losses']} do not fall")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES,
                     help="comma-separated subset of phases to run")
     ap.add_argument("--dp-worker", default=None,
-                    choices=("parity_cpu", "parity_gpu", "bench"),
+                    choices=("parity_cpu", "parity_gpu", "bench",
+                             "spmd_parity_cpu", "spmd_parity_gpu", "spmd",
+                             "moe"),
                     help="run one rank of a dp phase (the launcher's "
                          "workers; not for direct use)")
     ap.add_argument("--dp-out", default=None,
                     help="where a dp worker writes its result")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    if args.dp_worker in ("spmd_parity_cpu", "spmd_parity_gpu", "spmd",
+                          "moe"):
+        spmd_worker(args.dp_worker, args.dp_out)
+        return
     if args.dp_worker:
         dp_worker(args.dp_worker, args.dp_out)
         return
@@ -8727,9 +9372,17 @@ def main():
         phase_dp_parity(mx, dev)
     if "dp" in phases:
         phase_dp(mx, dev, train)
+    spmd = {}
+    if "spmd_parity" in phases:
+        free_earlier_phases()
+        spmd["parity"] = phase_spmd_parity(mx, dev)
+    if "spmd" in phases:
+        spmd["spmd"] = phase_spmd(mx, dev)
+    if "moe" in phases:
+        phase_moe(mx, dev)
 
     kernels = kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows,
-                             f16_bwd_rows, bert16, nmt)
+                             f16_bwd_rows, bert16, nmt, spmd)
     if rtc is not None:
         kernels.append(
             {"name": "rtc_axpy", "route": "cuda",

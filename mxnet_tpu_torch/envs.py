@@ -48,6 +48,12 @@ _reg("MXTPU_ZERO_STAGE", int, 0,
      "1 all-reduces the gradients and updates each rank's 1/dp flat "
      "slice with 1/dp of the states; 2 reduce-scatters the gradients "
      "instead. The updated slices are all-gathered into the weights.")
+_reg("MXTPU_SHARDING_PLAN", str, "",
+     "Path to a sharding-plan JSON (parallel.ShardingPlan.save). A "
+     "DataParallelTrainer made without plan= or param_sharding= takes "
+     "it: its mesh axes, its rules as the parameter layout and its ZeRO "
+     "stage; an explicit mesh or dp_axis unlike the plan's wins (with a "
+     "warning). A malformed file raises.")
 
 
 def registry():

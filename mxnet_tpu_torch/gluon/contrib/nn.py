@@ -34,13 +34,16 @@ from torch.utils.checkpoint import checkpoint
 
 from ... import random as _random
 from ...base import MXNetError
+from ...initializer import param
 from ...ops import nn as ops
+from ...ops.moe import moe_ffn
 from ...ops.attention import dot_product_attention
 from ..block import HybridBlock
 from ..nn import BatchNorm, Dense, Dropout, LayerNorm
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN",
-           "TransformerEncoderCell", "TransformerEncoder", "SyncBatchNorm"]
+           "TransformerEncoderCell", "TransformerEncoder", "SyncBatchNorm",
+           "MoEFFN"]
 
 
 class MultiHeadAttention(HybridBlock):
@@ -190,6 +193,40 @@ def _replay_rng(device):
                 gen.set_state(now)
         return contextlib.nullcontext(), replay()
     return context_fn
+
+
+class MoEFFN(HybridBlock):
+    """Mixture-of-experts feed-forward layer (op ``_contrib_MoEFFN``):
+    input (B, S, d) or (T, d), top-k routing over a static capacity, the
+    expert weights as (E, ...) tensors named ``expert_*`` so that an
+    ``ep`` axis can shard them (``parallel.moe_param_rule``).  Returns
+    ``(out, aux_loss)``; add ``aux_weight * aux_loss`` to the loss for
+    load balancing."""
+
+    def __init__(self, units, hidden_size, num_experts, k=1,
+                 capacity_factor=1.25, activation="relu", prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._units = units
+        self._e = num_experts
+        self._kwargs = {"num_experts": num_experts, "k": k,
+                        "capacity_factor": capacity_factor,
+                        "activation": activation}
+        self.gate_weight = param(units, num_experts)
+        self.expert_w1 = param(num_experts, units, hidden_size)
+        self.expert_b1 = param(num_experts, hidden_size, init="zeros")
+        self.expert_w2 = param(num_experts, hidden_size, units)
+        self.expert_b2 = param(num_experts, units, init="zeros")
+
+    def forward(self, x):
+        shape = x.shape
+        flat = x.reshape(-1, self._units) if len(shape) > 2 else x
+        out, aux = moe_ffn(flat, *(self._tensor(n) for n in (
+            "gate_weight", "expert_w1", "expert_b1", "expert_w2",
+            "expert_b2")), **self._kwargs)
+        if len(shape) > 2:
+            out = out.reshape(shape)
+        return out, aux
 
 
 class SyncBatchNorm(BatchNorm):

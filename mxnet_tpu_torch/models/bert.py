@@ -6,7 +6,11 @@ decoded with the word-embedding matrix (tied), and the next-sentence
 head.  Encoder attention runs ``dot_product_attention``, so s128-aligned
 batches take the flash kernels on the card, forward and backward.
 
-Models are built on the ``meta`` device; ``initialize(init, ctx=...)``
+The parameters carry the reference's names under ``collect_params()``
+(``bertmodel0_word_embed_weight``,
+``bertmodel0_enc_layer0_multiheadattention0_query_weight``,
+``bertforpretrain0_mlm_dense_weight``, ...), which the sharding rules
+and ``hf_loader`` match.  Models are built on the ``meta`` device; ``initialize(init, ctx=...)``
 places and fills them (the reference's ``model.initialize``).  Token
 ids, types, positions and lengths are float32, as in the reference.
 """
@@ -29,20 +33,24 @@ class BERTModel(Block):
     def __init__(self, vocab_size=30522, units=768, hidden_size=3072,
                  num_layers=12, num_heads=12, max_length=512,
                  type_vocab_size=2, dropout=0.1, remat=False,
-                 scan_layers=False):
-        super().__init__()
+                 scan_layers=False, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self._units = units
         self.vocab_size = vocab_size
-        self.word_embed = Embedding(vocab_size, units)
-        self.token_type_embed = Embedding(type_vocab_size, units)
-        self.position_embed = param(max_length, units, init="normal")
-        self.embed_layer_norm = LayerNorm(in_channels=units)
-        self.embed_dropout = Dropout(dropout) if dropout else None
-        self.encoder = TransformerEncoder(
-            units, hidden_size, num_layers, num_heads, dropout=dropout,
-            activation="gelu", remat=remat, scan_layers=scan_layers)
-        self.pooler = Dense(units, activation="tanh", in_units=units,
-                            flatten=False)
+        with self.name_scope():
+            self.word_embed = Embedding(vocab_size, units,
+                                        prefix="word_embed_")
+            self.token_type_embed = Embedding(type_vocab_size, units,
+                                              prefix="type_embed_")
+            self.position_embed = param(max_length, units, init="normal")
+            self.embed_layer_norm = LayerNorm(in_channels=units)
+            self.embed_dropout = Dropout(dropout) if dropout else None
+            self.encoder = TransformerEncoder(
+                units, hidden_size, num_layers, num_heads, dropout=dropout,
+                activation="gelu", remat=remat, scan_layers=scan_layers,
+                prefix="enc_")
+            self.pooler = Dense(units, activation="tanh", in_units=units,
+                                flatten=False, prefix="pooler_")
 
     def forward(self, inputs, token_types, valid_length=None):
         """Returns ``(seq (B, S, units), pooled (B, units))``.
@@ -72,15 +80,18 @@ class BERTForPretrain(Block):
     (B*M, units), nsp_scores, word_weight, mlm_bias)`` for a caller
     that fuses decode and cross-entropy."""
 
-    def __init__(self, bert: BERTModel, decode_mlm=True):
-        super().__init__()
+    def __init__(self, bert: BERTModel, decode_mlm=True, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
         units = bert._units
         self._decode_mlm = bool(decode_mlm)
         self.bert = bert
-        self.mlm_dense = Dense(units, in_units=units, flatten=False)
-        self.mlm_norm = LayerNorm(in_channels=units)
-        self.mlm_bias = param(bert.vocab_size, init="zeros")
-        self.nsp_classifier = Dense(2, in_units=units)
+        with self.name_scope():
+            self.mlm_dense = Dense(units, in_units=units, flatten=False,
+                                   prefix="mlm_dense_")
+            self.mlm_norm = LayerNorm(in_channels=units)
+            self.mlm_bias = param(bert.vocab_size, init="zeros")
+            self.nsp_classifier = Dense(2, in_units=units, prefix="nsp_")
 
     def forward(self, inputs, token_types, valid_length, masked_positions):
         seq, pooled = self.bert(inputs, token_types, valid_length)

@@ -85,13 +85,22 @@ class RMSNormBlock(HybridBlock):
 
 class _LlamaAttention(HybridBlock):
     def __init__(self, units, num_heads, num_kv_heads, rope_base,
-                 sliding_window=None, prefix=None, params=None):
+                 attn_impl="sdpa", sp_axis="sp", sliding_window=None,
+                 prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         if units % num_heads:
             raise MXNetError(f"units {units} % num_heads {num_heads}")
         if num_heads % num_kv_heads:
             raise MXNetError("num_heads must be a multiple of "
                              "num_kv_heads (GQA groups)")
+        if sliding_window is not None and attn_impl == "ring":
+            raise MXNetError(
+                "sliding_window with attn_impl='ring' is not "
+                "supported: the band already caps per-query compute "
+                "at O(W) — use the sdpa/flash path, or ring WITHOUT "
+                "a window for full-causal sequence parallelism")
+        self._impl = attn_impl
+        self._sp_axis = sp_axis
         self._h = num_heads
         self._kv = num_kv_heads
         self._d = units // num_heads
@@ -109,9 +118,15 @@ class _LlamaAttention(HybridBlock):
         q = F.rope(self.q_proj(x).reshape((b, s, h, d)), base=self._base)
         k = F.rope(self.k_proj(x).reshape((b, s, kv, d)), base=self._base)
         v = self.v_proj(x).reshape((b, s, kv, d))
-        # GQA is native in the attention op (grouped heads)
-        out = F.dot_product_attention(q, k, v, causal=True,
-                                      window=self._window)
+        if self._impl == "ring":
+            # the sequence split over the sp axis, KV heads round the ring
+            from ..parallel.ring_attention import ring_attention_sharded
+            out = ring_attention_sharded(q, k, v, axis=self._sp_axis,
+                                         causal=True)
+        else:
+            # GQA is native in the attention op (grouped heads)
+            out = F.dot_product_attention(q, k, v, causal=True,
+                                          window=self._window)
         return self.o_proj(out.reshape((b, s, h * d)))
 
     def _qkv(self, x, offset=0):
@@ -169,12 +184,14 @@ class _LlamaMLP(HybridBlock):
 
 class _LlamaLayer(HybridBlock):
     def __init__(self, units, hidden, num_heads, num_kv_heads, rope_base,
-                 sliding_window=None, prefix=None, params=None):
+                 attn_impl="sdpa", sp_axis="sp", sliding_window=None,
+                 prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         with self.name_scope():
             self.input_norm = RMSNormBlock(units, prefix="innorm_")
             self.attn = _LlamaAttention(units, num_heads, num_kv_heads,
-                                        rope_base,
+                                        rope_base, attn_impl=attn_impl,
+                                        sp_axis=sp_axis,
                                         sliding_window=sliding_window,
                                         prefix="attn_")
             self.post_norm = RMSNormBlock(units, prefix="postnorm_")
@@ -200,8 +217,9 @@ class LlamaModel(HybridBlock):
     :class:`LlamaForCausalLM` places it on its context."""
 
     def __init__(self, vocab_size, units, hidden, num_layers, num_heads,
-                 num_kv_heads=None, rope_base=10000.0,
-                 sliding_window=None, prefix=None, params=None):
+                 num_kv_heads=None, rope_base=10000.0, attn_impl="sdpa",
+                 sp_axis="sp", sliding_window=None, prefix=None,
+                 params=None):
         super().__init__(prefix=prefix, params=params)
         num_kv_heads = num_kv_heads or num_heads
         self._units = units
@@ -211,7 +229,8 @@ class LlamaModel(HybridBlock):
             self.embed = Embedding(vocab_size, units, prefix="embed_")
             self.layers = torch.nn.ModuleList(
                 _LlamaLayer(units, hidden, num_heads, num_kv_heads,
-                            rope_base, sliding_window=sliding_window,
+                            rope_base, attn_impl=attn_impl,
+                            sp_axis=sp_axis, sliding_window=sliding_window,
                             prefix=f"layer{i}_")
                 for i in range(num_layers))
             self.final_norm = RMSNormBlock(units, prefix="finalnorm_")
@@ -681,14 +700,16 @@ _LLAMA_SPECS = {
 }
 
 
-def get_llama(name, vocab_size=32000, **kwargs):
-    """The named configuration's :class:`LlamaModel` (on ``meta``)."""
+def get_llama(name, vocab_size=32000, attn_impl="sdpa", **kwargs):
+    """The named configuration's :class:`LlamaModel` (on ``meta``);
+    ``attn_impl="ring"`` splits each layer's attention over the ``sp``
+    axis (``sp_axis=``) of the current mesh."""
     if name not in _LLAMA_SPECS:
         raise MXNetError(f"unknown llama config {name!r}; options "
                          f"{sorted(_LLAMA_SPECS)}")
     spec = dict(_LLAMA_SPECS[name])
     spec.update(kwargs)
-    return LlamaModel(vocab_size=vocab_size, **spec)
+    return LlamaModel(vocab_size=vocab_size, attn_impl=attn_impl, **spec)
 
 
 def llama_tiny(**kwargs):

@@ -520,9 +520,16 @@ def _coerce(x, like: NDArray) -> NDArray:
     return array(np.asarray(x), ctx=like._ctx)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s (a sharded trainer step's) local tensor, else
+    ``t``."""
+    return getattr(t, "_local_tensor", t)
+
+
 def _shares_storage(t: torch.Tensor, inputs) -> bool:
-    ptr = t.untyped_storage().data_ptr()
-    return any(ptr == i.untyped_storage().data_ptr() for i in inputs)
+    ptr = _local(t).untyped_storage().data_ptr()
+    return any(ptr == _local(i).untyped_storage().data_ptr()
+               for i in inputs)
 
 
 # resolved once (a per-call import costs microseconds on the dispatch
@@ -712,15 +719,31 @@ def save(fname: str, data):
     """``mx.nd.save``: an NDArray, a list of them, or a dict of them by
     name, in the JAX package's MXTPU001 layout (its bytes exactly, so a
     file moves between the packages either way)."""
-    if fname.endswith(".safetensors"):
-        raise MXNetError("nd.save to .safetensors is not ported: it waits "
-                         "with models/hf_loader.py")
     if isinstance(data, NDArray):
         pairs = [("", data)]
     elif isinstance(data, dict):
         pairs = list(data.items())
     else:
         pairs = [("", d) for d in data]
+    if fname.endswith(".safetensors"):
+        # by extension, as the JAX package: unnamed entries are keyed by
+        # their index, and a saved list is marked in the metadata so
+        # that load gives a list back
+        from ..models.hf_loader import write_safetensors
+        was_list = not isinstance(data, (NDArray, dict))
+        named = {}
+        for i, (name, arr) in enumerate(pairs):
+            key = name or str(i)
+            if key in named:
+                raise MXNetError(
+                    f"save: duplicate tensor name {key!r} after "
+                    "index substitution — a tensor would be "
+                    "silently dropped")
+            named[key] = arr
+        write_safetensors(fname, named,
+                          metadata={"mxtpu_format": "list"}
+                          if was_list else None)
+        return
     with open(fname, "wb") as f:
         f.write(_MAGIC)
         f.write(struct.pack("<q", len(pairs)))
@@ -779,7 +802,25 @@ def _wrap_loaded(loaded):
 def load(fname: str):
     """``mx.nd.load``: a dict of NDArrays by name, or a list when the file
     was saved unnamed, on the current context.  Reads the JAX package's
-    files and the reference's dmlc ``.params`` files."""
+    files, the reference's dmlc ``.params`` files and ``.safetensors``
+    (a list when it was saved as one)."""
+    if fname.endswith(".safetensors"):
+        with open(fname, "rb") as f:
+            magic = f.read(8)
+        if magic != _MAGIC:
+            from ..models.hf_loader import read_safetensors
+            raw, meta = read_safetensors(fname, return_metadata=True)
+            ctx = current_context()
+            loaded = {name: NDArray(t.to(ctx.device, copy=True), ctx=ctx)
+                      for name, t in raw.items()}
+            if meta.get("mxtpu_format") == "list":
+                try:
+                    idx = sorted(int(k) for k in loaded)
+                except ValueError:
+                    return loaded
+                if idx == list(range(len(loaded))):
+                    return [loaded[str(i)] for i in idx]
+            return loaded
     with open(fname, "rb") as f:
         return _wrap_loaded(_load_numpy(f, fname))
 

@@ -128,6 +128,9 @@ def dot_product_attention(query, key, value, mask=None, scale=None,
     Returns (batch, seq_q, heads, head_dim)."""
     from ..contrib import amp
     from .flash_attention import _as_key_padding, _flash_apply, _window_arg
+    if _any_dtensor(query, key, value, mask):
+        return _on_local_heads(query, key, value, mask, scale, causal,
+                               window)
     query, key, value = amp.cast_inputs("dot_product_attention", query,
                                         key, value)
     # validated once, for both routes: the plain path must not run a
@@ -144,6 +147,52 @@ def dot_product_attention(query, key, value, mask=None, scale=None,
     if kmask is not None and mask.dim() == 2:
         mask = mask.reshape(mask.shape[0], 1, 1, mask.shape[1])
     return sdpa_plain(query, key, value, mask, s, causal, window=window)
+
+
+def _any_dtensor(*ts):
+    # a DTensor is a torch.Tensor subclass: a plain tensor is ruled out
+    # without importing torch.distributed
+    if all(t is None or type(t) is torch.Tensor for t in ts):
+        return False
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor) for t in ts)
+
+
+def _on_local_heads(query, key, value, mask, scale, causal, window):
+    """Attention of ``DTensor`` inputs (a sharded layout of
+    ``DataParallelTrainer``): each rank runs the kernels on its own batch
+    rows and heads, the dimensions the layout may shard; q, k and v
+    sharded anywhere else (or unlike each other) are gathered first.
+    The output is sharded as the inputs were."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    ref = next(t for t in (query, key, value, mask)
+               if isinstance(t, DTensor))
+    dm = ref.device_mesh
+
+    def as_dt(t):
+        return t if isinstance(t, DTensor) else DTensor.from_local(
+            t, dm, [Replicate()] * dm.ndim)
+
+    q, k, v = as_dt(query), as_dt(key), as_dt(value)
+    want = []
+    for i in range(dm.ndim):
+        pl = q.placements[i]
+        keep = isinstance(pl, Shard) and pl.dim in (0, 2) and \
+            k.placements[i] == pl and v.placements[i] == pl
+        want.append(pl if keep else Replicate())
+    q, k, v = (t.redistribute(dm, want) for t in (q, k, v))
+    m = None
+    if mask is not None:
+        m = as_dt(mask)
+        per_head = m.dim() == 4 and m.shape[1] == q.shape[2] > 1
+        m = m.redistribute(dm, [
+            Shard(0) if w == Shard(0) else
+            Shard(1) if w == Shard(2) and per_head else Replicate()
+            for w in want]).to_local()
+    out = dot_product_attention(q.to_local(), k.to_local(), v.to_local(),
+                                m, scale=scale, causal=causal,
+                                window=window)
+    return DTensor.from_local(out, dm, want)
 
 
 @register("dot_product_attention", num_inputs=None)

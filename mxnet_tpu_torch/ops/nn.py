@@ -778,11 +778,38 @@ def _slab_logits(h, weight, bias, lo, hi, ct):
 
 
 def _chunked_ce(hidden, weight, bias, label, chunk, axis_name):
-    if axis_name is not None:
-        raise MXNetError("chunked_softmax_ce: axis_name (a vocabulary "
-                         "sharded over a tensor-parallel axis) is not "
-                         "ported")
-    return _ChunkedCE.apply(hidden, weight, bias, label, int(chunk))
+    if axis_name is None:
+        return _ChunkedCE.apply(hidden, weight, bias, label, int(chunk))
+    return _vocab_sharded_ce(hidden, weight, bias, label, chunk, axis_name)
+
+
+def _vocab_sharded_ce(hidden, weight, bias, label, chunk, axis_name):
+    """The loss of a vocabulary whose rows are split over ``axis_name``
+    (rank i holds rows [i V_l, (i+1) V_l)): this rank's slabs give its
+    log-normalizer (the slab walk with no label inside) and its label
+    logits (one row of ``weight`` a token, 0 for a label another rank
+    holds); one max and one sum over the group assemble the loss, the
+    same on every rank.  ``hidden``'s gradient is summed over the ranks
+    (it is used by each), the loss's cotangent passes through the sum
+    (one copy of the loss), as the JAX function's inside ``shard_map``."""
+    from ..parallel import collectives as col
+    ax = col._axis(axis_name)
+    h = col._CopyToAxis.apply(hidden, ax)
+    v = weight.shape[0]
+    lbl = label.to(device=hidden.device).long().reshape(-1) - ax.index * v
+    lse = _ChunkedCE.apply(h, weight, bias, torch.full_like(lbl, -1),
+                           int(chunk))
+    inside = (lbl >= 0) & (lbl < v)
+    idx = lbl.clamp(0, v - 1)
+    ct = torch.promote_types(hidden.dtype, weight.dtype)
+    picked = (h.to(ct) * weight[idx].to(ct)).sum(dim=-1).float()
+    if bias is not None:
+        picked = picked + bias[idx].float()
+    lab = torch.where(inside, picked, torch.zeros_like(picked))
+    m = col._all_reduce(lse.detach(), ax, "max")
+    s, lab = col._PSumReplicated.apply(
+        torch.stack([torch.exp(lse - m), lab]), ax)
+    return m + torch.log(s) - lab
 
 
 @register("chunked_softmax_ce", num_inputs=3)
@@ -794,7 +821,14 @@ def chunked_softmax_ce(hidden, weight, label, *, chunk=8192,
     rows, and the backward recomputes each slab, so activation memory
     is O(N * chunk).  ``hidden`` (N, U); ``weight`` (V, U), the tied
     embedding or the head (both take gradients); ``label`` (N,) class
-    ids.  Returns the per-row loss (N,), float32."""
+    ids.  Returns the per-row loss (N,), float32.  With ``axis_name``
+    (an axis of the current mesh, tensor parallel) ``weight`` is this
+    rank's vocabulary shard (V/tp, U), the ranks tiling the rows in
+    order, and ``label`` holds global ids: the same slab walk runs on
+    each shard and one max and one sum over the axis assemble the loss
+    (``parallel.collectives.vocab_parallel_softmax_ce`` is the one-slab
+    case).  The bias of ``chunked_softmax_ce_bias`` is then this rank's
+    (V/tp,) shard."""
     return _chunked_ce(hidden, weight, None, label, chunk, axis_name)
 
 

@@ -293,19 +293,17 @@ def reduce_scatter(x, axis_name=None, *, scatter_dimension=0,
     return _rewrap(out.movedim(0, d) if tiled else out, c)
 
 
-def ppermute(x, axis_name, perm):
-    """``lax.ppermute``: member ``src`` sends to ``dst`` for each pair of
-    ``perm``; a member nothing is sent to gets zeros."""
+def _ppermute(t, ax, perm):
+    """``t`` sent along ``perm``'s (src, dst) pairs; a member nothing is
+    sent to gets zeros."""
     import torch.distributed as dist
-    t, c = _unwrap(x)
-    ax = _axis(axis_name)
     t = t.contiguous()
     out = torch.zeros_like(t)
     if ax.group is None:
         for s, d in perm:
             if s == d == 0:
                 out.copy_(t)
-        return _rewrap(out, c)
+        return out
     ax.check(t)
     ranks = dist.get_process_group_ranks(ax.group)
     ops = []
@@ -321,7 +319,31 @@ def ppermute(x, axis_name, perm):
     if ops:
         for w in dist.batch_isend_irecv(ops):
             w.wait()
-    return _rewrap(out, c)
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    """A permute whose backward sends the cotangents back along the
+    inverse pairs (``lax.ppermute``'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, t, ax, perm):
+        ctx.ax, ctx.perm = ax, perm
+        return _ppermute(t, ax, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(g, ctx.ax, [(d, s) for s, d in ctx.perm]), \
+            None, None
+
+
+def ppermute(x, axis_name, perm):
+    """``lax.ppermute``: member ``src`` sends to ``dst`` for each pair of
+    ``perm``; a member nothing is sent to gets zeros.  Differentiable:
+    the cotangents go back along the inverse pairs."""
+    t, c = _unwrap(x)
+    perm = [(int(s), int(d)) for s, d in perm]
+    return _rewrap(_PPermute.apply(t, _axis(axis_name), perm), c)
 
 
 def all_to_all(x, axis_name, split_axis, concat_axis, tiled=True):
@@ -571,13 +593,15 @@ def vocab_parallel_softmax_ce(hidden, w_local, label, axis_name, chunk=None):
     Returns the per-row loss (N,), f32, the same on every rank; its
     gradient is that of one copy of the loss: ``w_local``'s is this
     rank's rows', ``hidden``'s is summed over the ranks, as the JAX
-    function's inside ``shard_map``.  ``chunk`` (streaming the local
-    slab) needs ``chunked_softmax_ce``'s ``axis_name``, which comes with
-    ROADMAP queue 1 item 4."""
+    function's inside ``shard_map``.  ``chunk`` streams the local slab:
+    ``chunked_softmax_ce(axis_name=)``, whose activations are
+    O(N * chunk), with the same two collectives."""
     if chunk is not None:
-        raise MXNetError("vocab_parallel_softmax_ce(chunk=) needs "
-                         "chunked_softmax_ce(axis_name=), which is not "
-                         "ported (ROADMAP queue 1 item 4)")
+        from ..ops.nn import _chunked_ce
+        h, c = _unwrap(hidden)
+        return _rewrap(_chunked_ce(h, _unwrap(w_local)[0], None,
+                                   _unwrap(label)[0], chunk,
+                                   _axis(axis_name)), c)
     h, c = _unwrap(hidden)
     w, _ = _unwrap(w_local)
     lbl, _ = _unwrap(label)

@@ -54,9 +54,34 @@ raises (with NCCL, a torch that cannot capture a collective raises
 here).  ``step_multi`` runs K such steps over (K, B, ...) batches, or
 over one batch with ``repeat=K``, and returns the K losses.  On the CPU
 the same step body runs eagerly, over gloo.  ``state_bytes`` is this
-rank's optimizer-state memory.  ``param_sharding=`` and ``plan=``
-(tensor- and pipeline-parallel layouts) are ROADMAP queue 1 item 4 and
-raise.  The reference's RMSProp rule runs the plain update whatever
+rank's optimizer-state memory.
+
+``param_sharding=`` (a ``(name, shape) -> PartitionSpec | None`` rule
+over the gluon names, as ``parallel.moe_param_rule`` and
+``planning.llama_param_rule`` make) and ``plan=`` (a ``ShardingPlan``:
+its axes make the mesh, its rules the layout, its ``zero_stage``
+overrides ``MXTPU_ZERO_STAGE``; default the plan ``MXTPU_SHARDING_PLAN``
+names, which explicit arguments override) lay the parameters out over
+the mesh's other axes (tensor and expert parallel), with the reference's
+conflicts: ``plan`` with ``param_sharding``, a ``dp_axis`` or ``mesh``
+unlike the plan's, and compression with a rule each raise; a rule makes
+ZeRO ineligible.  Such a layout runs on ``torch.distributed.tensor``: the
+mesh becomes a ``DeviceMesh`` of the same ranks and axis names, each
+parameter a ``DTensor`` sharded as its spec says
+(``planner.placements``), the rank's rows a ``DTensor`` sharded over
+``dp`` and whole on the other axes, and the forward, the loss and
+``torch.autograd.grad`` run on them under ``implicit_replication`` (a
+tensor the model makes is whole on every rank).  So each product on a
+sharded weight runs on this rank's shard and DTensor inserts the
+collectives, as GSPMD does under the JAX trainer; attention runs its
+kernels on each rank's batch rows and heads (``ops.attention``).  Each
+gradient is reduced to its parameter's placements, the optimizer
+updates this rank's shards (its states are the shards' size), and the
+block's own tensors receive the gathered weights after every step.  A
+sharded layout needs a process group (a launched job, of one rank on a
+one-card machine) and runs eagerly, without the CUDA graph.  A plan
+whose rules shard nothing on its mesh is data parallel, as in the
+reference.  The reference's RMSProp rule runs the plain update whatever
 ``centered`` says; the port's runs the optimizer's own (ROADMAP queue
 3, R2).  The reference's compressed and ZeRO steps normalise BatchNorm
 over each device's rows; the port's over the global batch in every
@@ -185,18 +210,62 @@ class DataParallelTrainer:
         docstring); required by ``step_multi``, compression and ZeRO.
       compression: ``{"type": "int8"}`` or ``{"type": "2bit",
         "threshold": t}`` for the gradient exchange.
-      param_sharding, plan: not ported (ROADMAP queue 1 item 4).
+      param_sharding: a ``(name, shape) -> PartitionSpec | None`` rule
+        over the gluon parameter names (see the module docstring).
+      plan: a ``parallel.ShardingPlan``, instead of ``mesh``/
+        ``dp_axis``/``param_sharding``.
     """
 
     def __init__(self, block, loss_fn: Callable, optimizer,
                  optimizer_params=None, mesh=None, dp_axis: str = "dp",
                  param_sharding=None, fuse_step: bool = False,
                  compression=None, plan=None):
-        if param_sharding is not None or plan is not None:
+        from . import planner
+        # the environment's plan is ambient: explicit layout arguments
+        # win over it (a rule skips it; a mesh or dp_axis unlike it
+        # warns and keeps the arguments); an explicit plan= is strict
+        if plan is None and param_sharding is None:
+            env_plan = planner.plan_from_env()
+            mesh_conflict = env_plan is not None and mesh is not None \
+                and dict(mesh.shape) != dict(env_plan.axes)
+            axis_conflict = env_plan is not None and \
+                dp_axis not in ("dp", env_plan.dp_axis)
+            if mesh_conflict or axis_conflict:
+                what = "mesh axes" if mesh_conflict else "dp_axis"
+                warnings.warn(
+                    f"MXTPU_SHARDING_PLAN disagrees with this "
+                    f"trainer's explicit {what}; ignoring the env "
+                    "plan (explicit args win)", stacklevel=2)
+            else:
+                plan = env_plan
+        if plan is not None:
+            if not isinstance(plan, planner.ShardingPlan):
+                raise MXNetError(
+                    f"plan= must be a parallel.ShardingPlan, got "
+                    f"{type(plan).__name__}")
+            if param_sharding is not None:
+                raise MXNetError(
+                    "pass plan= OR param_sharding=, not both — the "
+                    "plan's rules ARE the param layout")
+            if dp_axis not in ("dp", plan.dp_axis):
+                raise MXNetError(
+                    f"dp_axis {dp_axis!r} conflicts with the plan's "
+                    f"dp_axis {plan.dp_axis!r}")
+            dp_axis = plan.dp_axis
+            if mesh is None:
+                mesh = plan.build_mesh(devices=[_device_of(block)])
+            elif dict(mesh.shape) != dict(plan.axes):
+                raise MXNetError(
+                    f"mesh axes {dict(mesh.shape)} do not match the "
+                    f"plan's {dict(plan.axes)}")
+            param_sharding = plan.param_rule()
+        self.plan = plan
+        self._param_sharding = param_sharding
+        if param_sharding is not None and compression is not None:
             raise MXNetError(
-                "DataParallelTrainer(param_sharding=, plan=) are tensor- "
-                "and pipeline-parallel layouts, which are not ported "
-                "(ROADMAP queue 1 item 4)")
+                "gradient compression is a data-parallel wire "
+                "optimization; it cannot combine with a "
+                "param_sharding (tensor-parallel) rule")
         self.block = block
         self.loss_fn = loss_fn
         if isinstance(optimizer, opt.Optimizer):
@@ -229,6 +298,7 @@ class DataParallelTrainer:
         self._scalars = None
         self._compression = self._check_compression(compression)
         self._zero_stage = self._choose_zero_stage()
+        self._dmesh = None
         if not any(isinstance(p, UninitializedParameter)
                    for p in block.parameters()):
             self._setup()
@@ -258,15 +328,19 @@ class DataParallelTrainer:
         return cfg
 
     def _choose_zero_stage(self):
-        """``MXTPU_ZERO_STAGE`` when this trainer can shard its update,
+        """The plan's ``zero_stage`` when it sets one, else
+        ``MXTPU_ZERO_STAGE``, when this trainer can shard its update,
         else 0 (with a warning, as the reference).  A dp axis of one rank
         shards only in a launched job (a process group of one), where
         the slice is the whole parameter and the collectives still run."""
-        stage = zero.stage_from_env()
+        if self.plan is not None and self.plan.zero_stage is not None:
+            stage = int(self.plan.zero_stage)
+        else:
+            stage = zero.stage_from_env()
         if not stage or (self._n == 1 and self._axis.group is None):
             return 0
         reason = zero.eligibility(self._fuse, self._compression,
-                                  self.optimizer)
+                                  self.optimizer, self._param_sharding)
         if reason is not None:
             warnings.warn(f"MXTPU_ZERO_STAGE={stage} requested but this "
                           f"trainer cannot shard its update ({reason}); "
@@ -288,6 +362,10 @@ class DataParallelTrainer:
                 raise MXNetError(f"a parameter is on {p.device}, the mesh "
                                  f"on {dev}: initialize the block on the "
                                  "mesh's device")
+        self._dmesh = None
+        if self._param_sharding is not None:
+            self._setup_sharded()
+            return
         self._buckets = _buckets(self._params, BUCKET_BYTES)
         if self._zero_stage:
             self._layout = col._layout([p.numel() for p in self._params],
@@ -303,6 +381,90 @@ class DataParallelTrainer:
         if self._compression and self._compression["type"] == "2bit":
             self._residuals = [torch.zeros_like(p, dtype=torch.float32)
                                for p in self._params]
+
+    def _setup_sharded(self):
+        """The rule's layout on ``torch.distributed.tensor``: the
+        ``DeviceMesh`` of the mesh's ranks and axis names, each trainable
+        parameter's placements and its ``DTensor`` (this rank's shard,
+        from rank 0's values), the batch's placements (rows over ``dp``,
+        whole elsewhere) and the optimizer's states of the shards."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.distributed.tensor import Replicate, Shard, \
+            distribute_tensor
+        from . import planner
+        if not (dist.is_available() and dist.is_initialized()):
+            raise MXNetError(
+                "a param_sharding layout runs on torch.distributed.tensor, "
+                "which needs a process group: start the job with `python "
+                "-m mxnet_tpu_torch.launch -n W ...` (W = 1 on one card)")
+        mesh = self.mesh
+        axes = list(mesh.shape)
+        dm = getattr(mesh, "_device_mesh", None)
+        if dm is None:
+            dm = DeviceMesh(mesh.device.type, torch.arange(mesh.size).reshape(
+                [int(mesh.shape[a]) for a in axes]),
+                mesh_dim_names=tuple(axes))
+            mesh._device_mesh = dm
+        gluon = {id(p._tensor): name
+                 for name, p in self.block.collect_params().items()}
+        named = [(n, t) for n, t in self.block.named_parameters()
+                 if t.requires_grad]
+        self._placements = [list(pl) for pl in planner.resolve_shardings(
+            mesh, [(gluon.get(id(t), n), tuple(t.shape)) for n, t in named],
+            self._param_sharding)]
+        dparams = {n: distribute_tensor(t.detach(), dm, pl).requires_grad_()
+                   for (n, t), pl in zip(named, self._placements)}
+        self._dparams = dparams
+        self._dmesh = dm
+        self._batch_pl = [Shard(0) if a == self.dp_axis else Replicate()
+                          for a in axes]
+        self._states = self._rule.states(
+            self.optimizer, [d.to_local() for d in dparams.values()])
+
+    def _sharded_body(self, nd_in, given, *tensors):
+        """One step of a sharded layout: the rank's rows as ``DTensor``s,
+        the block over the parameters' ``DTensor``s
+        (``functional_call``), the global mean loss, the gradients
+        reduced to each parameter's placements, the optimizer on this
+        rank's shards, and the gathered weights into the block."""
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        dm = self._dmesh
+        it = iter(tensors)
+        data = [DTensor.from_local(next(it), dm, self._batch_pl)
+                if g else None for g in given]
+        label = DTensor.from_local(next(it), dm, self._batch_pl)
+        params = list(self._dparams.values())
+        with implicit_replication(), torch.enable_grad():
+            if nd_in:
+                ctx = _ctx_of(self.mesh.device)
+                with autograd.record():
+                    out = torch.func.functional_call(
+                        self.block, self._dparams,
+                        tuple(None if t is None else NDArray(t, ctx=ctx)
+                              for t in data))
+                    loss = self.loss_fn(out, NDArray(label, ctx=ctx))
+            else:
+                out = torch.func.functional_call(self.block, self._dparams,
+                                                 tuple(data))
+                loss = self.loss_fn(out, label)
+            loss = (loss.tensor if isinstance(loss, NDArray)
+                    else loss).mean()
+            grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                        materialize_grads=True)
+        with torch.no_grad():
+            grads = [g.redistribute(dm, pl).to_local()
+                     for g, pl in zip(grads, self._placements)]
+            self._rule.apply(self.optimizer,
+                             [p.to_local() for p in params], grads,
+                             self._states, self._scalars)
+            named = dict(self.block.named_parameters())
+            for name, p in self._dparams.items():
+                named[name].copy_(p.full_tensor())
+            loss = loss.detach().full_tensor()
+        return (loss,)
 
     def _resolve_shapes(self, data):
         """One predict-mode call without recording, so that every
@@ -494,11 +656,13 @@ class DataParallelTrainer:
         self._scalars = self._rule.stage(self.optimizer, self.mesh.device, t)
         given = tuple(x is not None for x in data)
         tensors = [x for x in data if x is not None] + [label]
-        body = functools.partial(self._body, nd_in, given)
+        sharded = self._dmesh is not None
+        body = functools.partial(
+            self._sharded_body if sharded else self._body, nd_in, given)
         was_training = self.block.training
         self.block.train()
         try:
-            if self._fuse:
+            if self._fuse and not sharded:
                 key = (nd_in, given, self._rule.static_key(self.optimizer),
                        amp.target_dtype(), self._zero_stage,
                        None if self._compression is None
@@ -519,7 +683,8 @@ class DataParallelTrainer:
         loss = self._run(data, label, nd_in)
         # a replay's output is the graph's buffer, which the next
         # replay overwrites
-        return self._out(loss.clone() if self._fuse else loss, nd_in)
+        return self._out(loss.clone() if self._fuse and self._dmesh is None
+                         else loss, nd_in)
 
     def step_multi(self, data, label, repeat=None):
         """K steps: over (K, B, ...) ``data`` and (K, B, ...) ``label``,

@@ -26,10 +26,15 @@ def stage_from_env() -> int:
     return stage
 
 
-def eligibility(fuse_step, compression, optimizer) -> Optional[str]:
+def eligibility(fuse_step, compression, optimizer,
+                param_sharding=None) -> Optional[str]:
     """None when a trainer can run the sharded update, else why not (the
     reference's reasons: every fused rule is pointwise in the flat
     parameter, so only these remain)."""
+    if param_sharding is not None:
+        return ("ZeRO shards the UPDATE of dp-replicated params; a "
+                "param_sharding (tensor-parallel) rule already shards "
+                "the params themselves")
     if not fuse_step:
         return ("ZeRO needs fuse_step=True (the sharded update lives "
                 "inside the step)")

@@ -4,9 +4,9 @@ Each script is copied with ``mxnet_tpu`` renamed ``mxnet_tpu_torch`` and
 run in a child process inside ``with mx.cpu():`` (the port's entry
 points default to the card), with the repository on ``PYTHONPATH``.
 The arguments and the asserted output are ``tests/test_examples.py``'s
-for the same script.  These are the examples the port runs so far
-(ROADMAP queue 1 item 2 counts them); the others stop at a module the
-port lacks.
+for the same script.  All sixteen of ``example/`` run here:
+``distributed_training`` and ``llama_spmd_finetune`` in several workers
+through ``python -m mxnet_tpu_torch.launch``, the others in one process.
 """
 import os
 import subprocess
@@ -96,3 +96,30 @@ def test_distributed_training_through_the_launcher(tmp_path):
         cwd=str(tmp_path), env=env)
     assert res.returncode == 0, res.stdout[-1500:] + res.stderr[-1500:]
     assert res.stdout.count("final loss") == 2
+
+
+def test_llama_spmd_finetune_through_the_launcher(tmp_path):
+    """``example/llama_spmd_finetune.py`` (TP, PP = 2, 4) in eight
+    workers, one a rank of its (tp, pp) mesh, with
+    ``tests/test_examples.py``'s arguments: each writes its synthetic
+    checkpoint, trains the stacked layers and takes part in the
+    resharded save, which rank 0 writes and reports.  The script's own
+    ``import jax`` stays: only the port's modules must not import it."""
+    with open(os.path.join(REPO, "example", "llama_spmd_finetune.py")) as f:
+        src = f.read()
+    script = tmp_path / "llama_spmd_finetune.py"
+    script.write_text(src.replace("mxnet_tpu", "mxnet_tpu_torch"))
+    runner = tmp_path / "run_example.py"
+    runner.write_text(RUNNER)
+    env = torch_threads.child_env(
+        PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env["OMP_NUM_THREADS"] = "1"
+    env["TMPDIR"] = str(tmp_path)
+    res = torch_dist.run_group(
+        [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", "8",
+         sys.executable, str(runner), str(script), "--steps", "2",
+         "--seq", "16", "--batch", "4"], timeout=240,
+        cwd=str(tmp_path), env=env)
+    assert res.returncode == 0, res.stdout[-1500:] + res.stderr[-1500:]
+    assert "[worker 0] resharded save" in res.stdout
+    assert res.stdout.count("step 1: loss") == 8

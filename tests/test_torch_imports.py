@@ -299,9 +299,81 @@ def test_item_1_4_names_exist_in_both_packages(path):
         assert obj is not None
 
 
-#: what the port's registry still lacks of the JAX package's: the MoE
-#: layer's op, which comes with ROADMAP queue 1 item 4
-STILL_MISSING = ("_contrib_MoEFFN",)
+_CHILD_SPMD = r"""
+import sys, tempfile
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import nd, parallel
+from mxnet_tpu_torch.gluon.contrib.nn import MoEFFN
+from mxnet_tpu_torch.models import hf_loader, llama_spmd
+from mxnet_tpu_torch.models.llama import LlamaForCausalLM, get_llama
+with mx.cpu():
+    plan = parallel.ShardingPlan({"dp": 1, "tp": 1}, parallel.megatron_rules())
+    mesh = parallel.make_mesh({"tp": 1, "pp": 1})
+    net = LlamaForCausalLM(get_llama("llama_tiny", vocab_size=61,
+                                     num_layers=2), ctx=mx.cpu())
+    d = tempfile.mkdtemp()
+    hf_loader.export_hf_llama(net, d, max_shard_bytes=1 << 16)
+    params, specs, cfg = llama_spmd.load_llama_stacked(d, mesh, 4, 2)
+    toks = np.zeros((2, 8), "i8")
+    loss, params = llama_spmd.train_step(params, toks, cfg, mesh, specs)
+    import torch
+    q = torch.zeros(1, 4, 2, 8)
+    parallel.ring_attention(q, q, q, mesh=parallel.make_mesh({"sp": 1}))
+    MoEFFN(8, 16, 2)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "mxnet_tpu" or m.startswith("mxnet_tpu."))
+print("FOREIGN", bad)
+"""
+
+
+def test_parallel_breadth_in_a_fresh_process_loads_no_jax():
+    """The planner, llama_spmd's steps (the pipeline), hf_loader, ring
+    attention and MoEFFN import neither JAX nor the JAX package."""
+    _run_child(_CHILD_SPMD)
+
+
+#: queue 1 item 4 and hf_loader: public names both packages have
+ITEM_4 = ("parallel.ShardingPlan", "parallel.megatron_rules",
+          "parallel.moe_param_rule", "parallel.llama_param_rule",
+          "parallel.sharding_plan", "parallel.pipeline_apply",
+          "parallel.pipeline_value_and_grad", "parallel.ring_attention",
+          "parallel.ring_attention_sharded", "parallel.planner.plan_from_env",
+          "parallel.planner.resolve_plan_axis", "parallel.planner.flat_rows",
+          "parallel.planner.note_plan", "parallel.planner.plans",
+          "parallel.planner.diff_records", "parallel.planner.SCALAR",
+          "parallel.planner.resolve_shardings",
+          "parallel.collectives.vocab_parallel_softmax_ce",
+          "nd._contrib_MoEFFN", "nd.contrib.MoEFFN",
+          "gluon.contrib.nn.MoEFFN", "models.hf_loader.read_safetensors",
+          "models.hf_loader.write_safetensors",
+          "models.hf_loader.write_safetensors_sharded",
+          "models.hf_loader.load_hf_llama", "models.hf_loader.export_hf_llama",
+          "models.hf_loader.load_hf_bert", "models.hf_loader.export_hf_bert",
+          "models.load_hf_llama", "models.export_hf_llama",
+          "models.read_safetensors", "models.llama_spmd.load_llama_stacked",
+          "models.llama_spmd.make_stage_fn",
+          "models.llama_spmd.make_chunked_loss",
+          "models.llama_spmd.forward_logits", "models.llama_spmd.train_step",
+          "models.llama_spmd.save_llama_stacked")
+
+
+@pytest.mark.parametrize("path", ITEM_4)
+def test_item_4_names_exist_in_both_packages(path):
+    import mxnet_tpu as jmx
+    import mxnet_tpu.models.llama_spmd  # noqa: F401 (not imported eagerly)
+    import mxnet_tpu.parallel.planner  # noqa: F401
+    for pkg in (jmx, mx):
+        obj = pkg
+        for part in path.split("."):
+            obj = getattr(obj, part)
+        assert obj is not None
+
+
+#: what the port's registry still lacks of the JAX package's: nothing
+#: since the MoE layer's op came with ROADMAP queue 1 item 4
+STILL_MISSING = ()
 
 
 def _vision_and_detection():
@@ -341,10 +413,10 @@ def test_the_registry_lacks_exactly_the_queued_names():
     from mxnet_tpu_torch.ops.registry import list_ops
     port, ref = set(list_ops()), set(jreg.list_ops())
     names = _vision_and_detection()
-    assert len(STILL_MISSING) == 1 and len(names) == 27
+    assert len(STILL_MISSING) == 0 and len(names) == 27
     assert set(names) <= port
     assert sorted(ref - port) == sorted(STILL_MISSING)
-    assert len(port & ref) == 287
+    assert len(port & ref) == 288
 
 
 def test_no_source_imports_jax_or_the_jax_package():

@@ -423,8 +423,14 @@ def test_rms_norm_is_float32_under_amp():
 def test_chunked_softmax_ce_checks():
     h, w = nd.array(_u(2, 4), ctx=CPU), nd.array(_u(5, 4), ctx=CPU)
     lbl = nd.array([0.0, 4.0], ctx=CPU)
-    with pytest.raises(MXNetError, match="axis_name"):
-        nd.chunked_softmax_ce(h, w, lbl, axis_name="tp")
+    # axis_name is a tensor-parallel axis of the current mesh (one
+    # without it raises)
+    from mxnet_tpu_torch import parallel
+    try:
+        with mx.cpu(), pytest.raises(MXNetError, match="no axis 'tp'"):
+            nd.chunked_softmax_ce(h, w, lbl, axis_name="tp")
+    finally:
+        parallel.set_mesh(None)
     with pytest.raises(MXNetError, match="chunk"):
         nd.chunked_softmax_ce(h, w, lbl, chunk=0)
     with pytest.raises(MXNetError, match="flash=False"):
@@ -441,10 +447,12 @@ def test_every_op_has_a_case():
     (REGISTRY_OPS), test_torch_vision_ops.py (VISION_OPS),
     test_torch_detection.py (DETECTION_OPS), test_torch_quantization.py
     (QUANT_OPS), test_torch_deformable.py (DEFORMABLE_OPS),
-    test_torch_registry_tail.py (TAIL_OPS), or by its statistics in
-    test_torch_autograd.py (the samplers, Dropout)."""
+    test_torch_registry_tail.py (TAIL_OPS), test_torch_moe.py
+    (MOE_OPS), or by its statistics in test_torch_autograd.py (the
+    samplers, Dropout)."""
     from test_torch_deformable import DEFORMABLE_OPS
     from test_torch_detection import DETECTION_OPS
+    from test_torch_moe import MOE_OPS
     from test_torch_optimizer import UPDATE_OPS
     from test_torch_quantization import QUANT_OPS
     from test_torch_registry_ops import REGISTRY_OPS
@@ -463,7 +471,7 @@ def test_every_op_has_a_case():
         | RANDOM_OPS | CONV_OPS \
         | RNN_OPS | NN_LAYER_OPS | set(LLAMA_OPS) | REGISTRY_OPS \
         | VISION_OPS | DETECTION_OPS | QUANT_OPS | DEFORMABLE_OPS \
-        | TAIL_OPS
+        | TAIL_OPS | MOE_OPS
     missing = sorted(set(list_ops()) - covered)
     assert missing == []
 
