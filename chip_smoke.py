@@ -438,6 +438,48 @@ Phases, each printing JSON lines:
             param_sharding=moe_param_rule("ep")) on {"dp": 1, "ep": 1}:
             step ms, peak memory, the aux loss, each expert's tokens, the
             first loss against the CPU port's from the same weights.
+41. zoo_parity: one net of each kind of the vision zoo (vgg11, vgg11_bn,
+            alexnet, squeezenet1.0 and 1.1, mobilenet0.25,
+            mobilenetv2_0.25, densenet121, inceptionv3; 1000 classes,
+            batch 2 at 224 x 224, 299 x 299 for Inception v3) on the card
+            against the CPU port from the same weights in float32
+            (PyTorch's default TF32 flags): the predict-mode output, then
+            the gradients of one SGD step, the running statistics and
+            the weights after it; a grouped, a depthwise and a transposed
+            convolution against float64 (TF32 stays off); the same step
+            in float64 on both devices; every other of
+            the 34 names: one forward at batch 2, shape and finiteness.
+42. zoo:     alexnet, vgg16, vgg16_bn, squeezenet1.1, mobilenet1.0,
+            mobilenetv2_1.0, densenet121 and inceptionv3 at batch 32,
+            1000 classes, hybridized, bf16 AMP (upstream
+            benchmark_score.py's setting): inference and the SGD gluon
+            loop (momentum 0.9), images a second, device ms and the busy
+            share, MFU, peak memory, the first and last loss on the fixed
+            batch (which must fall).
+43. detector_parity: yolo3_tiny, faster_rcnn_tiny and simple_pose_tiny
+            on the card against the CPU port in float32: the forward, 3
+            Adam steps (the tests' rule: the card's distance to the CPU's
+            float64 run within the larger of 1e-4 and 4 times the CPU's
+            float32 distance), one capture and replays of each
+            hybridized net; YOLO's build_targets, R-CNN's proposal
+            indices and SimplePose's predict exactly.
+44. yolo:    YOLOv3 at COCO's 80 classes, 416 x 416, base width 32 (the
+            JAX model's six-convolution stem at Darknet-53's stage
+            widths), GluonCV's yolo3_darknet53_coco anchors; batch 16 of
+            seeded squares with up to 8 GT rows, hybridized, bf16 AMP,
+            Adam 2e-3: the step's median and range, images a second,
+            device ms and the busy share, peak memory, the first and
+            last loss (falling), decode's time.
+45. rcnn:    Faster R-CNN at 600 x 600, anchors 32-512, 300 proposals,
+            7 x 7 RoIs, VOC's 20 classes (GluonCV
+            faster_rcnn_resnet50_v1b_voc's; the JAX model's stride-8
+            backbone); batch 4, hybridized (topk and ROIAlign in the
+            captured forward), bf16 AMP, Adam 2e-5: as yolo.
+46. pose:    SimplePose over resnet50_v1, three 256-channel
+            deconvolutions, 256 x 256 inputs, 64 x 64 heatmaps of 16
+            keypoints (Xiao et al. 2018's MPII setting); batch 32, bf16
+            AMP, Adam 2e-3: as yolo, and PCK@0.1 on the fixed batch
+            before and after.
 
 The kernels phase also runs K1-K3 at Llama-3-8B's training shape (B=1,
 S=4096, H=32 over KV=8, D=128, causal, bf16), and at NMT's shapes (b32,
@@ -475,7 +517,7 @@ ALL_PHASES = ("device,build,kernels,parity,serve,train_parity,"
               "wordlm_parity,wordlm,data,fp16_parity,optimizers_parity,"
               "bert_fp16,nmt_parity,nmt,vision_parity,seg,det_parity,det,"
               "int8_parity,int8,registry_parity,dp_parity,dp,spmd_parity,"
-              "spmd,moe")
+              "spmd,moe,zoo_parity,zoo,detector_parity,yolo,rcnn,pose")
 SERVING_PHASES = {"device", "build", "parity", "serve"}
 
 
@@ -1858,15 +1900,16 @@ def phase_resnet_parity(mx, dev):
 
 def _resnet_flops(net, x):
     """Forward FLOPs of one call of ``net`` on ``x`` (2 a multiply-add),
-    from the shapes its convolutions and Dense layers see in that
-    call."""
+    from the shapes its convolutions (transposed ones by their input) and
+    Dense layers see in that call."""
     from mxnet_tpu_torch.gluon.nn import Dense
     from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
     total = [0]
 
     def conv_hook(mod, inputs, out):
         w = mod._tensor("weight")
-        total[0] += 2 * out.numel() * w[0].numel()
+        seen = inputs[0] if mod._transposed else out
+        total[0] += 2 * seen.numel() * w[0].numel()
 
     def dense_hook(mod, inputs, out):
         total[0] += 2 * out.numel() * mod._tensor("weight").shape[1]
@@ -1924,27 +1967,9 @@ def phase_resnet(mx, dev, cfg=RESNET50):
         parts = {}
 
         def measure(part, call, read, flops, owner):
-            for _ in range(warmup):
-                out = call()
-            first_read = read(out)
-            torch.cuda.reset_peak_memory_stats(dev)
-            replays0 = owner.replays
-            bwd0 = getattr(owner, "backward_replays", 0)
-            step_s, naive_s, windows, used, last = timed_windows(
-                call, n1, steps, f"resnet {part}", read=read)
-            peak = torch.cuda.max_memory_allocated(dev)
-            row = {"step_ms": step_s * 1e3, "naive_step_ms": naive_s * 1e3,
-                   "timing": used, "windows": [n1, steps],
-                   "window_s": windows, "images_per_s": b / step_s,
-                   "flops_per_step": flops,
-                   "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
-                   "peak_mem_bytes": peak, "captures": owner.captures,
-                   "replays_counted": owner.replays - replays0,
-                   "backward_replays_counted":
-                       getattr(owner, "backward_replays", 0) - bwd0,
-                   "first_read": first_read, "last_read": last}
-            parts[part] = row
-            return row
+            parts[part] = measure_loop(dev, call, read, f"resnet {part}", b,
+                                       flops, owner, (n1, steps), warmup)
+            return parts[part]
 
         # inference: predict mode, no recording
         op = net._cached_op
@@ -4984,6 +5009,56 @@ def timed_windows(call, n1, n2, what, read=last_loss):
     if slope <= 0 or slope < 0.2 * naive:
         slope, used = naive, "naive"
     return slope, naive, [t_small, dt], used, last
+
+
+def measure_loop(dev, call, read, what, batch, flops, owner, windows,
+                 warmup=0, profile=False):
+    """One call of a hybridized net (an inference, or a training step)
+    after ``warmup`` calls: its time by the two-window slope of
+    ``windows`` calls (``timed_windows``, ``read`` the host read that ends
+    a window; the two windows' mean step beside it), images a second for
+    ``batch`` images a call, the bf16 MFU of ``flops`` a call, the peak
+    memory allocated over the windows, ``owner``'s (a CachedOp's or a
+    trainer's) captures and replays in the windows, the read after the
+    warm-up (``first_read``) and after the windows (``last_read``); with
+    ``profile``, one profiled call (``breakdown``) and its top kernels."""
+    import torch
+    out = None
+    for _ in range(warmup):
+        out = call()
+    first_read = None if out is None else read(out)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cap0, rep0 = owner.captures, owner.replays
+    bwd0 = getattr(owner, "backward_replays", 0)
+    n1, n2 = windows
+    step_s, naive_s, window_s, used, last = timed_windows(call, n1, n2, what,
+                                                          read=read)
+    row = {"step_ms": step_s * 1e3, "naive_step_ms": naive_s * 1e3,
+           "timing": used, "windows": [n1, n2], "window_s": window_s,
+           "window_step_ms": [window_s[0] / n1 * 1e3,
+                              window_s[1] / n2 * 1e3],
+           "images_per_s": batch / step_s, "flops_per_step": flops,
+           "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+           "captures": owner.captures,
+           "captures_counted": owner.captures - cap0,
+           "replays_counted": owner.replays - rep0,
+           "backward_replays_counted":
+               getattr(owner, "backward_replays", 0) - bwd0,
+           "first_read": first_read, "last_read": last}
+    if profile:
+        row["breakdown"] = profile_call(call)
+        row["top_kernels"] = _top_kernels(call)
+    return row
+
+
+def _top_kernels(fn, reps=3, n=5):
+    """The ``n`` kernels of ``fn`` that take the most device time, from
+    one profiler window of ``reps`` calls: [[name, ms a call], ...]."""
+    us, _ = window_kernels(fn, reps)
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:n]
+    return [[k[:90], t / 1e3 / reps] for k, t in top]
 
 
 def phase_train(mx, dev, ctx, cfg=BERT_BASE):
@@ -9247,6 +9322,911 @@ def phase_moe(mx, dev):
           f"moe: losses {res['losses']} do not fall")
 
 
+# -- phases 41-46: the vision zoo, YOLOv3, Faster R-CNN, SimplePose -------------
+
+# one net of each kind of the zoo's 34 names, card against the CPU port
+ZOO_PARITY_NETS = ("vgg11", "vgg11_bn", "alexnet", "squeezenet1.0",
+                   "squeezenet1.1", "mobilenet0.25", "mobilenetv2_0.25",
+                   "densenet121", "inceptionv3")
+ZOO_TOL = 1e-4          # test_utils' float32 rtol
+ZOO_TOL_F64 = 1e-6      # test_utils' float64 rtol
+# example/image_classification.py's setting of the upstream
+# benchmark_score.py: 1000 classes, batch 32, 224 x 224 (299 x 299 for
+# Inception v3), hybridized, bf16 AMP; SGD with momentum 0.9
+ZOO = dict(nets=("alexnet", "vgg16", "vgg16_bn", "squeezenet1.1",
+                 "mobilenet1.0", "mobilenetv2_1.0", "densenet121",
+                 "inceptionv3"), classes=1000, batch_size=32, lr=0.01,
+           momentum=0.9, warmup=4, windows=(3, 10), infer_windows=(5, 20),
+           seed=19)
+# GluonCV yolo3_darknet53_coco: COCO's 80 classes, 416 x 416, its nine
+# anchors in pixels; the JAX model's stem (six convolutions) at
+# Darknet-53's stage widths 32 -> 1024; Adam 2e-3 (tests/test_yolo.py)
+YOLO = dict(classes=80, size=416, base_channels=32,
+            anchors=[[(10, 13), (16, 30), (33, 23)],
+                     [(30, 61), (62, 45), (59, 119)],
+                     [(116, 90), (156, 198), (373, 326)]],
+            batch_size=16, max_gt=8, lr=2e-3, warmup=4, windows=(3, 10),
+            seed=19)
+# GluonCV faster_rcnn_resnet50_v1b_voc: 600-pixel short side, anchor
+# scales 2-32 at stride 16 (32-512 pixels), 300 test proposals, 7 x 7
+# RoIs, VOC's 20 classes; the JAX model's backbone (four convolutions,
+# stride 8) and square input; Adam at 2e-5: at tests/test_rcnn.py's 1e-3
+# the full-width net's loss leaves its fixed batch in the JAX package as
+# in the port (tests/torch_rcnn_lr.py: CPU, 200 x 200, float32, the same
+# weights and batch: 11.28 -> 119.3 at the second step in both), and at
+# 2e-5 it falls in both, 9.04 -> 1.90 and 1.78 in 25 steps
+RCNN = dict(classes=20, size=600, base_channels=64,
+            anchor_sizes=(32, 64, 128, 256, 512), proposals=300, roi=7,
+            batch_size=4, lr=2e-5, warmup=4, windows=(3, 10), seed=19)
+# Xiao et al. 2018's MPII setting: ResNet-50, three 256-channel
+# deconvolutions, 256 x 256 inputs, 64 x 64 heatmaps of 16 keypoints
+# (sigma 2); Adam 2e-3 (tests/test_pose.py)
+POSE = dict(keypoints=16, size=256, deconv=256, num_deconv=3, sigma=2.0,
+            batch_size=32, lr=2e-3, warmup=4, windows=(3, 10), seed=19)
+DET_PARITY_TOL = 1e-4   # the detector tests' float32 tolerance
+
+
+def _zoo_size(name):
+    return 299 if name.startswith("inception") else 224
+
+
+def _unit_ramp(shape):
+    r = np.linspace(-1.0, 1.0, int(np.prod(shape)), dtype="f8")
+    return (r / np.linalg.norm(r)).reshape(shape)
+
+
+def _no_dropout(net):
+    for m in net.modules():
+        if type(m).__name__ == "Dropout":
+            m._rate = 0.0
+
+
+def _zoo_net(mx, name, ctx, x, seed=19):
+    """``name`` (1000 classes) on ``ctx``, called once on ``x`` in predict
+    mode (the deferred parameters), dropout off."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = vision.get_model(name, prefix="zoo_")
+    net.initialize(mx.init.Xavier(), ctx=ctx, seed=seed)
+    net(mx.nd.array(x, ctx=ctx))
+    _no_dropout(net)
+    return net
+
+
+def _zoo_step(mx, net, x, ctx, dtype="float32"):
+    """Predict-mode output; then a training-mode forward, the gradients
+    of sum(out * unit ramp) and one SGD step (lr 0.01, momentum 0.9):
+    (predict, train output, {grad}, {running stat}, {weight after})."""
+    from mxnet_tpu_torch import autograd, gluon
+    xs = mx.nd.array(x, ctx=ctx, dtype=dtype)
+    pred = net(xs).asnumpy()
+    with autograd.record():
+        out = net(xs)
+        loss = (out * mx.nd.array(_unit_ramp(out.shape), ctx=ctx,
+                                  dtype=dtype)).sum()
+    loss.backward()
+    params = net.collect_params()
+    grads = {k: p.grad().asnumpy() for k, p in params.items()
+             if p.grad_req != "null"}
+    gluon.Trainer(params, "sgd", {"learning_rate": 0.01, "momentum": 0.9},
+                  kvstore=None).step(x.shape[0])
+    stats = {k: p.data().asnumpy() for k, p in params.items()
+             if _is_stat(k)}
+    weights = {k: p.data().asnumpy() for k, p in params.items()
+               if p.grad_req != "null"}
+    return pred, out.asnumpy(), grads, stats, weights
+
+
+def _conv_tf32_cases(mx, dev):
+    """A grouped, a depthwise and a transposed convolution (forward and
+    the input's and weight's gradients) in float32 on the card, PyTorch's
+    default TF32 flags, against the CPU in float64; and the same under
+    TF32 everywhere (the control).  {case: (error, control error)}."""
+    import torch
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+    rng = np.random.RandomState(41)
+    x = rng.randn(2, 64, 28, 28).astype("f4")
+    cases = {"grouped": lambda: nn.Conv2D(64, 3, padding=1, groups=4),
+             "depthwise": lambda: nn.Conv2D(64, 3, padding=1, groups=64),
+             "transposed": lambda: nn.Conv2DTranspose(32, 4, strides=2,
+                                                      padding=1)}
+    out = {}
+    for name, build in cases.items():
+        runs = {}
+        start = None
+        for where, ctx, dtype in (("cpu_f64", mx.cpu(), "float64"),
+                                  ("card", mx.gpu(0), "float32"),
+                                  ("card_tf32", mx.gpu(0), "float32")):
+            layer = build()
+            layer.initialize(mx.init.Xavier(), ctx=ctx, seed=41)
+            layer(mx.nd.array(x, ctx=ctx))      # the deferred weight
+            if start is None:
+                start = layer
+            else:
+                _copy_params(start, layer)
+            if dtype == "float64":
+                layer.to(torch.float64)
+            xs = mx.nd.array(x, ctx=ctx, dtype=dtype)
+            xs.attach_grad()
+            with _tf32_everywhere() if where == "card_tf32" \
+                    else contextlib.nullcontext():
+                with autograd.record():
+                    y = layer(xs)
+                    loss = (y * mx.nd.array(_unit_ramp(y.shape), ctx=ctx,
+                                            dtype=dtype)).sum()
+                loss.backward()
+            runs[where] = [y.asnumpy(), xs.grad.asnumpy(),
+                           layer.weight.grad().asnumpy()]
+        out[name] = tuple(max(_rel(g, w) for g, w in
+                              zip(runs[k], runs["cpu_f64"]))
+                          for k in ("card", "card_tf32"))
+    return out
+
+
+class _Selections:
+    """The decisions of the port's ReLU, relu6 and max pooling, call by
+    call: under ``use("record")`` each call keeps what it selects (the
+    activation's region of each element, the pool's index of each
+    window; on the host); under ``use("replay")`` each call takes the
+    recorded decision whatever its own rounding (the value of the
+    recorded region or window, and the gradient routed as the recording
+    run routed it), so that two runs are compared given the same
+    selections; under ``use("count")`` each call keeps its own and counts
+    the elements where it differs from the recorded one (``flips``)."""
+
+    # an activation's region: x < 0, x == 0, inside, x == top, x > top;
+    # the gradient passes half at a bound (relu: 0 at x == 0, as
+    # torch.relu), the value is the bound's outside the range
+    _FACTOR = (0.0, 0.5, 1.0, 0.5, 0.0)
+
+    def __init__(self):
+        self.log = []
+        self.flips = 0
+
+    @staticmethod
+    def _region(x, top):
+        import torch
+        if top is None:
+            return (x > 0).to(torch.uint8) * 2
+        return ((x >= 0).to(torch.uint8) + (x > 0) + (x >= top)
+                + (x > top))
+
+    @contextlib.contextmanager
+    def use(self, mode):
+        import torch
+        from mxnet_tpu_torch.ops import nn as ops_nn
+        saved = dict(ops_nn._ACTIVATIONS), dict(ops_nn._MAX_POOL)
+        recorded = iter(self.log)
+        self.flips = 0
+
+        def decide(kind, mine):
+            if mode == "record":
+                self.log.append((kind, mine.cpu()))
+                return None
+            rkind, rec = next(recorded)
+            check(rkind == kind and rec.shape == mine.shape,
+                  f"selections: a {kind} of {tuple(mine.shape)} where the "
+                  f"recording run had a {rkind} of {tuple(rec.shape)}")
+            rec = rec.to(mine.device)
+            if mode == "count":
+                self.flips += int((rec != mine).sum())
+                return None
+            return rec
+
+        def activation(kind, base, top):
+            def act(x):
+                region = decide(kind, self._region(x, top))
+                if region is None:
+                    return base(x)
+                table = x.new_tensor(self._FACTOR)
+                factor = table[region.long()]
+                bound = torch.where(region == 4, float(top or 0), 0.0).to(
+                    x.dtype)
+                value = torch.where(factor > 0, x, bound)
+                return factor * x + (value - factor * x).detach()
+            return act
+
+        def max_pool(base):
+            def pool(x, kernel, stride, padding=0):
+                out, idx = base(x, kernel, stride, padding,
+                                return_indices=True)
+                rec = decide("max_pool", idx)
+                if rec is None:
+                    return out
+                return x.flatten(2).gather(2, rec.flatten(2)).view(
+                    rec.shape)
+            return pool
+        for kind, top in (("relu", None), ("relu6", 6.0)):
+            ops_nn._ACTIVATIONS[kind] = activation(kind, saved[0][kind], top)
+        for n, base in saved[1].items():
+            ops_nn._MAX_POOL[n] = max_pool(base)
+        try:
+            yield
+        finally:
+            ops_nn._ACTIVATIONS.update(saved[0])
+            ops_nn._MAX_POOL.update(saved[1])
+        if mode != "record":
+            check(next(recorded, None) is None,
+                  "selections: the run made fewer selecting calls than the "
+                  "recording run")
+
+
+def _per_param(got, want, exact):
+    """For each parameter of ``want``: [name, the relative L2 distance of
+    ``got`` from ``want``, its limit: the larger of ZOO_TOL and 4 times
+    ``want``'s own distance from ``exact``]."""
+    return [[k, _rel_l2([got[k]], [want[k]]),
+             max(ZOO_TOL, 4 * _rel_l2([want[k]], [exact[k]]))]
+            for k in want]
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic(on=True):
+    import torch
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def phase_zoo_parity(mx, dev):
+    """One net of each kind of the vision zoo (ZOO_PARITY_NETS, 1000
+    classes, batch 2 at its own input size, dropout off) on the card
+    against the CPU port from the same weights, in float32 with PyTorch's
+    default TF32 flags (the port's convolutions turn cuDNN's off) and
+    cuDNN's deterministic algorithms, as resnet_parity's.  The CPU's
+    float64 run records every ReLU's, relu6's and max pool's selections
+    (``_Selections``); a float32 run on either device, left to its own,
+    selects otherwise where its rounding falls across a near-tie, which
+    moves a gradient by a whole element's share (``flips``, counted for
+    the CPU's and the card's float32 runs and the card's float64 one).
+    So, as the detectors' proposals, the float32 runs that are held to
+    each other take the float64 run's selections: the training-mode
+    output within the larger of ZOO_TOL and 4 times the CPU's own
+    float32-against-float64 distance; each parameter's gradient of one
+    SGD step, running statistic after it and weight after the step within
+    the larger of ZOO_TOL and 4 times the CPU's own float32-against-
+    float64 distance for that parameter (relative L2; the worst
+    parameters reported beside).  The predict-mode outputs of the runs
+    left to their own selections within ZOO_TOL, and each device's own
+    distance from float64 with its own selections reported.  The same
+    step in float64 on both devices, each with its own selections: the
+    training-mode output, the gradients, statistics and weights within
+    ZOO_TOL_F64.  A grouped, a depthwise and a transposed convolution
+    against float64 within VISION_OP_TOL (the TF32 control reported
+    beside).  Then every other of the 34 names on the card: one forward
+    at batch 2, its shape and finiteness.  No flash launch."""
+    import torch
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    free_earlier_phases()
+    flags = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "cuda.matmul.allow_tf32":
+                 torch.backends.cuda.matmul.allow_tf32}
+    reset_counts()
+    t0 = time.perf_counter()
+    convs = _conv_tf32_cases(mx, dev)
+    rows = {}
+    for name in ZOO_PARITY_NETS:
+        size = _zoo_size(name)
+        x = np.random.RandomState(size).rand(2, 3, size, size).astype("f4")
+        t_net = time.perf_counter()
+        base = _zoo_net(mx, name, mx.cpu(), x)
+        sel = _Selections()
+        runs, flips = {}, {}
+        # (run, device, type, selections): the CPU's float64 run first,
+        # which records them
+        for key, ctx, dtype, mode in (
+                ("cpu_f64", mx.cpu(), "float64", "record"),
+                ("cpu", mx.cpu(), "float32", "replay"),
+                ("card", mx.gpu(0), "float32", "replay"),
+                ("cpu_own", mx.cpu(), "float32", "count"),
+                ("card_own", mx.gpu(0), "float32", "count"),
+                ("card_f64", mx.gpu(0), "float64", "count")):
+            net = _zoo_net(mx, name, ctx, x)
+            _copy_params(base, net)
+            if dtype == "float64":
+                net.to(torch.float64)
+            with _cudnn_deterministic(), sel.use(mode):
+                runs[key] = _zoo_step(mx, net, x, ctx, dtype)
+            if mode == "count":
+                flips[key] = sel.flips
+            del net
+        card, cpu, f64, card64, cpu_own, card_own = (
+            runs[k] for k in ("card", "cpu", "cpu_f64", "card_f64",
+                              "cpu_own", "card_own"))
+        row = {"predict": _rel(card_own[0], cpu_own[0]),
+               "train_output": _rel(card[1], cpu[1]),
+               "train_output_limit": max(ZOO_TOL, 4 * _rel(cpu[1], f64[1])),
+               "float64_train_output": _rel(card64[1], f64[1]),
+               "flips_from_float64": flips,
+               "selections": len(sel.log)}
+        for i, part in ((2, "grads"), (3, "running_stats"),
+                        (4, "weights_after_sgd")):
+            keys = list(card[i])
+
+            def whole(run, ref):
+                return _rel_l2([run[i][k] for k in keys],
+                               [ref[i][k] for k in keys])
+            params = _per_param(card[i], cpu[i], f64[i])
+            row[part] = whole(card, cpu)
+            row[f"{part}_cpu_spread"] = whole(cpu, f64)
+            row[f"{part}_card_spread"] = whole(card, card64)
+            row[f"{part}_cpu_own_selections_spread"] = whole(cpu_own, f64)
+            row[f"{part}_card_own_selections_spread"] = whole(card_own,
+                                                              card64)
+            row[f"{part}_over_limit"] = [p for p in params if p[1] > p[2]]
+            row[f"{part}_worst_param"] = sorted(
+                params, key=lambda p: -p[1] / p[2])[:3]
+            row[f"float64_{part}"] = whole(card64, f64)
+        row["params"] = sum(v.size for v in card[4].values())
+        row["seconds"] = time.perf_counter() - t_net
+        rows[name] = row
+        del base, sel, runs, card, cpu, f64, card64, cpu_own, card_own
+        free_earlier_phases()
+    parity_s = time.perf_counter() - t0
+    others = {}
+    for name in sorted(vision._models):
+        if name in ZOO_PARITY_NETS:
+            continue
+        x = mx.nd.array(np.random.RandomState(1).rand(2, 3, 224, 224),
+                        ctx=mx.gpu(0))
+        net = vision.get_model(name)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0), seed=19)
+        y = net(x).asnumpy()
+        others[name] = {"shape": list(y.shape),
+                        "finite": bool(np.isfinite(y).all())}
+        check(y.shape == (2, 1000) and np.isfinite(y).all(),
+              f"zoo_parity {name}: output {y.shape}, finite "
+              f"{np.isfinite(y).all()}")
+        del net
+    free_earlier_phases()
+    launches = read_counts()
+    emit({"phase": "zoo_parity", "batch_size": 2, "classes": 1000,
+          "dtype": "float32", "tf32_flags": flags, "tol": ZOO_TOL,
+          "conv_vs_f64": {k: {"rel_err": v[0], "tf32_control": v[1]}
+                          for k, v in convs.items()},
+          "conv_tol": VISION_OP_TOL, "nets": rows,
+          "parity_s": parity_s, "forward_only": others,
+          "flash_launches": launches, "card": nvidia_smi()})
+    for name, (err, _) in convs.items():
+        check(err <= VISION_OP_TOL, f"zoo_parity: the {name} convolution "
+              f"is {err} from float64 under the default TF32 flags")
+    for name, row in rows.items():
+        check(row["predict"] <= ZOO_TOL,
+              f"zoo_parity {name}: predict differs by {row['predict']}")
+        check(row["train_output"] <= row["train_output_limit"],
+              f"zoo_parity {name}: the training-mode outputs differ by "
+              f"{row['train_output']}, above {row['train_output_limit']}")
+        for part in ("grads", "running_stats", "weights_after_sgd"):
+            check(not row[f"{part}_over_limit"],
+                  f"zoo_parity {name}: {part} over their limits "
+                  f"[name, distance, limit]: {row[f'{part}_over_limit']}")
+        for part in ("train_output", "grads", "running_stats",
+                     "weights_after_sgd"):
+            check(row[f"float64_{part}"] <= ZOO_TOL_F64,
+                  f"zoo_parity {name}: in float64 the {part} differ by "
+                  f"{row[f'float64_{part}']}")
+    check(len(rows) + len(others) == 34, "zoo_parity: not all 34 names ran")
+    check(not any(launches.values()),
+          f"zoo_parity: the zoo launched flash kernels {launches}")
+
+
+def _mean_loss(loss):
+    return float(loss.mean().asscalar())
+
+
+def _train_loop(dev, what, net, loss_of, arrays, optimizer, opt_args,
+                flops, cfg):
+    """``measure_loop`` of a hybridized net's gluon loop on one fixed
+    batch (record, ``loss_of(net, *arrays)``, backward, ``Trainer.step``
+    of ``optimizer``), profiled, with the loss of the first step
+    (``first_loss``) before the other ``cfg["warmup"] - 1`` warm-up
+    steps and ``cfg["windows"]`` timed; the loss must fall, and every
+    timed step must replay the captured forward and backward once,
+    capturing nothing."""
+    from mxnet_tpu_torch import autograd, gluon
+    tr = gluon.Trainer(net.collect_params(), optimizer, opt_args,
+                       kvstore=None)
+    batch = arrays[0].shape[0]
+
+    def step():
+        with autograd.record():
+            loss = loss_of(net, *arrays)
+        loss.backward()
+        tr.step(batch)
+        return loss
+    first = _mean_loss(step())
+    row = measure_loop(dev, step, _mean_loss, what, batch, flops,
+                       net._cached_op, cfg["windows"], cfg["warmup"] - 1,
+                       profile=True)
+    row["first_loss"], row["last_loss"] = first, row["last_read"]
+    timed = sum(cfg["windows"])
+    counts = [row[k] for k in ("captures_counted", "replays_counted",
+                               "backward_replays_counted")]
+    row["net_forward"] = "captured graph replay" \
+        if counts == [0, timed, timed] else "inline"
+    check(math.isfinite(first) and row["last_loss"] < first,
+          f"{what}: the loss went from {first} to {row['last_loss']}")
+    check(counts == [0, timed, timed], f"{what}: captures, forward and "
+          f"backward replays in {timed} timed steps {counts}: not one "
+          "forward and one backward replay a step")
+    return row
+
+
+def _zoo_model(mx, dev, name, cfg):
+    """One zoo net at ZOO's setting under the AMP the phase set:
+    inference (the hybridized net, one replay a call) and the gluon loop
+    (softmax CE, SGD momentum; ``_train_loop``), each by the two-window
+    slope and profiled."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    ctx = mx.gpu(0)
+    b, size = cfg["batch_size"], _zoo_size(name)
+    rng = np.random.RandomState(cfg["seed"])
+    x = mx.nd.array(rng.rand(b, 3, size, size).astype("f4"), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, cfg["classes"], b).astype("f4"),
+                    ctx=ctx)
+    net = vision.get_model(name, classes=cfg["classes"])
+    net.initialize(mx.init.Xavier(), ctx=ctx, seed=cfg["seed"])
+    fwd_flops = _resnet_flops(net, x)     # makes the deferred parameters
+    net.hybridize()
+    net(x)                                # the capture
+    infer = measure_loop(dev, lambda: net(x),
+                         lambda o: float(o.asnumpy().ravel()[0]),
+                         f"zoo {name} inference", b, fwd_flops,
+                         net._cached_op, cfg["infer_windows"],
+                         cfg["warmup"] - 1, profile=True)
+    check(infer["replays_counted"] == sum(cfg["infer_windows"]),
+          f"zoo {name} inference: {infer['replays_counted']} replays in "
+          f"{sum(cfg['infer_windows'])} calls")
+    sce = gluon.loss.SoftmaxCrossEntropyLoss()
+    train = _train_loop(dev, f"zoo {name}", net,
+                        lambda n, a, t: sce(n(a), t), (x, y), "sgd",
+                        {"learning_rate": cfg["lr"],
+                         "momentum": cfg["momentum"]}, 3 * fwd_flops, cfg)
+    row = {"image_size": size,
+           "params": sum(p.data().size for p in
+                         net.collect_params().values()
+                         if p.grad_req != "null"),
+           "forward_flops_per_image": fwd_flops / b,
+           "inference": infer, "train": train}
+    del net, x, y
+    free_earlier_phases()
+    return row
+
+
+def phase_zoo(mx, dev, cfg=ZOO):
+    """ZOO's eight nets at ImageNet widths on the card, hybridized, under
+    bf16 AMP: inference and the SGD gluon loop (images a second, device
+    ms and the busy share, MFU, peak memory, the first and last loss on
+    the fixed batch, which must fall), no flash launch."""
+    from mxnet_tpu_torch.contrib import amp
+    free_earlier_phases()
+    mx.random.seed(cfg["seed"])
+    reset_counts()
+    t0 = time.perf_counter()
+    amp.init("bfloat16")
+    try:
+        rows = {name: _zoo_model(mx, dev, name, cfg)
+                for name in cfg["nets"]}
+    finally:
+        amp._deinit()
+    launches = read_counts()
+    emit({"phase": "zoo", "source": "upstream example/image-classification/"
+          "benchmark_score.py (example/image_classification.py)",
+          "classes": cfg["classes"], "batch_size": cfg["batch_size"],
+          "dtype": "bfloat16 AMP", "optimizer": {"sgd": {
+              "lr": cfg["lr"], "momentum": cfg["momentum"]}},
+          "nets": rows, "phase_s": time.perf_counter() - t0,
+          "flash_launches": launches, "card": nvidia_smi()})
+    check(not any(launches.values()),
+          f"zoo: the zoo launched flash kernels {launches}")
+
+
+# -- the detectors -------------------------------------------------------------
+
+def _boxes_batch(rng, n, size, max_gt, classes):
+    """Seeded squares on noise, one colour a class, 1 to ``max_gt`` an
+    image, labels (n, max_gt, 5) [cls, x1, y1, x2, y2] in [0, 1] padded
+    with -1 rows."""
+    colours = np.random.RandomState(0).rand(max(classes, 1), 3) \
+        .astype("f4")
+    imgs = rng.rand(n, 3, size, size).astype("f4") * 0.1
+    labels = np.full((n, max_gt, 5), -1.0, "f4")
+    for i in range(n):
+        for j in range(rng.randint(1, max_gt + 1)):
+            w = rng.randint(size // 16, size // 3)
+            x1, y1 = rng.randint(0, size - w, 2)
+            c = rng.randint(classes)
+            imgs[i, :, y1:y1 + w, x1:x1 + w] += colours[c][:, None, None]
+            labels[i, j] = [c, x1 / size, y1 / size, (x1 + w) / size,
+                            (y1 + w) / size]
+    return imgs, labels
+
+
+def _pose_batch(rng, n, size, k, sigma, heatmap):
+    """Seeded images with a coloured spot (one colour a keypoint) at each
+    of ``k`` keypoints (one in eight invisible, no spot), and their
+    Gaussian heatmaps of ``heatmap`` x ``heatmap``."""
+    from mxnet_tpu_torch.models import gaussian_heatmaps
+    colours = np.random.RandomState(1).rand(k, 3).astype("f4")
+    imgs = rng.rand(n, 3, size, size).astype("f4") * 0.1
+    kp = np.zeros((n, k, 3), "f4")
+    yy, xx = np.mgrid[0:size, 0:size]
+    for i in range(n):
+        for j in range(k):
+            x, y = rng.rand(2) * 0.9 + 0.05
+            vis = float(rng.rand() > 0.125)
+            kp[i, j] = [x, y, vis]
+            if vis:
+                spot = (xx - x * size) ** 2 + (yy - y * size) ** 2 < \
+                    (size / 40) ** 2
+                imgs[i][:, spot] += colours[j][:, None]
+    return imgs, kp, gaussian_heatmaps(kp, heatmap, sigma=sigma)
+
+
+def _det_nets(mx, kind, ctx, x):
+    """A tiny detector on ``ctx``, called once on ``x``."""
+    from mxnet_tpu_torch import models
+    net = {"yolo": lambda: models.yolo3_tiny(num_classes=2, prefix="yolo_"),
+           "rcnn": lambda: models.faster_rcnn_tiny(num_classes=2,
+                                                   prefix="rcnn_"),
+           "pose": lambda: models.simple_pose_tiny(num_keypoints=2)}[kind]()
+    net.initialize(mx.init.Xavier(), ctx=ctx, seed=19)
+    net(mx.nd.array(x, ctx=ctx))
+    return net
+
+
+def _det_loss(mx, kind, net, arrays):
+    from mxnet_tpu_torch import models
+    if kind == "yolo":
+        return models.YOLOv3Loss(net)(net(arrays[0]), arrays[1])
+    if kind == "rcnn":
+        return models.FasterRCNNLoss(net)(net(arrays[0]), arrays[1])
+    return models.PoseHeatmapLoss()(net(arrays[0]), arrays[1], arrays[2])
+
+
+def _det_adam(mx, kind, net, batches, ctx, dtype, lr):
+    from mxnet_tpu_torch import autograd, gluon
+    tr = gluon.Trainer(net.collect_params(), "adam", {"learning_rate": lr})
+    losses = []
+    for arrays in batches:
+        arrays = [mx.nd.array(a, ctx=ctx, dtype=dtype) for a in arrays]
+        with autograd.record():
+            loss = _det_loss(mx, kind, net, arrays)
+        loss.backward()
+        tr.step(arrays[0].shape[0])
+        losses.append(float(loss.asnumpy().ravel()[0]))
+    return losses
+
+
+def _det_parity_batches(kind, rng):
+    if kind == "pose":
+        out = []
+        for _ in range(3):
+            x, kp, hm = _pose_batch(rng, 8, 32, 2, 1.5, 16)
+            out.append((x, hm, kp[:, :, 2]))
+        return out, 2e-3
+    size = 32 if kind == "yolo" else 64
+    return [_boxes_batch(rng, 4, size, 2, 2) for _ in range(3)], \
+        (2e-3 if kind == "yolo" else 1e-3)
+
+
+def _det_trajectory(mx, dev, kind):
+    """The tiny detector's forward and 3 Adam steps on the card (f32,
+    hybridized) against the CPU port (f32, and f64 for the rule): the
+    outputs within DET_PARITY_TOL; the card's losses and each weight
+    within the larger of DET_PARITY_TOL and 4 times the CPU's own
+    float32-against-float64 distance (relative; L2 for the weights), the
+    rule of the tests (``tests/torch_zoo.py`` hold_trajectory) with the
+    CPU port's float32 standing for the reference's."""
+    import torch
+    batches, lr = _det_parity_batches(kind, np.random.RandomState(19))
+    x0 = batches[0][0]
+    cnet = _det_nets(mx, kind, mx.cpu(), x0)
+    gnet = _det_nets(mx, kind, mx.gpu(0), x0)
+    dnet = _det_nets(mx, kind, mx.cpu(), x0)
+    _copy_params(cnet, gnet)
+    _copy_params(cnet, dnet)
+    dnet.to(torch.float64)
+    outs = [o.asnumpy() for o in _as_list(cnet(mx.nd.array(x0,
+                                                           ctx=mx.cpu())))]
+    gouts = [o.asnumpy() for o in _as_list(gnet(mx.nd.array(x0,
+                                                            ctx=mx.gpu(0))))]
+    row = {"forward": max(_rel(g, c) for g, c in zip(gouts, outs))}
+    gnet.hybridize()
+    runs = {}
+    for key, net, ctx, dtype in (("card", gnet, mx.gpu(0), "float32"),
+                                 ("cpu", cnet, mx.cpu(), "float32"),
+                                 ("cpu_f64", dnet, mx.cpu(), "float64")):
+        runs[key] = (_det_adam(mx, kind, net, batches, ctx, dtype, lr),
+                     [p.data().asnumpy()
+                      for p in net.collect_params().values()])
+    op = gnet._cached_op
+    row["cachedop"] = {"captures": op.captures, "replays": op.replays,
+                       "backward_replays": op.backward_replays}
+    (gl, gw), (cl, cw), (dl, dw) = (runs[k] for k in
+                                    ("card", "cpu", "cpu_f64"))
+    loss_limit = max(DET_PARITY_TOL, 4 * _rel(cl, dl))
+    row.update({"card_losses": gl, "cpu_losses": cl, "cpu_f64_losses": dl,
+                "loss_rel_err": _rel(gl, dl), "loss_limit": loss_limit})
+    over = []
+    for name, g, c, d in zip(cnet.collect_params().keys(), gw, cw, dw):
+        limit = max(DET_PARITY_TOL, 4 * _rel_l2([c], [d]))
+        if _rel_l2([g], [d]) > limit:
+            over.append([name, _rel_l2([g], [d]), limit])
+    row["weights_over_limit"] = over[:5]
+    check(row["forward"] <= DET_PARITY_TOL,
+          f"detector_parity {kind}: forward differs by {row['forward']}")
+    check(row["loss_rel_err"] <= loss_limit and not over,
+          f"detector_parity {kind}: {row}")
+    check(row["cachedop"] == {"captures": 1, "replays": 2,
+                              "backward_replays": 2},
+          f"detector_parity {kind}: the CachedOp's counts "
+          f"{row['cachedop']}, want an eager warm-up, then a capture and a "
+          "replay, each replaying forward and backward")
+    return row, cnet, gnet
+
+
+def _as_list(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def phase_detector_parity(mx, dev):
+    """yolo3_tiny, faster_rcnn_tiny and simple_pose_tiny on the card
+    against the CPU port in float32 (``_det_trajectory``); YOLO's
+    build_targets on a seeded batch of 8 padded rows (objectness slots
+    and class ids exactly, the regression targets within DET_PARITY_TOL);
+    R-CNN's proposals (topk's 16 indices an image as a set, exactly, the
+    16th logit more than 1e-4 above the 17th) on logits spread 2 apart an
+    anchor shape; SimplePose's predict (exactly, each heatmap's peak
+    more than 1e-4 above its runner-up).  No flash launch."""
+    from mxnet_tpu_torch.models import build_targets, yolo3_tiny
+    free_earlier_phases()
+    reset_counts()
+    rows = {}
+    for kind in ("yolo", "rcnn", "pose"):
+        rows[kind], cnet, gnet = _det_trajectory(mx, dev, kind)
+        if kind == "yolo":
+            rng = np.random.RandomState(7)
+            labels = np.full((6, 8, 5), -1.0, "f4")
+            for i in range(6):
+                for j in range(rng.randint(1, 9)):
+                    x1, y1 = rng.rand(2) * 0.8
+                    w, h = 0.05 + rng.rand(2) * 0.8
+                    labels[i, j] = [rng.randint(0, 3), x1, y1,
+                                    min(x1 + w, 1.0), min(y1 + h, 1.0)]
+            net = yolo3_tiny(num_classes=3)
+            t = [[v.asnumpy() for v in build_targets(
+                net, mx.nd.array(labels, ctx=c), c)]
+                for c in (mx.gpu(0), mx.cpu())]
+            exact = bool(np.array_equal(t[0][0], t[1][0]) and np.array_equal(
+                t[0][5] * t[0][0], t[1][5] * t[1][0]))
+            rows[kind]["build_targets"] = {
+                "slots": int(t[1][0].sum()), "exact": exact,
+                "rel_err": max(_rel(a, b) for a, b in zip(*t))}
+            check(exact and rows[kind]["build_targets"]["rel_err"]
+                  <= DET_PARITY_TOL,
+                  f"detector_parity: build_targets {rows[kind]}")
+        elif kind == "rcnn":
+            x = np.random.RandomState(3).rand(2, 3, 64, 64).astype("f4")
+            idx = []
+            for net, ctx in ((gnet, mx.gpu(0)), (cnet, mx.cpu())):
+                bias = net.rpn_obj.bias
+                bias.set_data(bias.data() * 0 + mx.nd.array(
+                    np.array([0.0, 2.0, 4.0], "f4"), ctx=ctx))
+                obj = net(mx.nd.array(x, ctx=ctx))[0]
+                idx.append(mx.nd.topk(obj, k=17).asnumpy())
+                if ctx == mx.cpu():
+                    top = np.sort(obj.asnumpy(), axis=-1)[:, ::-1]
+            gap = float((top[:, 15] - top[:, 16]).min())
+            # the proposal set: the top 16 indices of each image, their
+            # order among themselves aside (the loss does not see it)
+            rows[kind]["proposals"] = {
+                "indices_equal": bool(np.array_equal(
+                    np.sort(idx[0][:, :16]), np.sort(idx[1][:, :16]))),
+                "order_equal": bool(np.array_equal(idx[0][:, :16],
+                                                   idx[1][:, :16])),
+                "gap_16th_17th": gap}
+            check(gap > 1e-4 and rows[kind]["proposals"]["indices_equal"],
+                  f"detector_parity: proposals {rows[kind]['proposals']}")
+        else:
+            x, _, _ = _pose_batch(np.random.RandomState(5), 4, 32, 2, 1.5,
+                                  16)
+            hm = cnet(mx.nd.array(x, ctx=mx.cpu())).asnumpy()
+            top = np.sort(hm.reshape(4, 2, -1), axis=-1)
+            got, want = (n.predict(mx.nd.array(x, ctx=c)).asnumpy()
+                         for n, c in ((gnet, mx.gpu(0)), (cnet, mx.cpu())))
+            rows[kind]["predict"] = {
+                "equal": bool(np.array_equal(got, want)),
+                "min_peak_gap": float((top[..., -1] - top[..., -2]).min())}
+            check(rows[kind]["predict"]["min_peak_gap"] > 1e-4
+                  and rows[kind]["predict"]["equal"],
+                  f"detector_parity: predict {rows[kind]['predict']}")
+        del cnet, gnet
+    launches = read_counts()
+    emit({"phase": "detector_parity", "dtype": "float32",
+          "tol": DET_PARITY_TOL, **rows, "flash_launches": launches,
+          "card": nvidia_smi()})
+    check(not any(launches.values()),
+          f"detector_parity: flash kernels launched {launches}")
+
+
+def phase_yolo(mx, dev, cfg=YOLO):
+    """YOLOv3 at YOLO's widths (COCO's classes, 416 x 416, Darknet-53's
+    stage widths over the JAX model's six-convolution stem, GluonCV's
+    anchors) trained at batch 16 on seeded squares with up to 8 padded
+    GT rows, hybridized, bf16 AMP, Adam 2e-3 (``_train_loop``); then
+    decode's time and its detections."""
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.models import YOLOv3, YOLOv3Loss
+    free_earlier_phases()
+    reset_counts()
+    ctx = mx.gpu(0)
+    x, y = _boxes_batch(np.random.RandomState(cfg["seed"]),
+                        cfg["batch_size"], cfg["size"], cfg["max_gt"],
+                        cfg["classes"])
+    x, y = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+    amp.init("bfloat16")
+    try:
+        net = YOLOv3(cfg["classes"], image_size=cfg["size"],
+                     base_channels=cfg["base_channels"],
+                     anchors=cfg["anchors"])
+        net.initialize(mx.init.Xavier(), ctx=ctx, seed=cfg["seed"])
+        conv_flops = _resnet_flops(net, x)
+        net.hybridize()
+        row = _train_loop(dev, "yolo", net,
+                          lambda n, a, b: YOLOv3Loss(n)(n(a), b), (x, y),
+                          "adam", {"learning_rate": cfg["lr"]},
+                          3 * conv_flops, cfg)
+        preds = net(x)
+        decode_ms, decode_mem, det = _timed_call(dev,
+                                                 lambda: net.decode(preds))
+    finally:
+        amp._deinit()
+    det = det.asnumpy()
+    kept = det[..., 0] >= 0
+    launches = read_counts()
+    emit({"phase": "yolo", "source": "GluonCV yolo3_darknet53_coco "
+          "(classes, 416 input, anchors); the JAX model's six-convolution "
+          "stem at Darknet-53's stage widths 32-1024",
+          "classes": cfg["classes"], "image_size": cfg["size"],
+          "base_channels": cfg["base_channels"], "slots": net.num_slots,
+          "batch_size": cfg["batch_size"], "max_gt": cfg["max_gt"],
+          "dtype": "bfloat16 AMP", "optimizer": {"adam": {"lr": cfg["lr"]}},
+          "params": sum(p.data().size for p in
+                        net.collect_params().values()),
+          "conv_dense_flops_per_image": conv_flops / cfg["batch_size"],
+          **row, "decode_ms": decode_ms, "decode_peak_bytes": decode_mem,
+          "decode_shape": list(det.shape),
+          "kept_detections": int(kept.sum()), "flash_launches": launches,
+          "card": nvidia_smi()})
+    check(det.shape == (cfg["batch_size"], net.num_slots, 6)
+          and (det[~kept] == -1).all() and np.isfinite(det).all(),
+          f"yolo: decode gave {det.shape}")
+    check(not any(launches.values()), f"yolo: flash launches {launches}")
+
+
+def phase_rcnn(mx, dev, cfg=RCNN):
+    """Faster R-CNN at RCNN's widths (600 x 600, five anchor sizes, 300
+    proposals, 7 x 7 RoIs, VOC's 20 classes) trained at batch 4,
+    hybridized (topk and ROIAlign inside the captured forward), bf16 AMP,
+    Adam 2e-5 (``_train_loop``; RCNN says why not 1e-3); then decode's
+    time and detections."""
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.models import FasterRCNN, FasterRCNNLoss
+    free_earlier_phases()
+    reset_counts()
+    ctx = mx.gpu(0)
+    x, y = _boxes_batch(np.random.RandomState(cfg["seed"]),
+                        cfg["batch_size"], cfg["size"], 8, cfg["classes"])
+    x, y = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+    amp.init("bfloat16")
+    try:
+        net = FasterRCNN(cfg["classes"], image_size=cfg["size"],
+                         base_channels=cfg["base_channels"],
+                         anchor_sizes=cfg["anchor_sizes"],
+                         num_proposals=cfg["proposals"],
+                         roi_size=cfg["roi"])
+        net.initialize(mx.init.Xavier(), ctx=ctx, seed=cfg["seed"])
+        conv_flops = _resnet_flops(net, x)
+        net.hybridize()
+        row = _train_loop(dev, "rcnn", net,
+                          lambda n, a, b: FasterRCNNLoss(n)(n(a), b), (x, y),
+                          "adam", {"learning_rate": cfg["lr"]},
+                          3 * conv_flops, cfg)
+        outs = net(x)
+        decode_ms, decode_mem, det = _timed_call(dev,
+                                                 lambda: net.decode(outs))
+    finally:
+        amp._deinit()
+    det = det.asnumpy()
+    kept = det[..., 0] >= 0
+    launches = read_counts()
+    emit({"phase": "rcnn", "source": "GluonCV faster_rcnn_resnet50_v1b_voc "
+          "(600 short side, anchor scales 2-32 x stride 16, 300 test "
+          "proposals, 7 x 7 RoI, 20 classes); the JAX model's 4-conv "
+          "stride-8 backbone and square input",
+          "classes": cfg["classes"], "image_size": cfg["size"],
+          "anchors": net.num_anchors, "proposals": cfg["proposals"],
+          "roi_size": cfg["roi"], "batch_size": cfg["batch_size"],
+          "dtype": "bfloat16 AMP", "optimizer": {"adam": {"lr": cfg["lr"]}},
+          "params": sum(p.data().size for p in
+                        net.collect_params().values()),
+          "conv_dense_flops_per_image": conv_flops / cfg["batch_size"],
+          **row, "decode_ms": decode_ms, "decode_peak_bytes": decode_mem,
+          "decode_shape": list(det.shape),
+          "kept_detections": int(kept.sum()), "flash_launches": launches,
+          "card": nvidia_smi()})
+    check(det.shape == (cfg["batch_size"], cfg["proposals"], 6)
+          and (det[~kept] == -1).all() and np.isfinite(det).all(),
+          f"rcnn: decode gave {det.shape}")
+    check(not any(launches.values()), f"rcnn: flash launches {launches}")
+
+
+def phase_pose(mx, dev, cfg=POSE):
+    """SimplePose at POSE's setting (ResNet-50 from the zoo, three
+    256-channel deconvolutions, 256 x 256 inputs, 64 x 64 heatmaps of 16
+    keypoints) trained at batch 32 on seeded keypoint spots, hybridized,
+    bf16 AMP, Adam 2e-3 (``_train_loop``); PCK@0.1 on the fixed batch
+    before and after, and predict's time."""
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.models import PCKMetric, PoseHeatmapLoss, SimplePose
+    free_earlier_phases()
+    reset_counts()
+    ctx = mx.gpu(0)
+    x, kp, hm = _pose_batch(np.random.RandomState(cfg["seed"]),
+                            cfg["batch_size"], cfg["size"],
+                            cfg["keypoints"], cfg["sigma"], cfg["size"] // 4)
+    arrays = [mx.nd.array(a, ctx=ctx) for a in (x, hm, kp[:, :, 2])]
+
+    def pck():
+        m = PCKMetric(0.1)
+        m.update(kp, net.predict(arrays[0]))
+        return m.get()[1]
+    amp.init("bfloat16")
+    try:
+        net = SimplePose(cfg["keypoints"], vision.resnet50_v1(),
+                         deconv_channels=cfg["deconv"],
+                         num_deconv=cfg["num_deconv"])
+        net.initialize(mx.init.Xavier(), ctx=ctx, seed=cfg["seed"])
+        conv_flops = _resnet_flops(net, arrays[0])
+        net.hybridize()
+        before = pck()
+        row = _train_loop(dev, "pose", net,
+                          lambda n, a, t, v: PoseHeatmapLoss()(n(a), t, v),
+                          arrays, "adam", {"learning_rate": cfg["lr"]},
+                          3 * conv_flops, cfg)
+        after = pck()
+        predict_ms, predict_mem, kps = _timed_call(
+            dev, lambda: net.predict(arrays[0]))
+        hm_shape = list(net(arrays[0]).shape)
+    finally:
+        amp._deinit()
+    launches = read_counts()
+    emit({"phase": "pose", "source": "Xiao et al. 2018 (SimpleBaseline) "
+          "MPII: ResNet-50, 3 x 256-channel deconvolutions, 256 x 256, "
+          "64 x 64 heatmaps, 16 keypoints",
+          "keypoints": cfg["keypoints"], "image_size": cfg["size"],
+          "heatmap_shape": hm_shape, "sigma": cfg["sigma"],
+          "batch_size": cfg["batch_size"], "dtype": "bfloat16 AMP",
+          "optimizer": {"adam": {"lr": cfg["lr"]}},
+          "params": sum(p.data().size for p in
+                        net.collect_params().values()),
+          **row, "pck@0.1_before": before, "pck@0.1_after": after,
+          "predict_ms": predict_ms, "predict_peak_bytes": predict_mem,
+          "flash_launches": launches, "card": nvidia_smi()})
+    check(hm_shape == [cfg["batch_size"], cfg["keypoints"], cfg["size"] // 4,
+                       cfg["size"] // 4], f"pose: heatmaps {hm_shape}")
+    check(list(kps.shape) == [cfg["batch_size"], cfg["keypoints"], 2]
+          and 0.0 <= after <= 1.0, f"pose: predict {kps.shape}, PCK {after}")
+    check(not any(launches.values()), f"pose: flash launches {launches}")
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES,
@@ -9380,6 +10360,18 @@ def main():
         spmd["spmd"] = phase_spmd(mx, dev)
     if "moe" in phases:
         phase_moe(mx, dev)
+    if "zoo_parity" in phases:
+        phase_zoo_parity(mx, dev)
+    if "zoo" in phases:
+        phase_zoo(mx, dev)
+    if "detector_parity" in phases:
+        phase_detector_parity(mx, dev)
+    if "yolo" in phases:
+        phase_yolo(mx, dev)
+    if "rcnn" in phases:
+        phase_rcnn(mx, dev)
+    if "pose" in phases:
+        phase_pose(mx, dev)
 
     kernels = kernel_entries(rows, bwd_rows, train, serve, llama, f16_rows,
                              f16_bwd_rows, bert16, nmt, spmd)

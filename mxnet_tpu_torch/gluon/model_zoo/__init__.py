@@ -1,4 +1,4 @@
-"""``gluon.model_zoo``: the vision models (ResNets so far)."""
+"""``gluon.model_zoo``: the vision models."""
 from . import model_store, vision
 from .vision import get_model
 

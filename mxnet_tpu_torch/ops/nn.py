@@ -435,10 +435,29 @@ def update_moving_stats(moving_mean, moving_var, mean, var, momentum):
         moving.mul_(momentum).add_(batch.to(moving.dtype) * (1.0 - momentum))
 
 
+class _ReLU6(torch.autograd.Function):
+    """``clamp(x, 0, 6)`` in one pass; the gradient passes whole inside
+    (0, 6), half at exactly 0 or 6 (as the JAX package's ``jnp.clip``
+    passes it) and not at all outside."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.clamp(0.0, 6.0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        return grad * (0.25 * (1 + x.sign()) * (1 + (6 - x).sign()))
+
+
+_relu6 = _ReLU6.apply
+
+
 _ACTIVATIONS = {"relu": torch.relu, "sigmoid": torch.sigmoid,
                 "tanh": torch.tanh, "softrelu": F.softplus,
                 "softsign": F.softsign, "log_sigmoid": F.logsigmoid,
-                "mish": F.mish, "relu6": lambda x: torch.clamp(x, 0.0, 6.0)}
+                "mish": F.mish, "relu6": _relu6}
 
 
 def activation(data, act_type="relu"):

@@ -4,7 +4,9 @@ Each script is copied with ``mxnet_tpu`` renamed ``mxnet_tpu_torch`` and
 run in a child process inside ``with mx.cpu():`` (the port's entry
 points default to the card), with the repository on ``PYTHONPATH``.
 The arguments and the asserted output are ``tests/test_examples.py``'s
-for the same script.  All sixteen of ``example/`` run here:
+for the same script (``image_classification`` also with a second zoo
+model, ``mobilenetv2_0.25``, under the resnet18 case's arguments; a
+case ``<script>:<model>``).  All sixteen of ``example/`` run here:
 ``distributed_training`` and ``llama_spmd_finetune`` in several workers
 through ``python -m mxnet_tpu_torch.launch``, the others in one process.
 """
@@ -40,6 +42,9 @@ EXAMPLES = {
     "image_classification": (["--model", "resnet18_v1", "--image-size",
                               "64", "--batch-size", "8", "--steps", "2"],
                              "images/sec"),
+    "image_classification:mobilenetv2_0.25": (
+        ["--model", "mobilenetv2_0.25", "--image-size", "64",
+         "--batch-size", "8", "--steps", "2"], "images/sec"),
     "bert_pretrain": (["--config", "bert_small", "--vocab", "500",
                        "--batch-size", "2", "--seq-len", "32",
                        "--num-masked", "4", "--steps", "2"],
@@ -62,6 +67,7 @@ EXAMPLES = {
 @pytest.mark.parametrize("name", sorted(EXAMPLES))
 def test_example_runs_through_the_port(name, tmp_path):
     args, expect = EXAMPLES[name]
+    name = name.split(":")[0]
     with open(os.path.join(REPO, "example", f"{name}.py")) as f:
         src = f.read()
     script = tmp_path / f"{name}.py"

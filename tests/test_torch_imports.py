@@ -371,6 +371,83 @@ def test_item_4_names_exist_in_both_packages(path):
         assert obj is not None
 
 
+_CHILD_ZOO = r"""
+import sys
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import autograd, nd
+from mxnet_tpu_torch.gluon.model_zoo import vision
+from mxnet_tpu_torch.models import (FasterRCNNLoss, PCKMetric,
+                                    PoseHeatmapLoss, YOLOv3Loss,
+                                    faster_rcnn_tiny, gaussian_heatmaps,
+                                    simple_pose_tiny, yolo3_tiny)
+with mx.cpu():
+    for name in ("vgg11", "alexnet", "squeezenet1.1", "mobilenet0.25",
+                 "mobilenetv2_0.25", "densenet121", "inceptionv3"):
+        vision.get_model(name, classes=4)
+    x = nd.array(np.random.RandomState(0).rand(2, 3, 64, 64))
+    y = nd.array(np.array([[[0, 0.1, 0.1, 0.5, 0.5]]] * 2, "f4"))
+    for net, loss in ((yolo3_tiny(image_size=64), YOLOv3Loss),
+                      (faster_rcnn_tiny(), FasterRCNNLoss)):
+        net.initialize(mx.init.Xavier())
+        with autograd.record():
+            loss(net)(net(x), y).backward()
+        net.decode(net(x))
+    pose = simple_pose_tiny(2)
+    pose.initialize(mx.init.Xavier())
+    kp = np.array([[[0.5, 0.5, 1.0], [0.2, 0.2, 1.0]]] * 2, "f4")
+    hm = nd.array(gaussian_heatmaps(kp, 32))
+    PoseHeatmapLoss()(pose(x), hm, nd.array(kp[:, :, 2]))
+    metric = PCKMetric()
+    metric.update(kp, pose.predict(x))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "mxnet_tpu" or m.startswith("mxnet_tpu."))
+print("FOREIGN", bad)
+"""
+
+
+def test_model_breadth_in_a_fresh_process_loads_no_jax():
+    """The vision zoo's families, YOLOv3, Faster R-CNN and SimplePose with
+    their losses, decoders and metric import neither JAX nor the JAX
+    package."""
+    _run_child(_CHILD_ZOO)
+
+
+def _public(module):
+    names = getattr(module, "__all__", None)
+    return sorted(names if names is not None else
+                  [n for n in dir(module) if not n.startswith("_")])
+
+
+#: queue 1 item 5: the modules whose public names the port holds
+ITEM_5 = ("gluon.model_zoo.vision", "gluon.model_zoo.vision.vgg",
+          "gluon.model_zoo.vision.alexnet",
+          "gluon.model_zoo.vision.squeezenet",
+          "gluon.model_zoo.vision.mobilenet",
+          "gluon.model_zoo.vision.densenet",
+          "gluon.model_zoo.vision.inception", "models", "models.yolo",
+          "models.rcnn", "models.pose")
+
+
+@pytest.mark.parametrize("path", ITEM_5)
+def test_item_5_names_exist_in_both_packages(path):
+    """Every public name of the JAX module (its ``__all__``, else its
+    names without a leading underscore) is in the port's."""
+    import importlib
+    jmod = importlib.import_module("mxnet_tpu." + path)
+    tmod = importlib.import_module("mxnet_tpu_torch." + path)
+    missing = [n for n in _public(jmod) if not hasattr(tmod, n)]
+    assert missing == []
+
+
+def test_get_model_holds_the_reference_names():
+    from mxnet_tpu.gluon.model_zoo import vision as jvision
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    assert sorted(vision._models) == sorted(jvision._models)
+    assert len(vision._models) == 34
+
+
 #: what the port's registry still lacks of the JAX package's: nothing
 #: since the MoE layer's op came with ROADMAP queue 1 item 4
 STILL_MISSING = ()
