@@ -29,9 +29,10 @@ they raise ``MXNetError``.
     net = mx.models.BERTForPretrain(mx.models.bert_base())
     net.initialize(mx.initializer.Xavier(), ctx=mx.gpu(0))
 """
-from . import (autograd, base, context, contrib, envs, gluon, initializer,
-               kvstore, lr_scheduler, metric, models, ndarray, ops, optimizer,
-               parallel, random, rtc, runtime, serving, test_utils)
+from . import (autograd, base, context, contrib, elastic, envs, gluon,
+               initializer, kvstore, lr_scheduler, metric, models, ndarray,
+               ops, optimizer, parallel, random, rtc, runtime, serving,
+               telemetry, test_utils)
 from .base import MXNetError
 from .context import Context, cpu, cpu_pinned, current_context, gpu, num_gpus
 
@@ -46,4 +47,4 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "contrib", "envs", "gluon", "init", "initializer", "kv",
            "kvstore", "lr_scheduler", "metric", "models", "nd", "ndarray",
            "ops", "optimizer", "parallel", "random", "rtc", "runtime",
-           "serving", "test_utils"]
+           "serving", "telemetry", "elastic", "test_utils"]

@@ -259,6 +259,15 @@ class StepCapture:
         self.replays += 1
         return g.outputs
 
+    def release(self):
+        """Destroy every captured graph and forget the warm-ups: the
+        graphs' private pools go back to the caching allocator (a later
+        ``torch.cuda.empty_cache()`` returns them to the card)."""
+        for g in self._graphs.values():
+            g.reset()
+        self._graphs.clear()
+        self._warmed.clear()
+
     def _stream(self, dev):
         s = self._streams.get(dev)
         if s is None:

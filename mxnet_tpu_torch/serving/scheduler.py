@@ -21,20 +21,30 @@ __all__ = ["Request", "Bucket", "BucketScheduler"]
 
 _req_uid = itertools.count(1)
 
-#: request lifecycle states
-QUEUED, ACTIVE, DONE, EVICTED = "queued", "active", "done", "evicted"
+#: request lifecycle states (``shed`` = refused at submission by the
+#: overload policy: it never held a slot or a place in the queue)
+QUEUED, ACTIVE, DONE, EVICTED, SHED = \
+    "queued", "active", "done", "evicted", "shed"
 
 
 class Request:
-    """One generation request moving through the serving plane."""
+    """One generation request moving through the serving plane.
+
+    ``ttl_ms`` arms the overload policy: the request must complete
+    within ``ttl_ms`` of submission, or it is shed at submission (the
+    estimated queue wait already exceeds it) or evicted when the
+    deadline passes in the queue or in a slot.  ``None`` = no
+    deadline."""
 
     __slots__ = ("id", "prompt", "max_new_tokens", "temperature",
                  "eos_id", "state", "generated", "bucket", "slot",
-                 "submit_t", "first_token_t", "done_t", "evict_reason")
+                 "submit_t", "first_token_t", "done_t", "evict_reason",
+                 "ttl_ms", "deadline")
 
     def __init__(self, prompt, max_new_tokens: int,
                  temperature: float = 0.0,
-                 eos_id: Optional[int] = None):
+                 eos_id: Optional[int] = None,
+                 ttl_ms: Optional[float] = None):
         self.id = next(_req_uid)
         self.prompt = np.asarray(prompt, dtype=np.float32).reshape(-1)
         if self.prompt.size == 0:
@@ -53,6 +63,19 @@ class Request:
         self.first_token_t: Optional[float] = None
         self.done_t: Optional[float] = None
         self.evict_reason: Optional[str] = None
+        if ttl_ms is not None and float(ttl_ms) <= 0:
+            raise MXNetError(f"ttl_ms must be > 0, got {ttl_ms}")
+        self.ttl_ms = None if ttl_ms is None else float(ttl_ms)
+        self.deadline = None if ttl_ms is None else \
+            self.submit_t + self.ttl_ms / 1000.0
+
+    def expired(self, now: Optional[float] = None) -> bool:
+        """Did the deadline pass while the request is live (queued or in
+        a slot)?  A finished, evicted or shed request never expires."""
+        if self.deadline is None or self.state in (DONE, EVICTED, SHED):
+            return False
+        return (time.perf_counter() if now is None else now) \
+            > self.deadline
 
     @property
     def prompt_len(self) -> int:
@@ -103,6 +126,9 @@ class Bucket:
     def n_active(self) -> int:
         return int(self.active.sum())
 
+    def occupancy(self) -> float:
+        return self.n_active() / self.slots
+
     def free_slot(self) -> Optional[int]:
         for j, r in enumerate(self.requests):
             if r is None:
@@ -122,6 +148,26 @@ class Bucket:
         self.offsets[slot] = float(req.prompt_len)
         self.active[slot] = 1.0
         self.temps[slot] = req.temperature
+
+    def adopt_slot(self, src: "Bucket", j: int, j2: int):
+        """Move ``src``'s slot ``j`` bookkeeping into this bucket's slot
+        ``j2``: the host half of a live slot-count resize
+        (``Server.resize_slots``).  The request keeps its offset,
+        temperature and last token (its KV page moves by the same
+        index on the device); only its (bucket, slot) address changes.
+        ``src``'s row stays until the swap commits, so a crash-heal
+        still finds the request there."""
+        req = src.requests[j]
+        if req is None:
+            raise MXNetError(f"adopt_slot: source slot {j} is empty")
+        if self.requests[j2] is not None:
+            raise MXNetError(f"adopt_slot: slot {j2} is occupied")
+        self.requests[j2] = req
+        req.bucket, req.slot = self, j2
+        self.offsets[j2] = src.offsets[j]
+        self.active[j2] = 1.0
+        self.temps[j2] = src.temps[j]
+        self.last_tokens[j2] = src.last_tokens[j]
 
     def release(self, slot: int):
         """Drop a slot back to free: active bit off, offset rewound.

@@ -50,6 +50,7 @@ def _jax_model(pretrain, decode_mlm=True):
             nd.array(x["positions"]))
     else:
         net(nd.array(x["tokens"]), nd.array(x["types"]))
+    net.hybridize()     # its calls compile whole, not an op at a time
     return net
 
 

@@ -211,7 +211,7 @@ def test_quantized_psum_and_its_gradient(group):
     body = lambda v: jcol.quantized_psum(v[0], "dp")[None]
     want = _run(n, body, inp["g"])
     f, (g,) = _smap(n, body, inp["g"])
-    grad = np.asarray(jax.grad(lambda v: jnp.sum(f(v) ** 2))(g))
+    grad = np.asarray(jax.jit(jax.grad(lambda v: jnp.sum(f(v) ** 2)))(g))
     many = _run(n, lambda a, b: tuple(
         jcol.quantized_psum(v[0], "dp")[None] for v in (a, b)),
         inp["g"], inp["g2"], out_specs=(P("dp"), P("dp")))
@@ -262,7 +262,8 @@ def test_vocab_parallel_softmax_ce(group):
                            in_specs=(P(), P("dp"), P()), out_specs=P(),
                            check_vma=True)
     loss = np.asarray(jax.jit(f)(h, w, lbl))
-    gh, gw = jax.grad(lambda a, b: jnp.sum(f(a, b, lbl)), (0, 1))(h, w)
+    gh, gw = jax.jit(jax.grad(lambda a, b: jnp.sum(f(a, b, lbl)),
+                              (0, 1)))(h, w)
     gw = np.asarray(gw).reshape(inp["w"].shape)
     for r in range(n):
         got_loss, got_gh, got_gw = res[r]["vpce"]

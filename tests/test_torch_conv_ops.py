@@ -53,8 +53,12 @@ def _jax_run(name, arrays, attrs, diff):
         out = fn(*args, **attrs)
         return out[0] if isinstance(out, tuple) else out
     primals = [a for a, d in zip(arrays, diff) if d]
-    out, vjp = jax.vjp(f, *primals)
-    grads = vjp(jnp.asarray(_head(out.shape)).astype(out.dtype))
+
+    @jax.jit          # the op and its gradient in one compiled program
+    def run(*primals):
+        out, vjp = jax.vjp(f, *primals)
+        return out, vjp(jnp.asarray(_head(out.shape)).astype(out.dtype))
+    out, grads = run(*primals)
     return np.asarray(out.astype(jnp.float32)), \
         [np.asarray(g.astype(jnp.float32)) for g in grads]
 

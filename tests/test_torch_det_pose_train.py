@@ -25,7 +25,6 @@ def test_three_adam_steps_match_jax():
     jnet, tnet = _pair_tiny(batches[0][0])
     zoo = {"jax": jpose, "port": pose}
     runs = trajectories(
-        lambda: jpose.simple_pose_tiny(num_keypoints=K),
         lambda: pose.simple_pose_tiny(num_keypoints=K), jnet, tnet,
         batches[0][0], batches,
         lambda z, n, x, t, v: zoo[z].PoseHeatmapLoss()(n(x), t, v), 2e-3)

@@ -30,14 +30,15 @@ def test_three_hybridized_adam_steps_match_jax():
 
     def loss_of(zoo, net, x, y):
         outs = net(x)
-        top = np.sort(outs[0].asnumpy(), axis=-1)[:, ::-1]
+        loss = {"jax": jrcnn, "port": rcnn}[zoo].FasterRCNNLoss(net)(outs, y)
+        return loss, outs[0]
+
+    def observe(scores):
+        top = np.sort(scores, axis=-1)[:, ::-1]
         gaps.append(float((top[:, 15] - top[:, 16]).min()))
-        return {"jax": jrcnn, "port": rcnn}[zoo].FasterRCNNLoss(net)(outs,
-                                                                    y)
     runs = trajectories(
-        lambda: jrcnn.faster_rcnn_tiny(num_classes=2, prefix="rcnn_"),
         lambda: rcnn.faster_rcnn_tiny(num_classes=2, prefix="rcnn_"), jnet,
-        tnet, batches[0][0], batches, loss_of, 1e-3)
+        tnet, batches[0][0], batches, loss_of, 1e-3, observe=observe)
     assert min(gaps) > 1e-4, gaps
     hold_trajectory(runs)
     det = tnet.decode(tnet(nd.array(batches[0][0], ctx=CPU))).asnumpy()

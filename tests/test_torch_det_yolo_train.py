@@ -31,10 +31,10 @@ def test_three_adam_steps_match_jax():
           jnet(jmx.nd.array(batches[0][0])).asnumpy(), "forward")
     zoo = {"jax": jyolo, "port": yolo}
     runs = trajectories(
-        lambda: jyolo.yolo3_tiny(num_classes=2, prefix="yolo_"),
         lambda: yolo.yolo3_tiny(num_classes=2, prefix="yolo_"), jnet, tnet,
         batches[0][0], batches,
-        lambda z, n, x, y: zoo[z].YOLOv3Loss(n)(n(x), y), 2e-3)
+        lambda z, n, x, y: zoo[z].YOLOv3Loss(n)(n(x), y), 2e-3,
+        prepare=lambda n: n._layout_nd(jmx.cpu()))
     hold_trajectory(runs)
     # the trained nets' detections on the last batch
     x = batches[-1][0]

@@ -195,7 +195,11 @@ EXACT = {"_contrib_box_nms": (0,), "_contrib_box_nms_topk_force": (0,),
 @pytest.mark.parametrize("case", sorted(DET))
 def test_op_matches_jax(case):
     fn, arrays = DET[case]
-    got = torch_parity.check(fn, arrays, grad=case not in VALUE_ONLY)
+    # compiled, the JAX package's MultiBoxTarget encodes one offset in 160
+    # 7e-5 (relative) away from its eager result, which the port matches
+    got = torch_parity.check(fn, arrays, grad=case not in VALUE_ONLY,
+                             compiled=not case.startswith(
+                                 "_contrib_MultiBoxTarget"))
     if case in EXACT:
         want, _ = torch_parity.run(jmx, fn, [np.asarray(a) for a in arrays],
                                    grad=False)

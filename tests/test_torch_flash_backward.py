@@ -49,10 +49,14 @@ def _jax_grads(q, k, v, ct, mask=None, causal=False, window=None,
                dtype=jnp.float32):
     args = [jnp.asarray(x, dtype) for x in (q, k, v)]
     jmask = None if mask is None else jnp.asarray(mask)
-    _, vjp = jax.vjp(lambda q, k, v: fa_mod.flash_attention(
-        q, k, v, mask=jmask, causal=causal, window=window), *args)
+
+    @jax.jit      # forward and backward kernels in one compiled program
+    def grads(q, k, v, ct):
+        _, vjp = jax.vjp(lambda q, k, v: fa_mod.flash_attention(
+            q, k, v, mask=jmask, causal=causal, window=window), q, k, v)
+        return vjp(ct)
     return [np.asarray(g.astype(jnp.float32))
-            for g in vjp(jnp.asarray(ct, dtype))]
+            for g in grads(*args, jnp.asarray(ct, dtype))]
 
 
 def _torch_grads(q, k, v, ct, mask=None, causal=False, window=None,

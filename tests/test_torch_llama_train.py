@@ -173,6 +173,7 @@ def test_loss_and_grads_match_jax(case, vocab_chunk):
     tokens cross its window of 32."""
     name, tied = LOSS_CASES[case]
     jlm, lm = _pair(name, tied)
+    jlm.hybridize()     # the JAX model compiled whole, not an op at a time
     tok = _tokens(2, 48, seed=7)
     with jmx.autograd.record():
         jl = jlm.loss(jmx.nd.array(tok), vocab_chunk=vocab_chunk)

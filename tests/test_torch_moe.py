@@ -20,6 +20,8 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, nd
 from mxnet_tpu_torch.gluon.contrib.nn import MoEFFN
 
+import torch_parity
+
 #: the registry's op this file holds against the JAX package
 MOE_OPS = {"_contrib_MoEFFN"}
 
@@ -34,11 +36,14 @@ def _inputs(seed, t=10, d=6, h=12, e=3):
 
 
 def _jax(arrays, **kw):
+    """The JAX op, compiled (``torch_parity._compiled``), and the
+    gradients of its outputs' read-out."""
+    op = torch_parity._compiled(lambda F, *xs: F._contrib_MoEFFN(*xs, **kw))
     xs = [jnd.array(a) for a in arrays]
     for x in xs:
         x.attach_grad()
     with jag.record():
-        out, aux = jnd._contrib_MoEFFN(*xs, **kw)
+        out, aux = op(jnd, *xs)
         loss = (out * out).sum() + 3.0 * aux
     loss.backward()
     return out.asnumpy(), aux.asnumpy(), [x.grad.asnumpy() for x in xs]
@@ -170,6 +175,7 @@ def test_block_matches_jax_and_names():
     jb(jnd.array(x))
     jparams = jb.collect_params()
     w = {k: p.data().asnumpy() for k, p in jparams.items()}
+    jb.hybridize()      # compiled whole, not an op at a time
     with jag.record():
         jout, jaux = jb(jnd.array(x))
         jloss = (jout * jout).sum() + jaux

@@ -50,6 +50,8 @@ def _jax_net(seed=0, **kwargs):
     net = jnmt.nmt_tiny(V, prefix="nmt_", **kwargs)
     net.initialize(jmx.init.Xavier())
     net(*_nd(jmx, *_reversal(1)[:2]))       # the deferred shapes
+    # its calls then compile as whole programs, not an op at a time
+    net.hybridize()
     return net
 
 

@@ -271,8 +271,11 @@ def _jax_run(name, arrays, attrs, diff):
         it = iter(xs)
         return fn(*[jnp.asarray(next(it)) if d else jnp.asarray(a)
                     for a, d in zip(arrays, diff)], **attrs)
-    out, vjp = jax.vjp(f, *[a for a, d in zip(arrays, diff) if d])
-    grads = vjp(jnp.asarray(_head(out.shape)))
+    @jax.jit          # the op and its gradient in one compiled program
+    def run(*primals):
+        out, vjp = jax.vjp(f, *primals)
+        return out, vjp(jnp.asarray(_head(out.shape)))
+    out, grads = run(*[a for a, d in zip(arrays, diff) if d])
     return np.asarray(out), [np.asarray(g) for g in grads]
 
 

@@ -117,7 +117,10 @@ _FACTOR = ("linalg_potrf", "linalg_potri", "linalg_gelqf")
 def test_op_matches_jax(case):
     fn, arrays = TAIL[case]
     tol = 1e-4 if case.startswith(_FACTOR) else 1e-5
-    torch_parity.check(fn, arrays, rtol=tol, atol=tol / 10)
+    # SoftmaxOutput's gradient is the reference's custom one (softmax -
+    # label) only when the JAX package runs it eagerly
+    torch_parity.check(fn, arrays, rtol=tol, atol=tol / 10,
+                       compiled=not case.startswith("SoftmaxOutput"))
 
 
 def test_every_case_is_an_op():

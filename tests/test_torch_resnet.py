@@ -123,8 +123,10 @@ def test_pretrained_loads_the_local_store(tmp_path, monkeypatch):
 # -- the forward against the JAX models ---------------------------------------------
 
 def _forward_checks(jnet, tnet, x, hybridize):
+    # the JAX net compiled whole in both cases (the port's path is the
+    # one under test), where its eager ops would each compile
+    jnet.hybridize()
     if hybridize:
-        jnet.hybridize()
         tnet.hybridize()
     # predict mode
     _close(tnet(nd.array(x, ctx=CPU)).asnumpy(),

@@ -113,6 +113,7 @@ def test_layer_matches_jax(case):
     assert tl.collect_params()["rl_l0_i2h_weight"].shape == \
         ((4 if name == "LSTM" else 3 if name == "GRU" else 1) * h, c)
     _carry(jl, tl)
+    jl.hybridize()      # the JAX layer compiled whole, not an op at a time
     n_states = 2 if name == "LSTM" else 1
     states = [_arr((2 * (2 if bi else 1), n, h), 2 + i, 0.5)
               for i in range(n_states)]

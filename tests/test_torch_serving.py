@@ -14,6 +14,7 @@ from mxnet_tpu.models import LlamaForCausalLM as JaxLM
 from mxnet_tpu.models import llama_tiny as jax_llama_tiny
 from mxnet_tpu.serving import Server as JaxServer
 import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import telemetry
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.models import LlamaForCausalLM, llama_tiny, \
     load_jax_params
@@ -237,6 +238,9 @@ def test_eos_finishes_early(net):
 
 
 def test_evict_after_finish_is_noop(net):
+    """Evicting a request that already finished must not wipe its
+    output, flip its state, or leave an eviction's audit trail."""
+    telemetry.reset()
     srv = _server(net, buckets=[(1, 4)], max_new_tokens=2)
     r = srv.submit(_prompt(27, 3))
     srv.run()
@@ -245,6 +249,9 @@ def test_evict_after_finish_is_noop(net):
     assert srv.evict(r, reason="late") is False
     assert r.state == "done"
     np.testing.assert_array_equal(r.tokens(), before)
+    snap = telemetry.snapshot()["counters"]
+    assert snap.get("mxtpu_serving_requests_evicted_total", 0) == 0
+    assert telemetry.events("request_evicted") == []
 
 
 def test_stats_count_prefills_and_decode_steps(net):

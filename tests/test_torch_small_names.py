@@ -20,9 +20,10 @@ def test_boolean_mask(axis):
     rng = np.random.RandomState(axis)
     data = rng.randn(4, 5).astype("f4")
     mask = np.array([1, 0, 1, 1, 0][:data.shape[axis]], "i4")
+    # the output's shape depends on the mask's values: no compiled run
     torch_parity.check(lambda F, d, m: F.contrib.boolean_mask(d, m,
                                                               axis=axis),
-                       [data, mask])
+                       [data, mask], compiled=False)
 
 
 def test_boolean_mask_checks_the_length():

@@ -2,8 +2,9 @@
 ``example/ssd_train.py``'s loop (``ssd_tiny``, MultiBoxTarget inside the
 record, MultiBoxLoss, Adam) takes 3 steps from the JAX model's weights,
 carried by name, in both packages: losses and every weight to 1e-4.  The
-JAX package runs it eagerly, as the example does (its first step
-compiles each op's gradient, about 25 s on one core).
+JAX net is hybridized for the loop (its eager ops would each compile, with
+their gradients, on the first step); MultiBoxTarget and the loss run
+eagerly, as the example runs them.
 """
 import numpy as np
 
@@ -66,6 +67,7 @@ def test_ssd_tiny_three_adam_steps_match_jax():
     net(nd.array(batches[0][0], ctx=CPU))
     models.load_jax_gluon_params(net, start, jax_prefix="ssd_")
     assert list(net.collect_params().keys()) == list(start)
+    jnet.hybridize()
     jl, jdet = _ssd_steps(jmx, jnet, batches, jmx.cpu())
     tl, tdet = _ssd_steps(mx, net, batches, CPU)
     np.testing.assert_allclose(tl, jl, rtol=1e-4)

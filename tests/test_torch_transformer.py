@@ -51,6 +51,7 @@ def test_encoder_matches_jax(pre_norm):
     jenc = jnn.TransformerEncoder(U, HIDDEN, LAYERS, HEADS, dropout=0.0,
                                   pre_norm=pre_norm, prefix="bertmodel0_enc_")
     jenc.initialize(jmx.init.Xavier())
+    jenc.hybridize()    # compiled whole, not an op at a time
     jx = nd.array(x)
     jx.attach_grad()
     with autograd.record():

@@ -25,10 +25,25 @@ def _ramp(shape):
     return np.linspace(-1.0, 1.0, n, dtype="float32").reshape(shape)
 
 
-def run(pkg, fn, arrays, grad=True):
+def _compiled(fn):
+    """``fn`` as a hybridized JAX block: one compiled program (and one
+    for its gradient) where its eager ops would each compile."""
+    class Op(jmx.gluon.HybridBlock):
+        def hybrid_forward(self, F, *xs):
+            return fn(F, *xs)
+    block = Op()
+    block.hybridize()
+    return lambda F, *xs: block(*xs)
+
+
+def run(pkg, fn, arrays, grad=True, compiled=True):
     """(outputs, input gradients) of ``fn`` in ``pkg`` (``jmx`` or
-    ``tmx``), as numpy arrays."""
+    ``tmx``), as numpy arrays.  The JAX package runs ``fn`` compiled
+    (``_compiled``) unless ``compiled`` is False: an op that reads values
+    on the host cannot be traced."""
     F, ag, ctx = pkg.nd, pkg.autograd, pkg.cpu()
+    if pkg is jmx and compiled:
+        fn = _compiled(fn)
     xs = [F.array(a, ctx=ctx, dtype=a.dtype) for a in arrays]
     diff = [x for x, a in zip(xs, arrays) if a.dtype.kind == "f"] \
         if grad else []
@@ -49,11 +64,12 @@ def run(pkg, fn, arrays, grad=True):
     return [o.asnumpy() for o in outs], [x.grad.asnumpy() for x in diff]
 
 
-def check(fn, arrays, rtol=1e-5, atol=1e-6, grad=True, dtype=True):
+def check(fn, arrays, rtol=1e-5, atol=1e-6, grad=True, dtype=True,
+          compiled=True):
     """Run ``fn`` in both packages; outputs (and dtypes) and gradients
     must agree to ``rtol``/``atol``.  Returns the port's outputs."""
     arrays = [np.asarray(a) for a in arrays]
-    j_out, j_grad = run(jmx, fn, arrays, grad)
+    j_out, j_grad = run(jmx, fn, arrays, grad, compiled)
     t_out, t_grad = run(tmx, fn, arrays, grad)
     assert len(j_out) == len(t_out)
     for j, t in zip(j_out, t_out):

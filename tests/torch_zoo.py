@@ -9,6 +9,8 @@ compilation an op and shape).
 The two packages draw dropout from different streams, so numerics are
 compared with every ``Dropout`` at rate 0 (ROADMAP's parity rule).
 """
+import copy
+
 import numpy as np
 
 import mxnet_tpu as jmx
@@ -113,10 +115,11 @@ def check_grads(jnet, tnet, x, train=True):
     assert_params_equal(tnet, jnet)
 
 
-def train_steps(pkg, net, batches, loss_of, lr, ctx):
+def train_steps(pkg, net, batches, loss_of, lr, ctx, observe=None):
     """One Adam step at ``lr`` a batch through the gluon loop (record,
     ``loss_of(net, *arrays)``, backward, ``Trainer.step``); returns the
-    losses."""
+    losses.  With ``observe``, ``loss_of`` returns (loss, a value), and
+    ``observe`` gets the value as a numpy array at each step."""
     trainer = pkg.gluon.Trainer(net.collect_params(), "adam",
                                 {"learning_rate": lr})
     losses = []
@@ -124,10 +127,31 @@ def train_steps(pkg, net, batches, loss_of, lr, ctx):
         arrays = [pkg.nd.array(a, ctx=ctx, dtype=a.dtype) for a in arrays]
         with pkg.autograd.record():
             loss = loss_of(net, *arrays)
+        if observe is not None:
+            loss, seen = loss
+            observe(seen.asnumpy())
         loss.backward()
         trainer.step(arrays[0].shape[0])
         losses.append(float(loss.asnumpy().ravel()[0]))
     return losses
+
+
+def _with_loss(jnet, loss_of):
+    """The JAX net and its loss as one hybridized block: its training
+    call is one compiled program and its backward one more, where the
+    loss's eager ops would each compile on their own (in float32 and
+    again in float64)."""
+    class WithLoss(jmx.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="withloss_")
+            self.net = jnet
+
+        def hybrid_forward(self, F, *arrays):
+            return loss_of("jax", self.net, *arrays)
+
+    block = WithLoss()
+    block.hybridize()
+    return lambda _net, *arrays: block(*arrays)
 
 
 def _copy_into(dst, src_values):
@@ -135,18 +159,22 @@ def _copy_into(dst, src_values):
         p.set_data(v)
 
 
-def trajectories(build_jax, build_port, jnet, tnet, x, batches, loss_of,
-                 lr):
+def trajectories(build_port, jnet, tnet, x, batches, loss_of, lr,
+                 prepare=None, observe=None):
     """Adam steps at ``lr`` over ``batches`` (numpy float32 arrays) from
     one start in four runs: the JAX package's ``jnet`` and the port's
     ``tnet`` (their weights equal: ``pair``), and a float64 twin of each
-    (``build_*()``, called on ``x``, its values set from the float32
-    net's, cast; the JAX one under ``jax.enable_x64``).  Both packages'
-    nets are hybridized, as the JAX package's own detector tests train
-    them (its compiled forward costs it half the time of its eager ops).
-    ``loss_of(zoo, net, *arrays)`` computes the loss with the package's
-    model module (``zoo`` is ``"jax"`` or ``"port"``).  Returns {"jax",
-    "jax_f64", "port", "port_f64"}: (losses, net)."""
+    (the port's ``build_port()``, called on ``x``, its values set from the
+    float32 net's; the JAX one a copy of ``jnet``; each cast, the JAX one
+    under ``jax.enable_x64``).  Both packages' nets are hybridized, and
+    the JAX runs compute net and loss in one hybridized block
+    (``_with_loss``), so a value the test reads on the host goes to
+    ``observe`` (see ``train_steps``).  ``loss_of(zoo, net, *arrays)``
+    computes the loss with the package's model module (``zoo`` is
+    ``"jax"`` or ``"port"``); ``prepare(net)`` is called on each JAX net
+    first, to build what the model caches on its first call outside the
+    compiled program.  Returns {"jax", "jax_f64", "port", "port_f64"}:
+    (losses, net)."""
     import jax
     import torch
     f64 = [[a.astype("f8") for a in b] for b in batches]
@@ -158,26 +186,29 @@ def trajectories(build_jax, build_port, jnet, tnet, x, batches, loss_of,
     dnet.to(torch.float64)
     tnet.hybridize()
     runs = {}
+    # a copy of the JAX net, whose shapes are made: a new one would make
+    # them by an eager call, every op compiled again under x64
+    jdnet = copy.deepcopy(jnet, {id(d): d for d in jax.devices()})
     with jax.enable_x64(True):
-        jdnet = build_jax()
-        jdnet.initialize(jmx.init.Xavier())
-        jdnet(jmx.nd.array(x))
-        _copy_into(jdnet, start)
         jdnet.cast("float64")
         jdnet.hybridize()
+        if prepare is not None:
+            prepare(jdnet)
         runs["jax_f64"] = (train_steps(
-            jmx, jdnet, f64, lambda *a: loss_of("jax", *a), lr,
-            jmx.cpu()), jdnet)
+            jmx, jdnet, f64, _with_loss(jdnet, loss_of), lr,
+            jmx.cpu(), observe), jdnet)
     jnet.hybridize()
+    if prepare is not None:
+        prepare(jnet)
     runs["jax"] = (train_steps(jmx, jnet, batches,
-                               lambda *a: loss_of("jax", *a), lr,
-                               jmx.cpu()), jnet)
+                               _with_loss(jnet, loss_of), lr,
+                               jmx.cpu(), observe), jnet)
     runs["port"] = (train_steps(mx, tnet, batches,
-                                lambda *a: loss_of("port", *a), lr, CPU),
-                    tnet)
+                                lambda *a: loss_of("port", *a), lr, CPU,
+                                observe), tnet)
     runs["port_f64"] = (train_steps(mx, dnet, f64,
                                     lambda *a: loss_of("port", *a), lr,
-                                    CPU), dnet)
+                                    CPU, observe), dnet)
     return runs
 
 
